@@ -37,11 +37,9 @@ from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
-    """``None`` → the card when one is present, else the CPU. An explicit
-    ``cuda`` without a card raises instead of running on the CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """``None`` means ``cuda``. ``cuda`` without a card raises: the CPU is
+    used only when it is asked for."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
     return device
@@ -181,8 +179,8 @@ def main(argv=None):
                         help=">1 or 'auto' enables dynamic micro-batching")
     parser.add_argument("--batch-window-ms", type=float, default=2.0,
                         help="how long the first queued request waits for company")
-    parser.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                        help="default: cuda when a card is present, else cpu")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="cpu runs the kernels' plain versions")
     args = parser.parse_args(argv)
 
     if args.model == "quantile":

@@ -1,8 +1,11 @@
-// Raw padded points -> binarized voxel occupancy, for Hopper (sm_90a).
+// Raw padded points -> binarized voxel grids, for Hopper (sm_90a).
 //
-// Replaces: scenenet_tpu/ops/pallas_hist.py, pallas_points_occupancy
-// (_points_hist_kernel with binarize=True, channels=1, and its id recipe
-// _bin_flat_ids_in_kernel).
+// Replaces two TPU kernels of scenenet_tpu/ops/pallas_hist.py that share
+// _points_hist_kernel and its id recipe _bin_flat_ids_in_kernel:
+//   - pallas_points_occupancy (binarize=True, channels=1) by
+//     snt_points_occupancy: the serving prep;
+//   - pallas_points_binary (binarize=True, channels=2) by
+//     snt_points_binary: the training prep, which adds tower presence.
 //
 // Computes, per sample b of (B, N, 3) points with a (B, N) mask:
 //   1. masked per-axis bounds, expanded to a cube (regular bounding box);
@@ -11,21 +14,27 @@
 //        id  = clip(ceil(rel - 1e-4) - 1, 0, n - 1),
 //      and its count;
 //   3. the min count of every y column over all (z, x);
-//   4. occupancy = count > column min, as float {0, 1}, in (z, x, y) order.
+//   4. occupancy = count > column min, as float {0, 1}, in (z, x, y) order;
+//   5. (binary only) tower presence = 1 where any valid point flagged as
+//      tower lands in the voxel, else 0.
 //
 // Bound on the H100: device-memory traffic and atomics, not arithmetic.
 // A 64^3 sample of 131072 points reads 1.5 MB of points (twice: bounds,
 // then ids) and scatters into 1 MB of int32 counts, which are then read
 // twice more (column min, binarize) and 1 MB of f32 occupancy is written.
 //
-// Design: four simple passes. The counts (1 MB per 64^3 sample) do not fit
-// in shared memory, so they live in a scratch grid in device memory that
-// the wrapper zeroes, and the count pass uses global atomicAdd, which the
-// 50 MB L2 absorbs. One block per sample reduces the bounds; that block's
-// first thread turns them into lo and 1/step exactly as the TPU kernel
-// does. Every operation of the id recipe is written as an _rn intrinsic,
-// so nvcc cannot contract (p - lo) * inv - 1e-4 into an FMA: bin ids match
-// the TPU kernel and the plain version bit for bit. Build without fast math.
+// Design: simple passes. The counts (1 MB per 64^3 sample) do not fit in
+// shared memory, so they live in a scratch grid in device memory that the
+// wrapper zeroes, and the count pass uses global atomicAdd, which the
+// 50 MB L2 absorbs. Tower presence needs no count: every tower point
+// stores 1 into a zeroed uint8 flag grid, and concurrent stores of the
+// same value are race-free. One block per sample reduces the bounds; that
+// block's first thread turns them into lo and 1/step exactly as the TPU
+// kernel does. Both entry points share the bounds pass and flat_bin_id, so
+// their bins cannot drift apart. Every operation of the id recipe is
+// written as an _rn intrinsic, so nvcc cannot contract
+// (p - lo) * inv - 1e-4 into an FMA: bin ids match the TPU kernel and the
+// plain versions bit for bit. Build without fast math.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -46,6 +55,15 @@ __device__ __forceinline__ int edge_bin(float rel, int n) {
   if (isnan(c)) c = 0.0f;
   c = fminf(fmaxf(c, 1.0f), (float)n);
   return (int)c - 1;
+}
+
+// The flat (z, x, y) bin id of point p under params q = {lo, 1/step}.
+__device__ __forceinline__ size_t flat_bin_id(const float* p, const float* q,
+                                              int n_x, int n_y, int n_z) {
+  const int ix = edge_bin(__fmul_rn(__fsub_rn(p[0], q[0]), q[3]), n_x);
+  const int iy = edge_bin(__fmul_rn(__fsub_rn(p[1], q[1]), q[4]), n_y);
+  const int iz = edge_bin(__fmul_rn(__fsub_rn(p[2], q[2]), q[5]), n_z);
+  return ((size_t)iz * n_x + ix) * n_y + iy;
 }
 
 // Pass 1: params[b] = {lo_x, lo_y, lo_z, inv_x, inv_y, inv_z}.
@@ -122,13 +140,29 @@ __global__ void count_kernel(const float* __restrict__ pts,
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N || !mask[(size_t)b * N + i]) return;
-  const float* p = pts + ((size_t)b * N + i) * 3;
-  const float* q = params + (size_t)b * 6;
-  const int ix = edge_bin(__fmul_rn(__fsub_rn(p[0], q[0]), q[3]), n_x);
-  const int iy = edge_bin(__fmul_rn(__fsub_rn(p[1], q[1]), q[4]), n_y);
-  const int iz = edge_bin(__fmul_rn(__fsub_rn(p[2], q[2]), q[5]), n_z);
   const size_t size = (size_t)n_x * n_y * n_z;
-  atomicAdd(counts + b * size + ((size_t)iz * n_x + ix) * n_y + iy, 1);
+  const size_t id = flat_bin_id(pts + ((size_t)b * N + i) * 3,
+                                params + (size_t)b * 6, n_x, n_y, n_z);
+  atomicAdd(counts + b * size + id, 1);
+}
+
+// Pass 2, binary form: counts as above, and flags[b, id] = 1 for every
+// valid point with tower[b, i] set (a plain store: no atomics needed).
+__global__ void count_tower_kernel(const float* __restrict__ pts,
+                                   const uint8_t* __restrict__ mask,
+                                   const uint8_t* __restrict__ tower,
+                                   const float* __restrict__ params,
+                                   int* __restrict__ counts,
+                                   uint8_t* __restrict__ flags, int N,
+                                   int n_x, int n_y, int n_z) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t pi = (size_t)b * N + i;
+  if (i >= N || !mask[pi]) return;
+  const size_t size = (size_t)n_x * n_y * n_z;
+  const size_t id = flat_bin_id(pts + pi * 3, params + (size_t)b * 6, n_x, n_y, n_z);
+  atomicAdd(counts + b * size + id, 1);
+  if (tower[pi]) flags[b * size + id] = 1;
 }
 
 // Pass 3: colmin[b, y] = min over (z, x) of counts[b, z, x, y].
@@ -163,6 +197,26 @@ __global__ void binarize_kernel(const int* __restrict__ counts,
   }
 }
 
+// Pass 4, binary form: x = counts > colmin, y = flags != 0.
+__global__ void binarize_tower_kernel(const int* __restrict__ counts,
+                                      const int* __restrict__ colmin,
+                                      const uint8_t* __restrict__ flags,
+                                      float* __restrict__ out_x,
+                                      float* __restrict__ out_y, size_t total,
+                                      size_t size, int n_y) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = i / size;
+    out_x[i] = counts[i] > colmin[b * n_y + i % n_y] ? 1.0f : 0.0f;
+    out_y[i] = flags[i] ? 1.0f : 0.0f;
+  }
+}
+
+int elementwise_blocks(size_t total) {
+  const size_t blocks = (total + 255) / 256;
+  return (int)(blocks < 65536 ? blocks : 65536);
+}
+
 }  // namespace
 
 // pts (B, N, 3) f32, mask (B, N) bool/uint8, out (B, n_z*n_x*n_y) f32.
@@ -184,7 +238,33 @@ extern "C" int snt_points_occupancy(const float* pts, const uint8_t* mask,
   colmin_kernel<<<mgrid, dim3(kColTy, kColRows), 0, s>>>(
       counts, colmin, n_z * n_x, n_y);
   const size_t total = size * B;
-  const int blocks = (int)((total + 255) / 256 < 65536 ? (total + 255) / 256 : 65536);
-  binarize_kernel<<<blocks, 256, 0, s>>>(counts, colmin, out, total, size, n_y);
+  binarize_kernel<<<elementwise_blocks(total), 256, 0, s>>>(counts, colmin, out,
+                                                            total, size, n_y);
+  return (int)cudaGetLastError();
+}
+
+// pts (B, N, 3) f32, mask and tower (B, N) bool/uint8, out_x and out_y
+// (B, n_z*n_x*n_y) f32. Scratch from the caller: counts (B, size) int32
+// ZEROED, flags (B, size) uint8 ZEROED, colmin (B, n_y) int32, params (B, 6)
+// f32. Launches on `stream`; returns cudaGetLastError().
+extern "C" int snt_points_binary(const float* pts, const uint8_t* mask,
+                                 const uint8_t* tower, float* out_x,
+                                 float* out_y, int* counts, uint8_t* flags,
+                                 int* colmin, float* params, int B, int N,
+                                 int n_x, int n_y, int n_z, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || N <= 0 || n_x <= 0 || n_y <= 0 || n_z <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t size = (size_t)n_x * n_y * n_z;
+  bounds_kernel<<<B, kBoundsThreads, 0, s>>>(pts, mask, params, N, n_x, n_y, n_z);
+  dim3 cgrid((N + kCountThreads - 1) / kCountThreads, B);
+  count_tower_kernel<<<cgrid, kCountThreads, 0, s>>>(pts, mask, tower, params,
+                                                    counts, flags, N, n_x, n_y, n_z);
+  dim3 mgrid((n_y + kColTy - 1) / kColTy, B);
+  colmin_kernel<<<mgrid, dim3(kColTy, kColRows), 0, s>>>(
+      counts, colmin, n_z * n_x, n_y);
+  const size_t total = size * B;
+  binarize_tower_kernel<<<elementwise_blocks(total), 256, 0, s>>>(
+      counts, colmin, flags, out_x, out_y, total, size, n_y);
   return (int)cudaGetLastError();
 }

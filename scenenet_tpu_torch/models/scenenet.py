@@ -14,7 +14,9 @@ checkpoint keys join them with '/').
 
 ``backend="torch"`` runs the plain, differentiable conv (the JAX
 ``"xla"``). ``backend="cuda"`` (the JAX ``"pallas"``) runs the
-hand-written stencil kernel for ``inference=True``.
+hand-written kernels: the stencil alone for ``inference=True``, and
+:func:`~scenenet_tpu_torch.ops.cuda_conv.fused_geneo_conv` (stencil
+forward, ``stencil_dk`` backward) for training.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from torch import nn
 
 from scenenet_tpu_torch.geneo.kernels import KERNEL_REGISTRY, random_geneo_params
 from scenenet_tpu_torch.ops.conv3d import conv3d_same
-from scenenet_tpu_torch.ops.cuda_conv import geneo_stencil_conv
+from scenenet_tpu_torch.ops.cuda_conv import fused_geneo_conv, geneo_stencil_conv
 
 # geneo_num keys → kernel registry kinds, per model version
 _KIND_MAP = {
@@ -157,26 +159,53 @@ class SceneNet(nn.Module):
 
         With ``backend="cuda"`` and ``inference=True`` the conv and the
         relu∘tanh head run in the stencil kernel; that path carries no
-        gradient, like the JAX inference forward. ``tau`` returns the
-        ``(prob >= τ)`` mask instead of probabilities.
+        gradient, like the JAX inference forward. With ``inference=False``
+        they run in :func:`fused_geneo_conv`, differentiable in the
+        parameters. ``tau`` returns the ``(prob >= τ)`` mask instead of
+        probabilities.
         """
         if inference in ("mxu", "mxu_fast"):
             raise NotImplementedError(
                 f"inference={inference!r} (the banded-y tensor-core stencil) "
                 "is not ported yet: ROADMAP B2")
         combined = self.combined_kernel().to(x.dtype)
-        if self.backend == "cuda":
-            if not inference:
-                raise NotImplementedError(
-                    "backend='cuda' training forward (stencil forward with "
-                    "kernel backward) is not ported yet: ROADMAP B5")
+        if self.backend == "cuda" and inference:
             out = geneo_stencil_conv(x.detach().float(),
                                      combined.detach().float(), activation=True)
+        elif self.backend == "cuda":
+            out = fused_geneo_conv(x.float(), combined.float())
         else:
             out = torch.relu(torch.tanh(conv3d_same(x, combined[None, None])))
         return (out >= tau).to(out.dtype) if tau is not None else out
 
-    # ---- constraint plumbing ------------------------------------------------
+    # ---- constraint/loss plumbing -------------------------------------------
+
+    def cvx_coefficients(self) -> Dict[str, torch.Tensor]:
+        """The stored convex coefficients by name, λ_last's frozen slot
+        included (the convexity penalty reads it)."""
+        return dict(self.lambdas)
+
+    def geneo_params_flat(self) -> Dict[str, torch.Tensor]:
+        """Every GENEO scalar, trainable or not, under the JAX package's
+        flat keys ``geneos_{observer}_geneo_params_{param}``."""
+        return {f"geneos_{name}_geneo_params_{p}": v
+                for name, _ in self.observers for p, v in self.geneo[name].items()}
+
+    def parameters_in_dict(self) -> Dict[str, float]:
+        """Scalar snapshot for the per-epoch parameter log, with the
+        *effective* λ_last."""
+        out = {f"{name}.{p}": float(v.detach())
+               for name, _ in self.observers for p, v in self.geneo[name].items()}
+        with torch.no_grad():
+            lams = self.effective_lambdas().tolist()
+        out.update(zip(self.lambda_names, lams))
+        return out
+
+    def num_trainable_params(self) -> int:
+        return sum(p.requires_grad for p in self.parameters())
+
+    def num_total_params(self) -> int:
+        return sum(1 for _ in self.parameters())
 
     def trainable_mask(self) -> Dict:
         """Nested bools: False for per-kernel non-trainables and λ_last

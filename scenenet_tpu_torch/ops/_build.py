@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``scenenet_tpu_torch/csrc``.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface, under ``build/kernels/`` at the root of
-the checkout; ``ctypes`` loads it. The library's name carries a hash of
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object file,
+one compiler process per source, all started together, and links them
+into one shared library with a plain C interface, under
+``build/kernels/`` at the root of the checkout; ``ctypes`` loads it. The library's name carries a hash of
 the sources and flags, so an edited source is rebuilt and a stale library
 is never loaded. A missing compiler or a failed build or load raises.
 
@@ -25,18 +26,26 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
-# No fast math anywhere: the occupancy kernel's bin ids must match the f32
+# No fast math anywhere: the histogram kernels' bin ids must match the f32
 # recipe bit for bit, and the stencil's tanhf must be the accurate one.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # pts, mask, out, counts, colmin, params, B, N, n_x, n_y, n_z, stream
     "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # pts, mask, tower, out_x, out_y, counts, flags, colmin, params,
+    # B, N, n_x, n_y, n_z, stream
+    "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, stream
     "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, stream
+    "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # B, Z, X, Y -> blocks of the dk kernel's first pass
+    "snt_stencil_dk_blocks": (_I, _I, _I, _I),
 }
 
 _lock = threading.Lock()
@@ -71,17 +80,36 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    sources = sorted(CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(sources, objs))]
+    runs = []  # (command, return code, stdout + stderr) of every nvcc run
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        runs.append((cmd, proc.returncode, out + err))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    if all(rc == 0 for _, rc, _ in runs):
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        runs.append((cmd, link.returncode, link.stdout + link.stderr))
     build_seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    lib.with_suffix(".log").write_text("".join(
+        " ".join(cmd) + "\n" + text for cmd, _, text in runs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, rc, text) for cmd, rc, text in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cmd, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -1,7 +1,7 @@
 """Device-side voxelization: padded raw points → voxel grids and back.
 
 PyTorch twin of the parts of :mod:`scenenet_tpu.ops.voxelize` that the
-serving path runs. Point clouds are padded to a fixed N with a boolean
+serving and training paths run. Point clouds are padded to a fixed N with a boolean
 mask; every function takes a batch (B, N, 3) and works on the device of
 its inputs.
 
@@ -11,7 +11,8 @@ states which it follows:
 - the **divide** recipe ``(p − lo) / ((hi − lo) / n)`` of
   :func:`voxel_indices`, used for the voxel→point gather ids;
 - the **multiply** recipe ``(p − lo) · (n / (hi − lo))`` of the TPU
-  occupancy kernel, used by :func:`voxelize_batch_occupancy`.
+  histogram kernels, used by :func:`voxelize_batch_occupancy` and
+  :func:`voxelize_batch_binary`.
 
 They agree except for points within an f32 rounding of the 1e-4 edge bias.
 """
@@ -22,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from scenenet_tpu_torch.ops.cuda_hist import edge_bins, points_occupancy
+from scenenet_tpu_torch.ops.cuda_hist import edge_bins, points_binary, points_occupancy
 
 _F32_MAX = torch.finfo(torch.float32).max
 
@@ -81,6 +82,33 @@ def voxelize_batch_occupancy(points: torch.Tensor, mask: torch.Tensor,
     n_x, n_y, n_z = grid_shape
     occ = points_occupancy(points, mask, grid_shape)
     return occ.reshape(points.shape[0], n_z, n_x, n_y)
+
+
+def _is_tower(labels: torch.Tensor, keep_labels: Tuple[int, ...]) -> torch.Tensor:
+    """(…) bool: the label is one of ``keep_labels``."""
+    is_tower = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
+    for lbl in keep_labels:
+        is_tower |= labels == lbl
+    return is_tower
+
+
+def voxelize_batch_binary(points: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor, keep_labels: Tuple[int, ...] = (15,),
+                          grid_shape: Tuple[int, int, int] = (64, 64, 64)
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training grids: (B, N, 3) f32 points, (B, N) int labels and a
+    (B, N) bool mask → (x, y), each (B, n_z, n_x, n_y) float32 {0, 1}.
+
+    x is the occupancy (``count > min of its y column``), y the tower
+    presence (some valid point with a label in ``keep_labels`` lands in
+    the voxel), by the multiply recipe. A CUDA tensor runs the two-channel
+    kernel, a CPU tensor its plain version. Any grid shape is taken.
+    """
+    n_x, n_y, n_z = grid_shape
+    b = points.shape[0]
+    tower = _is_tower(labels, keep_labels) & mask
+    x, y = points_binary(points, mask, tower, grid_shape)
+    return x.reshape(b, n_z, n_x, n_y), y.reshape(b, n_z, n_x, n_y)
 
 
 def gather_point_values(grid: torch.Tensor, flat_idx: torch.Tensor,

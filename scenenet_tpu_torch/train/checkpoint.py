@@ -1,5 +1,5 @@
 """Checkpoints: the JAX package's flat ``.npz`` format, read and written with
-numpy.
+numpy, and the per-metric top-k manager of the trainer.
 
 One ``.npz`` holds every parameter under its '/'-joined path
 (``geneo/cy_0/radius``, ``lambdas/lambda_cy_0``), plus an optional JSON
@@ -11,8 +11,10 @@ other.
 from __future__ import annotations
 
 import json
+import math
 import os
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+import warnings
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +73,81 @@ def save_checkpoint(path: str, tree: Any, metadata: Optional[Dict] = None) -> No
         with open(side + ".tmp", "w") as f:
             json.dump(metadata, f, indent=2, default=float)
         os.replace(side + ".tmp", side)
+
+
+class CheckpointManager:
+    """Per-metric top-k checkpoint retention + a ``last`` snapshot, in the
+    format above (twin of :class:`scenenet_tpu.train.checkpoint.CheckpointManager`)."""
+
+    def __init__(self, directory: str, monitors: Dict[str, str], top_k: int = 2):
+        """``monitors`` maps metric name → 'max'|'min'."""
+        self.directory = directory
+        self.monitors = monitors
+        self.top_k = top_k
+        self.best: Dict[str, List[Tuple[float, str]]] = {m: [] for m in monitors}
+        self._warned: set = set()
+        self._seen: set = set()
+        os.makedirs(directory, exist_ok=True)
+
+    def _better(self, metric: str, a: float, b: float) -> bool:
+        return a > b if self.monitors[metric] == "max" else a < b
+
+    def _warn_once(self, metric: str, what: str) -> None:
+        if metric not in self._warned:
+            self._warned.add(metric)
+            warnings.warn(
+                f"checkpoint monitor {metric!r} {what}; no checkpoint will be "
+                f"recorded for it this epoch (warning once)", stacklevel=3)
+
+    def step(self, tree: Any, scores: Dict[str, float], step: int) -> List[str]:
+        """Record new scores; save checkpoints that enter a top-k. Returns
+        the paths written.
+
+        A non-finite score is never admitted to a top-k: once admitted, no
+        finite score would ever compare better against it."""
+        written = []
+        for metric, mode in self.monitors.items():
+            if metric not in scores:
+                # absent monitors are normal for val-less fits; warn only
+                # when a metric that was being recorded disappears
+                if metric in self._seen:
+                    self._warn_once(metric, "disappeared from the epoch scores")
+                continue
+            self._seen.add(metric)
+            score = float(scores[metric])
+            if not math.isfinite(score):
+                self._warn_once(metric, f"is non-finite ({score})")
+                continue
+            ranked = self.best[metric]
+            if len(ranked) < self.top_k or self._better(metric, score, ranked[-1][0]):
+                fname = os.path.join(self.directory, f"{metric}_step{step}.npz")
+                save_checkpoint(fname, tree, {"step": step, metric: score, "mode": mode})
+                ranked.append((score, fname))
+                ranked.sort(key=lambda t: t[0], reverse=(mode == "max"))
+                while len(ranked) > self.top_k:
+                    _, evicted = ranked.pop()
+                    for suffix in (".npz", ".json"):
+                        p = evicted[:-4] + suffix
+                        if os.path.exists(p):
+                            os.remove(p)
+                written.append(fname)
+        fname = os.path.join(self.directory, "last.npz")
+        save_checkpoint(fname, tree, {"step": step, **scores})
+        written.append(fname)
+        return written
+
+    def best_path(self, metric: str) -> Optional[str]:
+        ranked = self.best.get(metric)
+        return ranked[0][1] if ranked else None
+
+    def last_path(self) -> Optional[str]:
+        """Path of the ``last`` snapshot if one was written."""
+        p = os.path.join(self.directory, "last.npz")
+        return p if os.path.exists(p) else None
+
+    def best_score(self, metric: str) -> Optional[float]:
+        ranked = self.best.get(metric)
+        return ranked[0][0] if ranked else None
 
 
 def restore_checkpoint(path: str, template: nn.Module) -> nn.Module:

@@ -121,6 +121,20 @@ def test_cuda_without_card_raises():
         tserve._Pipeline(None, grid=(8, 8, 8), max_points=64, device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["resolve_device", "pipeline", "main"])
+def test_default_device_is_cuda(entry):
+    """No device given means cuda: without a card that raises, and nothing
+    runs on the CPU unless asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    calls = {"resolve_device": lambda: tserve.resolve_device(None),
+             "pipeline": lambda: tserve._Pipeline(None, grid=(8, 8, 8), max_points=64),
+             "main": lambda: tserve.main(["--grid", "8", "--max-points", "64"])}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert tserve.resolve_device("cpu") == torch.device("cpu")
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter importing the serve entry point (and every module
     of the port) loads neither jax nor the JAX package."""

@@ -1,8 +1,9 @@
 """Port parity: voxelization in torch vs the JAX package.
 
-The occupancy kernel's plain version must equal the TPU kernel (Pallas in
-interpret mode) and JAX's CPU route exactly; the gather ids and the
-voxel→point gather must equal JAX's exactly.
+The occupancy and two-channel kernels' plain versions must equal the TPU
+kernels (Pallas in interpret mode) exactly on any input, and JAX's CPU
+route where both bin recipes agree; the gather ids and the voxel→point
+gather must equal JAX's exactly.
 """
 
 import numpy as np
@@ -12,7 +13,7 @@ import jax.numpy as jnp
 import torch
 
 from scenenet_tpu.ops import voxelize as jv
-from scenenet_tpu.ops.pallas_hist import pallas_points_occupancy
+from scenenet_tpu.ops.pallas_hist import pallas_points_binary, pallas_points_occupancy
 from scenenet_tpu_torch.ops import cuda_hist
 from scenenet_tpu_torch.ops import voxelize as tv
 
@@ -119,3 +120,61 @@ def test_occupancy_rejects_bad_inputs():
     with pytest.raises(TypeError):
         cuda_hist.points_occupancy(pts.double(), torch.ones((1, 10), dtype=torch.bool),
                                    (8, 8, 8))
+
+
+def _tower_inputs(grid_seed=1, b=3, n=9000):
+    """The inputs of the JAX package's two-channel kernel test."""
+    rng = np.random.default_rng(grid_seed)
+    pts = rng.uniform(0, 30, (b, n, 3)).astype(np.float32)
+    mask = np.arange(n)[None, :] < np.array([9000, 7000, 4500])[:b, None]
+    tower = (rng.random((b, n)) < 0.03) & mask
+    return pts, mask, tower
+
+
+@pytest.mark.parametrize("grid", [(64, 64, 64), (16, 16, 16)])
+@pytest.mark.parametrize("rounded", [False, True])
+def test_binary_plain_equals_pallas_kernel(grid, rounded):
+    """Both channels exact, also on a 1 cm lattice where points sit on
+    voxel edges: the plain version bins by the kernel's multiply recipe."""
+    pts, mask, tower = _tower_inputs()
+    if rounded:
+        pts = np.round(pts, 2).astype(np.float32)
+    want_x, want_y = pallas_points_binary(jnp.asarray(pts), jnp.asarray(mask),
+                                          jnp.asarray(tower), grid, interpret=True)
+    got_x, got_y = cuda_hist.points_binary(torch.from_numpy(pts), torch.from_numpy(mask),
+                                           torch.from_numpy(tower), grid)
+    np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+    np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+    assert 0 < got_y.sum() < got_x.sum()
+    # channel x is exactly the occupancy kernel's
+    np.testing.assert_array_equal(got_x.numpy(), _port_occ(pts, mask, grid))
+
+
+@pytest.mark.parametrize("grid", [(12, 10, 14), (16, 16, 16)])
+def test_voxelize_batch_binary_equals_jax(grid):
+    """JAX's CPU route divides, the port multiplies: on uniform random f32
+    coordinates the two recipes give the same bins (checked first), and
+    then the grids are equal."""
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(0, 30, (3, 4000, 3)).astype(np.float32)
+    mask = np.arange(4000)[None, :] < np.array([4000, 3100, 2500])[:, None]
+    labels = rng.choice([1, 2, 15, 16], size=(3, 4000), p=[0.5, 0.3, 0.1, 0.1]).astype(np.int32)
+    tp, tm = torch.from_numpy(pts), torch.from_numpy(mask)
+    mul = cuda_hist.flat_ids_mul(tp, tm, grid)
+    div = tv.batch_flat_ids(tp, tm, grid)
+    assert torch.equal(mul[tm], div[tm])
+    for keep in ((15,), (15, 16)):
+        want_x, want_y = jv.voxelize_batch_binary(jnp.asarray(pts), jnp.asarray(labels),
+                                                  jnp.asarray(mask), keep, grid)
+        got_x, got_y = tv.voxelize_batch_binary(tp, torch.from_numpy(labels), tm, keep, grid)
+        assert got_x.shape == want_x.shape == (3, grid[2], grid[0], grid[1])
+        np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+        np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+
+
+def test_binary_rejects_bad_tower():
+    pts = torch.zeros((1, 10, 3))
+    mask = torch.ones((1, 10), dtype=torch.bool)
+    for tower in (torch.ones((1, 9), dtype=torch.bool), torch.ones((1, 10))):
+        with pytest.raises(ValueError):
+            cuda_hist.points_binary(pts, mask, tower, (8, 8, 8))
