@@ -7,17 +7,28 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
 It builds the hand-written kernels from ``scenenet_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card and times
-both. Then it drives the port's two main paths through their entry
-points: it serves a few requests through the HTTP server at the serving
-defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and compares every
-reply with the same request through a CPU pipeline; and it trains for two
-epochs through the train CLI at the width of experiments/defaults.yaml
-(batch 16, 64³, 65536 points, (9,5,5), geneo_tversky) on seeded synthetic
-TS40K-style crops, then checks three train steps of the kernel backend
-against the plain one. It prints one line per phase, the card's name and
-power limit, a JSON line of kernel results and, last,
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a CUDA device it exits non-zero at once.
+both, with one PyTorch library call beside those that have one. Then it
+drives the port's main paths through their entry points, at the serving
+defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
+experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
+
+- it serves a few requests through the HTTP server at batch 1 and
+  compares every reply with the same request through a CPU pipeline;
+- it runs the batched pipeline at batch 64 with ``inference="mxu"`` and
+  the fused τ-mask (occupancy kernel → tensor-core stencil) against the
+  f32 stencil route;
+- it serves 16 concurrent requests through a server built as
+  ``serve --inference mxu --max-batch 8`` builds it, then through
+  ``--max-batch auto``, and one request through ``--model quantile``;
+- it trains for two epochs through the train CLI on seeded synthetic
+  TS40K-style crops, then checks three train steps of the kernel backend
+  against the plain one.
+
+It prints one line per phase, the card's name and power limit, a JSON line
+of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero; without a CUDA device it exits non-zero at
+once. ``--profile`` adds a ``torch.profiler`` pass over the batched
+serving (device busy share, kernel launches per dispatch).
 """
 
 from __future__ import annotations
@@ -46,6 +57,15 @@ TRAIN_BATCH = 16          # experiments/defaults.yaml batch_size
 TAU = 0.65
 PROB_TOL = 1e-5  # f32 conv: the kernel sums its 225 taps in another order than cuDNN
 DK_REL_TOL = 1e-4  # dk: f32 sums of 4.2 M products per tap in another order
+# tensor-core stencil vs its plain version: the same exact bf16 x bf16 products,
+# summed in f32 in another order
+MXU_TOL = 1e-5
+# tensor-core stencil (split) vs the f32 stencil: what hi + lo/512 leaves of the
+# kernel (2^-17 relative a tap) over up to 225 taps
+MXU_F32_TOL = 1e-4
+# published peaks of one H100 SXM: device memory, f32 outside the tensor cores,
+# dense bf16 in them
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 TOWER, GROUND, WIRE, CLUTTER = 15, 2, 14, 1  # TS40K class ids
 
 # experiments/defaults.yaml as train-CLI overrides: the card machine may
@@ -155,24 +175,44 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4):
-    """Median ms per call of the kernel and of its plain version, timed in
-    alternating order (plain, kernel, kernel, plain, ...), with each side's
-    min and max."""
-    ks, ps = [], []
+def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4, library_fn=None):
+    """Median ms per call of the kernel, of its plain version and, where
+    given, of the one library call that computes the same function, timed
+    in alternating order (plain, library, kernel, kernel, library, plain,
+    ...), with each side's min and max."""
+    sides = [("plain", plain_fn), ("library", library_fn), ("kernel", kernel_fn)]
+    sides = [(k, fn) for k, fn in sides if fn is not None]
+    acc = {k: [] for k, _ in sides}
     for r in range(rounds):
-        pairs = [(plain_fn, ps), (kernel_fn, ks)]
-        for fn, acc in (pairs if r % 2 == 0 else pairs[::-1]):
-            acc.append(cuda_ms(fn, iters))
-    return {"ms": float(np.median(ks)), "plain_ms": float(np.median(ps)),
-            "range": (min(ks), max(ks)), "plain_range": (min(ps), max(ps))}
+        for k, fn in (sides if r % 2 == 0 else sides[::-1]):
+            acc[k].append(cuda_ms(fn, iters))
+    out = {"ms": float(np.median(acc["kernel"])), "plain_ms": float(np.median(acc["plain"])),
+           "range": (min(acc["kernel"]), max(acc["kernel"])),
+           "plain_range": (min(acc["plain"]), max(acc["plain"])), "library_ms": None}
+    if library_fn is not None:
+        out["library_ms"] = float(np.median(acc["library"]))
+        out["library_range"] = (min(acc["library"]), max(acc["library"]))
+    return out
 
 
 def fmt_times(t: dict) -> str:
-    return " | ".join(
-        f"{k} kernel {v['ms']:.4f} [{v['range'][0]:.4f}-{v['range'][1]:.4f}] vs plain "
-        f"{v['plain_ms']:.4f} [{v['plain_range'][0]:.4f}-{v['plain_range'][1]:.4f}]"
-        for k, v in t.items())
+    parts = []
+    for k, v in t.items():
+        text = (f"{k} kernel {v['ms']:.4f} [{v['range'][0]:.4f}-{v['range'][1]:.4f}] vs plain "
+                f"{v['plain_ms']:.4f} [{v['plain_range'][0]:.4f}-{v['plain_range'][1]:.4f}]")
+        if v["library_ms"] is not None:
+            text += (f" vs library {v['library_ms']:.4f} [{v['library_range'][0]:.4f}-"
+                     f"{v['library_range'][1]:.4f}]")
+        parts.append(text)
+    return " | ".join(parts)
+
+
+def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops: float = F32_FLOPS):
+    """The least time the card could take: the larger of the bytes (each
+    input read once, each output written once) over the memory rate and
+    the operations over the peak rate of their type. Returns (ms, which)."""
+    t_bytes, t_ops = bytes_moved / HBM_BPS * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def post(url: str, points: np.ndarray, tau: float):
@@ -185,9 +225,64 @@ def post(url: str, points: np.ndarray, tau: float):
     return status, np.load(io.BytesIO(body)), (time.perf_counter() - t0) * 1e3, server_ms
 
 
-def main() -> int:
-    import torch
+def post_concurrently(url: str, clouds, tau: float):
+    """One client thread per cloud, all started together; the replies in order."""
+    out = [None] * len(clouds)
 
+    def client(i):
+        try:
+            out[i] = post(url, clouds[i], tau)
+        except Exception as exc:  # re-raised below, in the main thread
+            out[i] = exc
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(clouds))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a client never got its reply")
+    for r in out:
+        if isinstance(r, Exception):
+            raise r
+    return out, time.perf_counter() - t0
+
+
+class running:
+    """Serve (server, pipeline) from a thread for the length of a with-block."""
+
+    def __init__(self, server, pipeline):
+        self.server, self.pipeline = server, pipeline
+        self.thread = threading.Thread(target=server.serve_forever, daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+        self.pipeline.close()
+        check(not self.thread.is_alive(), "the server thread did not end")
+
+
+def healthz(url: str) -> dict:
+    with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    import torch.nn.functional as F
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile the batched serving with torch.profiler")
+    opts = parser.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; nothing was run", file=sys.stderr)
@@ -197,12 +292,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from scenenet_tpu_torch.cli import train as train_cli
-    from scenenet_tpu_torch.cli.serve import _Pipeline, make_handler
+    from scenenet_tpu_torch.cli.serve import _Pipeline, build_server, make_handler
     from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, TS40K
     from scenenet_tpu_torch.losses import resolve_criterion
     from scenenet_tpu_torch.models.scenenet import SceneNet
     from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_hist
-    from scenenet_tpu_torch.ops.conv3d import conv3d_same
+    from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
+    from scenenet_tpu_torch.ops.voxelize import voxelize_batch_occupancy
     from scenenet_tpu_torch.train import (
         TrainConfig, Trainer, make_device_voxelize_prep, metrics,
     )
@@ -212,7 +308,8 @@ def main() -> int:
     counters = {"points_occupancy": cuda_hist.LAUNCHES,
                 "stencil_conv": cuda_conv.LAUNCHES,
                 "points_binary": cuda_hist.BINARY_LAUNCHES,
-                "stencil_dk": cuda_conv.DK_LAUNCHES}
+                "stencil_dk": cuda_conv.DK_LAUNCHES,
+                "stencil_mma": cuda_conv.MXU_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -251,7 +348,7 @@ def main() -> int:
     k1_cases = [("B8_N131072_64^3", pts8, mask8, GRID),
                 ("full_column_8^3", col_pts, col_mask, (8, 8, 8)),
                 ("B4_grid48x40x56", ng_pts, ng_mask, (48, 40, 56))]
-    k1_err, occ64 = 0.0, None
+    k1_err, occ64, occ_ng = 0.0, None, None
     parts = []
     for label, p, m, g in k1_cases:
         pt, mt = torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
@@ -267,6 +364,8 @@ def main() -> int:
                   "K1 full-column case: column-min rule broken")
         if g == GRID:
             occ64 = got
+        if g == (48, 40, 56):
+            occ_ng = got.reshape(len(p), 1, g[2], g[0], g[1])
         parts.append(f"{label}: {int(got.sum())} occupied, 0 differ")
     print(f"[K1 occupancy] exact on all {len(k1_cases)} inputs | " + " | ".join(parts),
           flush=True)
@@ -361,6 +460,87 @@ def main() -> int:
     print("[fused_geneo_conv] grads vs autograd of relu(tanh(conv3d)), TF32 off, "
           "B=16 64^3 | " + " | ".join(parts), flush=True)
 
+    # ---- 7b. K5 tensor-core stencil vs plain, and vs K2 -------------------------
+    x_big = (torch.rand((1, 1, 40, 144, 200), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3)) > 0.7).float()
+    k5_err, k5_f32_err, parts = 0.0, 0.0, []
+    for label, xk, sizes in (("B8_64^3", x, ((9, 5, 5), (9, 6, 6))),
+                             ("B4_56x48x40", occ_ng, ((9, 5, 5), (9, 6, 6))),
+                             ("B1_40x144x200", x_big, ((9, 5, 5),))):
+        for ks in sizes:
+            with torch.no_grad():
+                kern = SceneNet.create(kernel_size=ks, seed=0).combined_kernel().to(dev)
+            worst = 0.0
+            for split in (True, False):
+                for act in (True, False):
+                    got = cuda_conv.geneo_stencil_conv_mxu(xk, kern, activation=act, split=split)
+                    want = cuda_conv.geneo_stencil_conv_mxu_plain(xk, kern, activation=act,
+                                                                  split=split)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    tol = MXU_TOL * max(1.0, float(want.abs().max()))
+                    check(bool(torch.isfinite(got).all()), f"K5 {label} {ks}: non-finite")
+                    check(err <= tol, f"K5 {label} {ks} split={split} activation={act}: "
+                                      f"max|d| {err:.3g} > {tol:.3g}")
+                    worst = max(worst, err)
+                    if split and act:
+                        k5_err = max(k5_err, err)
+                        probs, plain = got, want
+            mask = cuda_conv.geneo_stencil_conv_mxu(xk, kern, tau=TAU)
+            check(torch.equal(mask, (probs >= TAU).float()),
+                  f"K5 {label} {ks}: fused mask differs from its own probabilities")
+            flips = mask != (plain >= TAU).float()
+            bad = int((flips & ((plain - TAU).abs() > MXU_TOL)).sum())
+            check(bad == 0, f"K5 {label} {ks}: {bad} tau-mask flips outside the 1e-5 band")
+            f32 = cuda_conv.geneo_stencil_conv(xk, kern)
+            torch.cuda.synchronize()
+            f32_err = float((probs - f32).abs().max())
+            check(f32_err <= MXU_F32_TOL, f"K5 {label} {ks}: {f32_err:.3g} from the f32 "
+                                          f"stencil, > {MXU_F32_TOL}")
+            k5_f32_err = max(k5_f32_err, f32_err)
+            f32_flips = int((mask != (f32 >= TAU).float()).sum())
+            parts.append(f"{label} k{ks}: max|d| vs plain {worst:.3g} (split/single, with/"
+                         f"without head), fused tau flips vs plain {int(flips.sum())} "
+                         f"(outside band {bad}); vs K2 f32 max|dprob| {f32_err:.3g}, tau "
+                         f"flips {f32_flips} of {int(mask.sum())} set")
+    print("[K5 stencil_mma] " + " | ".join(parts), flush=True)
+    del x_big
+
+    # ---- 7c. fused_geneo_conv_mxu: K5 forward, the shared f32 backward -----------
+    # The gradients are held against the plain backward of the kernel's own
+    # output. Against fused_geneo_conv they are only printed: where the conv is
+    # within the forward's rounding of 0, relu's gate opens in one and not in
+    # the other, and that voxel's whole cotangent differs.
+    parts = []
+    for ks in ((9, 5, 5), (9, 6, 6)):
+        k0 = SceneNet.create(kernel_size=ks, seed=0).combined_kernel().detach().to(dev)
+        xa, ka = x16.clone().requires_grad_(), k0.clone().requires_grad_()
+        out_a = cuda_conv.fused_geneo_conv_mxu(xa, ka)
+        (out_a * w16).sum().backward()
+        xb, kb = x16.clone().requires_grad_(), k0.clone().requires_grad_()
+        out_b = cuda_conv.fused_geneo_conv(xb, kb)
+        (out_b * w16).sum().backward()
+        out_a, out_b = out_a.detach(), out_b.detach()
+        act = w16 * torch.where(out_a > 0, 1.0 - out_a * out_a, torch.zeros_like(out_a))
+        dk_ref = cuda_conv.stencil_dk_plain(x16, act, ks)
+        dx_ref = cuda_conv._conv_transpose_same(act, k0)
+        torch.cuda.synchronize()
+        fwd_err = float((out_a - out_b).abs().max())
+        dk_err = float((ka.grad - dk_ref).abs().max())
+        dk_scale = float(dk_ref.abs().max())
+        dx_err = float((xa.grad - dx_ref).abs().max())
+        gates = int(((out_a > 0) != (out_b > 0)).sum())
+        check(fwd_err <= MXU_F32_TOL, f"fused mxu {ks}: forward off by {fwd_err:.3g}")
+        check(dk_err <= DK_REL_TOL * dk_scale, f"fused mxu {ks}: dk off by {dk_err:.3g}")
+        check(dx_err <= 1e-5, f"fused mxu {ks}: dx off by {dx_err:.3g}")
+        parts.append(
+            f"k{ks}: max|dout| vs K2 {fwd_err:.3g}; vs the plain backward of its own output "
+            f"max|ddk| {dk_err:.3g} (max|dk| {dk_scale:.3g}), max|ddx| {dx_err:.3g}; vs "
+            f"fused_geneo_conv max|ddk| {float((ka.grad - kb.grad).abs().max()):.3g}, max|ddx| "
+            f"{float((xa.grad - xb.grad).abs().max()):.3g}, relu gates that differ {gates}")
+    print("[fused_geneo_conv_mxu] tensor-core forward, shared f32 backward, B=16 64^3 | "
+          + " | ".join(parts), flush=True)
+
     # ---- 8. kernel timing ---------------------------------------------------
     times = {}
     kern = SceneNet.create(kernel_size=(9, 5, 5), seed=0).combined_kernel().detach().to(dev)
@@ -369,6 +549,12 @@ def main() -> int:
         pt, mt = torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
         iters = 20 if b == 1 else 5
         xb = cuda_hist.points_occupancy(pt, mt, GRID).reshape(b, 1, GRID[2], GRID[0], GRID[1])
+        xb_pad = F.pad(xb, same_pads(kern.shape))
+        w5 = kern[None, None]
+
+        def conv_library():  # one cuDNN call (f32, TF32 off) and the head
+            return torch.relu(torch.tanh(F.conv3d(xb_pad, w5)))
+
         with torch.no_grad():
             times[b] = {
                 "occupancy": paired_ms(lambda: cuda_hist.points_occupancy(pt, mt, GRID),
@@ -376,12 +562,17 @@ def main() -> int:
                                        iters),
                 "stencil (9,5,5)": paired_ms(lambda: cuda_conv.geneo_stencil_conv(xb, kern),
                                              lambda: cuda_conv.geneo_stencil_conv_plain(xb, kern),
-                                             iters)}
-        del pt, mt, xb
+                                             iters, library_fn=conv_library),
+                "stencil_mma (9,5,5)": paired_ms(
+                    lambda: cuda_conv.geneo_stencil_conv_mxu(xb, kern),
+                    lambda: cuda_conv.geneo_stencil_conv_mxu_plain(xb, kern),
+                    iters, library_fn=conv_library)}
+        del pt, mt, xb, xb_pad
         torch.cuda.empty_cache()
     for b, t in times.items():
         print(f"[timing] B={b} 64^3 N={MAX_POINTS} ({smi}), median of 4 alternating rounds "
-              "[min-max] ms: " + fmt_times(t), flush=True)
+              "[min-max] ms; library = F.conv3d on the padded grid, tanh, relu (cuDNN f32, "
+              "TF32 off): " + fmt_times(t), flush=True)
     train_times = {}
     for b in (1, TRAIN_BATCH):
         p, m, lab = padded_batch(np.random.default_rng(100 + b), b, n_pad=TRAIN_POINTS)
@@ -390,66 +581,202 @@ def main() -> int:
         gb = torch.from_numpy(np.random.default_rng(b).normal(
             0, 1, tuple(xb.shape)).astype(np.float32)).to(dev)
         iters = 20 if b == 1 else 5
+        xb_pad = F.pad(xb, same_pads((9, 5, 5)))
         train_times[b] = {
             "points_binary": paired_ms(lambda: cuda_hist.points_binary(*args, GRID),
                                        lambda: cuda_hist.points_binary_plain(*args, GRID),
                                        iters),
             "stencil_dk (9,5,5)": paired_ms(
                 lambda: cuda_conv.stencil_dk(xb, gb, (9, 5, 5)),
-                lambda: cuda_conv.stencil_dk_plain(xb, gb, (9, 5, 5)), iters)}
-        del args, xb, gb
+                lambda: cuda_conv.stencil_dk_plain(xb, gb, (9, 5, 5)), iters,
+                library_fn=lambda: torch.nn.grad.conv3d_weight(xb_pad, (1, 1, 9, 5, 5), gb))}
+        del args, xb, gb, xb_pad
         torch.cuda.empty_cache()
     for b, t in train_times.items():
         print(f"[timing] B={b} 64^3 N={TRAIN_POINTS} ({smi}), median of 4 alternating "
-              "rounds [min-max] ms: " + fmt_times(t), flush=True)
+              "rounds [min-max] ms; library = torch.nn.grad.conv3d_weight on the padded "
+              "grid (cuDNN f32, TF32 off): " + fmt_times(t), flush=True)
 
     # ---- 9. main path: serve ------------------------------------------------
     gpu = _Pipeline(None)  # serving defaults: 64³, 131072 points, (9,5,5), card
     check(gpu.device.type == "cuda" and gpu.backend == "cuda", "pipeline not on the card")
     cpu = _Pipeline(None, device="cpu")
     srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(gpu))
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}"
     requests = [synthetic_cloud(np.random.default_rng(100 + i), n)
                 for i, n in enumerate((41000, 52000, 63000, 69000, 131072 + 5000))]
-    try:
+
+    def check_reply(out, pts, ref, tol, what):
+        """Shapes, range, and agreement with a reference (voxel_pred,
+        point_probs); returns the largest difference."""
+        n = min(len(pts), MAX_POINTS)
+        probs, vox, msk = out["point_probs"], out["voxel_pred"], out["mask"]
+        check(probs.shape == (n,) and vox.shape[-3:] == (64, 64, 64) and msk.shape == (n,),
+              f"{what}: reply shapes {probs.shape} {vox.shape} {msk.shape}")
+        for a in (probs, vox):
+            check(bool(np.isfinite(a).all()) and a.min() >= 0 and a.max() <= 1,
+                  f"{what}: reply not finite in [0, 1]")
+        ref_vox, ref_probs = ref
+        err = max(float(np.abs(probs - ref_probs).max()), float(np.abs(vox - ref_vox).max()))
+        flips = (msk != (ref_probs >= TAU)) & (np.abs(ref_probs - TAU) > tol)
+        check(err <= tol, f"{what}: reply differs from the CPU pipeline by {err:.3g}")
+        check(not flips.any(), f"{what}: {int(flips.sum())} mask flips outside the band")
+        return err
+
+    with running(srv, gpu) as url:
         reset_counts()
         lat, worst = [], 0.0
         for pts in requests:
             status, out, wall_ms, server_ms = post(f"{url}/predict", pts, TAU)
             check(status == 200, f"/predict returned {status}")
-            n = min(len(pts), MAX_POINTS)
-            probs, vox, msk = out["point_probs"], out["voxel_pred"], out["mask"]
-            check(probs.shape == (n,) and vox.shape == (64, 64, 64) and msk.shape == (n,),
-                  f"reply shapes {probs.shape} {vox.shape} {msk.shape}")
-            for a in (probs, vox):
-                check(bool(np.isfinite(a).all()) and a.min() >= 0 and a.max() <= 1,
-                      "reply not finite in [0, 1]")
-            ref_vox, ref_probs = cpu.predict(pts)
-            err = max(float(np.abs(probs - ref_probs).max()),
-                      float(np.abs(vox - ref_vox).max()))
-            flips = (msk != (ref_probs >= TAU)) & (np.abs(ref_probs - TAU) > PROB_TOL)
-            check(err <= PROB_TOL, f"served reply differs from the CPU pipeline by {err:.3g}")
-            check(not flips.any(), f"{int(flips.sum())} mask flips outside the 1e-5 band")
-            worst = max(worst, err)
+            worst = max(worst, check_reply(out, pts, cpu.predict(pts), PROB_TOL, "serve"))
             lat.append((wall_ms, server_ms))
         serve_counts = read_counts()
-        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
-            health = json.loads(r.read())
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=30)
+        health = healthz(url)
     for k in ("points_occupancy", "stencil_conv"):
         check(serve_counts[k] >= len(requests),
               f"{k} launched {serve_counts[k]} times for {len(requests)} requests")
-    served = {k: serve_counts[k] for k in ("points_occupancy", "stencil_conv")}
+    served = {k: serve_counts[k] for k in ("points_occupancy", "stencil_conv", "stencil_mma")}
     check(health["kernel_launches"] == served, f"/healthz counts {health['kernel_launches']}")
     print(f"[serve] {len(requests)} requests match the CPU pipeline (max|d| {worst:.3g}) | "
           "latency ms wall/server: " + ", ".join(f"{w:.2f}/{s:.2f}" for w, s in lat)
           + f" | launches {serve_counts} | healthz device {health['device']}", flush=True)
     del gpu, cpu
+    torch.cuda.empty_cache()
+
+    # ---- 9b. main path: the batched pipeline, inference="mxu", fused tau-mask ----
+    HEAD_B = 64
+    hp, hm, _ = padded_batch(np.random.default_rng(64), HEAD_B)
+    hpt, hmt = torch.from_numpy(hp).to(dev), torch.from_numpy(hm).to(dev)
+    net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev).eval()
+
+    def route(inference):
+        with torch.inference_mode():
+            xg = voxelize_batch_occupancy(hpt, hmt, GRID)[:, None]
+            return net(xg, inference=inference, tau=TAU)
+
+    reset_counts()
+    mask_mxu = route("mxu")
+    torch.cuda.synchronize()
+    headline_counts = read_counts()
+    check((headline_counts["points_occupancy"], headline_counts["stencil_mma"],
+           headline_counts["stencil_conv"]) == (1, 1, 0),
+          f"headline pipeline launched {headline_counts}")
+    mask_f32 = route(True)
+    with torch.inference_mode():
+        probs_f32 = net(voxelize_batch_occupancy(hpt, hmt, GRID)[:, None], inference=True)
+    check(tuple(mask_mxu.shape) == (HEAD_B, 1, 64, 64, 64)
+          and bool(((mask_mxu == 0) | (mask_mxu == 1)).all()), "headline mask not {0,1}")
+    flips = mask_mxu != mask_f32
+    bad = int((flips & ((probs_f32 - TAU).abs() > MXU_F32_TOL)).sum())
+    check(bad == 0, f"headline: {bad} mask flips outside the {MXU_F32_TOL} band of tau")
+    check(0 < int(mask_mxu.sum()) < mask_mxu.numel(), "headline mask is trivial")
+    head_t = paired_ms(lambda: route("mxu"), lambda: route(True), iters=5)
+    print(f"[headline] B={HEAD_B} N={MAX_POINTS} 64^3 (9,5,5): points -> K1 occupancy -> "
+          f"SceneNet(backend='cuda')(x, inference='mxu', tau={TAU}) | launches per call "
+          f"{headline_counts} | mask: {int(mask_mxu.sum())} set of {mask_mxu.numel()}, "
+          f"{int(flips.sum())} differ from the f32 route (outside the {MXU_F32_TOL} band: "
+          f"{bad}) | ({smi}) median of 4 alternating rounds [min-max]: mxu route "
+          f"{head_t['ms']:.4f} ms [{head_t['range'][0]:.4f}-{head_t['range'][1]:.4f}] = "
+          f"{HEAD_B / head_t['ms'] * 1e3:.0f} grids/s; f32 route (inference=True, then >= tau) "
+          f"{head_t['plain_ms']:.4f} ms [{head_t['plain_range'][0]:.4f}-"
+          f"{head_t['plain_range'][1]:.4f}] = {HEAD_B / head_t['plain_ms'] * 1e3:.0f} grids/s",
+          flush=True)
+    del hpt, hmt, mask_mxu, mask_f32, probs_f32, flips
+    torch.cuda.empty_cache()
+
+    # ---- 9c. main path: batched serving, --inference mxu --max-batch 8 ----------
+    clouds = [synthetic_cloud(np.random.default_rng(200 + i), 40000 + 1900 * i)
+              for i in range(16)]
+    cpu_mxu = _Pipeline(None, inference="mxu", device="cpu")
+    refs = [cpu_mxu.predict(c) for c in clouds]
+    del cpu_mxu
+    server, batched = build_server(["--inference", "mxu", "--max-batch", "8", "--port", "0"])
+    check(batched.device.type == "cuda" and batched._batcher.max_batch == 8,
+          "batched server not on the card at max batch 8")
+    with running(server, batched) as url:
+        reset_counts()
+        replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+        batched_counts = read_counts()
+        health = healthz(url)
+        worst = max(check_reply(out, c, ref, MXU_TOL, "batched serve")
+                    for (_, out, _, _), c, ref in zip(replies, clouds, refs))
+        stats = health["batching"]
+        check(stats["requests"] == 16 and stats["failed_dispatches"] == 0, f"batching {stats}")
+        check(stats["dispatches"] < stats["requests"] and stats["max_batch_seen"] > 1,
+              f"requests did not coalesce: {stats}")
+        check(batched_counts["stencil_mma"] == batched_counts["points_occupancy"]
+              == stats["dispatches"] and batched_counts["stencil_conv"] == 0,
+              f"batched serving launched {batched_counts} in {stats['dispatches']} dispatches")
+        check(health["kernel_launches"]["stencil_mma"] >= batched_counts["stencil_mma"],
+              f"/healthz counts {health['kernel_launches']}")
+        line = (f"[serve batched] --inference mxu --max-batch 8: 16 concurrent requests match "
+                f"the CPU pipeline with inference='mxu' (max|d| {worst:.3g}) in "
+                f"{wall * 1e3:.1f} ms | batching {stats} | launches {batched_counts} | "
+                "server ms: " + ", ".join(f"{r[3]:.1f}" for r in replies))
+        if opts.profile:
+            from torch.profiler import ProfilerActivity, profile
+
+            before = healthz(url)["batching"]["dispatches"]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                post_concurrently(f"{url}/predict", clouds, TAU)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            n_disp = healthz(url)["batching"]["dispatches"] - before
+            on_dev = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_us = sum(e.self_device_time_total for e in on_dev)
+            n_items = sum(e.count for e in on_dev)
+            check(busy_us > 0, "the profiler recorded no device time")
+            top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]
+            line += (f" | [profile] 16 requests in {n_disp} dispatches, {prof_wall * 1e3:.1f} ms "
+                     f"wall, device busy {busy_us / 1e3:.3f} ms = idle share "
+                     f"{1 - busy_us / 1e6 / prof_wall:.4f}, {n_items} device items = "
+                     f"{n_items / n_disp:.1f} per dispatch; largest: "
+                     + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x"
+                                 f"{e.count}" for e in top))
+    print(line, flush=True)
+    del batched
+    torch.cuda.empty_cache()
+
+    # ---- 9d. --max-batch auto, and --model quantile -----------------------------
+    server, auto = build_server(["--inference", "mxu", "--max-batch", "auto", "--port", "0"])
+    with running(server, auto) as url:
+        replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+        worst = max(check_reply(out, c, ref, MXU_TOL, "adaptive serve")
+                    for (_, out, _, _), c, ref in zip(replies, clouds, refs))
+        stats = healthz(url)["batching"]
+        check(stats["requests"] == 16 and stats["failed_dispatches"] == 0
+              and stats["mode"] == "adaptive" and stats["max_batch"] == 32, f"batching {stats}")
+    print(f"[serve auto] --inference mxu --max-batch auto: 16 concurrent requests match the "
+          f"CPU pipeline (max|d| {worst:.3g}) in {wall * 1e3:.1f} ms | batching {stats}",
+          flush=True)
+    del auto
+    torch.cuda.empty_cache()
+
+    server, quant = build_server(["--model", "quantile", "--port", "0"])
+    cpu_q = _Pipeline(None, model="quantile", device="cpu")
+    with running(server, quant) as url:
+        status, out, wall_ms, _ = post(f"{url}/predict", clouds[0], TAU)
+        info = healthz(url)
+    n = len(clouds[0])
+    ref_vox, ref_probs = cpu_q.predict(clouds[0])
+    check(status == 200 and info["model"] == "quantile" and info["quantiles"] == [0.1, 0.5, 0.9],
+          f"quantile server: {status} {info}")
+    check(out["point_quantiles"].shape == (3, n) and out["uncertainty"].shape == (n,)
+          and out["voxel_pred"].shape == (3, 64, 64, 64) and out["point_probs"].shape == (n,),
+          "quantile reply shapes")
+    q_err = max(float(np.abs(out["point_quantiles"] - ref_probs).max()),
+                float(np.abs(out["voxel_pred"] - ref_vox).max()))
+    check(q_err <= PROB_TOL, f"quantile reply differs from the CPU pipeline by {q_err:.3g}")
+    check(bool((out["uncertainty"] >= 0).all())
+          and np.array_equal(out["point_probs"], out["point_quantiles"][1]),
+          "quantile reply: uncertainty or median member wrong")
+    print(f"[serve quantile] --model quantile: point_quantiles {out['point_quantiles'].shape}, "
+          f"uncertainty max {float(out['uncertainty'].max()):.4f}, matches the CPU pipeline "
+          f"(max|d| {q_err:.3g}), {wall_ms:.1f} ms", flush=True)
+    del quant, cpu_q
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="snt_chip_smoke_") as tmp:
@@ -561,32 +888,60 @@ def main() -> int:
               f"ms/step: " + fmt_times({"backend cuda vs torch": step_t}), flush=True)
         del trainers, batches, dbatch
 
-    total = {k: serve_counts[k] + train_counts[k] for k in counters}
+    total = {k: serve_counts[k] + headline_counts[k] + batched_counts[k] + train_counts[k]
+             for k in counters}
+    # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
+    # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch
+    vox = GRID[0] * GRID[1] * GRID[2]
+    taps = 9 * 5 * 5
+
+    def grid_bytes(b):  # one f32 grid
+        return 4.0 * b * vox
+
+    def conv_flops(b):  # a multiply and an add per tap and voxel
+        return 2.0 * taps * b * vox
+
+    bounds = {
+        # points f32 x 3 and the bool mask in, one f32 grid out
+        "points_occupancy": bound_ms(64 * MAX_POINTS * 13.0 + grid_bytes(64)),
+        "stencil_conv": bound_ms(2 * grid_bytes(64), conv_flops(64), F32_FLOPS),
+        # points, mask and tower flags in, two f32 grids out
+        "points_binary": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 14.0
+                                  + 2 * grid_bytes(TRAIN_BATCH)),
+        # x and g in, 225 floats out
+        "stencil_dk": bound_ms(2 * grid_bytes(TRAIN_BATCH) + 4.0 * taps,
+                               conv_flops(TRAIN_BATCH), F32_FLOPS),
+        # the hi and the lo sum, both on the bf16 tensor cores
+        "stencil_mma": bound_ms(2 * grid_bytes(64), 2 * conv_flops(64), BF16_FLOPS),
+    }
+
+    def entry(name, source, replaces, err, t, shape):
+        b_ms, by = bounds[name]
+        return {"name": name, "route": "cuda", "source": f"scenenet_tpu_torch/csrc/{source}",
+                "replaces": f"scenenet_tpu/ops/{replaces}", "launches": total[name],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": b_ms, "bound_by": by, "library_ms": t["library_ms"],
+                "shape": shape}
+
+    big = f"B=64 N={MAX_POINTS} 64^3 k(9,5,5)"
+    small = f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3 k(9,5,5)"
     kernels = [
-        {"name": "points_occupancy", "route": "cuda",
-         "source": "scenenet_tpu_torch/csrc/points_occupancy.cu",
-         "replaces": "scenenet_tpu/ops/pallas_hist.py:297",
-         "launches": total["points_occupancy"], "max_abs_err": k1_err,
-         "ms": times[1]["occupancy"]["ms"], "plain_ms": times[1]["occupancy"]["plain_ms"]},
-        {"name": "stencil_conv", "route": "cuda",
-         "source": "scenenet_tpu_torch/csrc/stencil_conv.cu",
-         "replaces": "scenenet_tpu/ops/pallas_conv.py:103",
-         "launches": total["stencil_conv"], "max_abs_err": k2_err,
-         "ms": times[1]["stencil (9,5,5)"]["ms"],
-         "plain_ms": times[1]["stencil (9,5,5)"]["plain_ms"]},
-        {"name": "points_binary", "route": "cuda",
-         "source": "scenenet_tpu_torch/csrc/points_occupancy.cu",
-         "replaces": "scenenet_tpu/ops/pallas_hist.py:356",
-         "launches": total["points_binary"], "max_abs_err": k3_err,
-         "ms": train_times[TRAIN_BATCH]["points_binary"]["ms"],
-         "plain_ms": train_times[TRAIN_BATCH]["points_binary"]["plain_ms"]},
-        {"name": "stencil_dk", "route": "cuda",
-         "source": "scenenet_tpu_torch/csrc/stencil_dk.cu",
-         "replaces": "scenenet_tpu/ops/pallas_conv.py:729",
-         "launches": total["stencil_dk"], "max_abs_err": k4_err,
-         "ms": train_times[TRAIN_BATCH]["stencil_dk (9,5,5)"]["ms"],
-         "plain_ms": train_times[TRAIN_BATCH]["stencil_dk (9,5,5)"]["plain_ms"]},
+        entry("points_occupancy", "points_occupancy.cu", "pallas_hist.py:297", k1_err,
+              times[64]["occupancy"], big),
+        entry("stencil_conv", "stencil_conv.cu", "pallas_conv.py:103", k2_err,
+              times[64]["stencil (9,5,5)"], big),
+        entry("points_binary", "points_occupancy.cu", "pallas_hist.py:356", k3_err,
+              train_times[TRAIN_BATCH]["points_binary"], small),
+        entry("stencil_dk", "stencil_dk.cu", "pallas_conv.py:729", k4_err,
+              train_times[TRAIN_BATCH]["stencil_dk (9,5,5)"], small),
+        entry("stencil_mma", "stencil_mma.cu", "pallas_conv.py:448", k5_err,
+              times[64]["stencil_mma (9,5,5)"], big),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
+    print("[bounds] " + " | ".join(
+        f"{k['name']} {k['shape']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+        f"{k['bound_by']} ({k['bound_ms'] / k['ms']:.1%} of it)" for k in kernels), flush=True)
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -32,7 +32,8 @@ from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config
 from scenenet_tpu_torch.utils.seeding import fix_randomness
 
 # the JAX package's backend names, mapped onto the port's
-_BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda"}
+_BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
+             "cuda_mxu": "cuda_mxu", "pallas_mxu": "cuda_mxu"}
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
@@ -51,10 +52,8 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     for tuner in ("auto_lr_find", "auto_scale_batch_size"):
         if getattr(cfg, tuner):
             raise NotImplementedError(f"{tuner} is not ported yet: ROADMAP A7")
-    if cfg.model_backend in ("autotune", "pallas_mxu"):
-        item = "A7" if cfg.model_backend == "autotune" else "B2"
-        raise NotImplementedError(f"model_backend={cfg.model_backend!r} is not ported "
-                                  f"yet: ROADMAP {item}")
+    if cfg.model_backend == "autotune":
+        raise NotImplementedError("model_backend='autotune' is not ported yet: ROADMAP A7")
     if cfg.fast_dev_run:
         raise NotImplementedError("fast_dev_run is not ported yet: ROADMAP A10")
     if not cfg.device_voxelization:
@@ -87,7 +86,7 @@ def resolve_backend(cfg: ExperimentConfig, device) -> str:
     if cfg.model_backend == "auto":
         return "cuda" if device.type == "cuda" else "torch"
     if cfg.model_backend not in _BACKENDS:
-        raise ValueError(f"model_backend must be auto, torch or cuda, "
+        raise ValueError(f"model_backend must be auto or one of {sorted(_BACKENDS)}, "
                          f"got {cfg.model_backend!r}")
     return _BACKENDS[cfg.model_backend]
 

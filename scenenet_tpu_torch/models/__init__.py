@@ -1,5 +1,5 @@
 """Models."""
 
-from scenenet_tpu_torch.models.scenenet import SceneNet
+from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
 
-__all__ = ["SceneNet"]
+__all__ = ["QuantileSceneNet", "SceneNet"]

@@ -16,12 +16,19 @@ checkpoint keys join them with '/').
 ``"xla"``). ``backend="cuda"`` (the JAX ``"pallas"``) runs the
 hand-written kernels: the stencil alone for ``inference=True``, and
 :func:`~scenenet_tpu_torch.ops.cuda_conv.fused_geneo_conv` (stencil
-forward, ``stencil_dk`` backward) for training.
+forward, ``stencil_dk`` backward) for training. ``backend="cuda_mxu"``
+(the JAX ``"pallas_mxu"``) trains through
+:func:`~scenenet_tpu_torch.ops.cuda_conv.fused_geneo_conv_mxu`, the
+tensor-core forward with the same backward. On every backend
+``inference="mxu"`` / ``"mxu_fast"`` take the tensor-core stencil
+(:func:`~scenenet_tpu_torch.ops.cuda_conv.geneo_stencil_conv_mxu`).
+
+:class:`QuantileSceneNet` is an ensemble of one SceneNet per quantile.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,14 +36,16 @@ from torch import nn
 
 from scenenet_tpu_torch.geneo.kernels import KERNEL_REGISTRY, random_geneo_params
 from scenenet_tpu_torch.ops.conv3d import conv3d_same
-from scenenet_tpu_torch.ops.cuda_conv import fused_geneo_conv, geneo_stencil_conv
+from scenenet_tpu_torch.ops.cuda_conv import (
+    fused_geneo_conv, fused_geneo_conv_mxu, geneo_stencil_conv, geneo_stencil_conv_mxu,
+)
 
 # geneo_num keys → kernel registry kinds, per model version
 _KIND_MAP = {
     "v1": {"cy": "cylinder", "cone": "cone", "neg": "neg_sphere"},
     "v2": {"cy": "cylinder_v2", "cone": "arrow", "neg": "neg_sphere_v2"},
 }
-_BACKENDS = ("torch", "cuda")
+_BACKENDS = ("torch", "cuda", "cuda_mxu")
 
 
 class SceneNet(nn.Module):
@@ -157,21 +166,27 @@ class SceneNet(nn.Module):
     ) -> torch.Tensor:
         """x (B, 1, Z, X, Y) → tower-probability grid of the same shape.
 
-        With ``backend="cuda"`` and ``inference=True`` the conv and the
-        relu∘tanh head run in the stencil kernel; that path carries no
-        gradient, like the JAX inference forward. With ``inference=False``
-        they run in :func:`fused_geneo_conv`, differentiable in the
-        parameters. ``tau`` returns the ``(prob >= τ)`` mask instead of
-        probabilities.
+        ``inference="mxu"`` (split bf16, near f32) and ``"mxu_fast"``
+        (single bf16) run the conv, the relu∘tanh head and, when ``tau`` is
+        given, the ``>= τ`` threshold in the tensor-core stencil; so does
+        ``inference=True`` on ``backend="cuda_mxu"``. With ``backend="cuda"``
+        and ``inference=True`` they run in the f32 stencil kernel. Neither
+        carries a gradient, like the JAX inference forward. With
+        ``inference=False`` the kernel backends run :func:`fused_geneo_conv`
+        (``"cuda"``) or :func:`fused_geneo_conv_mxu` (``"cuda_mxu"``),
+        differentiable in the parameters. ``tau`` returns the
+        ``(prob >= τ)`` mask instead of probabilities.
         """
-        if inference in ("mxu", "mxu_fast"):
-            raise NotImplementedError(
-                f"inference={inference!r} (the banded-y tensor-core stencil) "
-                "is not ported yet: ROADMAP B2")
         combined = self.combined_kernel().to(x.dtype)
-        if self.backend == "cuda" and inference:
+        if inference in ("mxu", "mxu_fast") or (inference and self.backend == "cuda_mxu"):
+            return geneo_stencil_conv_mxu(
+                x.detach().float(), combined.detach().float(), activation=True,
+                split=inference != "mxu_fast", tau=tau)
+        if self.backend != "torch" and inference:
             out = geneo_stencil_conv(x.detach().float(),
                                      combined.detach().float(), activation=True)
+        elif self.backend == "cuda_mxu":
+            out = fused_geneo_conv_mxu(x.float(), combined.float())
         elif self.backend == "cuda":
             out = fused_geneo_conv(x.float(), combined.float())
         else:
@@ -218,3 +233,75 @@ class SceneNet(nn.Module):
         }
         lam = {ln: ln != self.last_lambda for ln in self.lambda_names}
         return {"geneo": geneo, "lambdas": lam}
+
+
+class QuantileSceneNet(nn.Module):
+    """Ensemble of one SceneNet per target quantile (aleatoric uncertainty).
+
+    PyTorch twin of :class:`scenenet_tpu.models.scenenet.QuantileSceneNet`.
+    The members are ``SceneNet`` submodules that all share member 0's
+    structure, its ``last_lambda`` included, as they do there; the JAX
+    ``vmap`` over the members is a loop here, one conv per member. The JAX
+    package stacks the members' parameters on a leading Q axis;
+    :meth:`stacked_state` and :meth:`load_stacked_state` give and take that
+    layout, which is also the checkpoint format.
+    """
+
+    def __init__(self, members: Sequence[SceneNet],
+                 quantiles: Tuple[float, ...] = (0.1, 0.5, 0.9)):
+        super().__init__()
+        if len(members) != len(quantiles) or not members:
+            raise ValueError(f"{len(members)} members for quantiles {tuple(quantiles)}")
+        self.quantiles = tuple(float(q) for q in quantiles)
+        self.members = nn.ModuleList(members)
+
+    @property
+    def net(self) -> SceneNet:
+        """The member whose structure all share."""
+        return self.members[0]
+
+    @property
+    def last_lambda(self) -> str:
+        return self.net.last_lambda
+
+    @classmethod
+    def create(cls, geneo_num: Optional[Mapping[str, int]] = None,
+               kernel_size: Tuple[int, int, int] = (9, 6, 6),
+               quantiles: Tuple[float, ...] = (0.1, 0.5, 0.9), version: str = "v2",
+               seed: int = 0, backend: str = "torch") -> "QuantileSceneNet":
+        """Member q takes the parameters drawn from ``seed + q`` and the
+        structure drawn from ``seed``, as in the JAX package."""
+        drawn = [SceneNet.create(geneo_num, kernel_size, version, seed=seed + q,
+                                 backend=backend) for q in range(len(quantiles))]
+        first = drawn[0]
+        members = []
+        for src in drawn:
+            m = SceneNet(first.geneo_num, first.kernel_size, first.version,
+                         first.last_lambda, first.backend)
+            m.load_state_dict(src.state_dict())
+            members.append(m)
+        return cls(members, quantiles)
+
+    def forward(self, x: torch.Tensor, inference: "bool | str" = False) -> torch.Tensor:
+        """x (B, 1, Z, X, Y) → (B, Q, Z, X, Y); ``inference`` goes to each
+        member's :meth:`SceneNet.forward`."""
+        return torch.cat([m(x, inference=inference) for m in self.members], dim=1)
+
+    def stacked_state(self) -> Dict[str, torch.Tensor]:
+        """``{"geneo.cy_0.radius": (Q,), ...}``: every member parameter
+        stacked on a leading Q axis, under a single SceneNet's names."""
+        states = [m.state_dict() for m in self.members]
+        return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+    def load_stacked_state(self, state: Mapping[str, torch.Tensor]) -> None:
+        for q, m in enumerate(self.members):
+            m.load_state_dict({k: v[q] for k, v in state.items()})
+
+    def cvx_coefficients(self) -> List[Dict[str, torch.Tensor]]:
+        return [m.cvx_coefficients() for m in self.members]
+
+    def geneo_params_flat(self) -> List[Dict[str, torch.Tensor]]:
+        return [m.geneo_params_flat() for m in self.members]
+
+    def trainable_mask(self) -> Dict:
+        return self.net.trainable_mask()

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # pts, mask, out, counts, colmin, params, B, N, n_x, n_y, n_z, stream
     "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -42,6 +43,11 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, stream
     "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,
+    # stream
+    "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # k_z, k_x, k_y -> bytes of shared memory a block of the mma kernel needs
+    "snt_stencil_mma_smem": (_I, _I, _I),
     # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, stream
     "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # B, Z, X, Y -> blocks of the dk kernel's first pass

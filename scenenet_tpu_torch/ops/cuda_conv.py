@@ -1,17 +1,22 @@
 """GENEO stencil conv and its kernel gradient: the CUDA kernels, their plain
-twins, and the differentiable composition.
+twins, and the differentiable compositions.
 
 - ``geneo_stencil_conv`` is the port of the TPU kernel
   ``scenenet_tpu.ops.pallas_conv.geneo_stencil_conv``: an f32 SAME conv of
   a (B, 1, Z, X, Y) grid with one (k_z, k_x, k_y) kernel, torch's
   asymmetric pads, and an optional relu∘tanh head (``csrc/stencil_conv.cu``).
+- ``geneo_stencil_conv_mxu`` is the port of ``pallas_conv.geneo_stencil_conv_mxu``:
+  the same conv on the tensor cores, x rounded to bf16, the kernel split
+  into bf16 ``hi`` + 2⁻⁹·bf16 ``lo``, f32 accumulation, and an optional
+  fused ``>= τ`` mask (``csrc/stencil_mma.cu``).
 - ``stencil_dk`` is the port of ``pallas_conv.stencil_dk``: the gradient of
   that conv with respect to its kernel, ``dk[dz,dx,dy] = Σ x_pad[b, z+dz,
   x+dx, y+dy]·g[b, z, x, y]`` (``csrc/stencil_dk.cu``).
-- ``fused_geneo_conv`` is ``pallas_conv.fused_geneo_conv``: relu∘tanh of
-  the conv as a ``torch.autograd.Function`` whose forward is the stencil
-  kernel and whose backward is ``stencil_dk`` for the kernel and the
-  stencil with the flipped kernel for the input.
+- ``fused_geneo_conv`` and ``fused_geneo_conv_mxu`` are their namesakes in
+  ``pallas_conv``: relu∘tanh of the conv as a ``torch.autograd.Function``
+  whose forward is the f32 or the tensor-core stencil and whose backward,
+  shared by both, is ``stencil_dk`` for the kernel and the f32 stencil
+  with the flipped kernel for the input.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it
 runs its plain version. Kernel and plain version sum the same products in
@@ -21,7 +26,7 @@ a different order, so they agree to f32 rounding, not bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +36,11 @@ from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
 
 LAUNCHES = _build.LaunchCounter("stencil_conv")
 DK_LAUNCHES = _build.LaunchCounter("stencil_dk")
+MXU_LAUNCHES = _build.LaunchCounter("stencil_mma")
 
 MAX_KZ = 16  # the kernels' k_z is a template parameter, instantiated 1..16
+MAX_BLOCK_SHARED = 232448  # bytes of shared memory one block can use on sm_90
+LO_SCALE = 512.0  # 2⁹: shifts the kernel's bf16 residual into bf16's mantissa window
 
 
 def _check_volume(name: str, x: torch.Tensor) -> None:
@@ -50,6 +58,16 @@ def _check_launch(x: torch.Tensor, kernel_size) -> None:
             or b * z * xx * yy >= 2**31:
         raise ValueError(f"unsupported stencil shape x={tuple(x.shape)} "
                          f"kernel={tuple(kernel_size)}")
+
+
+def _check_conv_args(x: torch.Tensor, kernel: torch.Tensor) -> None:
+    _check_volume("x", x)
+    if kernel.ndim != 3:
+        raise ValueError(f"kernel must be (k_z, k_x, k_y), got {tuple(kernel.shape)}")
+    if kernel.dtype != torch.float32:
+        raise TypeError(f"kernel must be float32, got {kernel.dtype}")
+    if x.device != kernel.device:
+        raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
 
 
 def geneo_stencil_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -75,13 +93,7 @@ def geneo_stencil_conv(x: torch.Tensor, kernel: torch.Tensor,
         raise NotImplementedError(
             "z_prepadded (VALID-z halo conv of the spatially sharded path) "
             "is not ported yet: ROADMAP B10")
-    _check_volume("x", x)
-    if kernel.ndim != 3:
-        raise ValueError(f"kernel must be (k_z, k_x, k_y), got {tuple(kernel.shape)}")
-    if kernel.dtype != torch.float32:
-        raise TypeError(f"kernel must be float32, got {kernel.dtype}")
-    if x.device != kernel.device:
-        raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
+    _check_conv_args(x, kernel)
     if x.device.type == "cpu":
         return geneo_stencil_conv_plain(x, kernel, activation)
     _check_launch(x, kernel.shape)
@@ -102,6 +114,85 @@ def geneo_stencil_conv(x: torch.Tensor, kernel: torch.Tensor,
             ctypes.c_void_p(stream))
     _build.check(err, "stencil_conv")
     LAUNCHES.add()
+    return out
+
+
+def split_kernel_bf16(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k_z, k_x, k_y) f32 kernel → bf16 ``(hi, lo)`` with
+    ``hi = bf16(k)`` and ``lo = bf16((k − f32(hi))·2⁹)``, both rounded to
+    nearest even, so that ``hi + lo/2⁹`` carries about 16 mantissa bits of
+    ``k``. The values the JAX package's ``banded_y_weights`` places on its
+    bands."""
+    hi = kernel.to(torch.bfloat16)
+    lo = ((kernel - hi.float()) * LO_SCALE).to(torch.bfloat16)
+    return hi, lo
+
+
+def geneo_stencil_conv_mxu_plain(x: torch.Tensor, kernel: torch.Tensor,
+                                 activation: bool = True, split: bool = True,
+                                 tau: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`geneo_stencil_conv_mxu`, the same
+    arithmetic: x rounded to bf16, one f32 conv with ``hi`` and, for
+    ``split``, one with ``lo`` scaled back by 2⁻⁹, then the head and the
+    τ mask. Every bf16×bf16 product is exact in f32, so this and the
+    kernel differ only in the order of their f32 sums."""
+    xb = x.to(torch.bfloat16).float()
+    hi, lo = split_kernel_bf16(kernel)
+    out = conv3d_same(xb, hi.float()[None, None])
+    if split:
+        out = out + conv3d_same(xb, lo.float()[None, None]) * (1.0 / LO_SCALE)
+    if activation:
+        out = torch.relu(torch.tanh(out))
+    if tau is not None:
+        out = (out >= torch.tensor(tau, dtype=torch.float32, device=out.device)).float()
+    return out
+
+
+def geneo_stencil_conv_mxu(x: torch.Tensor, kernel: torch.Tensor,
+                           activation: bool = True, split: bool = True,
+                           tau: Optional[float] = None) -> torch.Tensor:
+    """The SAME conv of :func:`geneo_stencil_conv` on the tensor cores.
+
+    x : (B, 1, Z, X, Y) float32, rounded to bf16 (exact for {0, 1}
+    occupancy); kernel : (k_z, k_x, k_y) float32, used as
+    :func:`split_kernel_bf16`'s ``hi + lo/2⁹`` (``split=True``, near f32)
+    or ``hi`` alone (``split=False``); products accumulate in f32.
+    ``activation`` applies relu∘tanh; ``tau`` returns the f32 {0, 1} mask
+    ``(result >= f32(τ))`` instead, computed in the kernel's epilogue.
+    Returns (B, 1, Z, X, Y) float32. Forward only on the CUDA path: the
+    differentiable form is :func:`fused_geneo_conv_mxu`.
+
+    A CPU tensor takes :func:`geneo_stencil_conv_mxu_plain`; a CUDA tensor
+    launches the kernel or raises.
+    """
+    _check_conv_args(x, kernel)
+    if x.device.type == "cpu":
+        return geneo_stencil_conv_mxu_plain(x, kernel, activation, split, tau)
+    _check_launch(x, kernel.shape)
+    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
+        raise RuntimeError("the raw tensor-core stencil is forward only: use "
+                           "fused_geneo_conv_mxu for a differentiable conv")
+    b, _, z, xx, yy = x.shape
+    k_z, k_x, k_y = kernel.shape
+    lib = _build.load()
+    shared = lib.snt_stencil_mma_smem(k_z, k_x, k_y)
+    if shared > MAX_BLOCK_SHARED:
+        raise ValueError(
+            f"kernel {tuple(kernel.shape)} needs {shared} bytes of shared memory a "
+            f"block for its weight fragments and halo tile; the limit is "
+            f"{MAX_BLOCK_SHARED}")
+    x = x.contiguous()
+    kernel = kernel.contiguous()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.snt_stencil_mma(
+            x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
+            b, z, xx, yy, k_z, k_x, k_y, int(bool(activation)), int(bool(split)),
+            int(tau is not None), float(0.0 if tau is None else tau),
+            ctypes.c_void_p(stream))
+    _build.check(err, "stencil_mma")
+    MXU_LAUNCHES.add()
     return out
 
 
@@ -173,6 +264,25 @@ def _conv_transpose_same(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return F.conv3d(F.pad(g, mirrored), kernel.flip((0, 1, 2))[None, None])
 
 
+def _fused_backward(ctx, g):
+    """The backward both fused forms share: exact f32, whatever the forward."""
+    x, kernel, out = ctx.saved_tensors
+    # d relu(tanh(c))/dc = 1 − tanh(c)² where tanh(c) > 0; out = relu(tanh(c))
+    act = g * torch.where(out > 0, 1.0 - out * out, torch.zeros_like(out))
+    dx = dk = None
+    if ctx.needs_input_grad[0]:
+        if all(k % 2 for k in kernel.shape):
+            # odd on every axis: the mirrored pads equal the forward's,
+            # so dx is the stencil with the flipped kernel
+            dx = geneo_stencil_conv(act, kernel.flip((0, 1, 2)).contiguous(),
+                                    activation=False)
+        else:
+            dx = _conv_transpose_same(act, kernel)
+    if ctx.needs_input_grad[1]:
+        dk = stencil_dk(x, act, tuple(kernel.shape))
+    return dx, dk
+
+
 class _FusedGeneoConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel):
@@ -180,23 +290,17 @@ class _FusedGeneoConv(torch.autograd.Function):
         ctx.save_for_backward(x, kernel, out)
         return out
 
+    backward = staticmethod(_fused_backward)
+
+
+class _FusedGeneoConvMxu(torch.autograd.Function):
     @staticmethod
-    def backward(ctx, g):
-        x, kernel, out = ctx.saved_tensors
-        # d relu(tanh(c))/dc = 1 − tanh(c)² where tanh(c) > 0; out = relu(tanh(c))
-        act = g * torch.where(out > 0, 1.0 - out * out, torch.zeros_like(out))
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            if all(k % 2 for k in kernel.shape):
-                # odd on every axis: the mirrored pads equal the forward's,
-                # so dx is the stencil with the flipped kernel
-                dx = geneo_stencil_conv(act, kernel.flip((0, 1, 2)).contiguous(),
-                                        activation=False)
-            else:
-                dx = _conv_transpose_same(act, kernel)
-        if ctx.needs_input_grad[1]:
-            dk = stencil_dk(x, act, tuple(kernel.shape))
-        return dx, dk
+    def forward(ctx, x, kernel):
+        out = geneo_stencil_conv_mxu(x, kernel, activation=True, split=True)
+        ctx.save_for_backward(x, kernel, out)
+        return out
+
+    backward = staticmethod(_fused_backward)
 
 
 def fused_geneo_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -211,7 +315,8 @@ def fused_geneo_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def fused_geneo_conv_mxu(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """The banded-y tensor-core training forward: not ported yet."""
-    raise NotImplementedError(
-        "fused_geneo_conv_mxu (the banded-y tensor-core stencil forward) is "
-        "not ported yet: ROADMAP B2")
+    """:func:`fused_geneo_conv` with the tensor-core forward
+    (:func:`geneo_stencil_conv_mxu`, split bf16, near f32) and the same
+    exact f32 backward: the gradients see the forward's rounding only
+    through the activation's cotangent."""
+    return _FusedGeneoConvMxu.apply(x, kernel)

@@ -5,7 +5,9 @@ One ``.npz`` holds every parameter under its '/'-joined path
 (``geneo/cy_0/radius``, ``lambdas/lambda_cy_0``), plus an optional JSON
 sidecar of metadata. A module's ``state_dict`` name is the same path
 joined with '.', so a checkpoint written by either package loads into the
-other.
+other. A quantile ensemble is stored as the JAX package stores it: the
+same names, every array with a leading Q axis (the module's
+``stacked_state``).
 """
 
 from __future__ import annotations
@@ -42,17 +44,26 @@ def _leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
         yield prefix, tree
 
 
+def _module_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The module's parameters in checkpoint layout: an ensemble's stacked
+    on a leading Q axis, any other module's ``state_dict``."""
+    if hasattr(module, "stacked_state"):
+        return module.stacked_state()
+    return module.state_dict()
+
+
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
     if isinstance(tree, nn.Module):
         return {k.replace(".", "/"): v.detach().cpu().numpy()
-                for k, v in tree.state_dict().items()}
+                for k, v in _module_state(tree).items()}
     return {path_key(p): np.asarray(leaf) for p, leaf in _leaves(tree)}
 
 
 def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (nested dicts of arrays) as a
     ``state_dict`` for the port's module: ``{"geneo": {"cy_0": {"radius":
-    a}}}`` → ``{"geneo.cy_0.radius": tensor(a)}``."""
+    a}}}`` → ``{"geneo.cy_0.radius": tensor(a)}``. A quantile ensemble's
+    stacked pytree gives the ``load_stacked_state`` layout."""
     return {".".join(str(k) for k in p): torch.from_numpy(np.array(leaf, np.float32))
             for p, leaf in _leaves(tree)}
 
@@ -155,7 +166,7 @@ def restore_checkpoint(path: str, template: nn.Module) -> nn.Module:
     it. Every parameter must be present with its shape."""
     state = {}
     with np.load(path) as data:
-        for name, want in template.state_dict().items():
+        for name, want in _module_state(template).items():
             key = name.replace(".", "/")
             if key not in data:
                 raise KeyError(f"checkpoint missing parameter {key!r}")
@@ -165,5 +176,8 @@ def restore_checkpoint(path: str, template: nn.Module) -> nn.Module:
                     f"checkpoint {key!r}: shape {tuple(arr.shape)} != template "
                     f"{tuple(want.shape)}")
             state[name] = torch.from_numpy(np.array(arr)).to(want.dtype)
-    template.load_state_dict(state)
+    if hasattr(template, "load_stacked_state"):
+        template.load_stacked_state(state)
+    else:
+        template.load_state_dict(state)
     return template

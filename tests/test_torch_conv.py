@@ -1,11 +1,14 @@
-"""Port parity: the stencil conv, its kernel gradient and their autograd
-composition vs the TPU kernels.
+"""Port parity: the stencil conv (f32 and tensor-core forms), its kernel
+gradient and their autograd compositions vs the TPU kernels.
 
 On a CPU tensor each wrapper runs its plain version; it must agree with
 the Pallas kernel in interpret mode. Both are f32 sums of the same
 products in different orders: atol 1e-5 on conv outputs, and the JAX
 package's own bounds (rtol 1e-4, atol 1e-3) on kernel gradients, which sum
-~10⁴ products of magnitude ~1 per tap.
+~10⁴ products of magnitude ~1 per tap. The tensor-core form multiplies
+the same bf16 values as the banded-y TPU kernel (every product exact in
+f32) and sums them in f32 in another order: 1e-5 on probabilities,
+1e-5·max|ref| on raw conv values.
 """
 
 import numpy as np
@@ -16,12 +19,17 @@ import jax.numpy as jnp
 import torch
 
 from scenenet_tpu.ops.conv3d import conv3d_same as jax_conv3d_same
+from scenenet_tpu.ops.pallas_conv import banded_y_weights
 from scenenet_tpu.ops.pallas_conv import fused_geneo_conv as jax_fused
+from scenenet_tpu.ops.pallas_conv import geneo_stencil_conv_mxu as pallas_mxu
 from scenenet_tpu.ops.pallas_conv import geneo_stencil_conv as pallas_stencil
 from scenenet_tpu.ops.pallas_conv import stencil_dk as pallas_dk
 from scenenet_tpu_torch.ops import cuda_conv
 from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
-from scenenet_tpu_torch.ops.cuda_conv import fused_geneo_conv, geneo_stencil_conv, stencil_dk
+from scenenet_tpu_torch.ops.cuda_conv import (
+    fused_geneo_conv, fused_geneo_conv_mxu, geneo_stencil_conv, geneo_stencil_conv_mxu,
+    split_kernel_bf16, stencil_dk,
+)
 
 ATOL = 1e-5
 
@@ -119,7 +127,158 @@ def test_dk_and_mxu_forms_raise():
     x = torch.zeros((1, 1, 8, 8, 8))
     with pytest.raises(NotImplementedError, match="B10"):
         stencil_dk(x, x, (3, 3, 3), z_prepadded=True)
-    with pytest.raises(NotImplementedError, match="B2"):
-        cuda_conv.fused_geneo_conv_mxu(x, torch.zeros((3, 3, 3)))
     with pytest.raises(ValueError):
         stencil_dk(x, torch.zeros((1, 1, 8, 8, 7)), (3, 3, 3))
+    # the tensor-core form checks its arguments as the f32 stencil does
+    with pytest.raises(ValueError):
+        geneo_stencil_conv_mxu(torch.zeros((1, 2, 8, 8, 8)), torch.zeros((3, 3, 3)))
+    with pytest.raises(ValueError):
+        geneo_stencil_conv_mxu(x, torch.zeros((3, 3)))
+    with pytest.raises(TypeError):
+        geneo_stencil_conv_mxu(x, torch.zeros((3, 3, 3), dtype=torch.float64))
+    with pytest.raises(TypeError):
+        cuda_conv.fused_geneo_conv_mxu(x.double(), torch.zeros((3, 3, 3)))
+
+
+# ---- the tensor-core form (TPU kernel: geneo_stencil_conv_mxu) ---------------
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("shape,ks,activation", [
+    ((2, 16, 16, 16), (9, 5, 5), True), ((2, 16, 16, 16), (9, 5, 5), False),
+    ((2, 16, 16, 16), (3, 3, 3), True), ((2, 16, 16, 16), (3, 3, 3), False),
+    ((2, 16, 16, 16), (9, 6, 6), True), ((2, 16, 16, 16), (9, 6, 6), False),
+    ((1, 20, 16, 16), (9, 5, 5), True), ((1, 20, 16, 16), (9, 5, 5), False),
+    ((1, 64, 96, 96), (3, 3, 3), True),     # past the TPU's resident cap: its
+    ((1, 40, 144, 200), (9, 5, 5), False),  # streamed variant, x/y unaligned
+])
+def test_mxu_plain_matches_pallas_mxu(shape, ks, activation):
+    """split=True against the banded-y Pallas kernel (interpret mode) and,
+    at the JAX tests' bound, against the f32 conv."""
+    x, k = _inputs(sum(ks) + shape[1], ks, shape=shape)
+    want = np.asarray(pallas_mxu(jnp.asarray(x), jnp.asarray(k), activation=activation,
+                                 split=True, interpret=True))
+    got = geneo_stencil_conv_mxu(_t(x), _t(k), activation=activation, split=True).numpy()
+    assert got.shape == want.shape == x.shape and got.dtype == np.float32
+    bound = ATOL if activation else ATOL * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=bound)
+    f32 = geneo_stencil_conv(_t(x), _t(k), activation=activation).numpy()
+    np.testing.assert_allclose(got, f32, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ks", [(9, 5, 5), (9, 6, 6)])
+def test_mxu_plain_single_bf16(ks):
+    """split=False drops the residual sum: the JAX test's bound against
+    f32, and the Pallas kernel's own numbers."""
+    rng = np.random.default_rng(33)
+    x = (rng.random((1, 1, 16, 16, 16)) > 0.6).astype(np.float32)
+    k = rng.standard_normal(ks).astype(np.float32)
+    got = geneo_stencil_conv_mxu(_t(x), _t(k), activation=False, split=False).numpy()
+    ref = conv3d_same(_t(x), _t(k)[None, None]).numpy()
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, atol=1.5e-2 * scale, rtol=2e-2)
+    assert np.abs(got - ref).max() > 1e-4  # it is the single-bf16 form
+    want = np.asarray(pallas_mxu(jnp.asarray(x), jnp.asarray(k), activation=False,
+                                 split=False, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL * float(np.abs(want).max()))
+
+
+def test_mxu_plain_rounds_general_floats_to_bf16():
+    """Non-occupancy inputs round to bf16 at the input, as in the TPU
+    kernel: bounded like the JAX package's bf16 forward, equal to Pallas."""
+    rng = np.random.default_rng(22)
+    x = rng.random((1, 1, 16, 16, 16)).astype(np.float32)
+    k = rng.standard_normal((3, 3, 3)).astype(np.float32)
+    got = geneo_stencil_conv_mxu(_t(x), _t(k), activation=False).numpy()
+    ref = conv3d_same(_t(x), _t(k)[None, None]).numpy()
+    np.testing.assert_allclose(got, ref, atol=5e-2, rtol=2e-2)
+    assert np.abs(got - ref).max() > 1e-4  # the input was rounded
+    want = np.asarray(pallas_mxu(jnp.asarray(x), jnp.asarray(k), activation=False,
+                                 interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("shape,ks,split", [
+    ((2, 16, 16, 16), (9, 5, 5), True), ((2, 16, 16, 16), (9, 5, 5), False),
+    ((1, 20, 16, 16), (9, 6, 6), True)])
+def test_mxu_fused_tau_mask(shape, ks, split):
+    """The fused mask is (probs >= f32(τ)) of the same function's
+    probabilities, exactly; against the Pallas mask it may differ only
+    where the Pallas probability lies within 1e-5 of τ."""
+    rng = np.random.default_rng(36)
+    x = (rng.random(shape) > 0.6).astype(np.float32)[:, None]
+    k = (rng.standard_normal(ks) * 0.1).astype(np.float32)
+    probs = geneo_stencil_conv_mxu(_t(x), _t(k), split=split).numpy()
+    got = geneo_stencil_conv_mxu(_t(x), _t(k), split=split, tau=0.65).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, (probs >= np.float32(0.65)).astype(np.float32))
+    assert 0 < got.sum() < got.size
+    jprobs = np.asarray(pallas_mxu(jnp.asarray(x), jnp.asarray(k), split=split,
+                                   interpret=True))
+    jmask = np.asarray(pallas_mxu(jnp.asarray(x), jnp.asarray(k), split=split, tau=0.65,
+                                  interpret=True))
+    differ = got != jmask
+    assert not (differ & (np.abs(jprobs - 0.65) > ATOL)).any()
+    # without the head the threshold applies to the raw conv value
+    raw = geneo_stencil_conv_mxu(_t(x), _t(k), activation=False, split=split).numpy()
+    np.testing.assert_array_equal(
+        geneo_stencil_conv_mxu(_t(x), _t(k), activation=False, split=split, tau=0.65).numpy(),
+        (raw >= np.float32(0.65)).astype(np.float32))
+
+
+@pytest.mark.parametrize("ks", [(9, 5, 5), (9, 6, 6), (3, 3, 3)])
+def test_split_kernel_bf16_equals_banded_weights(ks):
+    """hi and lo are, bit for bit, the values the JAX package places on its
+    bands: column y of by[q][dz, dx] holds k[dz, dx, :] at rows y..y+k_y-1."""
+    k = np.random.default_rng(0).standard_normal(ks).astype(np.float32)
+    by = banded_y_weights(jnp.asarray(k), 16, 128, True)
+    hi, lo = split_kernel_bf16(_t(k))
+    assert hi.dtype == lo.dtype == torch.bfloat16 and tuple(hi.shape) == ks
+    for q, got in enumerate((hi, lo)):
+        band = np.asarray(by[q].astype(jnp.float32))       # (k_z, k_x, 128, 16)
+        for y in (0, 7):
+            want = band[:, :, y:y + ks[2], y]              # back to (k_z, k_x, k_y)
+            np.testing.assert_array_equal(got.float().numpy(), want)
+    assert float(lo.float().abs().max()) > 0
+    # hi + lo/2⁹ recovers k to about 16 mantissa bits
+    np.testing.assert_allclose(hi.float().numpy() + lo.float().numpy() / 512.0, k,
+                               rtol=2 ** -15, atol=0)
+
+
+def test_fused_geneo_conv_mxu_forward_and_grads():
+    """Forward: the plain tensor-core form. dk and dx: the exact f32
+    backward, against autograd of the plain f32 conv at the JAX tests'
+    bounds (value rtol 1e-4; gradients rtol 2e-3, atol 2e-3)."""
+    rng = np.random.default_rng(41)
+    x = (rng.random((2, 1, 16, 16, 16)) > 0.6).astype(np.float32)
+    k = rng.standard_normal((9, 5, 5)).astype(np.float32)
+    xt, kt = _t(x).requires_grad_(), _t(k).requires_grad_()
+    out = fused_geneo_conv_mxu(xt, kt)
+    assert torch.equal(out.detach(), cuda_conv.geneo_stencil_conv_mxu_plain(_t(x), _t(k)))
+    (out ** 2).sum().backward()
+    xr, kr = _t(x).requires_grad_(), _t(k).requires_grad_()
+    ref = torch.relu(torch.tanh(conv3d_same(xr, kr[None, None])))
+    (ref ** 2).sum().backward()
+    np.testing.assert_allclose(float((out.detach() ** 2).sum()),
+                               float((ref.detach() ** 2).sum()), rtol=1e-4)
+    np.testing.assert_allclose(kt.grad.numpy(), kr.grad.numpy(), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(xt.grad.numpy(), xr.grad.numpy(), rtol=2e-3, atol=2e-3)
+
+
+def test_fused_geneo_conv_mxu_matches_jax_vjp():
+    """Value and dk against jax.grad of the JAX package's custom VJP over
+    the Pallas kernel in interpret mode."""
+    from scenenet_tpu.ops.pallas_conv import fused_geneo_conv_mxu as jax_fused_mxu
+
+    rng = np.random.default_rng(42)
+    x = (rng.random((2, 1, 16, 16, 16)) > 0.6).astype(np.float32)
+    k = (rng.standard_normal((9, 5, 5)) * 0.2).astype(np.float32)
+    v_want, g_want = jax.value_and_grad(
+        lambda kk: jnp.sum(jax_fused_mxu(jnp.asarray(x), kk, True) ** 2))(jnp.asarray(k))
+    kt = _t(k).requires_grad_()
+    v = (fused_geneo_conv_mxu(_t(x), kt) ** 2).sum()
+    v.backward()
+    np.testing.assert_allclose(float(v.detach()), float(v_want), rtol=1e-4)
+    np.testing.assert_allclose(kt.grad.numpy(), np.asarray(g_want), rtol=2e-3, atol=2e-3)
