@@ -22,13 +22,21 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   ``--max-batch auto``, and one request through ``--model quantile``;
 - it trains for two epochs through the train CLI on seeded synthetic
   TS40K-style crops, then checks three train steps of the kernel backend
-  against the plain one.
+  against the plain one;
+- it trains through ``cli.train --host-indices`` at the same width (bins
+  from the host in float64, counted by the ids kernel), and at a 128³
+  grid (batch 4, 131072 points) with and without ``--host-indices`` (both
+  through the sorted-ids kernel), and serves one request at ``--grid 128``;
+- it takes three train steps on a tower-fraction target and makes density
+  grids (the counts kernel), and asks for the bin ids alone (the ids
+  kernel).
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
-once. ``--profile`` adds a ``torch.profiler`` pass over the batched
-serving (device busy share, kernel launches per dispatch).
+once. ``--profile`` adds ``torch.profiler`` passes over the batched
+serving and over the train step at both widths (device busy share, device
+items per dispatch or step).
 """
 
 from __future__ import annotations
@@ -54,6 +62,11 @@ GRID = (64, 64, 64)
 MAX_POINTS = 131072       # serving default
 TRAIN_POINTS = 65536      # experiments/defaults.yaml max_points
 TRAIN_BATCH = 16          # experiments/defaults.yaml batch_size
+BIG_GRID = (128, 128, 128)  # the large-grid configuration: batch 4, 131072 points
+BIG_BATCH = 4
+KITTI_GRID, KITTI_POINTS = (64, 64, 256), 32768  # a non-cubic grid of 2048 rows of 512 bins
+HUGE_GRID = (256, 256, 256)  # one channel of counts is 64 MB, more than the L2
+DENSE_POINTS = 4 * 1024 * 1024  # a dense cloud for it: a point to every fourth bin
 TAU = 0.65
 PROB_TOL = 1e-5  # f32 conv: the kernel sums its 225 taps in another order than cuDNN
 DK_REL_TOL = 1e-4  # dk: f32 sums of 4.2 M products per tap in another order
@@ -63,6 +76,11 @@ MXU_TOL = 1e-5
 # tensor-core stencil (split) vs the f32 stencil: what hi + lo/512 leaves of the
 # kernel (2^-17 relative a tap) over up to 225 taps
 MXU_F32_TOL = 1e-4
+# float-weight bin counts: the same bf16-rounded weights, summed in f32 by atomics in
+# another order than index_add_ (relative, and absolute near 0)
+WEIGHTED_TOL = 1e-5
+# device grids against the float64 host oracle: one f32 division a voxel
+ORACLE_TOL = 1e-6
 # published peaks of one H100 SXM: device memory, f32 outside the tensor cores,
 # dense bf16 in them
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -88,6 +106,7 @@ DEFAULTS_SET = [
     "auto_scale_batch_size=False",
 ]
 N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
+BIG_FIT, BIG_TEST = 18, 4  # the 128³ runs' smaller directory: 4 train steps an epoch
 
 
 def check(cond: bool, msg: str) -> None:
@@ -146,11 +165,23 @@ def full_column_case():
     return pts, np.ones(pts.shape[:2], bool)
 
 
-def write_dataset(root: Path, seed: int = 7) -> None:
+def indexed_batch(pad, rng: np.random.Generator, b: int, lo=40000, hi=65000):
+    """b synthetic crops in world coordinates through ``pad``, a
+    PointPadding with compute_indices=True, as the loader of the host-exact
+    route makes them: stacked [points, labels, mask, flat_idx], and the
+    float64 crops (none longer than the pad, so none is subsampled)."""
+    crops = []
+    for _ in range(b):
+        xyz, lab = synthetic_crop(rng, min(int(rng.integers(lo, hi)), pad.max_points))
+        crops.append((xyz + rng.uniform(0, 1000, 3).round(2), lab))
+    return [np.stack(col) for col in zip(*(pad(c) for c in crops))], crops
+
+
+def write_dataset(root: Path, seed: int = 7, n_fit: int = N_FIT, n_test: int = N_TEST) -> None:
     """Seeded synthetic TS40K directory: fit/ and test/ of sample_i.npy,
     (N, 4) float64 xyz + label, 40k–70k points each, 1 cm."""
     rng = np.random.default_rng(seed)
-    for split, n in (("fit", N_FIT), ("test", N_TEST)):
+    for split, n in (("fit", n_fit), ("test", n_test)):
         (root / split).mkdir(parents=True)
         for i in range(n):
             xyz, lab = synthetic_crop(rng, int(rng.integers(40000, 70000)))
@@ -281,7 +312,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile the batched serving with torch.profiler")
+                        help="also profile the batched serving and the train step with "
+                             "torch.profiler")
     opts = parser.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -298,7 +330,11 @@ def main(argv=None) -> int:
     from scenenet_tpu_torch.models.scenenet import SceneNet
     from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_hist
     from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
-    from scenenet_tpu_torch.ops.voxelize import voxelize_batch_occupancy
+    from scenenet_tpu_torch.ops import voxel_np
+    from scenenet_tpu_torch.ops.voxelize import (
+        batch_flat_ids, voxelize_batch, voxelize_batch_from_indices, voxelize_batch_hist,
+        voxelize_batch_occupancy,
+    )
     from scenenet_tpu_torch.train import (
         TrainConfig, Trainer, make_device_voxelize_prep, metrics,
     )
@@ -309,7 +345,11 @@ def main(argv=None) -> int:
                 "stencil_conv": cuda_conv.LAUNCHES,
                 "points_binary": cuda_hist.BINARY_LAUNCHES,
                 "stencil_dk": cuda_conv.DK_LAUNCHES,
-                "stencil_mma": cuda_conv.MXU_LAUNCHES}
+                "stencil_mma": cuda_conv.MXU_LAUNCHES,
+                "points_bin_counts": cuda_hist.BIN_COUNTS_LAUNCHES,
+                "bin_counts": cuda_hist.FLAT_COUNTS_LAUNCHES,
+                "sorted_bin_counts": cuda_hist.SORTED_COUNTS_LAUNCHES,
+                "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -317,6 +357,25 @@ def main(argv=None) -> int:
 
     def read_counts():
         return {k: c.count for k, c in counters.items()}
+
+    def profiled(fn):
+        """fn under torch.profiler: wall seconds, device busy µs, the count of
+        device items, and the six largest of them as text."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        on_dev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in on_dev)
+        check(busy_us > 0, "the profiler recorded no device time")
+        top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]
+        return wall, busy_us, sum(e.count for e in on_dev), ", ".join(
+            f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -541,6 +600,158 @@ def main(argv=None) -> int:
     print("[fused_geneo_conv_mxu] tensor-core forward, shared f32 backward, B=16 64^3 | "
           + " | ".join(parts), flush=True)
 
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def exact(label, got, want):
+        """Every grid of ``got`` equal to ``want``'s; the largest difference (0)."""
+        worst = 0.0
+        for ch, (a, b) in enumerate(zip(got, want)):
+            if b is None:
+                check(a is None, f"{label}: channel {ch} should be None")
+                continue
+            diff = int((a != b).sum())
+            check(a.dtype == b.dtype and diff == 0,
+                  f"{label} channel {ch}: {diff} entries differ from the plain version")
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+        return worst
+
+    # ---- 7d. K6 counts and K9 ids vs plain: exact -----------------------------
+    t1p, t1m, t1l = padded_batch(np.random.default_rng(21), 1)
+    hist_cases = [("B1_N131072_64^3", t1p, t1m, (t1l == TOWER) & t1m, GRID),
+                  ("B16_N65536_64^3", tp, tm, tower16, GRID),
+                  ("full_column_8^3", col_pts, col_mask, col_tower, (8, 8, 8))]
+    k6_err, k9_err, parts = 0.0, 0.0, []
+    for label, p, m, w, g in hist_cases:
+        args = on_card(p, m, w)
+        size = g[0] * g[1] * g[2]
+        for ch in (1, 2):
+            got = cuda_hist.points_bin_counts(*args, g, channels=ch)
+            want = cuda_hist.points_bin_counts_plain(*args, g, ch)
+            torch.cuda.synchronize()
+            k6_err = max(k6_err, exact(f"K6 {label} channels={ch}", got, want))
+        check(float(got[0].sum()) == m.sum() and float(got[1].sum()) == w.sum(),
+              f"K6 {label}: the counts do not add up to the points")
+        occ, pres = cuda_hist.points_binary(*args, g)
+        cols = got[0].reshape(len(p), -1, g[1])
+        check(torch.equal((cols > cols.amin(1, keepdim=True)).float().reshape(len(p), -1), occ)
+              and torch.equal((got[1] > 0).float(), pres),
+              f"K6 {label}: binarized counts differ from K3")
+        if label.startswith("full_column"):
+            c = got[0].reshape(8, 8, 8)
+            check(float(c[:, :, 0].min()) == 2 and float(c[0, 0, 0]) == 3,
+                  "K6 full-column case: wrong counts")
+        ids = cuda_hist.flat_ids(args[0], args[1], g)
+        want_ids = cuda_hist.flat_ids_plain(args[0], args[1], g)
+        torch.cuda.synchronize()
+        k9_err = max(k9_err, exact(f"K9 {label}", [ids], [want_ids]))
+        check(bool((ids[~args[1]] == cuda_hist.invalid_id(size)).all()),
+              f"K9 {label}: a masked point without the sentinel id")
+        from_ids = cuda_hist.bin_counts(ids, args[1], size, args[2])
+        check(torch.equal(from_ids[0], got[0]) and torch.equal(from_ids[1], got[1]),
+              f"K7 over K9's ids differs from K6 on {label}")
+        parts.append(f"{label}: {int((got[0] > 0).sum())} voxels hold {int(got[0].sum())} "
+                     f"points, {int(got[1].sum())} tower, 0 differ")
+    print(f"[K6 points_bin_counts, K9 flat_ids] exact (1 and 2 channels; ids) on all "
+          f"{len(hist_cases)} inputs; K6 binarized = K3; K7 over K9's ids = K6 | "
+          + " | ".join(parts), flush=True)
+
+    # ---- 7e. K7 counts from host-exact ids vs plain, and vs the host oracle --
+    pad64 = PointPadding(max_points=TRAIN_POINTS, vxg_size=GRID, compute_indices=True)
+    (ip, il, im, iflat), crops64 = indexed_batch(pad64, np.random.default_rng(31), TRAIN_BATCH)
+    check(bool((~im).any()) and int(np.abs(iflat[~im]).max()) == 0 and int(iflat.max()) > 0,
+          "the host-exact batch should carry padded points with flat_idx 0")
+    d_ip, d_il, d_im, d_iflat = on_card(ip, il, im, iflat)
+    d_itow = (d_il == TOWER) & d_im
+    col_ids = cuda_hist.flat_ids_plain(*on_card(col_pts, col_mask), (8, 8, 8))
+    k7_cases = [("B16_N65536_64^3_host_ids", d_iflat, d_im, d_itow, 64 ** 3),
+                ("full_column_8^3", col_ids, *on_card(col_mask, col_tower), 512)]
+    k7_err, parts = 0.0, []
+    for label, f, m, w, size in k7_cases:
+        for weights in (None, w):
+            got = cuda_hist.bin_counts(f, m, size, weights)
+            want = cuda_hist.bin_counts_plain(f, m, size, weights)
+            torch.cuda.synchronize()
+            k7_err = max(k7_err, exact(f"K7 {label}", got, want))
+        check(float(got[0].sum()) == float(m.sum()), f"K7 {label}: a padded point was counted")
+        parts.append(f"{label}: {int(got[0].sum())} points, {int(got[1].sum())} tower, 0 differ")
+    fw = torch.from_numpy(np.random.default_rng(32).normal(1.0, 0.5, iflat.shape)
+                          .astype(np.float32)).to(dev)
+    got = cuda_hist.bin_counts(d_iflat, d_im, 64 ** 3, fw, indicator=False)
+    want = cuda_hist.bin_counts_plain(d_iflat, d_im, 64 ** 3, fw, indicator=False)
+    torch.cuda.synchronize()
+    fw_err = float((got[1] - want[1]).abs().max())
+    check(torch.equal(got[0], want[0]) and bool(
+        ((got[1] - want[1]).abs() <= WEIGHTED_TOL * (1 + want[1].abs())).all()),
+        f"K7 float weights: max|d| {fw_err:.3g} outside {WEIGHTED_TOL} (rel + abs)")
+    hist, reg = voxelize_batch_from_indices(d_iflat, d_il == TOWER, d_im, GRID)
+    dev_hist, dev_reg = voxelize_batch(d_ip, d_il, d_im, (TOWER,), GRID)
+    torch.cuda.synchronize()
+    o_err, moved = 0.0, 0
+    for i, (xyz, lab) in enumerate(crops64):
+        want_h = torch.from_numpy(voxel_np.hist_on_voxel_np(xyz, GRID)).to(dev)
+        want_r = torch.from_numpy(voxel_np.reg_on_voxel_np(xyz, lab, TOWER, GRID)).to(dev)
+        o_err = max(o_err, float((hist[i] - want_h).abs().max()),
+                    float((reg[i] - want_r).abs().max()))
+        moved += int(((dev_hist[i] - want_h).abs() > ORACLE_TOL).sum())
+    check(o_err <= ORACLE_TOL, f"voxelize_batch_from_indices is {o_err:.3g} from the host oracle")
+    check(moved <= 0.01 * hist.numel(), f"voxelize_batch: {moved} voxels off the host oracle")
+    print(f"[K7 bin_counts] exact (1 and 2 channels, padded ids of 0 never counted) | "
+          + " | ".join(parts) + f" | float weights (bf16, f32 atomics): max|d| {fw_err:.3g} "
+          f"of sums up to {float(want[1].abs().max()):.3g}, counts exact | "
+          f"voxelize_batch_from_indices vs hist_on_voxel_np/reg_on_voxel_np on {TRAIN_BATCH} "
+          f"crops: max|d| {o_err:.3g} (limit {ORACLE_TOL}); voxelize_batch (f32 bins on the "
+          f"card, K6): {moved} of {hist.numel()} density voxels differ from the oracle",
+          flush=True)
+    del hist, reg, dev_hist, dev_reg, want_h, want_r
+
+    # ---- 7f. K8 counts from sorted ids vs plain, at the large grids; vs K7 ------
+    def host_ids(grid, n_pad, b, seed, lo=40000, hi=70000):
+        pad = PointPadding(max_points=n_pad, vxg_size=grid, compute_indices=True)
+        (_, lab, m, flat), _ = indexed_batch(pad, np.random.default_rng(seed), b, lo, hi)
+        f, m, lab = on_card(flat, m, lab)
+        return f, m, (lab == TOWER) & m
+
+    big_ids = host_ids(BIG_GRID, MAX_POINTS, BIG_BATCH, 41)
+    huge_ids = host_ids(HUGE_GRID, MAX_POINTS, 1, 43)
+    k8_cases = [("B4_N131072_128^3", *big_ids, 128 ** 3),
+                ("B4_N32768_64x64x256", *host_ids(KITTI_GRID, KITTI_POINTS, 4, 42, 20000, 32000),
+                 64 * 64 * 256),
+                ("B1_N131072_256^3", *huge_ids, 256 ** 3),
+                ("B16_N65536_64^3", d_iflat, d_im, d_itow, 64 ** 3),
+                ("full_column_8^3", col_ids, *on_card(col_mask, col_tower), 512)]
+    k8_err, parts = 0.0, []
+    for label, f, m, w, size in k8_cases:
+        for ch in (1, 2):
+            got = cuda_hist.sorted_bin_counts(f, m, w if ch == 2 else None, size, channels=ch)
+            want = cuda_hist.sorted_bin_counts_plain(f, m, w if ch == 2 else None, size, ch)
+            torch.cuda.synchronize()
+            k8_err = max(k8_err, exact(f"K8 {label} channels={ch}", got, want))
+        other = cuda_hist.bin_counts(f, m, size, w)
+        check(torch.equal(other[0], got[0]) and torch.equal(other[1], got[1]),
+              f"K8 differs from K7 on {label}")
+        parts.append(f"{label}: {int((got[0] > 0).sum())} voxels hold {int(got[0].sum())} "
+                     f"points, {int(got[1].sum())} tower, 0 differ, = K7")
+        del got, want, other
+    # a dense cloud at 256^3 (uniform ids, one point in four bins): what K8 is for
+    gen = torch.Generator(dev).manual_seed(44)
+    dense_ids = (torch.randint(0, 256 ** 3, (1, DENSE_POINTS), device=dev, generator=gen,
+                               dtype=torch.int32),
+                 torch.ones((1, DENSE_POINTS), dtype=torch.bool, device=dev),
+                 torch.rand((1, DENSE_POINTS), device=dev, generator=gen) < 0.2)
+    got = cuda_hist.sorted_bin_counts(*dense_ids, 256 ** 3)
+    k8_err = max(k8_err, exact("K8 dense 256^3", got,
+                               cuda_hist.sorted_bin_counts_plain(*dense_ids, 256 ** 3)))
+    other = cuda_hist.bin_counts(dense_ids[0], dense_ids[1], 256 ** 3, dense_ids[2])
+    check(torch.equal(other[0], got[0]) and torch.equal(other[1], got[1]),
+          "K8 differs from K7 on the dense 256^3 input")
+    parts.append(f"B1_N{DENSE_POINTS}_256^3 uniform ids: {int((got[0] > 0).sum())} voxels hold "
+                 f"{int(got[0].sum())} points, 0 differ, = K7")
+    del got, other
+    print(f"[K8 sorted_bin_counts] exact (1 and 2 channels) on all {len(k8_cases)} inputs, "
+          "and equal to K7 on each | " + " | ".join(parts), flush=True)
+    torch.cuda.empty_cache()
+
     # ---- 8. kernel timing ---------------------------------------------------
     times = {}
     kern = SceneNet.create(kernel_size=(9, 5, 5), seed=0).combined_kernel().detach().to(dev)
@@ -597,6 +808,60 @@ def main(argv=None) -> int:
               "rounds [min-max] ms; library = torch.nn.grad.conv3d_weight on the padded "
               "grid (cuDNN f32, TF32 off): " + fmt_times(t), flush=True)
 
+    def bincount_library(f, m, w, size):
+        """One torch.bincount per channel over b·size + flat (points that do not
+        count go to one bin past the end); the ids are made outside the timing."""
+        b = f.shape[0]
+        offs = torch.arange(b, device=dev)[:, None] * size
+        keep = m & (f >= 0) & (f < size)
+        ids = [torch.where(k, f.long() + offs, b * size).reshape(-1) for k in (keep, keep & w)]
+        return lambda: [torch.bincount(i, minlength=b * size + 1) for i in ids]
+
+    tower16_d = on_card(tower16)[0]
+    tp_d, tm_d = on_card(tp, tm)
+    big_f, big_m, big_w = big_ids
+    hist_times = {
+        "points_bin_counts": paired_ms(
+            lambda: cuda_hist.points_bin_counts(tp_d, tm_d, tower16_d, GRID),
+            lambda: cuda_hist.points_bin_counts_plain(tp_d, tm_d, tower16_d, GRID), 5),
+        "flat_ids": paired_ms(lambda: cuda_hist.flat_ids(tp_d, tm_d, GRID),
+                              lambda: cuda_hist.flat_ids_plain(tp_d, tm_d, GRID), 5),
+        "bin_counts": paired_ms(
+            lambda: cuda_hist.bin_counts(d_iflat, d_im, 64 ** 3, d_itow),
+            lambda: cuda_hist.bin_counts_plain(d_iflat, d_im, 64 ** 3, d_itow), 5,
+            library_fn=bincount_library(d_iflat, d_im, d_itow, 64 ** 3)),
+    }
+    print(f"[timing] B={TRAIN_BATCH} 64^3 N={TRAIN_POINTS}, two channels ({smi}), median of "
+          "4 alternating rounds [min-max] ms; library = one torch.bincount a channel: "
+          + fmt_times(hist_times), flush=True)
+    big_times = {
+        "sorted_bin_counts": paired_ms(
+            lambda: cuda_hist.sorted_bin_counts(big_f, big_m, big_w, 128 ** 3),
+            lambda: cuda_hist.sorted_bin_counts_plain(big_f, big_m, big_w, 128 ** 3), 5,
+            library_fn=bincount_library(big_f, big_m, big_w, 128 ** 3)),
+        "bin_counts at 128^3": paired_ms(
+            lambda: cuda_hist.bin_counts(big_f, big_m, 128 ** 3, big_w),
+            lambda: cuda_hist.bin_counts_plain(big_f, big_m, 128 ** 3, big_w), 5)}
+
+    big_keys = torch.where(big_m, big_f, 128 ** 3)  # what K8's first kernel makes
+    # the two id kernels in turns, at three sizes: "plain" is K7 here
+    versus = {f"sorted_bin_counts vs bin_counts {label}": paired_ms(
+        lambda: cuda_hist.sorted_bin_counts(f, m, w, size),
+        lambda: cuda_hist.bin_counts(f, m, size, w), 5)
+        for label, f, m, w, size in (("B4 N131072 128^3", big_f, big_m, big_w, 128 ** 3),
+                                     ("B16 N65536 64^3", d_iflat, d_im, d_itow, 64 ** 3),
+                                     ("B1 N131072 256^3", *huge_ids, 256 ** 3),
+                                     (f"B1 N{DENSE_POINTS} 256^3 uniform ids", *dense_ids,
+                                      256 ** 3))}
+    sort_ms = cuda_ms(lambda: torch.sort(big_keys, dim=1), 5)
+    print(f"[timing] B={BIG_BATCH} 128^3 N={MAX_POINTS}, two channels ({smi}), median of 4 "
+          "alternating rounds [min-max] ms; library = one torch.bincount a channel: "
+          + fmt_times(big_times) + f" | the torch.sort of the keys between K8's two "
+          f"kernels alone: {sort_ms:.4f} ms | K8 ('kernel') against K7 ('plain') in turns: "
+          + fmt_times(versus), flush=True)
+    del tp_d, tm_d, tower16_d, big_ids, huge_ids, dense_ids, big_f, big_m, big_w, big_keys
+    torch.cuda.empty_cache()
+
     # ---- 9. main path: serve ------------------------------------------------
     gpu = _Pipeline(None)  # serving defaults: 64³, 131072 points, (9,5,5), card
     check(gpu.device.type == "cuda" and gpu.backend == "cuda", "pipeline not on the card")
@@ -605,12 +870,12 @@ def main(argv=None) -> int:
     requests = [synthetic_cloud(np.random.default_rng(100 + i), n)
                 for i, n in enumerate((41000, 52000, 63000, 69000, 131072 + 5000))]
 
-    def check_reply(out, pts, ref, tol, what):
+    def check_reply(out, pts, ref, tol, what, grid=(64, 64, 64)):
         """Shapes, range, and agreement with a reference (voxel_pred,
         point_probs); returns the largest difference."""
         n = min(len(pts), MAX_POINTS)
         probs, vox, msk = out["point_probs"], out["voxel_pred"], out["mask"]
-        check(probs.shape == (n,) and vox.shape[-3:] == (64, 64, 64) and msk.shape == (n,),
+        check(probs.shape == (n,) and vox.shape[-3:] == grid and msk.shape == (n,),
               f"{what}: reply shapes {probs.shape} {vox.shape} {msk.shape}")
         for a in (probs, vox):
             check(bool(np.isfinite(a).all()) and a.min() >= 0 and a.max() <= 1,
@@ -635,7 +900,8 @@ def main(argv=None) -> int:
     for k in ("points_occupancy", "stencil_conv"):
         check(serve_counts[k] >= len(requests),
               f"{k} launched {serve_counts[k]} times for {len(requests)} requests")
-    served = {k: serve_counts[k] for k in ("points_occupancy", "stencil_conv", "stencil_mma")}
+    served = {k: serve_counts[k] for k in ("points_occupancy", "sorted_bin_counts",
+                                           "stencil_conv", "stencil_mma")}
     check(health["kernel_launches"] == served, f"/healthz counts {health['kernel_launches']}")
     print(f"[serve] {len(requests)} requests match the CPU pipeline (max|d| {worst:.3g}) | "
           "latency ms wall/server: " + ", ".join(f"{w:.2f}/{s:.2f}" for w, s in lat)
@@ -714,28 +980,14 @@ def main(argv=None) -> int:
                 f"{wall * 1e3:.1f} ms | batching {stats} | launches {batched_counts} | "
                 "server ms: " + ", ".join(f"{r[3]:.1f}" for r in replies))
         if opts.profile:
-            from torch.profiler import ProfilerActivity, profile
-
             before = healthz(url)["batching"]["dispatches"]
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                post_concurrently(f"{url}/predict", clouds, TAU)
-                torch.cuda.synchronize()
-                prof_wall = time.perf_counter() - t0
+            prof_wall, busy_us, n_items, largest = profiled(
+                lambda: post_concurrently(f"{url}/predict", clouds, TAU))
             n_disp = healthz(url)["batching"]["dispatches"] - before
-            on_dev = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy_us = sum(e.self_device_time_total for e in on_dev)
-            n_items = sum(e.count for e in on_dev)
-            check(busy_us > 0, "the profiler recorded no device time")
-            top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]
             line += (f" | [profile] 16 requests in {n_disp} dispatches, {prof_wall * 1e3:.1f} ms "
                      f"wall, device busy {busy_us / 1e3:.3f} ms = idle share "
                      f"{1 - busy_us / 1e6 / prof_wall:.4f}, {n_items} device items = "
-                     f"{n_items / n_disp:.1f} per dispatch; largest: "
-                     + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x"
-                                 f"{e.count}" for e in top))
+                     f"{n_items / n_disp:.1f} per dispatch; largest: " + largest)
     print(line, flush=True)
     del batched
     torch.cuda.empty_cache()
@@ -886,10 +1138,163 @@ def main(argv=None) -> int:
         print(f"[timing] train step B={TRAIN_BATCH} 64^3 N={TRAIN_POINTS} (9,5,5) "
               f"geneo_tversky adam ({smi}), median of 4 alternating rounds [min-max] "
               f"ms/step: " + fmt_times({"backend cuda vs torch": step_t}), flush=True)
-        del trainers, batches, dbatch
+        del trainers, dbatch
 
-    total = {k: serve_counts[k] + headline_counts[k] + batched_counts[k] + train_counts[k]
-             for k in counters}
+        # ---- 13. main path: host-exact training, cli.train --host-indices ------
+        def train_run(tag, extra, host_indices):
+            """One epoch through the train CLI; the scores, the seconds and the
+            launch counts of that run alone."""
+            run_argv = ((["--host-indices"] if host_indices else [])
+                        + ["--set", *DEFAULTS_SET, "--set", "max_epochs=1", "device_cache=False",
+                           "num_workers=4", f"output_dir={tmp / tag}",
+                           f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
+            reset_counts()
+            t0 = time.perf_counter()
+            run_scores = train_cli.main(run_argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            run_counts = read_counts()
+            run_losses = {k: v for k, v in run_scores.items() if k.endswith("loss")}
+            check(set(run_losses) == {"train_loss", "val_loss", "test_loss"}
+                  and all(math.isfinite(v) for v in run_losses.values()),
+                  f"{tag}: losses {run_losses}")
+            check((tmp / tag / "ckpt" / "last.npz").exists(), f"{tag}: no last.npz")
+            return run_scores, run_losses, seconds, run_counts
+
+        def only(counts, used, steps, tag):
+            """The histogram kernel ``used`` ran every step and the other
+            histogram kernels of a train step never; K2 and K4 ran."""
+            check(counts[used] >= steps, f"{tag}: {used} launched {counts[used]} times in "
+                                         f"{steps} steps")
+            for k in ("points_binary", "points_bin_counts", "bin_counts", "sorted_bin_counts",
+                      "points_occupancy", "flat_ids"):
+                check(k == used or counts[k] == 0, f"{tag}: {k} launched {counts[k]} times")
+            check(counts["stencil_dk"] == steps and counts["stencil_conv"] >= steps,
+                  f"{tag}: stencil kernels launched {counts}")
+
+        host_steps = n_train // TRAIN_BATCH
+        _, host_losses, host_s, host_counts = train_run(
+            "host_exact", [f"data_path={tmp / 'ts40k'}"], host_indices=True)
+        only(host_counts, "bin_counts", host_steps, "host-exact training")
+        print(f"[train host-exact] cli.train --host-indices, defaults width (B={TRAIN_BATCH}, "
+              f"64^3, {TRAIN_POINTS} points): float64 bin indices from the loader, counted by "
+              f"K7; 1 epoch = {host_steps} steps in {host_s:.1f} s | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(host_losses.items()))
+              + f" | launches {host_counts}", flush=True)
+
+        # ---- 14. main path: the 128^3 grid, both train routes and one request --
+        write_dataset(tmp / "ts40k_big", seed=9, n_fit=BIG_FIT, n_test=BIG_TEST)
+        big_steps = (BIG_FIT - int(BIG_FIT * 0.1)) // BIG_BATCH
+        big_set = [f"data_path={tmp / 'ts40k_big'}", f"voxel_grid_size={BIG_GRID}",
+                   f"batch_size={BIG_BATCH}", f"max_points={MAX_POINTS}"]
+        big_counts, parts = {}, []
+        for tag, host_indices in (("big_host", True), ("big_device", False)):
+            _, big_losses, big_s, big_counts[tag] = train_run(tag, big_set, host_indices)
+            only(big_counts[tag], "sorted_bin_counts", big_steps, tag)
+            parts.append(f"{'--host-indices' if host_indices else 'bins on the card'}: "
+                         f"{big_steps} steps in {big_s:.1f} s, losses "
+                         + ", ".join(f"{k} {v:.6f}" for k, v in sorted(big_losses.items()))
+                         + f", launches {big_counts[tag]}")
+        print(f"[train 128^3] cli.train, voxel_grid_size {BIG_GRID}, B={BIG_BATCH}, "
+              f"{MAX_POINTS} points, both through K8 | " + " | ".join(parts), flush=True)
+
+        def route_step_ms(data, grid, n_pad, batch_size):
+            """ms a train step from host-exact indices ('kernel') and from
+            bins computed on the card ('plain'), in turns, on one batch."""
+            pad = PointPadding(max_points=n_pad, vxg_size=grid, compute_indices=True)
+            one = next(iter(PointCloudLoader(TS40K(str(tmp / data), "fit", transform=pad),
+                                             batch_size, num_workers=4, drop_last=True)))
+            pair = {}
+            for use_indices in (True, False):
+                model = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+                pair[use_indices] = Trainer(model, crit, TrainConfig(
+                    run_dir=str(tmp / f"route_{data}_{use_indices}"),
+                    checkpoint_dir=str(tmp / f"route_ckpt_{data}_{use_indices}")),
+                    batch_prep=make_device_voxelize_prep(grid, (TOWER,),
+                                                         use_indices=use_indices))
+                pair[use_indices].setup_optimizer()
+            dbatch = pair[True].to_device(one)
+            state = metrics.init_metric_state(dev)
+            step_t = paired_ms(lambda: pair[True].train_step(state, *dbatch),
+                               lambda: pair[False].train_step(state, *dbatch), iters=5)
+            if opts.profile:
+                n_prof = 5
+                wall, busy_us, n_items, largest = profiled(lambda: [
+                    pair[False].train_step(state, *dbatch) for _ in range(n_prof)])
+                print(f"[profile] train step, bins on the card, B={batch_size} grid {grid} "
+                      f"N={n_pad} ({smi}): {n_prof} steps in {wall * 1e3:.1f} ms wall, device "
+                      f"busy {busy_us / 1e3:.3f} ms = idle share {1 - busy_us / 1e6 / wall:.4f}, "
+                      f"{n_items / n_prof:.1f} device items a step; largest: {largest}",
+                      flush=True)
+            return step_t
+
+        route_t = {
+            f"B={BIG_BATCH} 128^3 N={MAX_POINTS}: host indices (K8) vs bins on the card (K8)":
+                route_step_ms("ts40k_big", BIG_GRID, MAX_POINTS, BIG_BATCH),
+            f"B={TRAIN_BATCH} 64^3 N={TRAIN_POINTS}: host indices (K7) vs bins on the card (K3)":
+                route_step_ms("ts40k", GRID, TRAIN_POINTS, TRAIN_BATCH)}
+        print(f"[timing] train step by route, (9,5,5) geneo_tversky adam, backend cuda ({smi}), "
+              "median of 4 alternating rounds [min-max] ms/step; 'kernel' = from host-exact "
+              "indices, 'plain' = bins on the card: " + fmt_times(route_t), flush=True)
+
+        server, big = build_server(["--grid", "128", "--port", "0"])
+        cpu_big = _Pipeline(None, grid=BIG_GRID, device="cpu")
+        with running(server, big) as url:
+            reset_counts()
+            status, out, wall_ms, server_ms = post(f"{url}/predict", clouds[0], TAU)
+            big_serve_counts = read_counts()
+        check(status == 200, f"/predict at --grid 128 returned {status}")
+        err = check_reply(out, clouds[0], cpu_big.predict(clouds[0]), PROB_TOL,
+                          "serve --grid 128", grid=BIG_GRID)
+        check(big_serve_counts["sorted_bin_counts"] >= 1 and big_serve_counts["stencil_conv"] >= 1
+              and big_serve_counts["points_occupancy"] == 0,
+              f"the 128^3 request launched {big_serve_counts}")
+        print(f"[serve 128^3] --grid 128: the reply matches the CPU pipeline (max|d| {err:.3g}), "
+              f"{wall_ms:.1f}/{server_ms:.1f} ms wall/server | launches {big_serve_counts}",
+              flush=True)
+        del big, cpu_big
+        torch.cuda.empty_cache()
+
+        # ---- 15. main path: the counts kernel under the Trainer, and the ids ---
+        frac_prep = make_device_voxelize_prep(GRID, (TOWER,), binarize=(True, False))
+        net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+        frac = Trainer(net, crit, TrainConfig(run_dir=str(tmp / "frac"),
+                                              checkpoint_dir=str(tmp / "frac_ckpt")),
+                       batch_prep=frac_prep)
+        frac.setup_optimizer()
+        reset_counts()
+        frac_losses = []
+        for b in batches:
+            _, loss = frac.train_step(metrics.init_metric_state(dev), *frac.to_device(b))
+            frac_losses.append(float(loss))
+        pts_b, lab_b, mask_b, _ = frac.to_device(batches[0])
+        density = voxelize_batch_hist(pts_b, mask_b, GRID)
+        ids = cuda_hist.flat_ids(pts_b, mask_b, GRID)
+        torch.cuda.synchronize()
+        counts_path = read_counts()
+        check(all(math.isfinite(v) for v in frac_losses), f"tower-fraction losses {frac_losses}")
+        check(counts_path["points_bin_counts"] == len(batches) + 1 and counts_path["flat_ids"] == 1
+              and counts_path["points_binary"] == 0 and counts_path["stencil_dk"] == len(batches),
+              f"the counts path launched {counts_path}")
+        x_frac, y_frac = frac_prep(pts_b, lab_b, mask_b)
+        x_bin, y_bin = prep(pts_b, lab_b, mask_b)
+        check(torch.equal(x_frac, x_bin) and torch.equal((y_frac > 0).float(), y_bin)
+              and 0 < float(y_frac[y_frac > 0].min()) < 1,
+              "the tower-fraction prep disagrees with the binarized prep")
+        check(torch.equal((density > 0).float()[:, None], x_bin) and float(density.max()) == 1,
+              "voxelize_batch_hist > 0 is not the occupancy")
+        same = ids.long()[mask_b] == batch_flat_ids(pts_b, mask_b, GRID)[mask_b]
+        check(float(same.float().mean()) > 0.99, "flat_ids far from batch_flat_ids")
+        print(f"[counts path] 3 train steps on a tower-fraction target (binarize=(True, False), "
+              f"K6): losses " + ", ".join(f"{v:.6f}" for v in frac_losses)
+              + f"; voxelize_batch_hist > 0 = the occupancy; flat_ids (K9, multiply recipe) "
+              f"agrees with batch_flat_ids (divide) on {int(same.sum())} of {same.numel()} "
+              f"points | launches {counts_path}", flush=True)
+        del frac, batches, density, ids
+
+    main_runs = [serve_counts, headline_counts, batched_counts, train_counts, host_counts,
+                 *big_counts.values(), big_serve_counts, counts_path]
+    total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
     # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch
     vox = GRID[0] * GRID[1] * GRID[2]
@@ -913,6 +1318,16 @@ def main(argv=None) -> int:
                                conv_flops(TRAIN_BATCH), F32_FLOPS),
         # the hi and the lo sum, both on the bf16 tensor cores
         "stencil_mma": bound_ms(2 * grid_bytes(64), 2 * conv_flops(64), BF16_FLOPS),
+        # points, mask and tower flags in, two f32 count grids out
+        "points_bin_counts": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 14.0
+                                      + 2 * grid_bytes(TRAIN_BATCH)),
+        # int32 ids, mask and flags in, two f32 count grids out (a sort's
+        # traffic is not in the bound)
+        "bin_counts": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 6.0 + 2 * grid_bytes(TRAIN_BATCH)),
+        "sorted_bin_counts": bound_ms(BIG_BATCH * MAX_POINTS * 6.0
+                                      + 2 * 4.0 * BIG_BATCH * 128 ** 3),
+        # points and mask in, int32 ids out
+        "flat_ids": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 17.0),
     }
 
     def entry(name, source, replaces, err, t, shape):
@@ -936,6 +1351,14 @@ def main(argv=None) -> int:
               train_times[TRAIN_BATCH]["stencil_dk (9,5,5)"], small),
         entry("stencil_mma", "stencil_mma.cu", "pallas_conv.py:448", k5_err,
               times[64]["stencil_mma (9,5,5)"], big),
+        entry("points_bin_counts", "points_occupancy.cu", "pallas_hist.py:228", k6_err,
+              hist_times["points_bin_counts"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3 2ch"),
+        entry("bin_counts", "bin_counts.cu", "pallas_hist.py:417", k7_err,
+              hist_times["bin_counts"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3 2ch"),
+        entry("sorted_bin_counts", "bin_counts.cu", "pallas_hist.py:540", k8_err,
+              big_times["sorted_bin_counts"], f"B={BIG_BATCH} N={MAX_POINTS} 128^3 2ch"),
+        entry("flat_ids", "points_occupancy.cu", "pallas_hist.py:647", k9_err,
+              hist_times["flat_ids"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3"),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")

@@ -455,8 +455,8 @@ class _MicroBatcher:
 
 
 def kernel_launches() -> dict:
-    return {c.name: c.count for c in (cuda_hist.LAUNCHES, cuda_conv.LAUNCHES,
-                                      cuda_conv.MXU_LAUNCHES)}
+    return {c.name: c.count for c in (cuda_hist.LAUNCHES, cuda_hist.SORTED_COUNTS_LAUNCHES,
+                                      cuda_conv.LAUNCHES, cuda_conv.MXU_LAUNCHES)}
 
 
 def make_handler(pipeline: _Pipeline):

@@ -7,9 +7,12 @@ best checkpoint.
 
 Usage:
     python -m scenenet_tpu_torch.cli.train --config experiments/defaults.yaml \\
-        [--set key=value ...] [--device cuda|cpu]
+        [--set key=value ...] [--device cuda|cpu] [--host-indices]
 
-``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
+``--host-indices`` takes the host-exact route: the loader computes each
+point's bin in float64 (pyntcloud parity) and the device only counts. The
+JAX CLI takes that route whenever its native loader is absent; the port has
+no native loader yet, so a flag selects it. ``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
 the kernels' plain versions. A run configured by ``--set`` alone needs no
 PyYAML. What the config asks for and the port does not have yet raises,
 naming its ROADMAP item.
@@ -91,7 +94,8 @@ def resolve_backend(cfg: ExperimentConfig, device) -> str:
     return _BACKENDS[cfg.model_backend]
 
 
-def run(cfg: ExperimentConfig, device: "str | None" = "cuda") -> Dict[str, float]:
+def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
+        host_indices: bool = False) -> Dict[str, float]:
     device = resolve_device(device)
     _refuse_unported(cfg)
     resolve_device_cache(cfg)
@@ -108,9 +112,11 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda") -> Dict[str, float
             raise FileNotFoundError(f"Checkpoint {ckpt_path} does not exist.")
         restore_checkpoint(ckpt_path, model)
 
-    # the route of the JAX package's native loader: raw padded points, bins
-    # computed on the device
-    transform = PointPadding(max_points=cfg.max_points)
+    # raw padded points; the bins are computed on the device (the route of
+    # the JAX package's native loader) unless host_indices asks for the
+    # host-exact float64 bin index of every point
+    transform = PointPadding(max_points=cfg.max_points, vxg_size=cfg.voxel_grid_size,
+                             vox_size=cfg.voxel_size, compute_indices=host_indices)
     fit = TS40K(cfg.data_path, split="fit", transform=transform)
     test_ds = TS40K(cfg.data_path, split="test", transform=transform)
     train_idx, val_idx = random_split(len(fit), cfg.val_split, seed=cfg.seed)
@@ -129,7 +135,8 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda") -> Dict[str, float
         early_stop_patience=cfg.early_stop_patience, checkpoint_dir=ckpt_dir,
         checkpoint_top_k=cfg.checkpoint_top_k, run_dir=run_dir,
         precision=cfg.precision, checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
-    prep = make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels))
+    prep = make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
+                                     use_indices=host_indices)
     trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
     _, best = trainer.fit(train_loader, val_loader if len(val_ds) else None)
 
@@ -172,12 +179,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                         help="config overrides key=value (repeatable)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu runs the kernels' plain versions")
+    parser.add_argument("--host-indices", action="store_true",
+                        help="bin on the host in float64 (pyntcloud parity); the device "
+                             "counts the given indices")
     parser.add_argument("--sweep", type=str, default=None, help="not ported yet")
     args = parser.parse_args(argv)
     if args.sweep:
         raise NotImplementedError("--sweep (random-search sweeps) is not ported yet: "
                                   "ROADMAP A10")
-    return run(load_config(args.config, parse_overrides(args.set)), device=args.device)
+    return run(load_config(args.config, parse_overrides(args.set)), device=args.device,
+               host_indices=args.host_indices)
 
 
 if __name__ == "__main__":

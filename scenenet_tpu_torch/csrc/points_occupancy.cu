@@ -1,11 +1,17 @@
-// Raw padded points -> binarized voxel grids, for Hopper (sm_90a).
+// Raw padded points -> voxel grids and bin ids, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of scenenet_tpu/ops/pallas_hist.py that share
-// _points_hist_kernel and its id recipe _bin_flat_ids_in_kernel:
-//   - pallas_points_occupancy (binarize=True, channels=1) by
-//     snt_points_occupancy: the serving prep;
+// Replaces four TPU kernels of scenenet_tpu/ops/pallas_hist.py that share
+// the id recipe _bin_flat_ids_in_kernel:
+//   - pallas_points_occupancy (_points_hist_kernel, binarize=True,
+//     channels=1) by snt_points_occupancy: the serving prep;
 //   - pallas_points_binary (binarize=True, channels=2) by
-//     snt_points_binary: the training prep, which adds tower presence.
+//     snt_points_binary: the training prep, which adds tower presence;
+//   - pallas_points_bin_counts (binarize=False, channels 1 or 2) by
+//     snt_points_bin_counts: the counts and tower counts themselves, for
+//     the density and tower-fraction grids (steps 1 and 2 below, then the
+//     int32 counts are converted to f32 in place);
+//   - pallas_flat_ids (_points_ids_kernel) by snt_flat_ids: steps 1 and 2
+//     with the ids as the output, masked points set to a sentinel.
 //
 // Computes, per sample b of (B, N, 3) points with a (B, N) mask:
 //   1. masked per-axis bounds, expanded to a cube (regular bounding box);
@@ -31,7 +37,10 @@
 // same value are race-free. One block per sample reduces the bounds; that
 // block's first thread turns them into lo and 1/step exactly as the TPU
 // kernel does. Both entry points share the bounds pass and flat_bin_id, so
-// their bins cannot drift apart. Every operation of the id recipe is
+// their bins cannot drift apart; the counts and ids entries share them too.
+// The counts entry adds tower counts by a second int32 atomicAdd into a
+// second zeroed grid; both grids are scratch and output at once (the
+// wrapper zeroes them, the last pass converts them in place). Every operation of the id recipe is
 // written as an _rn intrinsic, so nvcc cannot contract
 // (p - lo) * inv - 1e-4 into an FMA: bin ids match the TPU kernel and the
 // plain versions bit for bit. Build without fast math.
@@ -40,7 +49,12 @@
 #include <climits>
 #include <stdint.h>
 
+#include "counts_common.cuh"
+
 namespace {
+
+using snt::counts_to_float_kernel;
+using snt::elementwise_blocks;
 
 constexpr int kBoundsThreads = 1024;
 constexpr int kCountThreads = 256;
@@ -212,9 +226,40 @@ __global__ void binarize_tower_kernel(const int* __restrict__ counts,
   }
 }
 
-int elementwise_blocks(size_t total) {
-  const size_t blocks = (total + 255) / 256;
-  return (int)(blocks < 65536 ? blocks : 65536);
+// Pass 2, counts form: counts as above, and towers[b, id] += 1 for every
+// valid point with tower[b, i] set. `tower` and `towers` may both be null
+// (one channel).
+__global__ void count_pair_kernel(const float* __restrict__ pts,
+                                  const uint8_t* __restrict__ mask,
+                                  const uint8_t* __restrict__ tower,
+                                  const float* __restrict__ params,
+                                  int* __restrict__ counts,
+                                  int* __restrict__ towers, int N,
+                                  int n_x, int n_y, int n_z) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t pi = (size_t)b * N + i;
+  if (i >= N || !mask[pi]) return;
+  const size_t size = (size_t)n_x * n_y * n_z;
+  const size_t id = flat_bin_id(pts + pi * 3, params + (size_t)b * 6, n_x, n_y, n_z);
+  atomicAdd(counts + b * size + id, 1);
+  if (tower != nullptr && tower[pi]) atomicAdd(towers + b * size + id, 1);
+}
+
+// Pass 2, ids form: ids[b, i] = the point's flat bin id, `invalid` where
+// the mask is off (such a point's coordinates are never read).
+__global__ void ids_kernel(const float* __restrict__ pts,
+                           const uint8_t* __restrict__ mask,
+                           const float* __restrict__ params,
+                           int* __restrict__ ids, int N, int n_x, int n_y,
+                           int n_z, int invalid) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const size_t pi = (size_t)b * N + i;
+  ids[pi] = mask[pi] ? (int)flat_bin_id(pts + pi * 3, params + (size_t)b * 6,
+                                        n_x, n_y, n_z)
+                     : invalid;
 }
 
 }  // namespace
@@ -266,5 +311,45 @@ extern "C" int snt_points_binary(const float* pts, const uint8_t* mask,
   const size_t total = size * B;
   binarize_tower_kernel<<<elementwise_blocks(total), 256, 0, s>>>(
       counts, colmin, flags, out_x, out_y, total, size, n_y);
+  return (int)cudaGetLastError();
+}
+
+// pts (B, N, 3) f32, mask (B, N) bool/uint8, tower (B, N) bool/uint8 or null.
+// counts (B, n_z*n_x*n_y) int32 ZEROED by the caller, towers the same or
+// null (with a null `tower` a non-null `towers` stays all zero). On return
+// both hold the counts as f32, converted in place. Scratch: params (B, 6)
+// f32. Launches on `stream`; returns cudaGetLastError().
+extern "C" int snt_points_bin_counts(const float* pts, const uint8_t* mask,
+                                     const uint8_t* tower, int* counts,
+                                     int* towers, float* params, int B, int N,
+                                     int n_x, int n_y, int n_z, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || N <= 0 || n_x <= 0 || n_y <= 0 || n_z <= 0 ||
+      (tower != nullptr && towers == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t total = (size_t)n_x * n_y * n_z * B;
+  bounds_kernel<<<B, kBoundsThreads, 0, s>>>(pts, mask, params, N, n_x, n_y, n_z);
+  dim3 cgrid((N + kCountThreads - 1) / kCountThreads, B);
+  count_pair_kernel<<<cgrid, kCountThreads, 0, s>>>(pts, mask, tower, params,
+                                                   counts, towers, N, n_x, n_y, n_z);
+  counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(counts, total);
+  if (towers != nullptr)
+    counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(towers, total);
+  return (int)cudaGetLastError();
+}
+
+// pts (B, N, 3) f32, mask (B, N) bool/uint8 -> ids (B, N) int32: each valid
+// point's flat (z, x, y) bin id, `invalid` for the others. Scratch: params
+// (B, 6) f32. Launches on `stream`; returns cudaGetLastError().
+extern "C" int snt_flat_ids(const float* pts, const uint8_t* mask, int* ids,
+                            float* params, int B, int N, int n_x, int n_y,
+                            int n_z, int invalid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || N <= 0 || n_x <= 0 || n_y <= 0 || n_z <= 0)
+    return (int)cudaErrorInvalidValue;
+  bounds_kernel<<<B, kBoundsThreads, 0, s>>>(pts, mask, params, N, n_x, n_y, n_z);
+  dim3 cgrid((N + kCountThreads - 1) / kCountThreads, B);
+  ids_kernel<<<cgrid, kCountThreads, 0, s>>>(pts, mask, params, ids, N, n_x, n_y,
+                                            n_z, invalid);
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,18 @@ _SIGNATURES = {
     # B, N, n_x, n_y, n_z, stream
     "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _P),
+    # pts, mask, tower, counts, towers, params, B, N, n_x, n_y, n_z, stream
+    "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # pts, mask, ids, params, B, N, n_x, n_y, n_z, invalid, stream
+    "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ids, mask, flag, counts, flagged, B, N, size, stream
+    "snt_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ids, mask, weights, counts, wsum, B, N, size, stream
+    "snt_bin_counts_weighted": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ids, mask, keys, B, N, size, stream
+    "snt_sort_keys": (_P, _P, _P, _I, _I, _I, _P),
+    # keys, order, flag, counts, flagged, B, N, size, stream
+    "snt_sorted_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, stream
     "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,
@@ -74,7 +86,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsnt_kernels_{h.hexdigest()[:16]}.so"

@@ -1,7 +1,8 @@
-"""Raw points → binarized voxel grids: the CUDA kernels and their plain twins.
+"""The voxel histogram family: the CUDA kernels and their plain twins.
 
-Two ports of TPU kernels of :mod:`scenenet_tpu.ops.pallas_hist`, both in
-``csrc/points_occupancy.cu`` and sharing its bounds pass and id recipe:
+Ports of the TPU kernels of :mod:`scenenet_tpu.ops.pallas_hist`. Four take
+raw points, live in ``csrc/points_occupancy.cu`` and share its bounds pass
+and id recipe:
 
 - ``points_occupancy`` (``pallas_points_occupancy``, the serving prep):
   per sample, the masked bounding box expanded to a cube, each valid
@@ -10,7 +11,18 @@ Two ports of TPU kernels of :mod:`scenenet_tpu.ops.pallas_hist`, both in
   ``count > min of its y column`` as float {0, 1};
 - ``points_binary`` (``pallas_points_binary``, the training prep): the
   same occupancy and, as a second grid, tower presence — 1 where any valid
-  point flagged as tower lands.
+  point flagged as tower lands;
+- ``points_bin_counts`` (``pallas_points_bin_counts``): the counts
+  themselves and, as a second grid, the counts of the flagged points, for
+  the density and tower-fraction grids;
+- ``flat_ids`` (``pallas_flat_ids``): the bin ids alone.
+
+Two take flat bin ids computed beforehand (``csrc/bin_counts.cu``):
+
+- ``bin_counts`` (``pallas_bin_counts``): counts and flagged counts by
+  integer atomics, or sums of float weights at bf16 precision;
+- ``sorted_bin_counts`` (``pallas_sorted_bin_counts``): the same counts for
+  large grids, from ids sorted per sample.
 
 Unlike the TPU kernels they take any grid. For a CUDA tensor each wrapper
 launches its kernel; for a CPU tensor it runs its plain version, which
@@ -20,7 +32,7 @@ follows the same f32 recipe op by op, so the two are bit-identical.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +40,12 @@ from scenenet_tpu_torch.ops import _build
 
 LAUNCHES = _build.LaunchCounter("points_occupancy")
 BINARY_LAUNCHES = _build.LaunchCounter("points_binary")
+BIN_COUNTS_LAUNCHES = _build.LaunchCounter("points_bin_counts")
+FLAT_COUNTS_LAUNCHES = _build.LaunchCounter("bin_counts")
+SORTED_COUNTS_LAUNCHES = _build.LaunchCounter("sorted_bin_counts")
+FLAT_IDS_LAUNCHES = _build.LaunchCounter("flat_ids")
+
+ID_ROW = 512  # the TPU kernels lay a grid out in rows of 512 bins (their n_hi rows)
 
 _BIG = 3.4e38  # the TPU kernel's masked-bound sentinel
 
@@ -78,7 +96,7 @@ def _grid_counts(flat: torch.Tensor, keep: torch.Tensor, size: int) -> torch.Ten
     return torch.bincount(ids.reshape(-1), minlength=b * size + 1)[: b * size].reshape(b, size)
 
 
-def _above_column_min(counts: torch.Tensor, n_y: int) -> torch.Tensor:
+def above_column_min(counts: torch.Tensor, n_y: int) -> torch.Tensor:
     """``count > min of its y column`` as f32 {0, 1}, (B, size)."""
     b = counts.shape[0]
     cols = counts.reshape(b, -1, n_y)
@@ -90,7 +108,7 @@ def points_occupancy_plain(points: torch.Tensor, mask: torch.Tensor,
     """Plain PyTorch version: (B, N, 3) f32 + (B, N) bool → (B, size) f32."""
     n_x, n_y, n_z = grid_shape
     counts = _grid_counts(flat_ids_mul(points, mask, grid_shape), mask, n_x * n_y * n_z)
-    return _above_column_min(counts, n_y)
+    return above_column_min(counts, n_y)
 
 
 def points_binary_plain(points: torch.Tensor, mask: torch.Tensor, tower: torch.Tensor,
@@ -101,9 +119,75 @@ def points_binary_plain(points: torch.Tensor, mask: torch.Tensor, tower: torch.T
     n_x, n_y, n_z = grid_shape
     size = n_x * n_y * n_z
     flat = flat_ids_mul(points, mask, grid_shape)
-    occ = _above_column_min(_grid_counts(flat, mask, size), n_y)
+    occ = above_column_min(_grid_counts(flat, mask, size), n_y)
     towers = _grid_counts(flat, mask & tower, size)
     return occ, (towers > 0).to(torch.float32)
+
+
+def points_bin_counts_plain(points: torch.Tensor, mask: torch.Tensor,
+                            tower: Optional[torch.Tensor],
+                            grid_shape: Tuple[int, int, int], channels: int = 2
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`points_bin_counts`."""
+    n_x, n_y, n_z = grid_shape
+    size = n_x * n_y * n_z
+    flat = flat_ids_mul(points, mask, grid_shape)
+    counts = _grid_counts(flat, mask, size).to(torch.float32)
+    if channels == 1:
+        return counts, None
+    if tower is None:
+        return counts, torch.zeros_like(counts)
+    return counts, _grid_counts(flat, mask & tower, size).to(torch.float32)
+
+
+def invalid_id(size: int) -> int:
+    """The id :func:`flat_ids` gives a masked point: the first multiple of
+    512 at or past ``size``, as the TPU kernel's."""
+    return -(-size // ID_ROW) * ID_ROW
+
+
+def flat_ids_plain(points: torch.Tensor, mask: torch.Tensor,
+                   grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flat_ids`."""
+    n_x, n_y, n_z = grid_shape
+    flat = flat_ids_mul(points, mask, grid_shape)
+    return torch.where(mask, flat, invalid_id(n_x * n_y * n_z)).to(torch.int32)
+
+
+def _counted(flat: torch.Tensor, mask: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, N) bool: the point is valid and its id lies in [0, size)."""
+    return mask & (flat >= 0) & (flat < size)
+
+
+def bin_counts_plain(flat: torch.Tensor, mask: torch.Tensor, size: int,
+                     weights: Optional[torch.Tensor] = None, indicator: bool = True
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`bin_counts`."""
+    flat = flat.to(torch.int64)
+    keep = _counted(flat, mask, size)
+    counts = _grid_counts(flat, keep, size).to(torch.float32)
+    if weights is None:
+        return counts, None
+    if indicator:
+        return counts, _grid_counts(flat, keep & (weights != 0), size).to(torch.float32)
+    b = flat.shape[0]
+    w = weights.to(torch.bfloat16).to(torch.float32)  # round to nearest even
+    offs = torch.arange(b, device=flat.device)[:, None] * size
+    ids = torch.where(keep, flat + offs, b * size).reshape(-1)
+    wsum = torch.zeros(b * size + 1, dtype=torch.float32, device=flat.device)
+    wsum.index_add_(0, ids, w.reshape(-1))
+    return counts, wsum[: b * size].reshape(b, size)
+
+
+def sorted_bin_counts_plain(flat: torch.Tensor, mask: torch.Tensor,
+                            weights: Optional[torch.Tensor], size: int,
+                            channels: int = 2
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`sorted_bin_counts`: a histogram
+    needs no sort, so it is :func:`bin_counts_plain`'s indicator form."""
+    if channels == 2 and weights is None:
+        weights = torch.zeros_like(mask)
+    return bin_counts_plain(flat, mask, size, weights if channels == 2 else None)
 
 
 def _check_points(points: torch.Tensor, mask: torch.Tensor) -> None:
@@ -125,6 +209,48 @@ def _check_launch_shape(points: torch.Tensor, grid_shape) -> Tuple[int, int, int
     if min(b, n, n_x, n_y, n_z) < 1 or b * n_x * n_y * n_z >= 2**31 or n >= 2**31:
         raise ValueError(f"unsupported points shape B={b} N={n} grid={grid_shape}")
     return b, n, n_x, n_y, n_z
+
+
+def _check_flag(flag: torch.Tensor, mask: torch.Tensor, what: str) -> None:
+    if flag.shape != mask.shape or flag.dtype != torch.bool or flag.device != mask.device:
+        raise ValueError(f"{what} must be a bool {tuple(mask.shape)} tensor on {mask.device}, "
+                         f"got {flag.dtype} {tuple(flag.shape)} on {flag.device}")
+
+
+def _check_ids(flat: torch.Tensor, mask: torch.Tensor, size: int,
+               weights: Optional[torch.Tensor]) -> None:
+    if flat.ndim != 2 or flat.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"flat must be (B, N) int32 or int64, got {flat.dtype} "
+                        f"{tuple(flat.shape)}")
+    if mask.shape != flat.shape or mask.dtype != torch.bool or mask.device != flat.device:
+        raise ValueError(f"mask must be a bool {tuple(flat.shape)} tensor on {flat.device}, "
+                         f"got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    if weights is not None and (weights.shape != flat.shape or weights.device != flat.device):
+        raise ValueError(f"weights must be {tuple(flat.shape)} on {flat.device}, got "
+                         f"{tuple(weights.shape)} on {weights.device}")
+    if int(size) < 1:
+        raise ValueError(f"size must be positive, got {size}")
+
+
+def _check_ids_launch(flat: torch.Tensor, size: int) -> Tuple[int, int]:
+    if flat.device.type != "cuda":
+        raise ValueError(f"no bin-count kernel for device {flat.device}")
+    b, n = flat.shape
+    if min(b, n) < 1 or b * size >= 2**31 or n >= 2**31:
+        raise ValueError(f"unsupported ids shape B={b} N={n} size={size}")
+    return b, n
+
+
+def _ids_int32(flat: torch.Tensor, size: int) -> torch.Tensor:
+    """Contiguous int32 ids for the kernels; an int64 id that int32 cannot
+    hold is first moved to −1 or ``size``, which count nowhere either."""
+    if flat.dtype == torch.int64:
+        flat = flat.clamp(-1, size)
+    return flat.to(torch.int32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def points_occupancy(points: torch.Tensor, mask: torch.Tensor,
@@ -171,9 +297,7 @@ def points_binary(points: torch.Tensor, mask: torch.Tensor, tower: torch.Tensor,
     :func:`points_binary_plain`; a CUDA tensor launches the kernel or raises.
     """
     _check_points(points, mask)
-    if tower.shape != mask.shape or tower.dtype != torch.bool or tower.device != mask.device:
-        raise ValueError(f"tower must be a bool {tuple(mask.shape)} tensor on {mask.device}, "
-                         f"got {tower.dtype} {tuple(tower.shape)} on {tower.device}")
+    _check_flag(tower, mask, "tower")
     if points.device.type == "cpu":
         return points_binary_plain(points, mask, tower, grid_shape)
     b, n, n_x, n_y, n_z = _check_launch_shape(points, grid_shape)
@@ -196,3 +320,167 @@ def points_binary(points: torch.Tensor, mask: torch.Tensor, tower: torch.Tensor,
     _build.check(err, "points_binary")
     BINARY_LAUNCHES.add()
     return out_x, out_y
+
+
+def points_bin_counts(points: torch.Tensor, mask: torch.Tensor,
+                      tower: Optional[torch.Tensor], grid_shape: Tuple[int, int, int],
+                      channels: int = 2) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(B, N, 3) f32 points + (B, N) bool mask [+ (B, N) bool tower flags] →
+    ((B, size) f32 counts, (B, size) f32 counts of the flagged points), in
+    (z, x, y) order; ``grid_shape`` is (n_x, n_y, n_z). ``channels=1`` skips
+    the second grid and returns None for it; ``tower=None`` with two
+    channels gives zeros.
+
+    Bounds and ids as in :func:`points_occupancy` (the multiply recipe). The
+    int32 count grids are zeroed here, filled by the kernel's atomics and
+    converted to f32 in place: the returned tensors are views of that same
+    memory. A CPU tensor takes :func:`points_bin_counts_plain`; a CUDA
+    tensor launches the kernel or raises.
+    """
+    _check_points(points, mask)
+    if channels not in (1, 2):
+        raise ValueError(f"channels must be 1 or 2, got {channels}")
+    if channels == 1:
+        tower = None
+    if tower is not None:
+        _check_flag(tower, mask, "tower")
+    if points.device.type == "cpu":
+        return points_bin_counts_plain(points, mask, tower, grid_shape, channels)
+    b, n, n_x, n_y, n_z = _check_launch_shape(points, grid_shape)
+    size = n_x * n_y * n_z
+    points, mask = points.contiguous(), mask.contiguous()
+    tower = None if tower is None else tower.contiguous()
+    dev = points.device
+    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
+    towers = torch.zeros((b, size), dtype=torch.int32, device=dev) if channels == 2 else None
+    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.snt_points_bin_counts(
+            points.data_ptr(), mask.data_ptr(), _ptr(tower), counts.data_ptr(),
+            _ptr(towers), params.data_ptr(), b, n, n_x, n_y, n_z, ctypes.c_void_p(stream))
+    _build.check(err, "points_bin_counts")
+    BIN_COUNTS_LAUNCHES.add()
+    return counts.view(torch.float32), None if towers is None else towers.view(torch.float32)
+
+
+def flat_ids(points: torch.Tensor, mask: torch.Tensor,
+             grid_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """(B, N, 3) f32 points + (B, N) bool mask → (B, N) int32 flat (z, x, y)
+    bin ids by the multiply recipe, each sample in its own masked cube
+    bounds; a masked point gets :func:`invalid_id` of the grid's size.
+
+    A CPU tensor takes :func:`flat_ids_plain`; a CUDA tensor launches the
+    kernel or raises.
+    """
+    _check_points(points, mask)
+    if points.device.type == "cpu":
+        return flat_ids_plain(points, mask, grid_shape)
+    b, n, n_x, n_y, n_z = _check_launch_shape(points, grid_shape)
+    points, mask = points.contiguous(), mask.contiguous()
+    dev = points.device
+    ids = torch.empty((b, n), dtype=torch.int32, device=dev)
+    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.snt_flat_ids(points.data_ptr(), mask.data_ptr(), ids.data_ptr(),
+                               params.data_ptr(), b, n, n_x, n_y, n_z,
+                               invalid_id(n_x * n_y * n_z), ctypes.c_void_p(stream))
+    _build.check(err, "flat_ids")
+    FLAT_IDS_LAUNCHES.add()
+    return ids
+
+
+def bin_counts(flat: torch.Tensor, mask: torch.Tensor, size: int,
+               weights: Optional[torch.Tensor] = None, indicator: bool = True
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(B, N) int flat bin ids + (B, N) bool mask [+ (B, N) weights] →
+    ((B, size) f32 counts, (B, size) f32 weighted counts or None).
+
+    A point counts where its mask is set and its id lies in ``[0, size)``;
+    any other counts nowhere (a padded point's id 0 never reaches bin 0).
+    ``indicator=True``: the weights are {0, 1} flags (any dtype; nonzero
+    means set) and the second grid counts the flagged points, exactly, by
+    integer atomics. ``indicator=False``: float weights, each rounded to
+    bf16 and summed in f32 with float atomics, whose order changes from run
+    to run: those sums are not bit-reproducible (the counts are).
+
+    The count grids are zeroed here and converted to f32 in place by the
+    kernel. A CPU tensor takes :func:`bin_counts_plain`; a CUDA tensor
+    launches the kernel or raises.
+    """
+    _check_ids(flat, mask, size, weights)
+    if flat.device.type == "cpu":
+        return bin_counts_plain(flat, mask, size, weights, indicator)
+    b, n = _check_ids_launch(flat, size)
+    dev = flat.device
+    flat = _ids_int32(flat, size)
+    mask = mask.contiguous()
+    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if weights is None or indicator:
+            flag = None if weights is None else (weights != 0).contiguous()
+            second = (None if weights is None
+                      else torch.zeros((b, size), dtype=torch.int32, device=dev))
+            err = lib.snt_bin_counts(flat.data_ptr(), mask.data_ptr(), _ptr(flag),
+                                     counts.data_ptr(), _ptr(second), b, n, size, stream)
+            second = None if second is None else second.view(torch.float32)
+        else:
+            w = weights.to(torch.float32).contiguous()
+            second = torch.zeros((b, size), dtype=torch.float32, device=dev)
+            err = lib.snt_bin_counts_weighted(flat.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                              counts.data_ptr(), second.data_ptr(), b, n,
+                                              size, stream)
+    _build.check(err, "bin_counts")
+    FLAT_COUNTS_LAUNCHES.add()
+    return counts.view(torch.float32), second
+
+
+def sorted_bin_counts(flat: torch.Tensor, mask: torch.Tensor,
+                      weights: Optional[torch.Tensor], size: int, channels: int = 2
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(B, N) int flat bin ids + (B, N) bool mask [+ (B, N) {0, 1} weights]
+    → ((B, size) f32 counts, (B, size) f32 counts of the points whose
+    weight is nonzero), for large grids. ``channels=1`` returns None for the
+    second grid; ``weights=None`` with two channels gives zeros. Which
+    points count is :func:`bin_counts`'s rule.
+
+    For a CUDA tensor a first kernel makes one key a point (its id, or
+    ``size``, past every bin, where it counts nowhere), ``torch.sort``
+    orders each sample's keys, and the second kernel histograms each slab
+    of bins from its contiguous run of the sorted keys, reading a point's
+    flag through the sort's permutation; it writes every output element, so
+    nothing is zeroed here.
+    A CPU tensor takes :func:`sorted_bin_counts_plain`; a CUDA tensor
+    launches the kernel or raises.
+    """
+    _check_ids(flat, mask, size, weights)
+    if channels not in (1, 2):
+        raise ValueError(f"channels must be 1 or 2, got {channels}")
+    if channels == 1:
+        weights = None
+    if flat.device.type == "cpu":
+        return sorted_bin_counts_plain(flat, mask, weights, size, channels)
+    b, n = _check_ids_launch(flat, size)
+    dev = flat.device
+    flat = _ids_int32(flat, size)
+    mask = mask.contiguous()
+    flag = None if weights is None else (weights != 0).contiguous()
+    keys = torch.empty((b, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((b, size), dtype=torch.float32, device=dev)
+    second = torch.empty((b, size), dtype=torch.float32, device=dev) if channels == 2 else None
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib.snt_sort_keys(flat.data_ptr(), mask.data_ptr(), keys.data_ptr(),
+                                       b, n, size, stream), "sorted_bin_counts (keys)")
+        keys, order = torch.sort(keys, dim=1)
+        err = lib.snt_sorted_bin_counts(keys.data_ptr(), order.data_ptr(), _ptr(flag),
+                                        counts.data_ptr(), _ptr(second), b, n, size, stream)
+    _build.check(err, "sorted_bin_counts")
+    SORTED_COUNTS_LAUNCHES.add()
+    return counts, second

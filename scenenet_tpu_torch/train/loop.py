@@ -26,7 +26,9 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from scenenet_tpu_torch.ops.voxelize import voxelize_batch_binary
+from scenenet_tpu_torch.ops.voxelize import (
+    voxelize_batch, voxelize_batch_binary, voxelize_batch_from_indices,
+)
 from scenenet_tpu_torch.train.callbacks import BestMetricTracker, EarlyStopping
 from scenenet_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
 from scenenet_tpu_torch.train.metrics import (
@@ -71,20 +73,36 @@ def make_device_voxelize_prep(grid_shape=(64, 64, 64), keep_labels=(15,),
                               binarize=(True, True), use_indices=False):
     """A ``batch_prep`` for :class:`Trainer`: a raw padded point batch
     (points, labels, mask[, flat_idx]) on the device → (x, y) voxel grids
-    (B, 1, Z, X, Y) f32 {0, 1}, by :func:`voxelize_batch_binary`. The bins
-    are computed from the raw coordinates; ``flat_idx`` is ignored."""
-    if use_indices:
-        raise NotImplementedError("use_indices=True (voxelization from host-exact "
-                                  "bin indices) is not ported yet: ROADMAP B8")
-    if tuple(binarize) != (True, True):
-        raise NotImplementedError("the non-binarized prep (voxelize_batch's hist and "
-                                  "reg grids) is not ported yet: ROADMAP B7")
+    (B, 1, Z, X, Y) f32.
+
+    ``use_indices`` with a ``flat_idx`` in the batch takes the host-exact
+    bin indices of ``PointPadding(compute_indices=True)``
+    (:func:`voxelize_batch_from_indices`); otherwise the bins are computed
+    on the device from the raw coordinates, by :func:`voxelize_batch_binary`
+    when both grids are binarized and by :func:`voxelize_batch` when not.
+    ``binarize`` says for x (density) and y (tower fraction) whether the
+    grid becomes ``> 0`` as {0, 1}. ``use_indices`` defaults to False here
+    (True in the JAX package), as ``PointPadding.compute_indices`` does.
+    """
     grid_shape = tuple(int(g) for g in grid_shape)
     keep_labels = tuple(int(k) for k in keep_labels)
+    binarize = tuple(bool(v) for v in binarize)
 
     def prep(points, labels, mask, flat_idx=None):
-        x, y = voxelize_batch_binary(points, labels, mask, keep_labels, grid_shape)
-        return x[:, None], y[:, None]
+        if use_indices and flat_idx is not None:
+            is_tower = torch.isin(labels, torch.as_tensor(keep_labels, device=labels.device))
+            hist, reg = voxelize_batch_from_indices(flat_idx, is_tower, mask, grid_shape)
+        elif binarize == (True, True):
+            x, y = voxelize_batch_binary(points, labels, mask, keep_labels, grid_shape)
+            return x[:, None], y[:, None]
+        else:
+            hist, reg = voxelize_batch(points, labels, mask, keep_labels, grid_shape)
+        x, y = hist[:, None], reg[:, None]
+        if binarize[0]:
+            x = (x > 0).to(torch.float32)
+        if binarize[1]:
+            y = (y > 0).to(torch.float32)
+        return x, y
 
     return prep
 

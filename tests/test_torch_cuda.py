@@ -295,3 +295,182 @@ def test_batched_pipeline_on_card_matches_cpu(dev, model, inference):
         assert probs.shape == ref_probs.shape
         np.testing.assert_allclose(pred, ref_pred, rtol=0, atol=1e-5)
         np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-5)
+
+
+# ---- the histogram family: counts, ids given, ids sorted, ids out ---------------------
+
+HIST_GRIDS = [(16, 16, 16), (64, 64, 64), (12, 10, 14), (48, 40, 56), (64, 64, 256)]
+
+
+def _equal_pairs(got, want, cpu):
+    for g, w, c in zip(got, want, cpu):
+        if w is None:
+            assert g is None and c is None
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("n", [9000, 777])  # neither a multiple of 256
+@pytest.mark.parametrize("grid", HIST_GRIDS)
+def test_points_bin_counts_kernel_exact(dev, grid, n, channels):
+    pts, mask = _cloud(5, 3, n)
+    tower = (np.random.default_rng(6).random(mask.shape) < 0.05) & mask
+    host = [torch.from_numpy(a) for a in (pts, mask, tower)]
+    args = [a.to(dev) for a in host]
+    before = cuda_hist.BIN_COUNTS_LAUNCHES.count
+    got = cuda_hist.points_bin_counts(*args, grid, channels=channels)
+    assert cuda_hist.BIN_COUNTS_LAUNCHES.count == before + 1
+    _equal_pairs(got, cuda_hist.points_bin_counts_plain(*args, grid, channels),
+                 cuda_hist.points_bin_counts_plain(*host, grid, channels))
+    assert float(got[0].sum()) == mask.sum()
+    if channels == 2:  # binarized, the counts are the two-channel binary kernel's grids
+        occ, pres = cuda_hist.points_binary(*args, grid)
+        cols = got[0].reshape(3, -1, grid[1])
+        assert torch.equal((cols > cols.amin(1, keepdim=True)).float().reshape(3, -1), occ)
+        assert torch.equal((got[1] > 0).float(), pres)
+        zeros = cuda_hist.points_bin_counts(args[0], args[1], None, grid)
+        assert torch.equal(zeros[0], got[0]) and float(zeros[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n", [9000, 777])
+@pytest.mark.parametrize("grid", HIST_GRIDS)
+def test_flat_ids_kernel_exact(dev, grid, n):
+    pts, mask = _cloud(7, 3, n)
+    pts[~mask] = np.nan  # a masked point's coordinates are never read
+    pt, mt = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    before = cuda_hist.FLAT_IDS_LAUNCHES.count
+    got = cuda_hist.flat_ids(pt, mt, grid)
+    assert cuda_hist.FLAT_IDS_LAUNCHES.count == before + 1
+    want = cuda_hist.flat_ids_plain(pt, mt, grid)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    size = grid[0] * grid[1] * grid[2]
+    assert bool((got[~mt] == cuda_hist.invalid_id(size)).all()) and int(got[mt].max()) < size
+    # the counts kernel over these ids equals the raw-points counts kernel
+    a = cuda_hist.bin_counts(got, mt, size)[0]
+    assert torch.equal(a, cuda_hist.points_bin_counts(pt.nan_to_num(0.0), mt, None, grid,
+                                                      channels=1)[0])
+
+
+def _flat_case(seed, b, n, size):
+    rng = np.random.default_rng(seed)
+    flat = rng.integers(0, max(size // 7, 1), (b, n)).astype(np.int32) * 7 % size
+    flat[:, ::50] = rng.integers(0, size, flat[:, ::50].shape)
+    flat[0, :6] = [0, size - 1, size, size + 3, -1, -2 ** 31]  # the edges and outside
+    mask = rng.random((b, n)) > 0.15
+    mask[0, :6] = True
+    mask[-1, n // 2:] = False  # padded tail, ids 0
+    flat[-1, n // 2:] = 0
+    w = (rng.random((b, n)) > 0.6).astype(np.int32)
+    return flat, mask, w
+
+
+@pytest.mark.parametrize("weights", [None, "int32", "bool", "float"])
+@pytest.mark.parametrize("size,b,n", [(16 ** 3, 3, 9000), (64 ** 3, 2, 65536 + 3),
+                                      (12 * 10 * 14, 3, 777), (64 * 64 * 256, 2, 32768)])
+def test_bin_counts_kernel_exact(dev, size, b, n, weights):
+    flat, mask, w = _flat_case(size, b, n, size)
+    w = None if weights is None else w.astype({"int32": np.int32, "bool": bool,
+                                               "float": np.float32}[weights])
+    host = [torch.from_numpy(flat), torch.from_numpy(mask)]
+    hw = None if w is None else torch.from_numpy(w)
+    args = [a.to(dev) for a in host]
+    dw = None if hw is None else hw.to(dev)
+    before = cuda_hist.FLAT_COUNTS_LAUNCHES.count
+    got = cuda_hist.bin_counts(*args, size, dw)
+    assert cuda_hist.FLAT_COUNTS_LAUNCHES.count == before + 1
+    _equal_pairs(got, cuda_hist.bin_counts_plain(*args, size, dw),
+                 cuda_hist.bin_counts_plain(*host, size, hw))
+    keep = mask & (flat >= 0) & (flat < size)
+    assert float(got[0].sum()) == keep.sum()
+    assert torch.equal(cuda_hist.bin_counts(args[0].long(), args[1], size, dw)[0], got[0])
+
+
+def test_bin_counts_kernel_float_weights(dev):
+    """indicator=False: bf16-rounded weights, f32 atomics in an order that
+    changes run to run: rtol 1e-5, atol 1e-5 against the plain version; the
+    counts stay exact."""
+    size, b, n = 32 ** 3, 2, 30000
+    flat, mask, _ = _flat_case(1, b, n, size)
+    w = np.random.default_rng(2).normal(1.0, 0.5, (b, n)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (flat, mask)]
+    dw = torch.from_numpy(w).to(dev)
+    got = cuda_hist.bin_counts(*args, size, dw, indicator=False)
+    want = cuda_hist.bin_counts_plain(*args, size, dw, indicator=False)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    unrounded = torch.zeros(b * size + 1, device=dev).index_add_(
+        0, torch.where(args[1] & (args[0] >= 0) & (args[0] < size),
+                       args[0].long() + torch.arange(b, device=dev)[:, None] * size,
+                       b * size).reshape(-1), dw.reshape(-1))[:-1].reshape(b, size)
+    assert float((got[1] - unrounded).abs().max()) > 1e-3  # bf16 was applied
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("size,b,n", [(16 ** 3, 3, 9000), (12 * 10 * 14, 3, 777),
+                                      (4096, 2, 1000), (4097, 2, 1000),
+                                      (64 * 64 * 256, 2, 32768), (128 ** 3, 4, 131072),
+                                      (256 ** 3, 1, 131072)])
+def test_sorted_bin_counts_kernel_exact(dev, size, b, n, channels):
+    """Sizes around the slab width (4096 bins), non-cubic grids, and the
+    128³ and 256³ classes; equal to the plain version and to bin_counts."""
+    flat, mask, w = _flat_case(size + 1, b, n, size)
+    args = [torch.from_numpy(a).to(dev) for a in (flat, mask)]
+    dw = torch.from_numpy(w).to(dev) if channels == 2 else None
+    before = cuda_hist.SORTED_COUNTS_LAUNCHES.count
+    got = cuda_hist.sorted_bin_counts(*args, dw, size, channels=channels)
+    assert cuda_hist.SORTED_COUNTS_LAUNCHES.count == before + 1
+    want = cuda_hist.sorted_bin_counts_plain(*args, dw, size, channels)
+    other = cuda_hist.bin_counts(*args, size, dw)
+    for g, w_, o in zip(got, want, other):
+        if w_ is None:
+            assert g is None
+        else:
+            assert torch.equal(g, w_) and torch.equal(g, o)
+    if channels == 2:
+        zeros = cuda_hist.sorted_bin_counts(*args, None, size)
+        assert torch.equal(zeros[0], got[0]) and float(zeros[1].abs().sum()) == 0
+
+
+def test_sorted_bin_counts_kernel_one_hot_bin_and_all_masked(dev):
+    size = 128 * 128 * 16
+    flat = torch.full((2, 70000), 12345, dtype=torch.int32, device=dev)
+    mask = torch.ones((2, 70000), dtype=torch.bool, device=dev)
+    mask[1] = False
+    counts, flagged = cuda_hist.sorted_bin_counts(flat, mask, mask, size)
+    assert float(counts[0, 12345]) == 70000 == float(counts.sum())
+    assert float(flagged[0, 12345]) == 70000 == float(flagged.sum())
+
+
+def test_int64_ids_past_int32_count_nowhere_on_card(dev):
+    flat = torch.tensor([[5, 2 ** 32 + 5, -(2 ** 32) + 5, 7]], dtype=torch.int64, device=dev)
+    mask = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    for counts in (cuda_hist.bin_counts(flat, mask, 16)[0],
+                   cuda_hist.sorted_bin_counts(flat, mask, None, 16, channels=1)[0]):
+        assert counts[0].tolist() == [0.0] * 5 + [1.0, 0.0, 1.0] + [0.0] * 8
+
+
+def test_voxelize_routes_on_card(dev):
+    """Below the sorted sizes the raw-points kernels, at them batch_flat_ids
+    and the sorted kernel; each entry equal to its CPU (plain) result."""
+    from scenenet_tpu_torch.ops import voxelize as tv
+
+    rng = np.random.default_rng(3)
+    for grid, n, k8 in (((16, 16, 16), 5000, 0), ((128, 128, 128), 49152, 1)):
+        pts = rng.uniform(0, 30, (2, n, 3)).astype(np.float32)
+        mask = np.arange(n)[None, :] < np.array([[4000], [2500]])
+        labels = rng.choice([2, 15], (2, n)).astype(np.int32)
+        host = [torch.from_numpy(a) for a in (pts, labels, mask)]
+        card = [a.to(dev) for a in host]
+        for fn, takes_labels in ((tv.voxelize_batch, True), (tv.voxelize_batch_binary, True),
+                                 (tv.voxelize_batch_hist, False),
+                                 (tv.voxelize_batch_occupancy, False)):
+            sel = (0, 1, 2) if takes_labels else (0, 2)
+            extra = ((15,), grid) if takes_labels else (grid,)
+            before = cuda_hist.SORTED_COUNTS_LAUNCHES.count
+            got = fn(*(card[i] for i in sel), *extra)
+            assert cuda_hist.SORTED_COUNTS_LAUNCHES.count == before + k8
+            want = fn(*(host[i] for i in sel), *extra)
+            for g, w in zip((got if isinstance(got, tuple) else (got,)),
+                            (want if isinstance(want, tuple) else (want,))):
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)

@@ -88,14 +88,44 @@ def test_checkpoint_pipeline_matches_jax(tmp_path):
     np.testing.assert_allclose(got_vox, want_vox, rtol=0, atol=1e-5)
 
 
+def test_large_grid_request_matches_jax_pipeline(monkeypatch):
+    """--grid 128 at a pad length where the sorted route holds: the
+    occupancy comes from batch_flat_ids and sorted_bin_counts (the divide
+    recipe), never the occupancy kernel, and the reply agrees with the JAX
+    pipeline within 1e-5."""
+    from scenenet_tpu.cli.serve import _Pipeline as JaxPipeline
+    from scenenet_tpu_torch.ops import voxelize as tv
+
+    calls = []
+    for name in ("sorted_bin_counts", "points_occupancy"):
+        real = getattr(tv, name)
+        monkeypatch.setattr(tv, name, lambda *a, _n=name, _f=real, **k: (calls.append(_n),
+                                                                          _f(*a, **k))[1])
+    server, pipeline = tserve.build_server(["--device", "cpu", "--grid", "128",
+                                            "--max-points", "49152", "--port", "0"])
+    try:
+        points = np.round(np.random.default_rng(3).uniform(0, 30, (3000, 3)), 2
+                          ).astype(np.float32)
+        vox, probs = pipeline.predict(points)
+    finally:
+        server.server_close()
+        pipeline.close()
+    assert calls and set(calls) == {"sorted_bin_counts"}  # the warm-up and the request
+    want_vox, want_probs = JaxPipeline(None, grid=(128, 128, 128),
+                                       max_points=49152).predict(points)
+    assert vox.shape == (128, 128, 128) and probs.shape == (3000,)
+    np.testing.assert_allclose(vox, want_vox, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(probs, want_probs, rtol=0, atol=1e-5)
+
+
 def test_healthz(server):
     with urllib.request.urlopen(f"{server}/healthz", timeout=60) as r:
         info = json.loads(r.read())
     assert info["model"] == "scenenet"
     assert info["grid"] == list(GRID)
     assert info["device"] == "cpu" and info["backend"] == "torch"
-    assert set(info["kernel_launches"]) == {"points_occupancy", "stencil_conv",
-                                            "stencil_mma"}
+    assert set(info["kernel_launches"]) == {"points_occupancy", "sorted_bin_counts",
+                                            "stencil_conv", "stencil_mma"}
     assert "batching" not in info and "quantiles" not in info
 
 

@@ -559,11 +559,16 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item):
         tcli.run(_cli_cfg(dataset, tmp_path, **overrides), device="cpu")
 
 
+PORTED_SINCE = {"use_indices", "unbinarized", "host_indices"}  # B8, B7, B8: they raised once
+
+
 @pytest.mark.parametrize("case,item", [
     ("sweep", "A10"), ("use_indices", "B8"), ("unbinarized", "B7"), ("mesh", "A12"),
     ("resume_from", "A7"), ("host_indices", "B8"),
 ])
 def test_unported_entry_points_raise(case, item, tmp_path):
+    """What is not ported raises, naming its ROADMAP item; the entry points
+    ported since (``PORTED_SINCE``) must now work instead."""
     cfg = TrainConfig(run_dir=str(tmp_path / "r"), checkpoint_dir=str(tmp_path / "c"))
     net = SceneNet.create(kernel_size=(3, 3, 3))
     calls = {
@@ -573,10 +578,29 @@ def test_unported_entry_points_raise(case, item, tmp_path):
         "mesh": lambda: Trainer(net, resolve_criterion("mse")(), cfg, mesh=object()),
         "resume_from": lambda: Trainer(net, resolve_criterion("mse")(), cfg).fit(
             [], resume_from="snapshot.npz"),
-        "host_indices": lambda: PointPadding(compute_indices=True),
+        "host_indices": lambda: PointPadding(max_points=64, vxg_size=GRID,
+                                             compute_indices=True),
     }
-    with pytest.raises(NotImplementedError, match=item):
-        calls[case]()
+    if case not in PORTED_SINCE:
+        with pytest.raises(NotImplementedError, match=item):
+            calls[case]()
+        return
+    rng = np.random.default_rng(0)
+    xyz, labels = rng.uniform(0, 9, (40, 3)) + 100.0, rng.choice([2, 15], 40)
+    pts, lab, mask, flat = PointPadding(max_points=64, vxg_size=GRID,
+                                        compute_indices=True)((xyz, labels))
+    made = calls[case]()
+    if case == "host_indices":
+        assert made((xyz, labels))[3].max() > 0 and flat[40:].max() == 0
+        return
+    x, y = made(*(torch.from_numpy(a)[None] for a in (pts, lab, mask, flat)))
+    assert x.shape == y.shape == (1, 1, 16, 16, 16)
+    assert float(x.sum()) > 0 and 0 < float(y.max()) <= 1
+    if case == "unbinarized":  # y is the tower fraction, not its indicator
+        assert set(x.unique().tolist()) == {0.0, 1.0}
+        want = tv.voxelize_batch(torch.from_numpy(pts)[None], torch.from_numpy(lab)[None],
+                                 torch.from_numpy(mask)[None], (15,), GRID)[1]
+        assert torch.equal(y[0, 0], want[0])
 
 
 def test_save_checkpoint_then_restore_roundtrip(tmp_path):
@@ -586,3 +610,183 @@ def test_save_checkpoint_then_restore_roundtrip(tmp_path):
     for (n, a), b in zip(other.state_dict().items(), net.state_dict().values()):
         assert torch.equal(a, b), n
     assert json.load(open(tmp_path / "a.json")) == {"step": 1}
+
+
+# ---- the host-exact route (bins from the host in float64) and the counts grids ----
+
+def _crops(seed=3):
+    """Two crops on a 1 cm lattice in world coordinates (points on voxel
+    edges, where only the float64 host index is exact), one longer than
+    MAX_POINTS."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in (3000, 5000):
+        xyz = np.round(rng.uniform([0, 0, 0], [30, 24, 45], (m, 3)), 2) + [4.1e5, 5.2e6, 300.0]
+        out.append((xyz, rng.choice([1, 2, 15], size=m, p=[0.5, 0.35, 0.15])))
+    return out
+
+
+@pytest.mark.parametrize("vxg_size,vox_size", [((16, 16, 16), None), ((12, 10, 14), None),
+                                               ((64, 64, 64), (2.0, 2.0, 3.0))])
+def test_point_padding_host_indices_equal_jax(vxg_size, vox_size):
+    """PointPadding(compute_indices=True) against the JAX transform on its
+    numpy route: all four arrays exact, with bin counts and with voxel
+    sizes, on a short cloud and on one that is subsampled."""
+    port = PointPadding(max_points=MAX_POINTS, vxg_size=vxg_size, vox_size=vox_size,
+                        compute_indices=True)
+    ref = JaxPointPadding(max_points=MAX_POINTS, vxg_size=vxg_size, vox_size=vox_size,
+                          use_native=False, compute_indices=True)
+    for sample in _crops():
+        got, want = port(sample), ref(sample)
+        assert len(got) == len(want) == 4
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+        n = min(len(sample[0]), MAX_POINTS)
+        assert got[3][:n].max() > 0 and not got[3][n:].any() and got[2].sum() == n
+    # the default stays the device-binned route: no index is made
+    assert not PointPadding(max_points=MAX_POINTS)(_crops()[0])[3].any()
+
+
+def _index_loader(root, seed=0):
+    ds = TS40K(root, "fit", transform=PointPadding(max_points=MAX_POINTS, vxg_size=GRID,
+                                                   compute_indices=True))
+    return PointCloudLoader(ds, 2, shuffle=True, num_workers=1, seed=seed, drop_last=True)
+
+
+@pytest.fixture(scope="module")
+def index_batches(dataset, batches):
+    """The same batches as ``batches``, with the host-exact flat index."""
+    out = list(_index_loader(dataset))[:3]
+    for (p, l, m, f), (p0, l0, m0, _) in zip(out, batches):
+        assert np.array_equal(p, p0) and np.array_equal(m, m0) and f.max() > 0
+    return out
+
+
+@pytest.mark.parametrize("binarize", [(True, True), (True, False), (False, True),
+                                      (False, False)])
+@pytest.mark.parametrize("use_indices", [True, False])
+def test_device_voxelize_prep_matches_jax(index_batches, use_indices, binarize):
+    """Every branch of the prep against the JAX prep on the same batch:
+    binarized grids exact, hist and reg within 1e-6 (one f32 division)."""
+    batch = index_batches[0]
+    want = jax_prep(GRID, (15,), binarize=binarize, use_indices=use_indices)(
+        *(jnp.asarray(a) for a in batch))
+    got = make_device_voxelize_prep(GRID, (15,), binarize=binarize, use_indices=use_indices)(
+        *(torch.from_numpy(a) for a in batch))
+    for g, w, binary in zip(got, want, binarize):
+        assert g.shape == (2, 1, 16, 16, 16) and g.dtype == torch.float32
+        if binary:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            assert set(g.unique().tolist()) == {0.0, 1.0}
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+            assert len(g.unique()) > 2
+    # without a flat_idx in the batch, use_indices falls to the device bins
+    no_idx = make_device_voxelize_prep(GRID, (15,), binarize=binarize, use_indices=True)(
+        *(torch.from_numpy(a) for a in batch[:3]))
+    dev = make_device_voxelize_prep(GRID, (15,), binarize=binarize)(
+        *(torch.from_numpy(a) for a in batch))
+    assert all(torch.equal(a, b) for a, b in zip(no_idx, dev))
+
+
+@pytest.fixture(scope="module")
+def jax_index_steps(index_batches, tmp_path_factory):
+    """Three JAX train steps on the host-exact route (its prep's default)."""
+    tmp = tmp_path_factory.mktemp("jax_index_steps")
+    jnet, jparams = JaxSceneNet.create(kernel_size=KS, seed=SEED, backend="xla")
+    config = JaxTrainConfig(run_dir=str(tmp / "run"), checkpoint_dir=str(tmp / "ckpt"),
+                            learning_rate=LR, early_stop_metric=None, max_epochs=1)
+    trainer = JaxTrainer(jnet, jax_criterion("geneo_tversky")(**DEFAULTS), config,
+                         batch_prep=jax_prep(GRID, (15,), use_indices=True))
+    state, tx = create_train_state(jparams, "adam", LR, jnet.trainable_mask(jparams))
+    step, _ = trainer._build_steps(tx)
+    losses, counts = [], []
+    for b in index_batches:
+        state, m, loss, _ = step(state, jmetrics.init_metric_state(),
+                                 *(jnp.asarray(a) for a in b))
+        losses.append(float(loss))
+        counts.append(jmetrics.metric_counts(m))
+    return losses, counts, _jflat(state.params)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_three_host_exact_train_steps_match_jax(backend, index_batches, jax_index_steps,
+                                                tmp_path):
+    """A 3-step fit from host-exact indices against the JAX Trainer: losses
+    rtol 1e-4, parameters 1e-5, confusion counts exact."""
+    want_losses, want_counts, want_params = jax_index_steps
+    trainer = _port_trainer(tmp_path, backend)
+    trainer.batch_prep = make_device_voxelize_prep(GRID, (15,), use_indices=True)
+    trainer.setup_optimizer()
+    for i, b in enumerate(index_batches):
+        m, loss = trainer.train_step(tmetrics.init_metric_state(), *trainer.to_device(b))
+        np.testing.assert_allclose(float(loss), want_losses[i], rtol=1e-4)
+        assert tmetrics.metric_counts(m) == want_counts[i]
+    assert sum(c[0] for c in want_counts) > 0
+    for name, p in trainer.model.named_parameters():
+        np.testing.assert_allclose(float(p.detach()), want_params[name], rtol=0, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_tower_fraction_target_trains(index_batches, tmp_path):
+    """binarize=(True, False): the density input binarized, the target the
+    tower fraction; three finite, falling-or-equal-scale steps that move
+    the parameters."""
+    trainer = _port_trainer(tmp_path, "cuda")
+    trainer.batch_prep = make_device_voxelize_prep(GRID, (15,), binarize=(True, False))
+    trainer.setup_optimizer()
+    before = {n: float(p.detach()) for n, p in trainer.model.named_parameters()}
+    for b in index_batches:
+        _, loss = trainer.train_step(tmetrics.init_metric_state(), *trainer.to_device(b))
+        assert math.isfinite(float(loss))
+    moved = [n for n, p in trainer.model.named_parameters() if float(p.detach()) != before[n]]
+    assert len(moved) >= trainer.model.num_trainable_params() // 2
+
+
+def _spy(monkeypatch, name):
+    calls = []
+    real = getattr(tv, name)
+
+    def wrapped(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+
+    monkeypatch.setattr(tv, name, wrapped)
+    return calls
+
+
+def test_cli_host_indices_trains(dataset, tmp_path, monkeypatch, capsys):
+    """--host-indices: the loader makes the float64 bin index and the device
+    counts it (bin_counts), never the raw-points kernels."""
+    k7, k3 = _spy(monkeypatch, "bin_counts"), _spy(monkeypatch, "points_binary")
+    args = ["--device", "cpu", "--host-indices", "--set", f"data_path={dataset}",
+            f"output_dir={tmp_path}", "batch_size=2", f"voxel_grid_size={GRID}",
+            f"max_points={MAX_POINTS}", "max_epochs=1", "num_workers=1", "val_split=0.25"]
+    scores = tcli.main(args)
+    assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["val_loss"])
+    assert math.isfinite(scores["test_loss"]) and "test_F1Score" in scores
+    assert len(k7) >= 3 + 1 + 1 and not k3  # train steps, val and test batches
+    # the same through run(), and without the flag the raw-points kernel bins
+    k7.clear()
+    plain = tcli.run(_cli_cfg(dataset, tmp_path / "dev", max_epochs=1), device="cpu")
+    assert math.isfinite(plain["train_loss"]) and k3 and not k7
+    exact = tcli.run(_cli_cfg(dataset, tmp_path / "host", max_epochs=1), device="cpu",
+                     host_indices=True)
+    assert math.isfinite(exact["train_loss"]) and k7
+
+
+@pytest.mark.parametrize("host_indices", [False, True])
+def test_cli_trains_at_a_sorted_route_size(dataset, tmp_path, monkeypatch, host_indices):
+    """A grid and pad length at which the JAX package's routing predicate
+    holds ((64,64,128) with 196608 padded points): the train CLI goes
+    through sorted_bin_counts on both routes, and trains."""
+    grid, n_pad = (64, 64, 128), 196608
+    assert tv._sorted_route(n_pad, grid) and not tv._sorted_route(MAX_POINTS, grid)
+    k8 = _spy(monkeypatch, "sorted_bin_counts")
+    others = _spy(monkeypatch, "points_binary") + _spy(monkeypatch, "bin_counts")
+    cfg = _cli_cfg(dataset, tmp_path, voxel_grid_size=grid, max_points=n_pad, max_epochs=1,
+                   batch_size=4, val_split=0.0, test_checkpoint="last")
+    scores = tcli.run(cfg, device="cpu", host_indices=host_indices)
+    assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+    assert len(k8) >= 2 + 1 and not others  # 8 fit crops = 2 steps, then the test batch
