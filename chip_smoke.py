@@ -29,14 +29,20 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   through the sorted-ids kernel), and serves one request at ``--grid 128``;
 - it takes three train steps on a tower-fraction target and makes density
   grids (the counts kernel), and asks for the bin ids alone (the ids
-  kernel).
+  kernel);
+- it trains UNet3D at its full ladder (32-64-128-256-256, 18 3x3x3 convs)
+  through ``cli.train --set model=unet`` at the defaults' width (batch 16,
+  64³), every conv and its input gradient in the multi-channel conv
+  kernel, checks three steps of that backend against the plain one, times
+  the step on both, and trains ``model=cnn`` with a (3,3,3) kernel.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once. ``--profile`` adds ``torch.profiler`` passes over the batched
 serving and over the train step at both widths (device busy share, device
-items per dispatch or step).
+items per dispatch or step; for the UNet step also the conv kernel's and
+the weight gradient's share of the device time).
 """
 
 from __future__ import annotations
@@ -106,6 +112,22 @@ DEFAULTS_SET = [
     "auto_scale_batch_size=False",
 ]
 N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
+# multi-channel conv vs F.conv3d (cuDNN f32, TF32 off): f32 sums of 27*C_in products
+# in another order, on outputs of magnitude ~1. 2e-5 + 1e-5 relative up to 160 input
+# channels (the JAX package's own test bound and range); past that the absolute
+# part grows with the square root of the sum's length (x 1.8 at 512 channels)
+MC_ATOL, MC_RTOL, MC_ATOL_CHANNELS = 2e-5, 1e-5, 160
+MC_DW_REL_TOL = 1e-4  # the library's dw in two formulations: sums over 4.2 M voxels
+# UNet3D's 18 3x3x3 convs in forward order: (C_in, C_out, cubic extent at a 64^3 grid)
+UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
+              (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (256, 256, 4),
+              (512, 256, 8), (256, 128, 8), (256, 128, 16), (128, 64, 16), (128, 64, 32),
+              (64, 32, 32), (64, 32, 64), (32, 32, 64)]
+UNET_TRAIN_LAUNCHES, UNET_EVAL_LAUNCHES = 35, 18  # 18 forward + 17 dx (none at C_in = 1)
+# UNet train steps, kernel backend vs plain: the convs round differently, and Adam
+# turns a gradient entry near 0 into a step of +-lr = 1e-3 in either; the running
+# statistics are held to 3e-3 absolute plus 3e-3 relative
+UNET_LOSS_RTOL, UNET_STATS_TOL = 1e-3, 3e-3
 BIG_FIT, BIG_TEST = 18, 4  # the 128³ runs' smaller directory: 4 train steps an epoch
 
 
@@ -206,7 +228,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4, library_fn=None):
+def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4, library_fn=None,
+              warmup: int = 3):
     """Median ms per call of the kernel, of its plain version and, where
     given, of the one library call that computes the same function, timed
     in alternating order (plain, library, kernel, kernel, library, plain,
@@ -216,7 +239,7 @@ def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4, library_fn=None)
     acc = {k: [] for k, _ in sides}
     for r in range(rounds):
         for k, fn in (sides if r % 2 == 0 else sides[::-1]):
-            acc[k].append(cuda_ms(fn, iters))
+            acc[k].append(cuda_ms(fn, iters, warmup))
     out = {"ms": float(np.median(acc["kernel"])), "plain_ms": float(np.median(acc["plain"])),
            "range": (min(acc["kernel"]), max(acc["kernel"])),
            "plain_range": (min(acc["plain"]), max(acc["plain"])), "library_ms": None}
@@ -328,7 +351,8 @@ def main(argv=None) -> int:
     from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, TS40K
     from scenenet_tpu_torch.losses import resolve_criterion
     from scenenet_tpu_torch.models.scenenet import SceneNet
-    from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_hist
+    from scenenet_tpu_torch.models.unet3d import BLOCKS, UNet3D
+    from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_conv_mc, cuda_hist
     from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
     from scenenet_tpu_torch.ops import voxel_np
     from scenenet_tpu_torch.ops.voxelize import (
@@ -349,7 +373,8 @@ def main(argv=None) -> int:
                 "points_bin_counts": cuda_hist.BIN_COUNTS_LAUNCHES,
                 "bin_counts": cuda_hist.FLAT_COUNTS_LAUNCHES,
                 "sorted_bin_counts": cuda_hist.SORTED_COUNTS_LAUNCHES,
-                "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES}
+                "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES,
+                "conv3d_mc": cuda_conv_mc.MC_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -360,7 +385,8 @@ def main(argv=None) -> int:
 
     def profiled(fn):
         """fn under torch.profiler: wall seconds, device busy µs, the count of
-        device items, and the six largest of them as text."""
+        device items, the six largest of them as text, and the device µs by
+        kernel name and (inclusive of its kernels) by host operator."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
@@ -374,8 +400,12 @@ def main(argv=None) -> int:
         busy_us = sum(e.self_device_time_total for e in on_dev)
         check(busy_us > 0, "the profiler recorded no device time")
         top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]
+        by_name = {e.key: e.device_time_total for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CUDA}
+        by_name.update((e.key, e.self_device_time_total) for e in on_dev)
         return wall, busy_us, sum(e.count for e in on_dev), ", ".join(
-            f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top)
+            f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+            for e in top), by_name
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -862,6 +892,114 @@ def main(argv=None) -> int:
     del tp_d, tm_d, tower16_d, big_ids, huge_ids, dense_ids, big_f, big_m, big_w, big_keys
     torch.cuda.empty_cache()
 
+    # ---- 8b. K10 multi-channel conv vs plain: every UNet layer shape -----------
+    def mc_case(seed, b, cin, cout, shape, last=False):
+        """x ~ U(0, 1) and weights of variance 1/(27 C_in): outputs of magnitude ~1."""
+        gen = torch.Generator(dev).manual_seed(seed)
+        xs = (b, *shape, cin) if last else (b, cin, *shape)
+        xm = torch.rand(xs, device=dev, generator=gen)
+        wm = torch.randn((cout, cin, 3, 3, 3), device=dev, generator=gen) / math.sqrt(27 * cin)
+        return xm, wm
+
+    def mc_check(label, xm, wm, last=False):
+        got = cuda_conv_mc.conv3d_mc_same(xm, wm, channels_last=last)
+        want = cuda_conv_mc.conv3d_mc_same_plain(xm, wm, channels_last=last)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        atol = MC_ATOL * max(1.0, math.sqrt(wm.shape[1] / MC_ATOL_CHANNELS))
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"K10 {label}: non-finite or misshapen output")
+        check(bool(((got - want).abs() <= atol + MC_RTOL * want.abs()).all()),
+              f"K10 {label}: max|d| {err:.3g} outside {atol:.3g} + {MC_RTOL} relative")
+        return err
+
+    mc_shapes = list(dict.fromkeys(UNET_CONVS))  # the 16 distinct layer shapes
+    net_shapes = []
+    for blk in (getattr(UNet3D(), n) for n in BLOCKS):
+        net_shapes += [tuple(blk.conv0.shape[1::-1]), tuple(blk.conv1.shape[1::-1])]
+    check(net_shapes == [c[:2] for c in UNET_CONVS], f"UNet3D's convs are {net_shapes}")
+    k10_err, parts = 0.0, []
+    for cin, cout, n in mc_shapes:
+        xm, wm = mc_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
+        err = mc_check(f"{cin}->{cout} {n}^3", xm, wm)
+        k10_err = max(k10_err, err)
+        parts.append(f"{cin}->{cout} {n}^3 {err:.3g}")
+        del xm, wm
+    odd = mc_check("16->24 (5,9,7)", *mc_case(1, 2, 16, 24, (5, 9, 7)))
+    xl, wl = mc_case(2, 2, 24, 16, (10, 10, 10), last=True)
+    last = mc_check("channels-last 24->16 10^3", xl, wl, last=True)
+    k10_err = max(k10_err, odd, last)
+    # fused_conv3d_mc: dx (the kernel on the flipped, swapped weights) and dw (the
+    # library call) against autograd through the plain version
+    grad_parts = []
+    for cin, cout, n in ((64, 32, 32), (256, 128, 8)):
+        xm, wm = mc_case(3, 4, cin, cout, (n, n, n))
+        gm = torch.randn((4, cout, n, n, n), device=dev,
+                         generator=torch.Generator(dev).manual_seed(4))
+        xa, wa = xm.clone().requires_grad_(), wm.clone().requires_grad_()
+        before = cuda_conv_mc.MC_LAUNCHES.count
+        (cuda_conv_mc.fused_conv3d_mc(xa, wa) * gm).sum().backward()
+        check(cuda_conv_mc.MC_LAUNCHES.count == before + 2, "fused_conv3d_mc: forward + dx")
+        xb, wb = xm.clone().requires_grad_(), wm.clone().requires_grad_()
+        (cuda_conv_mc.conv3d_mc_same_plain(xb, wb) * gm).sum().backward()
+        wc = wm.clone().requires_grad_()
+        before = cuda_conv_mc.MC_LAUNCHES.count
+        (cuda_conv_mc.fused_conv3d_mc(xm, wc) * gm).sum().backward()
+        check(cuda_conv_mc.MC_LAUNCHES.count == before + 1,
+              "fused_conv3d_mc launched dx for an input that needs no gradient")
+        torch.cuda.synchronize()
+        dx_err = float((xa.grad - xb.grad).abs().max())
+        dw_err, dw_scale = float((wa.grad - wb.grad).abs().max()), float(wb.grad.abs().max())
+        check(bool(((xa.grad - xb.grad).abs() <= MC_ATOL + MC_RTOL * xb.grad.abs()).all()),
+              f"fused_conv3d_mc {cin}->{cout}: dx off by {dx_err:.3g}")
+        check(dw_err <= MC_DW_REL_TOL * dw_scale,
+              f"fused_conv3d_mc {cin}->{cout}: dw off by {dw_err:.3g} of {dw_scale:.3g}")
+        grad_parts.append(f"{cin}->{cout} {n}^3: max|ddx| {dx_err:.3g}, max|ddw| {dw_err:.3g} "
+                          f"(max|dw| {dw_scale:.3g})")
+        del xm, wm, gm, xa, wa, xb, wb, wc
+    print(f"[K10 conv3d_mc] B={TRAIN_BATCH}, max|d| vs F.conv3d (cuDNN f32, TF32 off), limit "
+          f"{MC_ATOL} (x sqrt(C_in/{MC_ATOL_CHANNELS}) past {MC_ATOL_CHANNELS} channels) + "
+          f"{MC_RTOL} relative | " + ", ".join(parts)
+          + f" | B=2 16->24 (5,9,7) {odd:.3g} | channels-last 24->16 10^3 {last:.3g} | "
+          "fused_conv3d_mc grads vs autograd of the plain version: " + "; ".join(grad_parts),
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # K10 times at the batch the path runs; library = plain = one F.conv3d (timed apart)
+    mc_times, mc_bounds = {}, {}
+    with torch.no_grad():
+        for cin, cout, n in mc_shapes:
+            xm, wm = mc_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
+            mc_times[cin, cout, n] = paired_ms(
+                lambda: cuda_conv_mc.conv3d_mc_same(xm, wm),
+                lambda: cuda_conv_mc.conv3d_mc_same_plain(xm, wm), iters=3,
+                library_fn=lambda: F.conv3d(xm, wm, padding=1), warmup=1)
+            vox = TRAIN_BATCH * n ** 3
+            mc_bounds[cin, cout, n] = bound_ms(4.0 * (vox * (cin + cout) + 27 * cin * cout),
+                                               2.0 * 27 * cin * cout * vox, F32_FLOPS)
+            del xm, wm
+            torch.cuda.empty_cache()
+    # the library's dw as the port calls it (cuDNN off) and through cuDNN
+    dw_ms = {}
+    for cin, cout, n in ((1, 32, 64), (32, 32, 64), (512, 256, 8)):
+        xm, _ = mc_case(5, TRAIN_BATCH, cin, cout, (n, n, n))
+        gm = torch.randn((TRAIN_BATCH, cout, n, n, n), device=dev)
+        dw_ms[cin, cout, n] = (
+            cuda_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(xm, gm), 3, 1),
+            cuda_ms(lambda: torch.nn.grad.conv3d_weight(xm, (cout, cin, 3, 3, 3), gm,
+                                                        padding=1), 3, 1))
+        del xm, gm
+        torch.cuda.empty_cache()
+    print(f"[timing] K10 conv3d_mc B={TRAIN_BATCH} ({smi}), median of 4 alternating rounds, ms "
+          "kernel / plain / library (one F.conv3d, cuDNN f32, TF32 off) / bound: "
+          + " | ".join(f"{c}->{o} {n}^3 {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                       f"{t['library_ms']:.4f} / {mc_bounds[c, o, n][0]:.4f} "
+                       f"({mc_bounds[c, o, n][1]})" for (c, o, n), t in mc_times.items())
+          + " | the library's dw (torch.nn.grad.conv3d_weight, full f32), ms with cuDNN off "
+          "(as fused_conv3d_mc calls it) / through cuDNN: "
+          + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f}" for (c, o, n), (a, b) in dw_ms.items()),
+          flush=True)
+
     # ---- 9. main path: serve ------------------------------------------------
     gpu = _Pipeline(None)  # serving defaults: 64³, 131072 points, (9,5,5), card
     check(gpu.device.type == "cuda" and gpu.backend == "cuda", "pipeline not on the card")
@@ -981,7 +1119,7 @@ def main(argv=None) -> int:
                 "server ms: " + ", ".join(f"{r[3]:.1f}" for r in replies))
         if opts.profile:
             before = healthz(url)["batching"]["dispatches"]
-            prof_wall, busy_us, n_items, largest = profiled(
+            prof_wall, busy_us, n_items, largest, _ = profiled(
                 lambda: post_concurrently(f"{url}/predict", clouds, TAU))
             n_disp = healthz(url)["batching"]["dispatches"] - before
             line += (f" | [profile] 16 requests in {n_disp} dispatches, {prof_wall * 1e3:.1f} ms "
@@ -1219,7 +1357,7 @@ def main(argv=None) -> int:
                                lambda: pair[False].train_step(state, *dbatch), iters=5)
             if opts.profile:
                 n_prof = 5
-                wall, busy_us, n_items, largest = profiled(lambda: [
+                wall, busy_us, n_items, largest, _ = profiled(lambda: [
                     pair[False].train_step(state, *dbatch) for _ in range(n_prof)])
                 print(f"[profile] train step, bins on the card, B={batch_size} grid {grid} "
                       f"N={n_pad} ({smi}): {n_prof} steps in {wall * 1e3:.1f} ms wall, device "
@@ -1290,10 +1428,113 @@ def main(argv=None) -> int:
               + f"; voxelize_batch_hist > 0 = the occupancy; flat_ids (K9, multiply recipe) "
               f"agrees with batch_flat_ids (divide) on {int(same.sum())} of {same.numel()} "
               f"points | launches {counts_path}", flush=True)
-        del frac, batches, density, ids
+        del frac, density, ids
+
+        # ---- 16. main path: UNet3D through the train CLI, every conv in K10 ------
+        unet_steps = n_train // TRAIN_BATCH
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        unet_scores, unet_losses, unet_s, unet_counts = train_run(
+            "unet", [f"data_path={tmp / 'ts40k'}", "model=unet", "device_cache=auto"], False)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # 3 steps, one validation batch and one test batch
+        check(unet_counts["conv3d_mc"] == UNET_TRAIN_LAUNCHES * unet_steps
+              + UNET_EVAL_LAUNCHES * 2,
+              f"unet: K10 launched {unet_counts['conv3d_mc']} times in {unet_steps} steps and "
+              "2 evaluation batches")
+        check(unet_counts["points_binary"] == unet_steps + 2
+              and unet_counts["stencil_conv"] == unet_counts["stencil_dk"] == 0,
+              f"unet: launches {unet_counts}")
+        check(all(f"test_{m}" in unet_scores for m in metrics.METRIC_NAMES), "unet test scores")
+        best_ckpt = sorted((tmp / "unet" / "ckpt").glob("train_FBetaScore_step*.npz"))
+        check(len(best_ckpt) >= 1, "unet: no best checkpoint")
+        unet = restore_checkpoint(str(best_ckpt[0]), UNet3D.create(seed=1, backend="cuda")).to(dev)
+        fresh = UNet3D.create(seed=0)
+        check(float((unet.down0.bn0.mean.cpu() - fresh.down0.bn0.mean).abs().max()) > 0
+              and not torch.equal(unet.up3.conv1.cpu(), fresh.up3.conv1),
+              "unet: the checkpoint holds the initial weights or statistics")
+        with torch.no_grad():
+            probs = unet.eval()(prep(*(torch.as_tensor(a).to(dev) for a in batches[0]))[0])
+        check(bool(torch.isfinite(probs).all()) and 0 <= float(probs.min())
+              and float(probs.max()) <= 1 and tuple(probs.shape) == (TRAIN_BATCH, 1, 64, 64, 64),
+              "unet: restored model's prediction")
+        print(f"[train unet] cli.train model=unet, defaults width (B={TRAIN_BATCH}, 64^3, "
+              f"{TRAIN_POINTS} points, ladder 32-64-128-256-256, geneo_tversky, adam), 1 epoch = "
+              f"{unet_steps} steps + 1 validation + 1 test batch in {unet_s:.1f} s | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(unet_losses.items()))
+              + f" | test_F1Score {unet_scores['test_F1Score']:.4f} | best checkpoint "
+              f"{best_ckpt[0].name} restored, probabilities in [{float(probs.min()):.4f}, "
+              f"{float(probs.max()):.4f}] | peak device memory {peak_gb:.2f} GB | launches "
+              f"{unet_counts}", flush=True)
+        del unet, probs
+
+        # ---- 17. UNet train parity and step time: K10 backend vs plain backend ---
+        unets = {}
+        for backend in ("cuda", "torch"):
+            unets[backend] = Trainer(UNet3D.create(seed=0, backend=backend).to(dev), crit,
+                                     TrainConfig(run_dir=str(tmp / f"unet_{backend}"),
+                                                 checkpoint_dir=str(tmp / f"unet_ckpt_{backend}")),
+                                     batch_prep=prep)
+            unets[backend].setup_optimizer()
+        parts, max_dloss = [], 0.0
+        reset_counts()
+        for i, b in enumerate(batches):
+            dbatch = unets["cuda"].to_device(b)
+            res = {k: t.train_step(metrics.init_metric_state(dev), *dbatch)
+                   for k, t in unets.items()}
+            lc, lt = float(res["cuda"][1]), float(res["torch"][1])
+            check(math.isfinite(lc) and abs(lc - lt) <= UNET_LOSS_RTOL * abs(lt),
+                  f"unet step {i}: loss {lc} vs {lt}")
+            max_dloss = max(max_dloss, abs(lc - lt) / abs(lt))
+            parts.append(f"step {i}: loss {lc:.7f} / {lt:.7f}")
+        unet_parity_counts = read_counts()
+        check(unet_parity_counts["conv3d_mc"] == UNET_TRAIN_LAUNCHES * len(batches),
+              f"unet parity: K10 launched {unet_parity_counts['conv3d_mc']} times")
+        stats_err, stats_at = max(
+            (float(((a - c).abs() / (1 + c.abs())).max()), n) for (n, a), c in zip(
+                unets["cuda"].model.named_buffers(), unets["torch"].model.buffers()))
+        check(stats_err <= UNET_STATS_TOL, f"unet: running statistics differ by {stats_err:.3g}")
+        print(f"[train unet parity] 3 steps, backend cuda (K10) vs torch (cuDNN, TF32 off) from "
+              f"the same weights: max rel|dloss| {max_dloss:.3g} (limit {UNET_LOSS_RTOL}), "
+              f"max|d running statistics|/(1 + |s|) {stats_err:.3g} (at {stats_at}; limit {UNET_STATS_TOL}) | "
+              + " | ".join(parts), flush=True)
+        dbatch = unets["cuda"].to_device(batches[0])
+        ms = {k: metrics.init_metric_state(dev) for k in unets}
+        unet_step_t = paired_ms(lambda: unets["cuda"].train_step(ms["cuda"], *dbatch),
+                                lambda: unets["torch"].train_step(ms["torch"], *dbatch),
+                                iters=2, warmup=1)
+        print(f"[timing] UNet3D train step B={TRAIN_BATCH} 64^3 N={TRAIN_POINTS} geneo_tversky "
+              f"adam ({smi}), median of 4 alternating rounds [min-max] ms/step: "
+              + fmt_times({"backend cuda (K10 forward and dx) vs torch": unet_step_t}),
+              flush=True)
+        if opts.profile:
+            n_prof = 3
+            wall, busy_us, n_items, largest, by_name = profiled(lambda: [
+                unets["cuda"].train_step(ms["cuda"], *dbatch) for _ in range(n_prof)])
+            k10_us = sum(v for k, v in by_name.items() if "conv3d_mc_kernel" in k)
+            dw_us = by_name.get("aten::convolution_backward", 0.0)
+            print(f"[profile] UNet3D train step, backend cuda, B={TRAIN_BATCH} 64^3 ({smi}): "
+                  f"{n_prof} steps in {wall * 1e3:.1f} ms wall, device busy {busy_us / 1e3:.3f} "
+                  f"ms = idle share {1 - busy_us / 1e6 / wall:.4f}, {n_items / n_prof:.1f} "
+                  f"device items a step; K10 {k10_us / busy_us:.4f} of the device time, the "
+                  f"library's weight gradients (aten::convolution_backward) "
+                  f"{dw_us / busy_us:.4f}; largest: {largest}", flush=True)
+        del unets, dbatch, batches
+        torch.cuda.empty_cache()
+
+        # ---- 18. main path: CnnBaseline with a (3,3,3) kernel through K10 --------
+        _, cnn_losses, cnn_s, cnn_counts = train_run(
+            "cnn", [f"data_path={tmp / 'ts40k'}", "model=cnn", "kernel_size=(3, 3, 3)"], False)
+        # two convs forward, dx of the second alone; two convs an evaluation batch
+        check(cnn_counts["conv3d_mc"] == 3 * unet_steps + 2 * 2,
+              f"cnn: K10 launched {cnn_counts['conv3d_mc']} times")
+        print(f"[train cnn] cli.train model=cnn kernel_size=(3,3,3): 1 epoch = {unet_steps} "
+              f"steps in {cnn_s:.1f} s | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(cnn_losses.items()))
+              + f" | launches {cnn_counts}", flush=True)
 
     main_runs = [serve_counts, headline_counts, batched_counts, train_counts, host_counts,
-                 *big_counts.values(), big_serve_counts, counts_path]
+                 *big_counts.values(), big_serve_counts, counts_path, unet_counts, cnn_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
     # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch
@@ -1329,6 +1570,15 @@ def main(argv=None) -> int:
         # points and mask in, int32 ids out
         "flat_ids": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 17.0),
     }
+    # K10: the UNet's 18 forward convs at the train batch, one after the other
+    # (x and w in, the result out, 2*27*C_in*C_out operations a voxel; the sum
+    # of the 18 bounds)
+    mc_sum = {k: sum(mc_times[c][k] for c in UNET_CONVS) for k in ("ms", "plain_ms", "library_ms")}
+    bounds["conv3d_mc"] = (sum(mc_bounds[c][0] for c in UNET_CONVS),
+                           "operations" if sum(mc_bounds[c][0] for c in UNET_CONVS
+                                               if mc_bounds[c][1] == "operations")
+                           >= sum(mc_bounds[c][0] for c in UNET_CONVS
+                                  if mc_bounds[c][1] == "bytes") else "bytes")
 
     def entry(name, source, replaces, err, t, shape):
         b_ms, by = bounds[name]
@@ -1359,6 +1609,8 @@ def main(argv=None) -> int:
               big_times["sorted_bin_counts"], f"B={BIG_BATCH} N={MAX_POINTS} 128^3 2ch"),
         entry("flat_ids", "points_occupancy.cu", "pallas_hist.py:647", k9_err,
               hist_times["flat_ids"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3"),
+        entry("conv3d_mc", "conv3d_mc.cu", "pallas_conv_mc.py:100", k10_err, mc_sum,
+              f"B={TRAIN_BATCH} 64^3, the sum over UNet3D's 18 forward convs"),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")

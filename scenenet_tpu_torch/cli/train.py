@@ -1,9 +1,12 @@
 """Train + test entry point.
 
-PyTorch twin of ``scenenet_tpu.cli.train`` for SCENE-Net on TS40K: builds
-criterion → model → data → trainer from a config, fits with per-metric
-checkpoints and early stopping on the streaming loader, then tests with the
-best checkpoint.
+PyTorch twin of ``scenenet_tpu.cli.train`` on TS40K: builds criterion →
+model → data → trainer from a config, fits with per-metric checkpoints and
+early stopping on the streaming loader, then tests with the best
+checkpoint. ``model`` is ``scenenet`` or one of the black-box baselines,
+``cnn`` (:class:`CnnBaseline` with the config's kernel size) and ``unet``
+(:class:`UNet3D`, whose BatchNorm statistics ride along in every
+checkpoint).
 
 Usage:
     python -m scenenet_tpu_torch.cli.train --config experiments/defaults.yaml \\
@@ -28,7 +31,7 @@ from typing import Dict, List, Optional
 from scenenet_tpu_torch.cli.serve import resolve_device
 from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K, random_split
 from scenenet_tpu_torch.losses import resolve_criterion
-from scenenet_tpu_torch.models import SceneNet
+from scenenet_tpu_torch.models import CnnBaseline, SceneNet, UNet3D
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
 from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config
@@ -42,8 +45,9 @@ _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Raise, naming the ROADMAP item, on every value that asks for
     something the port does not have yet."""
-    if cfg.model != "scenenet":
-        raise NotImplementedError(f"model {cfg.model!r} is not ported yet: ROADMAP A8")
+    if cfg.model == "quantile":
+        raise NotImplementedError("model 'quantile' (quantile training, with the quantile "
+                                  "losses of A9) is not ported yet: ROADMAP A8")
     if cfg.dataset != "ts40k":
         raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet: ROADMAP A0")
     meshes = {k: getattr(cfg, k) for k in ("mesh_data", "mesh_space", "mesh_dcn_data",
@@ -75,8 +79,12 @@ def resolve_device_cache(cfg: ExperimentConfig) -> bool:
     """``auto`` resolves to the streaming loader (no device cache), and says
     so; an explicit cache raises."""
     if cfg.device_cache == "auto":
-        print("[device_cache auto] -> false (device-resident epochs are not ported "
-              "yet: ROADMAP A6)")
+        if cfg.model == "unet":
+            # BatchNorm running statistics: the cached fits are stateless-only
+            print("[device_cache auto] -> false (stateful model)")
+        else:
+            print("[device_cache auto] -> false (device-resident epochs are not ported "
+                  "yet: ROADMAP A6)")
         return False
     if cfg.device_cache not in (False, None, "false", "False"):
         raise NotImplementedError(f"device_cache={cfg.device_cache!r} (device-resident "
@@ -91,7 +99,27 @@ def resolve_backend(cfg: ExperimentConfig, device) -> str:
     if cfg.model_backend not in _BACKENDS:
         raise ValueError(f"model_backend must be auto or one of {sorted(_BACKENDS)}, "
                          f"got {cfg.model_backend!r}")
-    return _BACKENDS[cfg.model_backend]
+    backend = _BACKENDS[cfg.model_backend]
+    if backend == "cuda_mxu" and cfg.model != "scenenet":
+        raise ValueError(f"model_backend={cfg.model_backend!r} is SceneNet's tensor-core "
+                         f"stencil; model {cfg.model!r} takes auto, cuda/pallas or torch/xla")
+    return backend
+
+
+def build_model(cfg: ExperimentConfig, device):
+    """The config's model on ``device``, its weights drawn from ``cfg.seed``."""
+    backend = resolve_backend(cfg, device)
+    if cfg.model == "scenenet":
+        model = SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
+                                backend=backend)
+    elif cfg.model == "cnn":
+        model = CnnBaseline.create(conv_num=3, kernel_size=cfg.kernel_size, seed=cfg.seed,
+                                   backend=backend)
+    elif cfg.model == "unet":
+        model = UNet3D.create(seed=cfg.seed, backend=backend)
+    else:
+        raise NotImplementedError(f"model {cfg.model!r}")
+    return model.to(device)
 
 
 def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
@@ -104,8 +132,7 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
 
     criterion = resolve_criterion(cfg.criterion)(**cfg.criterion_params())
-    model = SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
-                            backend=resolve_backend(cfg, device)).to(device)
+    model = build_model(cfg, device)
     if cfg.resume_from_checkpoint:
         ckpt_path = os.path.join(ckpt_dir, cfg.resume_checkpoint_name + ".npz")
         if not os.path.exists(ckpt_path):
@@ -173,7 +200,7 @@ def parse_overrides(pairs: List[str]) -> Dict[str, object]:
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    parser = argparse.ArgumentParser(description="Train SCENE-Net (PyTorch)")
+    parser = argparse.ArgumentParser(description="Train SCENE-Net or a baseline (PyTorch)")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--set", action="extend", nargs="*", default=[],
                         help="config overrides key=value (repeatable)")

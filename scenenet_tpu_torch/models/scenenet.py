@@ -23,7 +23,9 @@ tensor-core forward with the same backward. On every backend
 ``inference="mxu"`` / ``"mxu_fast"`` take the tensor-core stencil
 (:func:`~scenenet_tpu_torch.ops.cuda_conv.geneo_stencil_conv_mxu`).
 
-:class:`QuantileSceneNet` is an ensemble of one SceneNet per quantile.
+:class:`QuantileSceneNet` is an ensemble of one SceneNet per quantile;
+:class:`SceneNetClassifier` is a SceneNet with a trainable threshold τ
+and a hard {0, 1} output.
 """
 
 from __future__ import annotations
@@ -305,3 +307,51 @@ class QuantileSceneNet(nn.Module):
 
     def trainable_mask(self) -> Dict:
         return self.net.trainable_mask()
+
+
+class SceneNetClassifier(SceneNet):
+    """SceneNet + trainable threshold τ → hard {0, 1} grid.
+
+    PyTorch twin of :class:`scenenet_tpu.models.scenenet.SceneNetClassifier`.
+    The JAX class wraps a SceneNet and keeps ``tau`` beside its parameters;
+    here τ is one more 0-d parameter of a SceneNet subclass, so the
+    checkpoint keys are the same (``geneo/...``, ``lambdas/...``, ``tau``)
+    and the constraint hooks (``cvx_coefficients``, ``geneo_params_flat``,
+    ``last_lambda``, ``synthesize_kernels``) are the inner net's own. The
+    hard comparison carries no gradient; ``straight_through=True`` gives τ
+    and the net the gradient of a sigmoid of slope 50 around it.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tau = nn.Parameter(torch.zeros(()))
+
+    @classmethod
+    def create(cls, geneo_num: Optional[Mapping[str, int]] = None,
+               kernel_size: Tuple[int, int, int] = (9, 6, 6), version: str = "v2",
+               seed: int = 0, backend: str = "torch") -> "SceneNetClassifier":
+        """The SceneNet of ``seed``, and τ = 0.4·u with u the first draw of a
+        numpy ``Generator`` seeded ``seed + 17``: U[0, 0.4], as the JAX
+        package draws it."""
+        model = super().create(geneo_num, kernel_size, version, seed, backend)
+        tau = 0.4 * np.random.default_rng(seed + 17).random()
+        with torch.no_grad():
+            model.tau.copy_(torch.tensor(tau, dtype=torch.float32))
+        return model
+
+    def forward(self, x: torch.Tensor, straight_through: bool = False) -> torch.Tensor:
+        """x (B, 1, Z, X, Y) → the {0, 1} grid ``probs >= τ`` in x's dtype."""
+        probs = super().forward(x)
+        hard = (probs >= self.tau).to(x.dtype)
+        if straight_through:
+            soft = torch.sigmoid((probs - self.tau) * 50.0)
+            return soft + (hard - soft).detach()
+        return hard
+
+    def parameters_in_dict(self) -> Dict[str, float]:
+        out = super().parameters_in_dict()
+        out["tau"] = float(self.tau.detach())
+        return out
+
+    def trainable_mask(self) -> Dict:
+        return {**super().trainable_mask(), "tau": True}

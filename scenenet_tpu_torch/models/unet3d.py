@@ -1,0 +1,236 @@
+"""3D U-Net comparison baseline.
+
+PyTorch twin of :class:`scenenet_tpu.models.unet3d.UNet3D` as an
+``nn.Module``: an encoder/decoder of [Conv→BN→ReLU]×2 blocks, 2× max-pool
+downscaling, nearest-neighbour upsampling with pad-and-concat skip
+connections, a 1×1×1 output conv and a sigmoid head. Channel ladder
+32→64→128→256→256 (the bottleneck halved for the non-transposed
+upsampling). The blocks carry the JAX module's names (``down0..down4``,
+``up0..up3``, ``out``); tensors are channels first throughout (the flax
+module is channels last inside, for the TPU).
+
+``backend="torch"`` runs every 3³ conv as ``F.conv3d`` (TF32 off); ``backend="cuda"``
+runs it through :func:`~scenenet_tpu_torch.ops.cuda_conv_mc.fused_conv3d_mc`,
+the hand-written kernel forward and for dx. The 1×1×1 head is a matrix
+product on both (the JAX package computes it outside any kernel too).
+
+:class:`FlaxBatchNorm` follows ``flax.linen.BatchNorm``'s defaults, not
+``nn.BatchNorm3d``'s: the running statistics move by 0.01 a step
+(momentum 0.99) and store the **biased** batch variance. The batch
+variance comes from the library's two-pass kernel where flax computes
+E[x²] − E[x]²: they agree to f32 rounding of the sums (about 1e-6
+relative).
+
+A checkpoint holds the flax layout (:meth:`UNet3D.flax_state`):
+``params/<block>/Conv_i/kernel`` (k_z, k_x, k_y, in, out),
+``params/<block>/BatchNorm_i/{scale,bias}``,
+``batch_stats/<block>/BatchNorm_i/{mean,var}``, ``params/out/{kernel,bias}``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scenenet_tpu_torch.ops.conv3d import conv3d_f32
+from scenenet_tpu_torch.ops.cuda_conv_mc import fused_conv3d_mc
+
+_BACKENDS = ("torch", "cuda")
+BLOCKS = ("down0", "down1", "down2", "down3", "down4", "up0", "up1", "up2", "up3")
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, in place: a normal of variance 1/fan_in
+    truncated at two standard deviations (and rescaled for the cut)."""
+    fan_in = w[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, mean=0.0, std=std, a=-2 * std, b=2 * std,
+                                 generator=generator)
+
+
+def conv3d_kernel_to_flax(w: torch.Tensor) -> torch.Tensor:
+    """(out, in, k_z, k_x, k_y) → flax's (k_z, k_x, k_y, in, out)."""
+    return w.permute(2, 3, 4, 1, 0)
+
+
+def load_flax_views(own: Mapping[str, torch.Tensor], state: Mapping[str, torch.Tensor],
+                    what: str) -> None:
+    """Copy ``state`` into ``own``, a module's ``flax_state()``: its entries
+    are views of the module's own tensors in the flax layout, so the copy
+    lands in the module. Names and shapes must match."""
+    missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"{what} state: missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for key, dst in own.items():
+            src = torch.as_tensor(state[key], dtype=dst.dtype)
+            if src.shape != dst.shape:
+                raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
+
+
+class FlaxBatchNorm(nn.Module):
+    """Batch normalisation over every axis but the channel (axis 1), with
+    flax's defaults: epsilon 1e-5, momentum 0.99, biased running variance."""
+
+    MOMENTUM = 0.99
+    EPS = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
+                                training=False, eps=self.EPS)
+        # with momentum 1 the two scratch buffers come back as the batch's
+        # mean and its unbiased variance
+        batch_mean, unbiased = torch.zeros_like(self.mean), torch.zeros_like(self.var)
+        out = F.batch_norm(x, batch_mean, unbiased, self.scale, self.bias, training=True,
+                           momentum=1.0, eps=self.EPS)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.mean.mul_(self.MOMENTUM).add_(batch_mean, alpha=1 - self.MOMENTUM)
+            self.var.mul_(self.MOMENTUM).add_(unbiased * ((n - 1) / n), alpha=1 - self.MOMENTUM)
+        return out
+
+
+class _ConvBlock(nn.Module):
+    """conv → BN → relu, twice; the convs are 3³, SAME, without bias."""
+
+    def __init__(self, in_features: int, features: int, mid_features: Optional[int],
+                 backend: str):
+        super().__init__()
+        mid = mid_features or features
+        self.backend = backend
+        self.conv0 = nn.Parameter(torch.zeros((mid, in_features, 3, 3, 3)))
+        self.bn0 = FlaxBatchNorm(mid)
+        self.conv1 = nn.Parameter(torch.zeros((features, mid, 3, 3, 3)))
+        self.bn1 = FlaxBatchNorm(features)
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.backend == "cuda":
+            return fused_conv3d_mc(x, w)
+        return conv3d_f32(x, w, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn0(self._conv(x, self.conv0)))
+        return torch.relu(self.bn1(self._conv(x, self.conv1)))
+
+
+def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Every voxel repeated twice along each spatial axis."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def _pad_to(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Zero-pad x's spatial axes to target's: ``diff // 2`` low, the rest high."""
+    pads = []
+    for axis in (4, 3, 2):  # F.pad takes the last axis first
+        diff = target.shape[axis] - x.shape[axis]
+        pads += [diff // 2, diff - diff // 2]
+    return F.pad(x, pads) if any(pads) else x
+
+
+class UNet3D(nn.Module):
+    """Build with :meth:`create` to draw the weights from a seed."""
+
+    is_stateful = True  # BatchNorm running statistics ride along in checkpoints
+
+    def __init__(self, n_classes: int = 1, backend: str = "torch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if backend not in _BACKENDS:
+            raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
+        if dtype != torch.float32:
+            raise NotImplementedError(f"dtype={dtype} (the bf16 forward) is not ported yet: "
+                                      "ROADMAP A13")
+        self.n_classes = n_classes
+        self.backend = backend
+        self.down0 = _ConvBlock(1, 32, None, backend)
+        self.down1 = _ConvBlock(32, 64, None, backend)
+        self.down2 = _ConvBlock(64, 128, None, backend)
+        self.down3 = _ConvBlock(128, 256, None, backend)
+        self.down4 = _ConvBlock(256, 256, None, backend)  # 512/2 bottleneck
+        self.up0 = _ConvBlock(512, 128, 256, backend)
+        self.up1 = _ConvBlock(256, 64, 128, backend)
+        self.up2 = _ConvBlock(128, 32, 64, backend)
+        self.up3 = _ConvBlock(64, 32, 32, backend)
+        self.out = nn.Conv3d(32, n_classes, 1)
+
+    @classmethod
+    def create(cls, n_classes: int = 1, seed: int = 0, backend: str = "torch") -> "UNet3D":
+        """A model with flax's initial values: lecun-normal conv kernels drawn
+        from an explicit generator seeded with ``seed``, zero biases, BN
+        scale 1 and bias 0, running mean 0 and variance 1."""
+        model = cls(n_classes=n_classes, backend=backend)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name in BLOCKS:
+                block = getattr(model, name)
+                lecun_normal_(block.conv0, gen)
+                lecun_normal_(block.conv1, gen)
+            lecun_normal_(model.out.weight, gen)
+            model.out.bias.zero_()
+        return model
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, 1, Z, X, Y) → sigmoid probabilities (B, n_classes, Z, X, Y),
+        f32. ``train()`` normalises by the batch and moves the running
+        statistics; ``eval()`` uses them."""
+        pool = F.max_pool3d
+        x1 = self.down0(x.float())
+        x2 = self.down1(pool(x1, 2))
+        x3 = self.down2(pool(x2, 2))
+        x4 = self.down3(pool(x3, 2))
+        u = self.down4(pool(x4, 2))
+        for block, skip in ((self.up0, x4), (self.up1, x3), (self.up2, x2), (self.up3, x1)):
+            u = block(torch.cat([skip, _pad_to(_upsample_nearest(u), skip)], dim=1))
+        return torch.sigmoid(self._head(u).float())
+
+    def _head(self, u: torch.Tensor) -> torch.Tensor:
+        """The 1×1×1 output conv as one matrix product over the channels
+        (f32). As a cuDNN conv its weight gradient alone took a fifth of a
+        train step at 64³ (``PERF.md``)."""
+        w = self.out.weight.flatten(1)  # (n_classes, 32)
+        out = torch.matmul(w, u.flatten(2)).view(u.shape[0], -1, *u.shape[2:])
+        return out + self.out.bias.view(1, -1, 1, 1, 1)
+
+    # ---- the flax layout, for checkpoints and the JAX package's variables ----
+
+    def flax_state(self) -> Dict[str, torch.Tensor]:
+        """Every parameter and running statistic under the JAX package's
+        names ('.'-joined) and in its layouts."""
+        state = {}
+        for name in BLOCKS:
+            block = getattr(self, name)
+            for i, (conv, bn) in enumerate(((block.conv0, block.bn0), (block.conv1, block.bn1))):
+                state[f"params.{name}.Conv_{i}.kernel"] = conv3d_kernel_to_flax(conv.detach())
+                state[f"params.{name}.BatchNorm_{i}.scale"] = bn.scale.detach()
+                state[f"params.{name}.BatchNorm_{i}.bias"] = bn.bias.detach()
+                state[f"batch_stats.{name}.BatchNorm_{i}.mean"] = bn.mean
+                state[f"batch_stats.{name}.BatchNorm_{i}.var"] = bn.var
+        state["params.out.kernel"] = conv3d_kernel_to_flax(self.out.weight.detach())
+        state["params.out.bias"] = self.out.bias.detach()
+        return state
+
+    def load_flax_state(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Take :meth:`flax_state`'s layout (the JAX variables through
+        ``params_from_jax``, or a checkpoint of either package)."""
+        load_flax_views(self.flax_state(), state, "UNet3D")
+
+    # ---- the GENEO-loss hooks: a black box has none of either ----------------
+
+    def cvx_coefficients(self) -> Dict:
+        return {}
+
+    def geneo_params_flat(self) -> Dict:
+        return {}

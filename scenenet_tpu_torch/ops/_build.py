@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # pts, mask, out, counts, colmin, params, B, N, n_x, n_y, n_z, stream
     "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -64,6 +65,9 @@ _SIGNATURES = {
     "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # B, Z, X, Y -> blocks of the dk kernel's first pass
     "snt_stencil_dk_blocks": (_I, _I, _I, _I),
+    # x, wt, out, B, C_in, C_out, Z, X, Y, x strides (sample, channel, voxel),
+    # out strides (sample, channel, voxel), vec_out, stream
+    "snt_conv3d_mc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P),
 }
 
 _lock = threading.Lock()

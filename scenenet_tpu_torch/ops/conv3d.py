@@ -7,6 +7,8 @@ kernels: low = (k-1)//2, high = k//2.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -27,3 +29,36 @@ def conv3d_same(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     Returns (B, C_out, Z, X, Y).
     """
     return F.conv3d(F.pad(x, same_pads(kernels.shape[2:])), kernels.to(x.dtype))
+
+
+@contextlib.contextmanager
+def _switched(module, name: str, value):
+    """A process-wide backend switch set for the block and put back after."""
+    before = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, before)
+
+
+def tf32_off():
+    """cuDNN convolutions in full f32 inside the block (the switch is on by
+    default, and TF32 keeps ~3 decimal digits). cuDNN itself stays on."""
+    return _switched(torch.backends.cudnn, "allow_tf32", False)
+
+
+@contextlib.contextmanager
+def cudnn_off():
+    """Convolutions by PyTorch's own kernels (vol2col and a full-f32 matrix
+    product) inside the block, not cuDNN's."""
+    with _switched(torch.backends.cudnn, "enabled", False), \
+            _switched(torch.backends.cuda.matmul, "allow_tf32", False):
+        yield
+
+
+def conv3d_f32(x: torch.Tensor, w: torch.Tensor, bias=None, padding=0) -> torch.Tensor:
+    """``F.conv3d`` in full f32, whatever the process-wide TF32 switch says
+    (cuDNN would otherwise round f32 convolutions to TF32 on the card)."""
+    with tf32_off():
+        return F.conv3d(x, w, bias, padding=padding)

@@ -7,7 +7,12 @@ sidecar of metadata. A module's ``state_dict`` name is the same path
 joined with '.', so a checkpoint written by either package loads into the
 other. A quantile ensemble is stored as the JAX package stores it: the
 same names, every array with a leading Q axis (the module's
-``stacked_state``).
+``stacked_state``). A module whose tensors are laid out otherwise than the
+flax module's (``UNet3D``, ``CnnBaseline``: conv kernels (out, in, k_z,
+k_x, k_y) against flax's (k_z, k_x, k_y, in, out), BatchNorm statistics in
+a ``batch_stats`` collection beside ``params``) gives and takes the flax
+names and layouts through ``flax_state`` / ``load_flax_state``, running
+statistics included.
 """
 
 from __future__ import annotations
@@ -46,10 +51,24 @@ def _leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
 
 def _module_state(module: nn.Module) -> Dict[str, torch.Tensor]:
     """The module's parameters in checkpoint layout: an ensemble's stacked
-    on a leading Q axis, any other module's ``state_dict``."""
-    if hasattr(module, "stacked_state"):
-        return module.stacked_state()
+    on a leading Q axis, a flax-layout module's ``flax_state``, any other
+    module's ``state_dict``."""
+    for layout in ("stacked_state", "flax_state"):
+        if hasattr(module, layout):
+            return getattr(module, layout)()
     return module.state_dict()
+
+
+def load_module_state(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
+    """Load ``state`` ('.'-joined names in checkpoint layout, as
+    :func:`params_from_jax` or a checkpoint gives them) into ``module`` in
+    place and return it."""
+    for layout in ("load_stacked_state", "load_flax_state"):
+        if hasattr(module, layout):
+            getattr(module, layout)(state)
+            return module
+    module.load_state_dict(state)
+    return module
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
@@ -63,7 +82,10 @@ def params_from_jax(tree: Any) -> Dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (nested dicts of arrays) as a
     ``state_dict`` for the port's module: ``{"geneo": {"cy_0": {"radius":
     a}}}`` → ``{"geneo.cy_0.radius": tensor(a)}``. A quantile ensemble's
-    stacked pytree gives the ``load_stacked_state`` layout."""
+    stacked pytree gives the ``load_stacked_state`` layout, the UNet's
+    variables (``params`` and ``batch_stats``) and the CNN's parameters the
+    ``load_flax_state`` layout; :func:`load_module_state` takes any of them
+    into its module."""
     return {".".join(str(k) for k in p): torch.from_numpy(np.array(leaf, np.float32))
             for p, leaf in _leaves(tree)}
 
@@ -176,8 +198,4 @@ def restore_checkpoint(path: str, template: nn.Module) -> nn.Module:
                     f"checkpoint {key!r}: shape {tuple(arr.shape)} != template "
                     f"{tuple(want.shape)}")
             state[name] = torch.from_numpy(np.array(arr)).to(want.dtype)
-    if hasattr(template, "load_stacked_state"):
-        template.load_stacked_state(state)
-    else:
-        template.load_state_dict(state)
-    return template
+    return load_module_state(template, state)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from scenenet_tpu_torch.ops import cuda_conv, cuda_hist
+from scenenet_tpu_torch.ops import cuda_conv, cuda_conv_mc, cuda_hist
 from scenenet_tpu_torch.ops.conv3d import conv3d_same
 
 pytestmark = pytest.mark.cuda
@@ -474,3 +474,133 @@ def test_voxelize_routes_on_card(dev):
             for g, w in zip((got if isinstance(got, tuple) else (got,)),
                             (want if isinstance(want, tuple) else (want,))):
                 torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+# ---- the multi-channel 3³ conv (conv3d_mc) ------------------------------------------
+
+def _mc_case(seed, b, cin, cout, shape, channels_last=False):
+    """x ~ U(0, 1) and lecun-scaled weights: outputs of magnitude ~1."""
+    rng = np.random.default_rng(seed)
+    xs = (b, *shape, cin) if channels_last else (b, cin, *shape)
+    x = rng.random(xs).astype(np.float32)
+    w = (rng.standard_normal((cout, cin, 3, 3, 3)) / np.sqrt(27 * cin)).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def _mc_close(got, want, cin=1):
+    # f32 sums of 27·C_in products in another order than cuDNN's: the JAX
+    # package's own bound up to 160 channels, the absolute part growing with
+    # the square root of the sum's length past that
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5 * max(1.0, (cin / 160) ** 0.5))
+
+
+@pytest.mark.parametrize("cin,cout,shape", [
+    (4, 8, (6, 6, 6)), (32, 32, (12, 12, 12)), (160, 128, (8, 8, 8)), (16, 24, (5, 9, 7)),
+    (1, 32, (16, 16, 16)), (64, 32, (32, 32, 32)), (512, 256, (8, 8, 8)),
+    (256, 256, (4, 4, 4)), (3, 3, (17, 5, 3)), (33, 65, (3, 1, 2)), (1, 1, (1, 1, 1)),
+])
+def test_conv3d_mc_kernel_matches_plain(dev, cin, cout, shape):
+    x, w = _mc_case(sum(shape) + cin, 2, cin, cout, shape)
+    x, w = x.to(dev), w.to(dev)
+    before = cuda_conv_mc.MC_LAUNCHES.count
+    got = cuda_conv_mc.conv3d_mc_same(x, w)
+    assert cuda_conv_mc.MC_LAUNCHES.count == before + 1
+    assert got.shape == (2, cout, *shape)
+    _mc_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
+    _mc_close(got.cpu(), cuda_conv_mc.conv3d_mc_same(x.cpu(), w.cpu()), cin)
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(24, 16, (10, 10, 10)), (5, 40, (4, 7, 9))])
+def test_conv3d_mc_kernel_channels_last(dev, cin, cout, shape):
+    x, w = _mc_case(1, 2, cin, cout, shape, channels_last=True)
+    x, w = x.to(dev), w.to(dev)
+    got = cuda_conv_mc.conv3d_mc_same(x, w, channels_last=True)
+    assert got.shape == (2, *shape, cout) and got.is_contiguous()
+    _mc_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w, channels_last=True))
+    first = cuda_conv_mc.conv3d_mc_same(x.permute(0, 4, 1, 2, 3).contiguous(), w)
+    _mc_close(got.permute(0, 4, 1, 2, 3), first)
+
+
+def test_conv3d_mc_kernel_over_drawn_shapes(dev):
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    extent = st.integers(1, 20)
+
+    @settings(max_examples=40, deadline=None, derandomize=True)
+    @given(b=st.integers(1, 3), cin=st.integers(1, 70), cout=st.integers(1, 70),
+           shape=st.tuples(extent, extent, extent), last=st.booleans())
+    def run(b, cin, cout, shape, last):
+        x, w = _mc_case(b + cin + cout, b, cin, cout, shape, channels_last=last)
+        x, w = x.to(dev), w.to(dev)
+        _mc_close(cuda_conv_mc.conv3d_mc_same(x, w, channels_last=last),
+                  cuda_conv_mc.conv3d_mc_same_plain(x, w, channels_last=last))
+
+    run()
+
+
+def test_conv3d_mc_kernel_unaligned_view_and_refusals(dev):
+    x, w = _mc_case(2, 3, 8, 8, (4, 4, 8))
+    x, w = x.to(dev), w.to(dev)
+    view = x[1:]  # contiguous, but its storage starts off a 16-byte boundary of nothing
+    _mc_close(cuda_conv_mc.conv3d_mc_same(view, w),
+              cuda_conv_mc.conv3d_mc_same_plain(view, w))
+    with pytest.raises(ValueError, match="3, 3, 3"):
+        cuda_conv_mc.conv3d_mc_same(x, torch.zeros((8, 8, 3, 3, 5), device=dev))
+    with pytest.raises(RuntimeError, match="fused_conv3d_mc"):
+        cuda_conv_mc.conv3d_mc_same(x, w.clone().requires_grad_())
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(1, 32, (16, 16, 16)), (64, 32, (12, 10, 14)),
+                                            (256, 128, (8, 8, 8))])
+def test_fused_conv3d_mc_grads_match_autograd(dev, cin, cout, shape):
+    """dx (the kernel on the flipped, swapped weights) and dw (the library
+    call) against autograd through the plain conv; dx is not launched when
+    x needs no gradient."""
+    x, w = _mc_case(7, 2, cin, cout, shape)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, cout, *shape)).astype(np.float32)).to(dev)
+    xa, wa = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+    before = cuda_conv_mc.MC_LAUNCHES.count
+    (cuda_conv_mc.fused_conv3d_mc(xa, wa) * g).sum().backward()
+    assert cuda_conv_mc.MC_LAUNCHES.count == before + 2
+    xb, wb = x.to(dev).requires_grad_(), w.to(dev).requires_grad_()
+    (cuda_conv_mc.conv3d_mc_same_plain(xb, wb) * g).sum().backward()
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-5, atol=2e-5)
+    assert float((wa.grad - wb.grad).abs().max()) <= 1e-4 * float(wb.grad.abs().max())
+    wc = w.to(dev).requires_grad_()
+    before = cuda_conv_mc.MC_LAUNCHES.count
+    (cuda_conv_mc.fused_conv3d_mc(x.to(dev), wc) * g).sum().backward()
+    assert cuda_conv_mc.MC_LAUNCHES.count == before + 1  # forward only: no dx
+    assert torch.equal(wc.grad, wa.grad)
+
+
+def test_unet_on_card_kernel_backend_matches_plain_backend(dev):
+    """The whole UNet at 32³, batch 4 (32 values a channel at the bottleneck:
+    below that the BatchNorms make the comparison ill-conditioned):
+    train-mode prediction, running statistics and gradients of backend cuda
+    against backend torch (cuDNN, TF32 off)."""
+    from scenenet_tpu_torch.models.unet3d import UNet3D
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.random((4, 1, 32, 32, 32)) > 0.7).astype(np.float32)).to(dev)
+    wgt = torch.from_numpy(rng.standard_normal((4, 1, 32, 32, 32)).astype(np.float32)).to(dev)
+    nets = {b: UNet3D.create(seed=3, backend=b).to(dev).train() for b in ("cuda", "torch")}
+    before = cuda_conv_mc.MC_LAUNCHES.count
+    preds = {}
+    for b, net in nets.items():
+        preds[b] = net(x)
+        (preds[b] * wgt).sum().backward()
+    assert cuda_conv_mc.MC_LAUNCHES.count == before + 18 + 17
+    torch.testing.assert_close(preds["cuda"], preds["torch"], rtol=0, atol=1e-4)
+    for (n, a), b in zip(nets["cuda"].named_buffers(), nets["torch"].buffers()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=n)
+    for (n, a), b in zip(nets["cuda"].named_parameters(), nets["torch"].parameters()):
+        ga, gb = a.grad.flatten().double(), b.grad.flatten().double()
+        assert float(ga @ gb) >= 0.99 * float(ga.norm() * gb.norm()), n
+        assert float((ga - gb).abs().max()) <= 0.25 * float(gb.abs().max()), n
+    nets["cuda"].eval()
+    with torch.no_grad():
+        before = cuda_conv_mc.MC_LAUNCHES.count
+        nets["cuda"](x)
+        assert cuda_conv_mc.MC_LAUNCHES.count == before + 18

@@ -204,6 +204,9 @@ def test_port_never_imports_jax():
         "import scenenet_tpu_torch.cli.serve\n"
         "from scenenet_tpu_torch.cli.serve import _MicroBatcher, build_server\n"
         "from scenenet_tpu_torch.models import QuantileSceneNet\n"
+        "from scenenet_tpu_torch.models import CnnBaseline, SceneNetClassifier, UNet3D\n"
+        "from scenenet_tpu_torch.ops.cuda_conv_mc import conv3d_mc_same, fused_conv3d_mc\n"
+        "import scenenet_tpu_torch.cli.train\n"
         "from scenenet_tpu_torch.ops.cuda_conv import geneo_stencil_conv_mxu, "
         "fused_geneo_conv_mxu\n"
         "import scenenet_tpu_torch as pkg\n"
