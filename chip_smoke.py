@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
 It builds the hand-written kernels from ``scenenet_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card and times
-both, with one PyTorch library call beside those that have one. Then it
+both, with one PyTorch library call beside those that have one (the
+multi-channel conv at every shape its plan treats differently, twice for
+bit-equal outputs; the f32 stencil through both of its kernels). Then it
 drives the port's main paths through their entry points, at the serving
 defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
 experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
@@ -88,8 +90,9 @@ WEIGHTED_TOL = 1e-5
 # device grids against the float64 host oracle: one f32 division a voxel
 ORACLE_TOL = 1e-6
 # published peaks of one H100 SXM: device memory, f32 outside the tensor cores,
-# dense bf16 in them
+# dense bf16 and dense TF32 in them
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+TF32_FLOPS = 495e12
 TOWER, GROUND, WIRE, CLUTTER = 15, 2, 14, 1  # TS40K class ids
 
 # experiments/defaults.yaml as train-CLI overrides: the card machine may
@@ -118,6 +121,13 @@ N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
 # part grows with the square root of the sum's length (x 1.8 at 512 channels)
 MC_ATOL, MC_RTOL, MC_ATOL_CHANNELS = 2e-5, 1e-5, 160
 MC_DW_REL_TOL = 1e-4  # the library's dw in two formulations: sums over 4.2 M voxels
+# the shapes the multi-channel conv's plan treats differently, beside the UNet's layers
+# at the train batch: (batch, C_in, C_out, (Z, X, Y))
+MC_EXTRA = [(1, 256, 256, (4, 4, 4)),   # batch 1 in the four-sample tile, the K split at its cap
+            (1, 128, 256, (8, 8, 8)),   # batch 1 at 8^3
+            (2, 100, 64, (8, 8, 8)),    # a K split whose C_in is no multiple of the K step
+            (3, 40, 30, (6, 10, 7)),    # C_out no multiple of 8, Y no multiple of 4
+            (2, 16, 24, (5, 9, 7))]
 # UNet3D's 18 3x3x3 convs in forward order: (C_in, C_out, cubic extent at a 64^3 grid)
 UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
               (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (256, 256, 4),
@@ -477,7 +487,30 @@ def main(argv=None) -> int:
         k2_err = max(k2_err, err)
         parts.append(f"k{ks}: max|dprob| {err:.3g}, tau flips {int(flips.sum())} "
                      f"(outside band {bad_flips})")
+    # the unrolled kernel ((9,5,5)) against the generic one on the same input, and
+    # each against itself
+    kern = SceneNet.create(kernel_size=(9, 5, 5), seed=0).combined_kernel().detach().to(dev)
+    x32 = torch.cat([x, x.flip(2), x.flip(3), x.flip(4)])
+    check(cuda_conv.stencil_route((9, 5, 5)) == "fast"
+          and cuda_conv.stencil_route((9, 6, 6)) == "generic",
+          "the stencil's routes are not what the smoke expects")
+    want = cuda_conv.geneo_stencil_conv_plain(x32, kern)
+    routes = {r: cuda_conv._launch_stencil(x32, kern, True, r) for r in ("fast", "generic")}
+    torch.cuda.synchronize()
+    check(torch.equal(routes["fast"], cuda_conv.geneo_stencil_conv(x32, kern)),
+          "K2: a (9,5,5) launch did not take the unrolled kernel")
+    for r, got in routes.items():
+        err = float((got - want).abs().max())
+        check(err <= PROB_TOL, f"K2 {r} route: max|dprob| {err:.3g} > {PROB_TOL}")
+        check(torch.equal(got, cuda_conv._launch_stencil(x32, kern, True, r)),
+              f"K2 {r} route: two runs differ")
+        k2_err = max(k2_err, err)
+    route_err = float((routes["fast"] - routes["generic"]).abs().max())
+    check(route_err <= PROB_TOL, f"K2: the two routes differ by {route_err:.3g}")
+    parts.append(f"B=32 k(9, 5, 5): unrolled vs generic kernel max|d| {route_err:.3g}, each "
+                 "bit-identical run to run")
     print("[K2 stencil] " + " | ".join(parts), flush=True)
+    del x32, routes, want
 
     # ---- 5. K3 two-channel kernel vs plain ----------------------------------
     tp, tm, tl = padded_batch(np.random.default_rng(16), TRAIN_BATCH, n_pad=TRAIN_POINTS)
@@ -813,7 +846,9 @@ def main(argv=None) -> int:
     for b, t in times.items():
         print(f"[timing] B={b} 64^3 N={MAX_POINTS} ({smi}), median of 4 alternating rounds "
               "[min-max] ms; library = F.conv3d on the padded grid, tanh, relu (cuDNN f32, "
-              "TF32 off): " + fmt_times(t), flush=True)
+              "TF32 off): " + fmt_times(t) + " | stencil's bound (f32 FMA pipe) "
+              f"{bound_ms(8.0 * b * 64 ** 3, 2.0 * 225 * b * 64 ** 3)[0]:.4f} ms, through its "
+              f"{cuda_conv.stencil_route((9, 5, 5))} kernel", flush=True)
     train_times = {}
     for b in (1, TRAIN_BATCH):
         p, m, lab = padded_batch(np.random.default_rng(100 + b), b, n_pad=TRAIN_POINTS)
@@ -902,7 +937,10 @@ def main(argv=None) -> int:
         return xm, wm
 
     def mc_check(label, xm, wm, last=False):
+        """The kernel against cuDNN f32 and against itself: the largest
+        difference; two runs on the same inputs must give the same bits."""
         got = cuda_conv_mc.conv3d_mc_same(xm, wm, channels_last=last)
+        again = cuda_conv_mc.conv3d_mc_same(xm, wm, channels_last=last)
         want = cuda_conv_mc.conv3d_mc_same_plain(xm, wm, channels_last=last)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -911,7 +949,16 @@ def main(argv=None) -> int:
               f"K10 {label}: non-finite or misshapen output")
         check(bool(((got - want).abs() <= atol + MC_RTOL * want.abs()).all()),
               f"K10 {label}: max|d| {err:.3g} outside {atol:.3g} + {MC_RTOL} relative")
+        check(torch.equal(got, again), f"K10 {label}: two runs on the same inputs differ")
         return err
+
+    def mc_plan(b, cin, cout, shape, last=False):
+        tile, k_splits = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape, channels_last=last)
+        if tile == cuda_conv_mc.FMA_TILE:
+            return "FMA kernel"
+        (tb, *vox), bn = cuda_conv_mc.TC_TILES[tile]
+        return (f"{tb}x" if tb > 1 else "") + "x".join(map(str, vox)) + f"x{bn}ch" \
+            + (f" K/{k_splits}" if k_splits > 1 else "")
 
     mc_shapes = list(dict.fromkeys(UNET_CONVS))  # the 16 distinct layer shapes
     net_shapes = []
@@ -925,10 +972,23 @@ def main(argv=None) -> int:
         k10_err = max(k10_err, err)
         parts.append(f"{cin}->{cout} {n}^3 {err:.3g}")
         del xm, wm
-    odd = mc_check("16->24 (5,9,7)", *mc_case(1, 2, 16, 24, (5, 9, 7)))
+    extra_parts, seen_tiles, seen_splits = [], set(), set()
+    for b, cin, cout, shape in MC_EXTRA:
+        err = mc_check(f"B={b} {cin}->{cout} {shape}", *mc_case(b + cin, b, cin, cout, shape))
+        k10_err = max(k10_err, err)
+        extra_parts.append(f"B={b} {cin}->{cout} {shape} [{mc_plan(b, cin, cout, shape)}] "
+                           f"{err:.3g}")
+    for b, cin, cout, shape in MC_EXTRA + [(TRAIN_BATCH, c, o, (n, n, n)) for c, o, n in mc_shapes]:
+        tile, k_splits = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape)
+        seen_tiles.add(tile)
+        seen_splits.add(k_splits)
+        check(k_splits <= cuda_conv_mc.conv3d_mc_split_cap(tile, cin), "K10: a plan past its cap")
+    check(seen_tiles == {cuda_conv_mc.FMA_TILE, *cuda_conv_mc.TC_TILES}
+          and cuda_conv_mc.MAX_K_SPLITS in seen_splits and 1 in seen_splits,
+          f"K10: the checks reach tiles {seen_tiles} and K splits {seen_splits} only")
     xl, wl = mc_case(2, 2, 24, 16, (10, 10, 10), last=True)
     last = mc_check("channels-last 24->16 10^3", xl, wl, last=True)
-    k10_err = max(k10_err, odd, last)
+    k10_err = max(k10_err, last)
     # fused_conv3d_mc: dx (the kernel on the flipped, swapped weights) and dw (the
     # library call) against autograd through the plain version
     grad_parts = []
@@ -950,7 +1010,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         dx_err = float((xa.grad - xb.grad).abs().max())
         dw_err, dw_scale = float((wa.grad - wb.grad).abs().max()), float(wb.grad.abs().max())
-        check(bool(((xa.grad - xb.grad).abs() <= MC_ATOL + MC_RTOL * xb.grad.abs()).all()),
+        dx_atol = MC_ATOL * max(1.0, math.sqrt(cout / MC_ATOL_CHANNELS))
+        check(bool(((xa.grad - xb.grad).abs() <= dx_atol + MC_RTOL * xb.grad.abs()).all()),
               f"fused_conv3d_mc {cin}->{cout}: dx off by {dx_err:.3g}")
         check(dw_err <= MC_DW_REL_TOL * dw_scale,
               f"fused_conv3d_mc {cin}->{cout}: dw off by {dw_err:.3g} of {dw_scale:.3g}")
@@ -959,14 +1020,15 @@ def main(argv=None) -> int:
         del xm, wm, gm, xa, wa, xb, wb, wc
     print(f"[K10 conv3d_mc] B={TRAIN_BATCH}, max|d| vs F.conv3d (cuDNN f32, TF32 off), limit "
           f"{MC_ATOL} (x sqrt(C_in/{MC_ATOL_CHANNELS}) past {MC_ATOL_CHANNELS} channels) + "
-          f"{MC_RTOL} relative | " + ", ".join(parts)
-          + f" | B=2 16->24 (5,9,7) {odd:.3g} | channels-last 24->16 10^3 {last:.3g} | "
+          f"{MC_RTOL} relative; every case run twice, bit-identical | " + ", ".join(parts)
+          + " | the other shapes the plan separates [tile, K split]: " + ", ".join(extra_parts)
+          + f" | channels-last 24->16 10^3 [FMA kernel] {last:.3g} | "
           "fused_conv3d_mc grads vs autograd of the plain version: " + "; ".join(grad_parts),
           flush=True)
     torch.cuda.empty_cache()
 
     # K10 times at the batch the path runs; library = plain = one F.conv3d (timed apart)
-    mc_times, mc_bounds = {}, {}
+    mc_times, mc_bounds, mc_x3_bounds, mc_fma_bounds = {}, {}, {}, {}
     with torch.no_grad():
         for cin, cout, n in mc_shapes:
             xm, wm = mc_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
@@ -975,8 +1037,14 @@ def main(argv=None) -> int:
                 lambda: cuda_conv_mc.conv3d_mc_same_plain(xm, wm), iters=3,
                 library_fn=lambda: F.conv3d(xm, wm, padding=1), warmup=1)
             vox = TRAIN_BATCH * n ** 3
-            mc_bounds[cin, cout, n] = bound_ms(4.0 * (vox * (cin + cout) + 27 * cin * cout),
-                                               2.0 * 27 * cin * cout * vox, F32_FLOPS)
+            moved, flops = 4.0 * (vox * (cin + cout) + 27 * cin * cout), 2.0 * 27 * cin * cout * vox
+            # the cheapest arithmetic found that holds the f32 tolerance: for each f32
+            # product one TF32 product and two bf16 ones (the cross terms), which
+            # take the tensor cores as long as two TF32 products
+            mc_bounds[cin, cout, n] = bound_ms(
+                moved, flops * (1 + 2 * TF32_FLOPS / BF16_FLOPS), TF32_FLOPS)
+            mc_x3_bounds[cin, cout, n] = bound_ms(moved, 3 * flops, TF32_FLOPS)  # as 3xTF32
+            mc_fma_bounds[cin, cout, n] = bound_ms(moved, flops, F32_FLOPS)  # the f32 FMA pipe
             del xm, wm
             torch.cuda.empty_cache()
     # the library's dw as the port calls it (cuDNN off) and through cuDNN
@@ -990,11 +1058,31 @@ def main(argv=None) -> int:
                                                         padding=1), 3, 1))
         del xm, gm
         torch.cuda.empty_cache()
+    mc_sums = {k: sum(mc_times[c][k] for c in UNET_CONVS) for k in ("ms", "plain_ms", "library_ms")}
+    mc_bound_sum = sum(mc_bounds[c][0] for c in UNET_CONVS)
+    mc_fma_bound_sum = sum(mc_fma_bounds[c][0] for c in UNET_CONVS)
+    mc_x3_bound_sum = sum(mc_x3_bounds[c][0] for c in UNET_CONVS)
+    worst = max(mc_times, key=lambda c: mc_times[c]["ms"] / mc_times[c]["library_ms"])
+    worst_ratio = mc_times[worst]["ms"] / mc_times[worst]["library_ms"]
+    check(mc_sums["ms"] < mc_sums["library_ms"],
+          f"K10: the 18 convs take {mc_sums['ms']:.4f} ms, cuDNN f32 {mc_sums['library_ms']:.4f}")
+    check(worst_ratio <= 1.1, f"K10 {worst}: {worst_ratio:.2f}x cuDNN's time")
+    for c, t in mc_times.items():
+        check(t["ms"] >= mc_bounds[c][0], f"K10 {c}: {t['ms']:.4f} ms is under its bound")
     print(f"[timing] K10 conv3d_mc B={TRAIN_BATCH} ({smi}), median of 4 alternating rounds, ms "
-          "kernel / plain / library (one F.conv3d, cuDNN f32, TF32 off) / bound: "
+          "kernel / plain / library (one F.conv3d, cuDNN f32, TF32 off) / bound (one TF32 and "
+          "two bf16 products an f32 product at 495 and 989 TFLOP/s, or the bytes) [the plan's "
+          "tile, K split]: "
           + " | ".join(f"{c}->{o} {n}^3 {t['ms']:.4f} / {t['plain_ms']:.4f} / "
                        f"{t['library_ms']:.4f} / {mc_bounds[c, o, n][0]:.4f} "
-                       f"({mc_bounds[c, o, n][1]})" for (c, o, n), t in mc_times.items())
+                       f"({mc_bounds[c, o, n][1]}) [{mc_plan(TRAIN_BATCH, c, o, (n, n, n))}]"
+                       for (c, o, n), t in mc_times.items())
+          + f" | the UNet's 18 forward convs: kernel {mc_sums['ms']:.4f}, plain "
+          f"{mc_sums['plain_ms']:.4f}, cuDNN {mc_sums['library_ms']:.4f}, bound "
+          f"{mc_bound_sum:.4f} ({mc_bound_sum / mc_sums['ms']:.1%} of it reached), the bound "
+          f"as 3xTF32 {mc_x3_bound_sum:.4f}, the f32 FMA pipe's bound {mc_fma_bound_sum:.4f}; "
+          f"slowest against cuDNN {worst[0]}->{worst[1]} "
+          f"{worst[2]}^3 at {worst_ratio:.2f}x"
           + " | the library's dw (torch.nn.grad.conv3d_weight, full f32), ms with cuDNN off "
           "(as fused_conv3d_mc calls it) / through cuDNN: "
           + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f}" for (c, o, n), (a, b) in dw_ms.items()),
@@ -1511,7 +1599,7 @@ def main(argv=None) -> int:
             n_prof = 3
             wall, busy_us, n_items, largest, by_name = profiled(lambda: [
                 unets["cuda"].train_step(ms["cuda"], *dbatch) for _ in range(n_prof)])
-            k10_us = sum(v for k, v in by_name.items() if "conv3d_mc_kernel" in k)
+            k10_us = sum(v for k, v in by_name.items() if "conv3d_mc_" in k)
             dw_us = by_name.get("aten::convolution_backward", 0.0)
             print(f"[profile] UNet3D train step, backend cuda, B={TRAIN_BATCH} 64^3 ({smi}): "
                   f"{n_prof} steps in {wall * 1e3:.1f} ms wall, device busy {busy_us / 1e3:.3f} "
@@ -1571,10 +1659,10 @@ def main(argv=None) -> int:
         "flat_ids": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 17.0),
     }
     # K10: the UNet's 18 forward convs at the train batch, one after the other
-    # (x and w in, the result out, 2*27*C_in*C_out operations a voxel; the sum
-    # of the 18 bounds)
-    mc_sum = {k: sum(mc_times[c][k] for c in UNET_CONVS) for k in ("ms", "plain_ms", "library_ms")}
-    bounds["conv3d_mc"] = (sum(mc_bounds[c][0] for c in UNET_CONVS),
+    # (x and w in, the result out, 2*27*C_in*C_out TF32 and twice as many bf16
+    # operations a voxel; the sum of the 18 bounds)
+    mc_sum = mc_sums
+    bounds["conv3d_mc"] = (mc_bound_sum,
                            "operations" if sum(mc_bounds[c][0] for c in UNET_CONVS
                                                if mc_bounds[c][1] == "operations")
                            >= sum(mc_bounds[c][0] for c in UNET_CONVS
@@ -1614,6 +1702,7 @@ def main(argv=None) -> int:
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")
+        check(k["ms"] >= k["bound_ms"], f"{k['name']}: {k['ms']:.4f} ms is under its bound")
     print("[bounds] " + " | ".join(
         f"{k['name']} {k['shape']}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
         f"{k['bound_by']} ({k['bound_ms'] / k['ms']:.1%} of it)" for k in kernels), flush=True)

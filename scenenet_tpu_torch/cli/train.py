@@ -161,7 +161,8 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         early_stop_metric=cfg.early_stop_metric,
         early_stop_patience=cfg.early_stop_patience, checkpoint_dir=ckpt_dir,
         checkpoint_top_k=cfg.checkpoint_top_k, run_dir=run_dir,
-        precision=cfg.precision, checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
+        precision=cfg.precision, epoch_chunks=cfg.epoch_chunks,
+        checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
     prep = make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
                                      use_indices=host_indices)
     trainer = Trainer(model, criterion, tcfg, batch_prep=prep)

@@ -2,8 +2,7 @@
 // optional relu(tanh(.)) head, in f32, for Hopper (sm_90a).
 //
 // Replaces: scenenet_tpu/ops/pallas_conv.py, geneo_stencil_conv
-// (_stencil_kernel, VMEM-resident, and _stencil_kernel_hbm, HBM-streamed):
-// one kernel here serves every volume size.
+// (_stencil_kernel, VMEM-resident, and _stencil_kernel_hbm, HBM-streamed).
 //
 // out[b,z,x,y] = sum_{dz,dx,dy} x[b, z-pz+dz, x-px+dx, y-py+dy] * k[dz,dx,dy]
 // with torch's asymmetric SAME pads p = (k-1)//2 low, k//2 high (taps that
@@ -11,18 +10,58 @@
 //
 // Bound on the H100: the SMs' f32 FMAs. A 64^3 volume with a (9,5,5) kernel
 // is 262144 voxels x 225 taps = 59 MFMA per sample against 2 MB of input and
-// output traffic, so device memory is far from the limit; what matters is
-// feeding the FMA units from shared memory and registers.
+// output traffic, so device memory is far from the limit. It stays an f32
+// FMA kernel (it is the exact route the tensor-core stencil is held against),
+// so what matters is how little else the FMAs share their dispatch slots
+// with. Measured on the card (bench/fma_lds_rate.cu): a loop of FFMAs
+// alone sustains 55.5 TFLOP/s of the 67 on paper, and every warp-wide 32-bit
+// shared load among them costs as much as six FFMAs.
 //
-// Design: a block of 8 x 32 threads computes an 8 (z) x 8 (x) x 32 (y)
-// output tile; each thread owns one (x, y) and 8 z outputs in registers.
-// The block stages the input tile with its halo (zero-filled at the volume
-// edge: no padded copy of the volume exists) and the kernel in shared
-// memory. For each (dx, dy) tap a thread loads its z column of 8+k_z-1
-// inputs and the k_z weights into registers and does 8*k_z FMAs from them:
-// about 3 shared loads per 8 FMAs instead of one per FMA. k_z is a template
-// parameter (1..16) so those register arrays are fully unrolled. The head
-// uses tanhf, not the fast intrinsic; build without fast math.
+// Two kernels, chosen by the caller from the kernel size alone.
+//
+// stencil_fast_kernel<KZ, KX, KY, RX = 2, TZ = 8, NB = 4>: the kernel sizes
+// the main paths run, (9,5,5) first, with every tap loop unrolled at compile
+// time. A block of 32 (y) x 8 threads computes an 8 (z) x 16 (x) x 32 (y)
+// tile; a thread owns 8 z outputs of 2 neighbouring x at one y, 16
+// accumulators. For each dy it takes the KZ*KX weights of that dy into
+// registers (twelve 16-byte shared loads that the whole warp shares), then
+// walks the 2 + KX - 1 input columns its two x outputs touch: each column's
+// 8 + KZ - 1 values are loaded once and feed every (x output, dx) pair that
+// reads them, a sliding window in registers. Per dy that is 6 x 16 + 12 =
+// 108 shared loads for 2 x 5 x 72 = 720 FMAs: 0.15 loads an FMA, where the
+// generic kernel below does 25 for 72 (0.347). Lanes run along y, so a
+// column load is 32 neighbouring floats: no bank conflict. 64 registers, no
+// spills, 52 KB of shared memory: four blocks an SM. relu(tanh(c)) is taken
+// as 0 wherever c <= 0, so tanhf runs only where the result is not 0.
+//
+// The halo tile (16 x 20 rows) is staged by cp.async, whose zero-size form
+// writes the zeros outside the volume. A tile row starts 4 voxels left of
+// the tile, on a 16-byte boundary of the volume's row, and holds 40 floats,
+// so that where Y is a multiple of 4 a row is ten 16-byte copies: two
+// divisions by constants a copy, none an element. Any other Y takes 4-byte
+// copies, a row at a time.
+//
+// What the measurements said (H100, B=64, 64^3; the generic kernel 0.459
+// ms). The first form of this kernel, 4 x outputs a thread (0.097 loads an
+// FMA, 118 registers, two blocks an SM) with 4-byte staging, took 0.306; with
+// its tap loops compiled out the staging alone took 0.111 and with the
+// staging compiled out the FMAs 0.139, and the two did not overlap: both
+// blocks of an SM stage at once. 16-byte copies: 0.229. Then blocks an SM
+// mattered more than loads an FMA: 2 x outputs a thread at three or four
+// blocks an SM, whose staging hides behind the other blocks' FMAs, 0.215 and
+// 0.211, and from batch 1 up (0.0095 ms against the generic kernel's
+// 0.0146, timed inside a CUDA graph). What did not help: one persistent
+// block an SM with the next tile's halo in flight (fewer warps cost more
+// than the overlap gains), and z innermost in the tile for 16-byte column
+// loads (it rules out the 16-byte copies).
+//
+// stencil_kernel<KZ>: the first version of this port, for every other
+// kernel size. A block of 8 x 32 threads computes an 8 (z) x 8 (x) x 32 (y)
+// tile; each thread owns one (x, y) and 8 z outputs. For each (dx, dy) tap a
+// thread loads its z column of 8+k_z-1 inputs and the k_z weights and does
+// 8*k_z FMAs from them; k_x and k_y are runtime values.
+//
+// The head uses tanhf, not the fast intrinsic; build without fast math.
 
 #include <cuda_runtime.h>
 
@@ -125,16 +164,192 @@ int launch(const float* x, const float* w, float* out, int B, int Z, int X,
   return (int)cudaGetLastError();
 }
 
+
+// ---- the unrolled, register-blocked kernel -------------------------------------
+
+constexpr int kFastTy = 32;   // output y per block: one warp across y
+constexpr int kFastThreads = 256;
+
+// RX neighbouring output x and TZ output z per thread, NB blocks an SM
+template <int KZ, int KX, int KY, int RX, int TZ, int NB>
+struct Fast {
+  static constexpr int TX = (kFastThreads / 32) * RX;  // output x per block
+  static constexpr int SZ = TZ + KZ - 1, SX = TX + KX - 1, SY = kFastTy + KY - 1;
+  // a tile row holds y0 - 4 ... y0 + TY + 4, so that it starts on a 16-byte
+  // boundary of the volume's row and can be copied 16 bytes at a time
+  static constexpr int YL = 4;                 // columns left of y0
+  static constexpr int SYV = kFastTy + 2 * YL;
+  static constexpr int WROW = (KZ * KX + 3) / 4 * 4;  // weights of one dy, padded to 16 bytes
+  static constexpr size_t SMEM = sizeof(float) * (KY * WROW + SZ * SX * SYV);
+  static_assert((KY - 1) / 2 <= YL && KY / 2 <= YL, "the y halo must fit the padded row");
+};
+
+__device__ inline void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = ok ? 4 : 0;  // 0: the four bytes are filled with zeros
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ inline void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int bytes = ok ? 16 : 0;  // 0: the sixteen bytes are filled with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+template <int KZ, int KX, int KY, int RX, int TZ, int NB>
+__global__ void __launch_bounds__(kFastThreads, NB)
+stencil_fast_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    float* __restrict__ out, int Z, int X, int Y, int activation,
+                    int tiles_y, int vec) {
+  using F = Fast<KZ, KX, KY, RX, TZ, NB>;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sw = fsmem;                 // [dy][dz * KX + dx], rows of WROW
+  float* sx = fsmem + KY * F::WROW;  // the halo tile, (SZ, SX, SYV)
+
+  const int b = blockIdx.z;
+  const int y0 = (blockIdx.x % tiles_y) * kFastTy;
+  const int x0 = (blockIdx.x / tiles_y) * F::TX;
+  const int z0 = blockIdx.y * TZ;
+  constexpr int pz = (KZ - 1) / 2, px = (KX - 1) / 2, py = (KY - 1) / 2;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  for (int i = tid; i < KY * F::WROW; i += kFastThreads) {
+    const int dy = i / F::WROW, r = i % F::WROW;
+    sw[i] = r < KZ * KX ? w[r * KY + dy] : 0.0f;
+  }
+  const float* xb = x + (size_t)b * Z * X * Y;
+  if (vec) {
+    // 16 bytes a copy: a chunk of 4 y lies all inside the volume or all outside
+    constexpr int CH = F::SYV / 4;
+    for (int i = tid; i < F::SZ * F::SX * CH; i += kFastThreads) {
+      const int r = i / CH, c = i - r * CH;
+      const int sz = r / F::SX;
+      const int gz = z0 - pz + sz, gx = x0 - px + (r - sz * F::SX), gy = y0 - F::YL + 4 * c;
+      const bool ok = gz >= 0 && gz < Z && gx >= 0 && gx < X && gy >= 0 && gy < Y;
+      cp_async16(sx + r * F::SYV + 4 * c, ok ? xb + ((size_t)gz * X + gx) * Y + gy : xb, ok);
+    }
+  } else {
+    // any alignment: a row at a time, 4 bytes a copy; a warp takes every eighth row
+    for (int r = warp; r < F::SZ * F::SX; r += kFastThreads / 32) {
+      const int sz = r / F::SX;
+      const int gz = z0 - pz + sz, gx = x0 - px + (r - sz * F::SX);
+      const bool row_ok = gz >= 0 && gz < Z && gx >= 0 && gx < X;
+      const float* src = xb + (row_ok ? ((size_t)gz * X + gx) * Y : 0);
+      for (int c = F::YL - py + lane; c < F::YL - py + F::SY; c += 32) {
+        const int gy = y0 - F::YL + c;
+        const bool ok = row_ok && gy >= 0 && gy < Y;
+        cp_async4(sx + r * F::SYV + c, ok ? src + gy : xb, ok);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int xt = warp;  // this thread's x outputs: xt * RX ...
+  constexpr int plane = F::SX * F::SYV;
+  float acc[RX][TZ];
+#pragma unroll
+  for (int xo = 0; xo < RX; ++xo) {
+#pragma unroll
+    for (int t = 0; t < TZ; ++t) acc[xo][t] = 0.0f;
+  }
+
+#pragma unroll 1
+  for (int dy = 0; dy < KY; ++dy) {
+    float wr[F::WROW];
+    const float4* w4 = reinterpret_cast<const float4*>(sw + dy * F::WROW);
+#pragma unroll
+    for (int q = 0; q < F::WROW / 4; ++q) {
+      const float4 f = w4[q];
+      wr[4 * q + 0] = f.x;
+      wr[4 * q + 1] = f.y;
+      wr[4 * q + 2] = f.z;
+      wr[4 * q + 3] = f.w;
+    }
+    const float* base = sx + (xt * RX) * F::SYV + lane + dy + F::YL - py;
+#pragma unroll
+    for (int dxp = 0; dxp < RX + KX - 1; ++dxp) {
+      float col[F::SZ];
+#pragma unroll
+      for (int s = 0; s < F::SZ; ++s) col[s] = base[s * plane + dxp * F::SYV];
+#pragma unroll
+      for (int xo = 0; xo < RX; ++xo) {
+        const int dx = dxp - xo;  // the tap through which this column feeds output xo
+        if (dx < 0 || dx >= KX) continue;
+#pragma unroll
+        for (int dz = 0; dz < KZ; ++dz) {
+#pragma unroll
+          for (int t = 0; t < TZ; ++t)
+            acc[xo][t] = fmaf(col[t + dz], wr[dz * KX + dx], acc[xo][t]);
+        }
+      }
+    }
+  }
+
+  const int oy = y0 + lane;
+  if (oy >= Y) return;
+  float* ob = out + (size_t)b * Z * X * Y;
+#pragma unroll
+  for (int xo = 0; xo < RX; ++xo) {
+    const int ox = x0 + xt * RX + xo;
+    if (ox >= X) continue;
+#pragma unroll
+    for (int t = 0; t < TZ; ++t) {
+      const int oz = z0 + t;
+      if (oz < Z) {
+        float c = acc[xo][t];
+        // relu(tanh(c)) is 0 wherever c <= 0 (and for a NaN, as fmaxf gives):
+        // most of a sparse scene never pays for tanhf
+        if (activation) c = c > 0.0f ? tanhf(c) : 0.0f;
+        ob[((size_t)oz * X + ox) * Y + oy] = c;
+      }
+    }
+  }
+}
+
+template <int KZ, int KX, int KY, int RX, int TZ, int NB>
+int launch_fast(const float* x, const float* w, float* out, int B, int Z, int X, int Y,
+                int activation, cudaStream_t s) {
+  using F = Fast<KZ, KX, KY, RX, TZ, NB>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)F::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int tiles_y = (Y + kFastTy - 1) / kFastTy;
+  const int tiles_x = (X + F::TX - 1) / F::TX;
+  dim3 grid(tiles_y * tiles_x, (Z + TZ - 1) / TZ, B);
+  // rows of the volume start on 16-byte boundaries: the halo goes 16 bytes a copy
+  const int vec = Y % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB><<<grid, kFastThreads, F::SMEM, s>>>(
+      x, w, out, Z, X, Y, activation, tiles_y, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B, Z, X, Y) f32, kernel (k_z, k_x, k_y) f32, out (B, Z, X, Y) f32, all
-// contiguous; 1 <= k_z <= 16. Launches on `stream`; returns cudaGetLastError().
+// contiguous; 1 <= k_z <= 16. `fast` != 0 takes the unrolled kernel, which
+// exists for (9,5,5) alone (any other size is refused); 0 the generic one.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int snt_stencil_conv(const float* x, const float* w, float* out,
                                 int B, int Z, int X, int Y, int kz, int kx,
-                                int ky, int activation, void* stream) {
+                                int ky, int activation, int fast, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Z <= 0 || X <= 0 || Y <= 0 || kx <= 0 || ky <= 0)
     return (int)cudaErrorInvalidValue;
+  if (fast) {
+    if (kz == 9 && kx == 5 && ky == 5)
+      return launch_fast<9, 5, 5, 2, 8, 4>(x, w, out, B, Z, X, Y, activation, s);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (kz) {
 #define SNT_KZ(K) \
   case K:         \

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "snt_sort_keys": (_P, _P, _P, _I, _I, _I, _P),
     # keys, order, flag, counts, flagged, B, N, size, stream
     "snt_sorted_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, stream
-    "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, fast, stream
+    "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,
     # stream
     "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
@@ -68,6 +68,10 @@ _SIGNATURES = {
     # x, wt, out, B, C_in, C_out, Z, X, Y, x strides (sample, channel, voxel),
     # out strides (sample, channel, voxel), vec_out, stream
     "snt_conv3d_mc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P),
+    # x, w, frag, out, partial, B, C_in, C_out, Z, X, Y, w strides (C_out, C_in, dz,
+    # dx, dy), tile, k_splits, stream
+    "snt_conv3d_mc_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                         _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -4,7 +4,9 @@ twins, and the differentiable compositions.
 - ``geneo_stencil_conv`` is the port of the TPU kernel
   ``scenenet_tpu.ops.pallas_conv.geneo_stencil_conv``: an f32 SAME conv of
   a (B, 1, Z, X, Y) grid with one (k_z, k_x, k_y) kernel, torch's
-  asymmetric pads, and an optional relu∘tanh head (``csrc/stencil_conv.cu``).
+  asymmetric pads, and an optional relu∘tanh head (``csrc/stencil_conv.cu``:
+  an unrolled, register-blocked kernel for (9,5,5) and a generic one for
+  every other kernel size, picked by ``stencil_route``).
 - ``geneo_stencil_conv_mxu`` is the port of ``pallas_conv.geneo_stencil_conv_mxu``:
   the same conv on the tensor cores, x rounded to bf16, the kernel split
   into bf16 ``hi`` + 2⁻⁹·bf16 ``lo``, f32 accumulation, and an optional
@@ -41,6 +43,9 @@ MXU_LAUNCHES = _build.LaunchCounter("stencil_mma")
 MAX_KZ = 16  # the kernels' k_z is a template parameter, instantiated 1..16
 MAX_BLOCK_SHARED = 232448  # bytes of shared memory one block can use on sm_90
 LO_SCALE = 512.0  # 2⁹: shifts the kernel's bf16 residual into bf16's mantissa window
+# the kernel sizes the f32 stencil's unrolled, register-blocked kernel is built for
+FAST_KERNEL_SIZES = ((9, 5, 5),)
+_ROUTE_FLAG = {"generic": 0, "fast": 1}  # the C entry's `fast` argument
 
 
 def _check_volume(name: str, x: torch.Tensor) -> None:
@@ -70,11 +75,42 @@ def _check_conv_args(x: torch.Tensor, kernel: torch.Tensor) -> None:
         raise ValueError(f"x on {x.device}, kernel on {kernel.device}")
 
 
+def stencil_route(kernel_size) -> str:
+    """Which of the f32 stencil's two kernels a launch takes, from the kernel
+    size alone: ``"fast"`` (tap loops unrolled at compile time, a sliding
+    window of inputs in registers, 16-byte halo staging) for a size of
+    ``FAST_KERNEL_SIZES``, at every batch and volume (on the card it is the
+    faster one from batch 1 up), else ``"generic"`` (runtime k_x and k_y)."""
+    return "fast" if tuple(int(k) for k in kernel_size) in FAST_KERNEL_SIZES else "generic"
+
+
 def geneo_stencil_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
                              activation: bool = True) -> torch.Tensor:
     """Plain PyTorch version: ``conv3d_same`` then relu∘tanh."""
     out = conv3d_same(x, kernel[None, None])
     return torch.relu(torch.tanh(out)) if activation else out
+
+
+def _launch_stencil(x: torch.Tensor, kernel: torch.Tensor, activation: bool,
+                    route: str) -> torch.Tensor:
+    """One launch of the f32 stencil on checked CUDA tensors, through the
+    kernel ``route`` names (``stencil_route`` picks it; the card tests force
+    either)."""
+    b, _, z, xx, yy = x.shape
+    k_z, k_x, k_y = kernel.shape
+    x = x.contiguous()
+    kernel = kernel.contiguous()
+    out = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.snt_stencil_conv(
+            x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
+            b, z, xx, yy, k_z, k_x, k_y, int(bool(activation)), _ROUTE_FLAG[route],
+            ctypes.c_void_p(stream))
+    _build.check(err, "stencil_conv")
+    LAUNCHES.add()
+    return out
 
 
 def geneo_stencil_conv(x: torch.Tensor, kernel: torch.Tensor,
@@ -100,21 +136,7 @@ def geneo_stencil_conv(x: torch.Tensor, kernel: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
         raise RuntimeError("the raw CUDA stencil is forward only: use "
                            "fused_geneo_conv for a differentiable conv")
-    b, _, z, xx, yy = x.shape
-    k_z, k_x, k_y = kernel.shape
-    x = x.contiguous()
-    kernel = kernel.contiguous()
-    out = torch.empty_like(x)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.snt_stencil_conv(
-            x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
-            b, z, xx, yy, k_z, k_x, k_y, int(bool(activation)),
-            ctypes.c_void_p(stream))
-    _build.check(err, "stencil_conv")
-    LAUNCHES.add()
-    return out
+    return _launch_stencil(x, kernel, activation, stencil_route(kernel.shape))
 
 
 def split_kernel_bf16(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -6,10 +6,18 @@ differentiable composition.
   w (C_out, C_in, 3, 3, 3) → (B, C_out, Z, X, Y), stride 1, zero pad 1 a
   side, no bias, f32 in and out with f32 accumulation; with
   ``channels_last=True`` x and the result are (B, Z, X, Y, C)
-  (``csrc/conv3d_mc.cu``: one kernel for every volume size and both
-  layouts).
+  (``csrc/conv3d_mc.cu``). Layers with more than ``FMA_MAX_C_IN`` input
+  channels run on the tensor cores as a three-product split: each f32
+  operand is ``hi + lo`` with ``hi`` its TF32 part, and the product is taken
+  as ``hi·hi`` (one TF32 mma) ``+ lo·hi + hi·lo`` (both in one bf16 mma, whose
+  8 bits are enough for terms 2⁻¹¹ of the first) with f32 sums, inside the
+  f32 tolerance. The rest and the channels-last layout run the f32 FMA
+  kernel. :func:`conv3d_mc_plan` picks the route, the tile and the K split
+  from the shape alone.
 - ``conv3d_mc_same_plain`` is the plain PyTorch version: ``F.conv3d`` with
-  padding 1 and TF32 off.
+  padding 1 and TF32 off. ``conv3d_mc_same_tc_plain`` repeats the
+  tensor-core kernel's arithmetic (``split_weights`` and ``split_inputs`` by
+  bit arithmetic, three f32 convs) for the CPU tests.
 - ``fused_conv3d_mc`` is that conv as a ``torch.autograd.Function``, the
   conv of ``UNet3D`` and ``CnnBaseline`` on the kernel backend. Forward:
   the kernel. dx, only when x needs it: the same kernel on the cotangent
@@ -23,13 +31,16 @@ differentiable composition.
   the port's kernels.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it
-runs its plain version. Kernel and plain version sum the same products in
-a different order, so they agree to f32 rounding, not bit for bit.
+runs its plain version. Kernel and plain version sum in a different order
+(and the tensor-core route drops the ``lo·lo`` term, 2⁻²¹ of a product), so
+they agree to f32 rounding, not bit for bit. The kernel uses no atomics:
+its K split is reduced in a fixed order, so two runs give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -37,6 +48,17 @@ from scenenet_tpu_torch.ops import _build
 from scenenet_tpu_torch.ops.conv3d import conv3d_f32, cudnn_off
 
 MC_LAUNCHES = _build.LaunchCounter("conv3d_mc")
+
+K_STEP = 8          # input channels of one tensor-core K step (one tap of a chunk)
+MAX_K_SPLITS = 32   # most blocks that share one output tile's C_in
+TARGET_BLOCKS = 264  # two blocks for each of the card's 132 SMs
+FMA_MAX_C_IN = 4    # up to here a layer stays on the FMA kernel: padded to 8
+#                     channels the tensor cores would do twice the work or more
+# the tensor-core kernel's tiles, by the id the C entry takes:
+# (samples, z, x, y) voxels of a block and its output channels
+TC_TILES = {0: ((1, 4, 8, 16), 32), 1: ((1, 8, 8, 8), 32), 2: ((1, 4, 8, 8), 64),
+            3: ((4, 4, 4, 4), 64)}
+FMA_TILE = "fma"
 
 
 def _check_args(x: torch.Tensor, w: torch.Tensor, channels_last: bool) -> None:
@@ -65,6 +87,89 @@ def conv3d_mc_same_plain(x: torch.Tensor, w: torch.Tensor,
     return out.permute(0, 2, 3, 4, 1).contiguous() if channels_last else out
 
 
+def conv3d_mc_plan(b: int, c_in: int, c_out: int, z: int, x: int, y: int,
+                   channels_last: bool = False) -> Tuple[object, int]:
+    """(tile, k_splits) for one call, from its shape alone.
+
+    ``tile`` is ``FMA_TILE`` (C_in ≤ ``FMA_MAX_C_IN``, or channels-last: the
+    FMA kernel, never split) or a key of ``TC_TILES``: 32 output channels a
+    block up to C_out = 32 and 64 past it; 16 voxels along y where the
+    volume has more than 8, else 8; and where the volume is within 4³, four
+    samples of 4×4×4 in one tile, so that none of it lies outside.
+    ``k_splits`` divides the C_in/8 chunks among that many blocks where the
+    tiles alone give fewer than ``TARGET_BLOCKS``, up to
+    :func:`conv3d_mc_split_cap`.
+    """
+    if channels_last or c_in <= FMA_MAX_C_IN:
+        return FMA_TILE, 1
+    if c_out <= 32:
+        tile = 0 if y > 8 else 1
+    else:
+        tile = 3 if max(z, x, y) <= 4 else 2
+    blocks = conv3d_mc_blocks(tile, 1, b, c_out, z, x, y)
+    k_splits = min(conv3d_mc_split_cap(tile, c_in), -(-TARGET_BLOCKS // blocks))
+    return tile, k_splits
+
+
+def conv3d_mc_split_cap(tile, c_in: int) -> int:
+    """The most K splits a call may take: one chunk of 8 channels a block at
+    least, ``MAX_K_SPLITS`` at most; 1 on the FMA kernel."""
+    return 1 if tile == FMA_TILE else min(-(-c_in // K_STEP), MAX_K_SPLITS)
+
+
+def conv3d_mc_blocks(tile, k_splits: int, b: int, c_out: int, z: int, x: int, y: int) -> int:
+    """Blocks a tensor-core launch has under ``tile`` and ``k_splits``."""
+    (tb, tz, tx, ty), bn = TC_TILES[tile]
+    return (-(-b // tb) * -(-z // tz) * -(-x // tx) * -(-y // ty) * -(-c_out // bn)
+            * k_splits)
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 → the nearest TF32 value (10 mantissa bits, ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds), still as f32: half an ulp added to the
+    magnitude's bits, the low 13 bits cleared."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(v: torch.Tensor) -> torch.Tensor:
+    """f32 → the TF32 value next towards zero: the low 13 bits cleared."""
+    return (v.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).to(torch.float32)
+
+
+def split_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 weights → ``(hi, lo)``: ``hi = tf32(w)`` rounded to nearest,
+    ``lo = bf16(w − hi)`` (the difference is exact in f32), both as f32.
+    ``hi + lo`` reproduces ``w`` to 2⁻²⁰ relative. The split the kernel makes
+    of its weights once a call."""
+    hi = tf32_round(w)
+    return hi, _bf16(w - hi)
+
+
+def split_inputs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 inputs → ``(hi, lo)``: ``hi`` the leading 10 mantissa bits (a
+    mask), ``lo = bf16(x − hi)``: 2⁻¹⁹ relative. The split the kernel makes of
+    its inputs in registers as it loads them."""
+    hi = tf32_truncate(x)
+    return hi, _bf16(x - hi)
+
+
+def conv3d_mc_same_tc_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain PyTorch: three f32 convs,
+    ``x_hi·w_hi`` (a product of two TF32 values is exact in f32) and the two
+    cross terms ``x_lo·bf16(w) + bf16(x)·w_lo`` (what the kernel's one bf16
+    mma takes), f32 sums; the ``lo·lo`` term, 2⁻²¹ of a product, is dropped.
+    Channels first."""
+    xh, xl = split_inputs(x)
+    wh, wl = split_weights(w)
+    return conv3d_f32(xl, _bf16(w), padding=1) + conv3d_f32(_bf16(x), wl, padding=1) \
+        + conv3d_f32(xh, wh, padding=1)
+
+
 def _transposed(w: torch.Tensor) -> torch.Tensor:
     """(C_out, C_in, 3, 3, 3) → (C_in, 27, C_out) contiguous, the layout the
     kernel stages from (rows of C_out weights per input channel and tap)."""
@@ -72,8 +177,33 @@ def _transposed(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(c_out, c_in, 27).permute(1, 2, 0).contiguous()
 
 
+def _launch_tc(x: torch.Tensor, w: torch.Tensor, tile: int, k_splits: int) -> torch.Tensor:
+    """The tensor-core kernel on channels-first x and weights of any strides:
+    the weight split, the conv and the K-split reduction are one launch of
+    the wrapper."""
+    x = x.contiguous()
+    b, c_in, z, xx, yy = x.shape
+    c_out = w.shape[0]
+    bn = TC_TILES[tile][1]
+    out = torch.empty((b, c_out, z, xx, yy), dtype=torch.float32, device=x.device)
+    frag = torch.empty((-(-c_out // bn) * -(-c_in // K_STEP) * 27 * bn * 16,),
+                       dtype=torch.float32, device=x.device)
+    partial = (torch.empty((k_splits, *out.shape), dtype=torch.float32, device=x.device)
+               if k_splits > 1 else None)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.snt_conv3d_mc_tc(x.data_ptr(), w.data_ptr(), frag.data_ptr(), out.data_ptr(),
+                                   partial.data_ptr() if k_splits > 1 else None,
+                                   b, c_in, c_out, z, xx, yy, *w.stride(), tile, k_splits,
+                                   ctypes.c_void_p(stream))
+    _build.check(err, "conv3d_mc")
+    MC_LAUNCHES.add()
+    return out
+
+
 def _launch(x: torch.Tensor, wt: torch.Tensor, channels_last: bool) -> torch.Tensor:
-    """The kernel on contiguous x and transposed weights ``wt`` (C_in, 27, C_out)."""
+    """The FMA kernel on contiguous x and transposed weights ``wt`` (C_in, 27, C_out)."""
     c_in, _, c_out = wt.shape
     x = x.contiguous()
     if channels_last:
@@ -119,7 +249,14 @@ def conv3d_mc_same(x: torch.Tensor, w: torch.Tensor,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("the raw CUDA conv is forward only: use fused_conv3d_mc "
                            "for a differentiable conv")
-    return _launch(x, _transposed(w), channels_last)
+    if channels_last:
+        b, z, xx, yy, _ = x.shape
+    else:
+        b, _, z, xx, yy = x.shape
+    tile, k_splits = conv3d_mc_plan(b, w.shape[1], w.shape[0], z, xx, yy, channels_last)
+    if tile == FMA_TILE:
+        return _launch(x, _transposed(w), channels_last)
+    return _launch_tc(x, w, tile, k_splits)
 
 
 def conv3d_mc_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,15 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   gradient snapshot per epoch.
 
 Not ported yet, and raising where asked for: the device-resident epoch
-caches (ROADMAP A6), mesh training (A12), resumable snapshots (A7), the
-bf16 forward and gradient accumulation (A13).
+caches and their ``epoch_chunks`` (ROADMAP A6), mesh training (A12),
+resumable snapshots (A7), the bf16 forward and gradient accumulation
+(A13), the point-cloud export of a validation sample (A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 import warnings
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
@@ -53,7 +55,11 @@ class TrainConfig:
     checkpoint_top_k: int = 2
     run_dir: str = "runs/default"
     log_gradients: bool = True
+    log_pointclouds_every: int = 0  # every N epochs export val sample PLYs (0 = off)
+    debug_nans: bool = False        # torch.autograd.set_detect_anomaly around each step
+    profile_dir: Optional[str] = None  # write a torch.profiler trace of epoch 0 there
     precision: str = "f32"
+    epoch_chunks: int = 1           # dispatches per device-resident epoch
     checkpoint_every_n_steps: int = 0
 
 
@@ -127,6 +133,13 @@ class Trainer:
         if config.checkpoint_every_n_steps > 0:
             raise NotImplementedError("checkpoint_every_n_steps > 0 (resumable "
                                       "snapshots) is not ported yet: ROADMAP A7")
+        if config.log_pointclouds_every > 0:
+            raise NotImplementedError("log_pointclouds_every > 0 (the PLY export of a "
+                                      "validation sample, utils/viz.py) is not ported "
+                                      "yet: ROADMAP A11")
+        if config.epoch_chunks != 1:
+            raise NotImplementedError("epoch_chunks != 1 (chunked device-resident "
+                                      "epochs) is not ported yet: ROADMAP A6")
         self.model = model
         self.criterion = criterion
         self.config = config
@@ -164,8 +177,14 @@ class Trainer:
         x, y = self.batch_prep(*batch) if self.batch_prep else batch
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss, pred = self._loss(x, y)
-        loss.backward()
+        # debug_nans: a NaN made in the forward or the backward raises,
+        # naming the operation that made it
+        with torch.autograd.set_detect_anomaly(self.config.debug_nans):
+            loss, pred = self._loss(x, y)
+            if self.config.debug_nans and not bool(torch.isfinite(loss)):
+                raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at step "
+                                         f"{self.step}")
+            loss.backward()
         self.optimizer.step()
         self.step += 1
         return update_metrics(mstate, pred.detach(), y, self.config.tau), loss.detach()
@@ -205,6 +224,19 @@ class Trainer:
             scores[f"{prefix}_loss"] = float(torch.stack(losses).mean())
         return scores
 
+    def _start_trace(self):
+        """A running ``torch.profiler`` over the host and, on a card, the
+        device; ``fit`` ends it after epoch 0 and writes the trace."""
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        tracer = profile(activities=activities)
+        tracer.__enter__()
+        return tracer
+
     # ---- fit / evaluate ------------------------------------------------------
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
@@ -223,6 +255,7 @@ class Trainer:
                    if cfg.early_stop_metric else None)
         epoch = 0
         while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
+            tracer = self._start_trace() if cfg.profile_dir and epoch == 0 else None
             t0 = time.time()
             mstate = init_metric_state(self.device)
             loss_sum = torch.zeros((), device=self.device)
@@ -251,6 +284,9 @@ class Trainer:
             self.logger.log_metrics(scores, epoch)
             self.best.update(scores)
             ckpt.step(self.model, scores, epoch)
+            if tracer is not None:
+                tracer.__exit__(None, None, None)
+                tracer.export_chrome_trace(os.path.join(cfg.profile_dir, "epoch0_trace.json"))
             if stopper is not None and stopper.update(scores):
                 break
             epoch += 1

@@ -53,6 +53,34 @@ def test_plain_matches_pallas_stencil(ks, activation):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("shape,ks,route", [
+    ((2, 16, 32, 64), (9, 5, 5), "fast"),      # two tiles of 8×16×32 along z, x and y
+    ((3, 13, 18, 40), (9, 5, 5), "fast"),      # ragged tiles; Y a multiple of 4
+    ((2, 9, 17, 35), (9, 5, 5), "fast"),       # Y no multiple of 4: the 4-byte staging
+    ((2, 16, 32, 32), (9, 6, 6), "generic"),   # an even kernel: the generic kernel only
+    ((2, 16, 32, 32), (5, 5, 9), "generic"),
+])
+def test_plain_matches_pallas_at_the_shapes_the_dispatch_separates(shape, ks, route):
+    """The f32 stencil has two kernels on the card; ``stencil_route`` picks
+    one from the kernel size alone. On both sides of the rule, and at the
+    volume shapes the unrolled kernel treats differently, the plain
+    version equals the Pallas kernel (interpret mode) within 1e-5."""
+    assert cuda_conv.stencil_route(ks) == route
+    x, k = _inputs(sum(ks) + sum(shape), ks, shape)
+    want = np.asarray(pallas_stencil(jnp.asarray(x), jnp.asarray(k), interpret=True))
+    got = geneo_stencil_conv(torch.from_numpy(x), torch.from_numpy(k)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("ks,route", [
+    ((9, 5, 5), "fast"), (torch.Size((9, 5, 5)), "fast"), ([9, 5, 5], "fast"),
+    ((9, 6, 6), "generic"), ((5, 5, 9), "generic"), ((5, 9, 5), "generic"),
+    ((3, 3, 3), "generic"), ((9, 9, 9), "generic"), ((4, 7, 2), "generic"),
+])
+def test_stencil_route(ks, route):
+    assert cuda_conv.stencil_route(ks) == route
+
+
 @pytest.mark.parametrize("ks", [(9, 6, 6), (4, 7, 2)])
 def test_conv3d_same_matches_jax(ks):
     """Even kernels take torch's asymmetric pads (low (k-1)//2, high k//2)."""

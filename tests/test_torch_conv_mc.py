@@ -178,3 +178,140 @@ def test_launch_counter_counts_only_launches():
     conv3d_mc_same(torch.from_numpy(x), torch.from_numpy(w))
     fused_conv3d_mc(torch.from_numpy(x), torch.from_numpy(w).requires_grad_()).sum().backward()
     assert cuda_conv_mc.MC_LAUNCHES.count == before
+
+
+# ---- the tensor-core route: its plan and its arithmetic, on the CPU -----------------
+
+# UNet3D's 18 3×3×3 convs in forward order: (C_in, C_out, cubic extent at a 64³ grid)
+UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
+              (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (256, 256, 4),
+              (512, 256, 8), (256, 128, 8), (256, 128, 16), (128, 64, 16), (128, 64, 32),
+              (64, 32, 32), (64, 32, 64), (32, 32, 64)]
+
+
+def _fma_blocks(b, c_out, n):
+    """Blocks of the FMA kernel at a cubic volume (its tiles: csrc/conv3d_mc.cu)."""
+    co_t = 32 if c_out <= 32 else 64
+    if c_out <= 32:
+        tz, tx, ty = (8, 16, 4) if n <= 4 else (8, 8, 8) if n <= 8 else (4, 8, 16)
+    else:
+        tz, tx, ty = (8, 8, 4) if n <= 4 else (4, 8, 8) if n <= 8 else (4, 4, 16)
+    return b * -(-n // tz) * -(-n // tx) * -(-n // ty) * -(-c_out // co_t)
+
+
+@pytest.mark.parametrize("batch", [16, 1])
+@pytest.mark.parametrize("layer", range(len(UNET_CONVS)))
+def test_plan_fills_the_card_or_splits_to_its_cap(layer, batch):
+    """Every UNet layer, at the train batch and at batch 1: two blocks an SM
+    (264), or C_in split as far as it goes; never more splits than K steps;
+    the same arguments give the same plan."""
+    cin, cout, n = UNET_CONVS[layer]
+    tile, k_splits = cuda_conv_mc.conv3d_mc_plan(batch, cin, cout, n, n, n)
+    assert (tile, k_splits) == cuda_conv_mc.conv3d_mc_plan(batch, cin, cout, n, n, n)
+    cap = cuda_conv_mc.conv3d_mc_split_cap(tile, cin)
+    assert 1 <= k_splits <= cap <= max(1, -(-cin // cuda_conv_mc.K_STEP))
+    if tile == cuda_conv_mc.FMA_TILE:
+        assert cin <= cuda_conv_mc.FMA_MAX_C_IN and k_splits == 1
+        blocks = _fma_blocks(batch, cout, n)
+    else:
+        blocks = cuda_conv_mc.conv3d_mc_blocks(tile, k_splits, batch, cout, n, n, n)
+        (tb, tz, tx, ty), bn = cuda_conv_mc.TC_TILES[tile]
+        assert bn == (32 if cout <= 32 else 64)
+        if n == 4:  # no tile half outside the volume: the batch is folded in
+            assert (tb, tz, tx, ty) == (4, 4, 4, 4)
+        assert tz <= max(n, 4) and tx <= max(n, 8) and ty <= max(n, 8)
+    assert blocks >= cuda_conv_mc.TARGET_BLOCKS or k_splits == cap
+
+
+@pytest.mark.parametrize("args,want", [
+    ((2, 16, 24, 5, 9, 7), (1, 2)),            # y ≤ 8, 32-channel tile; 2 chunks, both split
+    ((16, 256, 128, 8, 8, 8), (2, 5)),         # 64 blocks → 5 splits of 32 chunks
+    ((1, 256, 256, 4, 4, 4), (3, 32)),         # batch 1 at 4³: the cap
+    ((2, 3, 3, 64, 64, 64), ("fma", 1)),       # the CNN baseline's layers
+    ((2, 4, 8, 6, 6, 6), ("fma", 1)),
+    ((2, 5, 8, 6, 6, 6), (1, 1)),              # one ragged chunk cannot be split
+    ((3, 100, 64, 8, 8, 8), (2, 13)),          # C_in no multiple of 8: 13 chunks
+])
+def test_plan_at_the_shapes_it_separates(args, want):
+    assert cuda_conv_mc.conv3d_mc_plan(*args) == want
+    assert cuda_conv_mc.conv3d_mc_plan(*args, channels_last=True) == ("fma", 1)
+
+
+def _tf32_round_numpy(v):
+    """Round to 10 mantissa bits, ties away from zero, in float64."""
+    v = np.asarray(v, np.float64)
+    m, e = np.frexp(v)                      # v = m * 2^e, 0.5 <= |m| < 1
+    scaled = m * 2048.0                     # 11 significant bits before the point
+    r = np.sign(scaled) * np.floor(np.abs(scaled) + 0.5)
+    return np.ldexp(r / 2048.0, e).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 1e-3), (2, 300.0), (3, 1e-20)])
+def test_weight_split_keeps_20_bits(seed, scale):
+    """hi has its 13 low mantissa bits clear and is the nearest such value
+    (ties away from zero, as cvt.rna.tf32.f32); lo is a bf16 value; hi + lo
+    reproduces w to 2⁻²⁰ relative (w − hi is at most 2⁻¹¹ of w and bf16
+    keeps it to 2⁻⁹: half of that again wherever w is not at the bottom of
+    its binade)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal(4096) * scale).astype(np.float32)
+    w[:4] = [1.0, -1.0, 1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)]  # exact values and ties
+    hi, lo = cuda_conv_mc.split_weights(torch.from_numpy(w))
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert int((lo.view(torch.int32) & 0xFFFF).abs().max()) == 0
+    np.testing.assert_array_equal(hi.numpy(), _tf32_round_numpy(w))
+    assert hi[2].item() == 1.0 + 2.0 ** -10 and hi[3].item() == -(1.0 + 2.0 ** -10)
+    err = np.abs((hi.double() + lo.double()).numpy() - w.astype(np.float64))
+    assert (err <= 2.0 ** -20 * np.abs(w)).all()
+    assert (np.abs(w - hi.numpy()) <= 2.0 ** -11 * np.abs(w)).all()
+
+
+@pytest.mark.parametrize("seed,scale", [(0, 1.0), (1, 1e-3), (2, 300.0)])
+def test_input_split_keeps_19_bits(seed, scale):
+    """The inputs' split is a mask: hi never past x in magnitude, lo of x's
+    sign, a bf16 value; hi + lo reproduces x to 2⁻¹⁹ relative; {0, 1}
+    occupancy is all in hi."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(4096) * scale).astype(np.float32)
+    x[:3] = [1.0, 0.0, 1.0 + 2.0 ** -11]
+    hi, lo = cuda_conv_mc.split_inputs(torch.from_numpy(x))
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert int((lo.view(torch.int32) & 0xFFFF).abs().max()) == 0
+    assert (np.abs(hi.numpy()) <= np.abs(x)).all() and (lo.numpy() * x >= 0).all()
+    assert hi[:3].tolist() == [1.0, 0.0, 1.0] and lo[:3].tolist() == [0.0, 0.0, 2.0 ** -11]
+    err = np.abs((hi.double() + lo.double()).numpy() - x.astype(np.float64))
+    assert (err <= 2.0 ** -19 * np.abs(x)).all()
+
+
+@pytest.mark.parametrize("cin,cout,shape", [
+    (4, 8, (6, 6, 6)), (32, 32, (12, 12, 12)), (160, 128, (8, 8, 8)), (16, 24, (5, 9, 7)),
+])
+def test_tensor_core_emulation_matches_pallas_interpret(cin, cout, shape):
+    """The tensor-core kernel's arithmetic (operands split into a TF32 hi
+    and a bf16 lo, three products, f32 sums) against the Pallas kernel in
+    interpret mode, at that kernel's own tolerance."""
+    x, w = _case(cin, cout, shape)
+    want = pallas_conv3d_mc(jnp.asarray(x), jnp.asarray(w), interpret=True, n_tile=256)
+    got = cuda_conv_mc.conv3d_mc_same_tc_plain(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    one = F.conv3d(cuda_conv_mc.tf32_round(torch.from_numpy(x)),
+                   cuda_conv_mc.tf32_round(torch.from_numpy(w)), padding=1)
+    # the check is live: TF32 alone is far outside that tolerance
+    assert float((one - torch.from_numpy(np.asarray(want))).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("cin", [512, 256])
+def test_tensor_core_emulation_holds_the_scaled_bound_at_many_channels(cin):
+    """At 512 input channels (13824 products a sum) against the plain f32
+    conv, on outputs of magnitude ~1: 2e-5·sqrt(C_in/160) + 1e-5 relative."""
+    rng = np.random.default_rng(cin)
+    x = torch.from_numpy(rng.random((2, cin, 4, 4, 4)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((32, cin, 3, 3, 3)) / np.sqrt(27 * cin))
+                         .astype(np.float32))
+    want = conv3d_mc_same_plain(x, w)
+    got = cuda_conv_mc.conv3d_mc_same_tc_plain(x, w)
+    assert 0.2 < float(want.abs().mean()) < 2.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5 * (cin / 160) ** 0.5)
+    exact = F.conv3d(x.double(), w.double(), padding=1)
+    assert float((got.double() - exact).abs().max()) <= 2 * float(
+        (want.double() - exact).abs().max()) + 1e-6

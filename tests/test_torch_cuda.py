@@ -67,6 +67,39 @@ def test_stencil_kernel_matches_plain(dev, ks, shape, activation):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(17, 64, 64, 64), (5, 24, 70, 100), (2, 128, 128, 64),
+                                   (1, 64, 64, 64), (2, 9, 17, 35), (3, 5, 3, 2)])
+@pytest.mark.parametrize("activation", [True, False])
+def test_stencil_fast_and_generic_routes_agree(dev, shape, activation):
+    """(9,5,5) takes the unrolled kernel at every batch and volume (Y a
+    multiple of 4 or not: 16-byte or 4-byte staging); the generic kernel,
+    forced on the same input, sums the same 225 products in another order.
+    Both are held to the plain version, and two runs of each give the same
+    bits."""
+    assert cuda_conv.stencil_route((9, 5, 5)) == "fast"
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((rng.random(shape) > 0.7).astype(np.float32))[:, None].to(dev)
+    k = torch.from_numpy(rng.normal(0, 0.3, (9, 5, 5)).astype(np.float32)).to(dev)
+    before = cuda_conv.LAUNCHES.count
+    got = cuda_conv.geneo_stencil_conv(x, k, activation=activation)
+    assert cuda_conv.LAUNCHES.count == before + 1
+    fast = cuda_conv._launch_stencil(x, k, activation, "fast")
+    generic = cuda_conv._launch_stencil(x, k, activation, "generic")
+    assert torch.equal(got, fast)
+    assert torch.equal(generic, cuda_conv._launch_stencil(x, k, activation, "generic"))
+    want = cuda_conv.geneo_stencil_conv_plain(x, k, activation=activation)
+    torch.testing.assert_close(fast, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(generic, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(fast, generic, rtol=1e-5, atol=1e-5)
+
+
+def test_stencil_fast_route_is_refused_for_other_kernel_sizes(dev):
+    x = torch.zeros((1, 1, 8, 8, 8), device=dev)
+    with pytest.raises(RuntimeError, match="stencil_conv"):
+        cuda_conv._launch_stencil(x, torch.zeros((9, 6, 6), device=dev), True, "fast")
+    assert cuda_conv.stencil_route((9, 6, 6)) == "generic"
+
+
 def test_stencil_kernel_refuses_grad(dev):
     x = torch.zeros((1, 1, 8, 8, 8), device=dev)
     k = torch.zeros((3, 3, 3), device=dev, requires_grad=True)
@@ -508,6 +541,55 @@ def test_conv3d_mc_kernel_matches_plain(dev, cin, cout, shape):
     assert got.shape == (2, cout, *shape)
     _mc_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
     _mc_close(got.cpu(), cuda_conv_mc.conv3d_mc_same(x.cpu(), w.cpu()), cin)
+
+
+@pytest.mark.parametrize("b,cin,cout,shape", [
+    (16, 256, 128, (8, 8, 8)),   # 5 K splits of 32 chunks: 6 and 7 chunks a block
+    (2, 100, 64, (8, 8, 8)),     # C_in no multiple of the K step: a chunk of 4 channels
+    (1, 256, 256, (4, 4, 4)),    # batch 1 in the four-sample tile, the split at its cap
+    (1, 128, 256, (8, 8, 8)),    # batch 1 at 8^3
+    (3, 40, 30, (6, 10, 7)),     # C_out no multiple of 8, Y no multiple of 4
+    (2, 72, 100, (5, 4, 3)),     # the 64-channel tile with a ragged channel tile
+    (5, 48, 64, (4, 4, 4)),      # a batch that does not fill its last four-sample tile
+])
+def test_conv3d_mc_tensor_core_shapes_match_plain(dev, b, cin, cout, shape):
+    """The shapes the plan treats differently: every tile, the K split with
+    even and ragged chunks, tiles and channel tiles that hang over the
+    volume; and the same bits on a second run (no atomics anywhere)."""
+    tile, k_splits = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape)
+    assert tile != cuda_conv_mc.FMA_TILE
+    x, w = _mc_case(b + cin + cout, b, cin, cout, shape)
+    x, w = x.to(dev), w.to(dev)
+    before = cuda_conv_mc.MC_LAUNCHES.count
+    got = cuda_conv_mc.conv3d_mc_same(x, w)
+    again = cuda_conv_mc.conv3d_mc_same(x, w)
+    assert cuda_conv_mc.MC_LAUNCHES.count == before + 2
+    _mc_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
+    assert torch.equal(got, again)
+    # the kernel's own arithmetic, summed in another order
+    _mc_close(got, cuda_conv_mc.conv3d_mc_same_tc_plain(x, w), cin)
+
+
+def test_conv3d_mc_split_plans_are_exercised():
+    """The cases above reach a K split above 1, the cap, and all four tiles."""
+    plans = [cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape) for b, cin, cout, shape in (
+        (16, 256, 128, (8, 8, 8)), (1, 256, 256, (4, 4, 4)), (3, 40, 30, (6, 10, 7)),
+        (2, 64, 32, (32, 32, 32)))]
+    assert {t for t, _ in plans} == {0, 1, 2, 3}
+    assert plans[0][1] == 5 and plans[1][1] == cuda_conv_mc.MAX_K_SPLITS
+
+
+def test_conv3d_mc_dx_takes_strided_weights(dev):
+    """The input gradient's weights are a flipped, transposed view: the
+    kernel reads them through their strides, no copy."""
+    x, w = _mc_case(11, 2, 24, 40, (6, 6, 6))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 40, 6, 6, 6)).astype(np.float32)).to(dev)
+    w = w.to(dev)
+    view = w.flip((2, 3, 4)).transpose(0, 1)
+    assert not view.is_contiguous()
+    _mc_close(cuda_conv_mc.conv3d_mc_same(g, view),
+              cuda_conv_mc.conv3d_mc_same_plain(g, view.contiguous()))
 
 
 @pytest.mark.parametrize("cin,cout,shape", [(24, 16, (10, 10, 10)), (5, 40, (4, 7, 9))])

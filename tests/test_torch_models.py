@@ -11,6 +11,7 @@ batch variance flax takes as E[x²] − E[x]² and torch in two passes.
 
 import json
 import math
+import shutil
 
 import numpy as np
 import pytest
@@ -350,29 +351,33 @@ def test_classifier_straight_through_matches_jax():
 def test_unet_checkpoint_crosses_both_ways(jax_unet, tmp_path):
     """port → JAX → port: the flax names and layouts, running statistics
     included; ``num_batches_tracked`` or any torch-only name is no part of it."""
-    _, variables = jax_unet
-    net = _port_unet(variables)
-    tckpt.save_checkpoint(str(tmp_path / "port.npz"), net)
-    with np.load(tmp_path / "port.npz") as data:
-        keys = set(data.files)
-    assert keys == {k.replace(".", "/") for k in _flat(variables)}
-    assert "params/down0/Conv_0/kernel" in keys and "batch_stats/up3/BatchNorm_1/var" in keys
-    _, template = JaxUNet3D.create(seed=5, input_shape=(1, 1, 16, 16, 16))
-    restored = jckpt.restore_checkpoint(str(tmp_path / "port.npz"), template)
-    want = _flat(variables)
-    for k, v in _flat(restored).items():
-        np.testing.assert_array_equal(v, want[k], err_msg=k)
-    jckpt.save_checkpoint(str(tmp_path / "jax.npz"), restored)
-    back = tckpt.restore_checkpoint(str(tmp_path / "jax.npz"), UNet3D.create(seed=9))
-    for (n, a), b in zip(back.state_dict().items(), net.state_dict().values()):
-        assert torch.equal(a, b), n
-    x = torch.from_numpy(_occupancy(0, (1, 16, 16, 16)))
-    with torch.no_grad():
-        assert torch.equal(back.eval()(x), net.eval()(x))
-    with pytest.raises(KeyError):
-        tckpt.restore_checkpoint(str(tmp_path / "jax.npz"), CnnBaseline.create())
-    with pytest.raises(KeyError, match="unexpected"):
-        net.load_flax_state({**net.flax_state(), "params.down9.Conv_0.kernel": torch.zeros(1)})
+    try:
+        _, variables = jax_unet
+        net = _port_unet(variables)
+        tckpt.save_checkpoint(str(tmp_path / "port.npz"), net)
+        with np.load(tmp_path / "port.npz") as data:
+            keys = set(data.files)
+        assert keys == {k.replace(".", "/") for k in _flat(variables)}
+        assert "params/down0/Conv_0/kernel" in keys and "batch_stats/up3/BatchNorm_1/var" in keys
+        _, template = JaxUNet3D.create(seed=5, input_shape=(1, 1, 16, 16, 16))
+        restored = jckpt.restore_checkpoint(str(tmp_path / "port.npz"), template)
+        want = _flat(variables)
+        for k, v in _flat(restored).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+        jckpt.save_checkpoint(str(tmp_path / "jax.npz"), restored)
+        back = tckpt.restore_checkpoint(str(tmp_path / "jax.npz"), UNet3D.create(seed=9))
+        for (n, a), b in zip(back.state_dict().items(), net.state_dict().values()):
+            assert torch.equal(a, b), n
+        x = torch.from_numpy(_occupancy(0, (1, 16, 16, 16)))
+        with torch.no_grad():
+            assert torch.equal(back.eval()(x), net.eval()(x))
+        with pytest.raises(KeyError):
+            tckpt.restore_checkpoint(str(tmp_path / "jax.npz"), CnnBaseline.create())
+        with pytest.raises(KeyError, match="unexpected"):
+            net.load_flax_state({**net.flax_state(), "params.down9.Conv_0.kernel": torch.zeros(1)})
+    finally:
+        # two 52 MB checkpoints: leave nothing behind
+        shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("ks,two", [((9, 5, 5), True), ((3, 2, 2), False)])
@@ -447,6 +452,7 @@ def jax_sgd_steps(grids, tmp_path_factory):
 
 def _port_unet_trainer(variables, backend, optimizer, tmp_path, lr=LR, **cfg):
     net = _port_unet(variables, backend)
+    cfg.setdefault("checkpoint_top_k", 1)  # a UNet checkpoint is 52 MB
     config = TrainConfig(run_dir=str(tmp_path / f"run_{backend}"),
                          checkpoint_dir=str(tmp_path / f"ckpt_{backend}"), optimizer=optimizer,
                          learning_rate=lr, early_stop_metric=None, **cfg)
@@ -513,33 +519,37 @@ def test_unet_fit_checkpoints_carry_running_statistics(jax_unet, tmp_path):
     """Trainer.fit on the stateful model: every checkpoint holds the
     running statistics, restore_best brings them back, the JAX package
     reads them, and no parameter series is logged for a black box."""
-    variables = jax_unet[1]
-    trainer = _port_unet_trainer(variables, "torch", "sgd", tmp_path, max_epochs=1)
-    batches = []
-    for i in range(3):
-        x = _occupancy(10 + i, (2, *GRID), 0.2)
-        batches.append((torch.from_numpy(x),
-                        torch.from_numpy(x * _occupancy(20 + i, (2, *GRID), 0.3))))
-    model, best = trainer.fit(batches, val_loader=batches[:1])
-    assert math.isfinite(best["train_loss"]) and math.isfinite(best["val_loss"])
-    trained = {k: v.clone() for k, v in model.state_dict().items()}
-    assert float((trained["down4.bn1.mean"] - torch.from_numpy(
-        np.asarray(variables["batch_stats"]["down4"]["BatchNorm_1"]["mean"]))).abs().max()) > 0
-    with torch.no_grad():
-        for buf in model.buffers():
-            buf.zero_()
-    restored = trainer.restore_best("val_loss")
-    for k, v in restored.state_dict().items():
-        assert torch.equal(v, trained[k]), k
-    ckpt = tmp_path / "ckpt_torch"
-    _, template = JaxUNet3D.create(seed=5, input_shape=(1, 1, *GRID))
-    back = _flat(jckpt.restore_checkpoint(str(ckpt / "last.npz"), template))
-    for k, v in model.flax_state().items():
-        np.testing.assert_array_equal(back[k], v.numpy(), err_msg=k)
-    logs = [json.loads(line) for line in open(tmp_path / "run_torch" / "params.jsonl")]
-    assert all(any(k.startswith("grad") for k in r) for r in logs)  # gradients only
-    scores = trainer.evaluate(batches[1:], prefix="test")
-    assert math.isfinite(scores["test_loss"]) and not model.training
+    try:
+        variables = jax_unet[1]
+        trainer = _port_unet_trainer(variables, "torch", "sgd", tmp_path, max_epochs=1)
+        batches = []
+        for i in range(3):
+            x = _occupancy(10 + i, (2, *GRID), 0.2)
+            batches.append((torch.from_numpy(x),
+                            torch.from_numpy(x * _occupancy(20 + i, (2, *GRID), 0.3))))
+        model, best = trainer.fit(batches, val_loader=batches[:1])
+        assert math.isfinite(best["train_loss"]) and math.isfinite(best["val_loss"])
+        trained = {k: v.clone() for k, v in model.state_dict().items()}
+        assert float((trained["down4.bn1.mean"] - torch.from_numpy(
+            np.asarray(variables["batch_stats"]["down4"]["BatchNorm_1"]["mean"]))).abs().max()) > 0
+        with torch.no_grad():
+            for buf in model.buffers():
+                buf.zero_()
+        restored = trainer.restore_best("val_loss")
+        for k, v in restored.state_dict().items():
+            assert torch.equal(v, trained[k]), k
+        ckpt = tmp_path / "ckpt_torch"
+        _, template = JaxUNet3D.create(seed=5, input_shape=(1, 1, *GRID))
+        back = _flat(jckpt.restore_checkpoint(str(ckpt / "last.npz"), template))
+        for k, v in model.flax_state().items():
+            np.testing.assert_array_equal(back[k], v.numpy(), err_msg=k)
+        logs = [json.loads(line) for line in open(tmp_path / "run_torch" / "params.jsonl")]
+        assert all(any(k.startswith("grad") for k in r) for r in logs)  # gradients only
+        scores = trainer.evaluate(batches[1:], prefix="test")
+        assert math.isfinite(scores["test_loss"]) and not model.training
+    finally:
+        # a checkpoint per monitored score, 52 MB each: leave nothing behind
+        shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 # ---- the train CLI ------------------------------------------------------------------
@@ -566,24 +576,28 @@ def _argv(dataset, out, *extra):
 
 
 def test_cli_trains_unet(dataset, tmp_path, capsys):
-    scores = tcli.main(_argv(dataset, tmp_path, "model=unet"))
-    out = capsys.readouterr().out
-    assert "[device_cache auto] -> false (stateful model)" in out
-    assert "[test] using best 'train_FBetaScore' checkpoint" in out
-    for k in ("train_loss", "val_loss", "test_loss"):
-        assert math.isfinite(scores[k]), k
-    ckpt = tmp_path / "scenenet_ts40k" / "checkpoints"
-    with np.load(ckpt / "last.npz") as data:
-        assert "batch_stats/down0/BatchNorm_0/mean" in data.files
-        assert float(np.abs(data["batch_stats/down0/BatchNorm_0/mean"]).max()) > 0
-    _, template = JaxUNet3D.create(seed=1, input_shape=(1, 1, *GRID))
-    restored = jckpt.restore_checkpoint(str(ckpt / "last.npz"), template)
-    port = tckpt.restore_checkpoint(str(ckpt / "last.npz"), UNet3D.create(seed=2))
-    x = _occupancy(3, (1, *GRID))
-    with torch.no_grad():
-        got = port.eval()(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(JaxUNet3D().apply(
-        restored, jnp.asarray(x))), atol=2e-5, rtol=0)
+    try:
+        scores = tcli.main(_argv(dataset, tmp_path, "model=unet", "checkpoint_top_k=1"))
+        out = capsys.readouterr().out
+        assert "[device_cache auto] -> false (stateful model)" in out
+        assert "[test] using best 'train_FBetaScore' checkpoint" in out
+        for k in ("train_loss", "val_loss", "test_loss"):
+            assert math.isfinite(scores[k]), k
+        ckpt = tmp_path / "scenenet_ts40k" / "checkpoints"
+        with np.load(ckpt / "last.npz") as data:
+            assert "batch_stats/down0/BatchNorm_0/mean" in data.files
+            assert float(np.abs(data["batch_stats/down0/BatchNorm_0/mean"]).max()) > 0
+        _, template = JaxUNet3D.create(seed=1, input_shape=(1, 1, *GRID))
+        restored = jckpt.restore_checkpoint(str(ckpt / "last.npz"), template)
+        port = tckpt.restore_checkpoint(str(ckpt / "last.npz"), UNet3D.create(seed=2))
+        x = _occupancy(3, (1, *GRID))
+        with torch.no_grad():
+            got = port.eval()(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(JaxUNet3D().apply(
+            restored, jnp.asarray(x))), atol=2e-5, rtol=0)
+    finally:
+        # a checkpoint per monitored score, 52 MB each: leave nothing behind
+        shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("extra", [(), ("kernel_size=(3, 3, 3)", "model_backend=pallas")])

@@ -18,6 +18,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -557,12 +558,18 @@ def test_cli_default_device_is_cuda(dataset, tmp_path):
 def test_cli_unported_config_raises(dataset, tmp_path, overrides, item):
     if overrides.get("model") in ("cnn", "unet"):
         # ported since (A8): the black-box baselines now train through the CLI
-        scores = tcli.run(_cli_cfg(dataset, tmp_path, max_epochs=1, **overrides), device="cpu")
-        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
-        ckpt = tmp_path / "scenenet_ts40k" / "checkpoints" / "last.npz"
-        with np.load(ckpt) as data:
-            want = "Conv_0/kernel" if overrides["model"] == "cnn" else "params/down0/Conv_0/kernel"
-            assert want in data.files
+        try:
+            scores = tcli.run(_cli_cfg(dataset, tmp_path, max_epochs=1, checkpoint_top_k=1,
+                                       **overrides), device="cpu")
+            assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+            ckpt = tmp_path / "scenenet_ts40k" / "checkpoints" / "last.npz"
+            with np.load(ckpt) as data:
+                want = ("Conv_0/kernel" if overrides["model"] == "cnn"
+                        else "params/down0/Conv_0/kernel")
+                assert want in data.files
+        finally:
+            # the UNet's checkpoints are 52 MB each: leave nothing behind
+            shutil.rmtree(tmp_path, ignore_errors=True)
         return
     with pytest.raises(NotImplementedError, match=item):
         tcli.run(_cli_cfg(dataset, tmp_path, **overrides), device="cpu")
@@ -619,6 +626,68 @@ def test_save_checkpoint_then_restore_roundtrip(tmp_path):
     for (n, a), b in zip(other.state_dict().items(), net.state_dict().values()):
         assert torch.equal(a, b), n
     assert json.load(open(tmp_path / "a.json")) == {"step": 1}
+
+
+# ---- the four TrainConfig fields of the reference: debug, trace, export, chunks ----
+
+@pytest.mark.parametrize("field", ["log_pointclouds_every", "debug_nans", "profile_dir",
+                                   "epoch_chunks"])
+def test_train_config_field_defaults_equal_jax(field):
+    assert getattr(TrainConfig(), field) == getattr(JaxTrainConfig(), field)
+    types = {f.name: f.type for f in dataclasses.fields(TrainConfig)}
+    assert field in types
+
+
+@pytest.mark.parametrize("field,value,item", [("log_pointclouds_every", 1, "A11"),
+                                              ("epoch_chunks", 2, "A6")])
+def test_train_config_unported_values_raise(field, value, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        _port_trainer(tmp_path, "torch", **{field: value})
+
+
+def test_cli_passes_epoch_chunks(dataset, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        tcli.run(_cli_cfg(dataset, tmp_path, epoch_chunks=2), device="cpu")
+
+
+@pytest.mark.parametrize("debug_nans", [True, False])
+def test_debug_nans_raises_on_a_nan_loss(batches, tmp_path, debug_nans):
+    """A criterion that turns NaN: with debug_nans the step raises, without
+    it the NaN goes through to the loss as before."""
+    trainer = _port_trainer(tmp_path, "torch", debug_nans=debug_nans)
+    inner = trainer.criterion
+    trainer.criterion = lambda *a: inner(*a) * torch.tensor(float("nan"))
+    trainer.setup_optimizer()
+    step = lambda: trainer.train_step(tmetrics.init_metric_state(),
+                                      *trainer.to_device(batches[0]))
+    if debug_nans:
+        with pytest.raises((FloatingPointError, RuntimeError)):
+            step()
+        assert trainer.step == 0
+    else:
+        assert math.isnan(float(step()[1])) and trainer.step == 1
+    assert not torch.is_anomaly_enabled()
+
+
+def test_debug_nans_leaves_a_finite_step_alone(batches, tmp_path):
+    pair = {flag: _port_trainer(tmp_path / str(flag), "torch", debug_nans=flag)
+            for flag in (True, False)}
+    losses = {}
+    for flag, trainer in pair.items():
+        trainer.setup_optimizer()
+        losses[flag] = float(trainer.train_step(tmetrics.init_metric_state(),
+                                                *trainer.to_device(batches[0]))[1])
+    assert losses[True] == losses[False] and math.isfinite(losses[True])
+
+
+def test_profile_dir_leaves_a_trace_of_epoch_0(batches, tmp_path):
+    trainer = _port_trainer(tmp_path, "torch", profile_dir=str(tmp_path / "trace"),
+                            max_epochs=2)
+    trainer.fit(batches[:2])
+    files = sorted(os.listdir(tmp_path / "trace"))
+    assert files == ["epoch0_trace.json"]
+    trace = json.load(open(tmp_path / "trace" / files[0]))
+    assert len(trace["traceEvents"]) > 0
 
 
 # ---- the host-exact route (bins from the host in float64) and the counts grids ----
