@@ -9,7 +9,10 @@ It builds the hand-written kernels from ``scenenet_tpu_torch/csrc`` with
 nvcc, holds each against its plain PyTorch version on the card and times
 both, with one PyTorch library call beside those that have one (the
 multi-channel conv at every shape its plan treats differently, twice for
-bit-equal outputs; the f32 stencil through both of its kernels). Then it
+bit-equal outputs; the f32 stencil and its kernel gradient through both
+of their kernels; at batch 1 the occupancy kernel and the kernel gradient
+also inside a CUDA graph, whose replay times the device where a loop of
+calls would time the host). Then it
 drives the port's main paths through their entry points, at the serving
 defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
 experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
@@ -197,6 +200,21 @@ def full_column_case():
     return pts, np.ones(pts.shape[:2], bool)
 
 
+def mixed_full_column_case():
+    """Full columns in part of a batch: sample 0 fills y columns 0 and 3 (one
+    voxel of column 3 holds three more points), sample 1 is
+    ``full_column_case``, sample 2 has no full column."""
+    col0, _ = full_column_case()
+    col3 = [[ix + 0.5, 3.5, iz + 0.5] for iz in range(8) for ix in range(8)]
+    clouds = [np.concatenate([col0[0], np.asarray(col3 + [[1.5, 3.5, 1.5]] * 3, np.float32)]),
+              col0[0], np.random.default_rng(6).uniform(0, 8, (200, 3)).astype(np.float32)]
+    pts = np.zeros((3, max(len(c) for c in clouds), 3), np.float32)
+    mask = np.zeros(pts.shape[:2], bool)
+    for i, c in enumerate(clouds):
+        pts[i, :len(c)], mask[i, :len(c)] = c, True
+    return pts, mask
+
+
 def indexed_batch(pad, rng: np.random.Generator, b: int, lo=40000, hi=65000):
     """b synthetic crops in world coordinates through ``pad``, a
     PointPadding with compute_indices=True, as the loader of the host-exact
@@ -236,6 +254,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 200) -> float:
+    """Device ms per call of ``fn`` captured once in a CUDA graph and
+    replayed: what the card spends, without the host's launch time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def paired_ms(kernel_fn, plain_fn, iters: int, rounds: int = 4, library_fn=None,
@@ -444,8 +479,10 @@ def main(argv=None) -> int:
     pts8, mask8, _ = padded_batch(rng, 8)
     col_pts, col_mask = full_column_case()
     ng_pts, ng_mask, _ = padded_batch(rng, 4)
+    mix_pts, mix_mask = mixed_full_column_case()
     k1_cases = [("B8_N131072_64^3", pts8, mask8, GRID),
                 ("full_column_8^3", col_pts, col_mask, (8, 8, 8)),
+                ("B3_mixed_full_columns_8^3", mix_pts, mix_mask, (8, 8, 8)),
                 ("B4_grid48x40x56", ng_pts, ng_mask, (48, 40, 56))]
     k1_err, occ64, occ_ng = 0.0, None, None
     parts = []
@@ -457,10 +494,15 @@ def main(argv=None) -> int:
         diff = int((got != want).sum())
         k1_err = max(k1_err, float((got - want).abs().max()))
         check(diff == 0, f"K1 {label}: {diff} voxels differ from the plain version")
+        check(torch.equal(got, cuda_hist.points_occupancy(pt, mt, g)), f"K1 {label}: two runs differ")
         if label.startswith("full_column"):
             occ = got.reshape(8, 8, 8).cpu().numpy()
             check(occ[:, :, 0].sum() == 1 and occ[0, 0, 0] == 1 and occ[7, 7, 7] == 1,
                   "K1 full-column case: column-min rule broken")
+        if "mixed" in label:
+            occ = got.reshape(3, 8, 8, 8).cpu().numpy()
+            check(occ[0, :, :, 0].sum() == occ[0, :, :, 3].sum() == occ[1, :, :, 0].sum() == 1,
+                  "K1 mixed full-column case: column-min rule broken")
         if g == GRID:
             occ64 = got
         if g == (48, 40, 56):
@@ -559,6 +601,39 @@ def main(argv=None) -> int:
         k4_err = max(k4_err, err)
         parts.append(f"k{ks}: max|ddk| {err:.3g} (max|dk| {scale:.3g}), two runs "
                      "bit-identical")
+    # the unrolled kernel ((9,5,5)) against the generic one on the same input, each
+    # against itself, at B=16 and at a ragged B=2 volume; other sizes, generic
+    check(cuda_conv.stencil_route((9, 5, 5)) == "fast"
+          and cuda_conv.stencil_route((9, 6, 6)) == "generic",
+          "the kernel gradient's routes are not what the smoke expects")
+    ragged = (torch.rand((2, 1, 13, 37, 70), device=dev,
+                         generator=torch.Generator(dev).manual_seed(7)) > 0.8).float()
+    g_ragged = torch.randn(tuple(ragged.shape), device=dev,
+                           generator=torch.Generator(dev).manual_seed(8))
+    for label, xk, gk in (("B=16 64^3", x16, g16), ("B=2 13x37x70", ragged, g_ragged)):
+        want = cuda_conv.stencil_dk_plain(xk, gk, (9, 5, 5))
+        scale = float(want.abs().max())
+        routes = {r: cuda_conv._launch_dk(xk, gk, (9, 5, 5), r) for r in ("fast", "generic")}
+        check(torch.equal(routes["fast"], cuda_conv.stencil_dk(xk, gk, (9, 5, 5))),
+              "K4: a (9,5,5) launch did not take the unrolled kernel")
+        for r, got in routes.items():
+            err = float((got - want).abs().max())
+            check(err <= DK_REL_TOL * scale, f"K4 {r} route {label}: max|ddk| {err:.3g}")
+            check(torch.equal(got, cuda_conv._launch_dk(xk, gk, (9, 5, 5), r)),
+                  f"K4 {r} route {label}: two runs differ")
+            k4_err = max(k4_err, err)
+        parts.append(f"{label} k(9, 5, 5): unrolled vs generic kernel max|d| "
+                     f"{float((routes['fast'] - routes['generic']).abs().max()):.3g} "
+                     f"(max|dk| {scale:.3g}), each bit-identical run to run")
+    for ks in ((1, 1, 1), (16, 3, 3)):
+        got = cuda_conv.stencil_dk(ragged, g_ragged, ks)
+        want = cuda_conv.stencil_dk_plain(ragged, g_ragged, ks)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= DK_REL_TOL * scale and torch.equal(got, cuda_conv.stencil_dk(
+            ragged, g_ragged, ks)), f"K4 {ks}: max|ddk| {err:.3g} of {scale:.3g}, or runs differ")
+        k4_err = max(k4_err, err)
+        parts.append(f"B=2 13x37x70 k{ks}: max|ddk| {err:.3g} (max|dk| {scale:.3g}), bit-identical")
+    del ragged, g_ragged
     print("[K4 stencil_dk] B=16 64^3 | " + " | ".join(parts), flush=True)
 
     # ---- 7. fused_geneo_conv gradients vs autograd of the plain conv -------
@@ -872,6 +947,21 @@ def main(argv=None) -> int:
         print(f"[timing] B={b} 64^3 N={TRAIN_POINTS} ({smi}), median of 4 alternating "
               "rounds [min-max] ms; library = torch.nn.grad.conv3d_weight on the padded "
               "grid (cuDNN f32, TF32 off): " + fmt_times(t), flush=True)
+    # at B=1 the loops above time the host's launch rate: the device time of a
+    # call, captured in a CUDA graph and replayed, median of 3
+    p1, m1, _ = padded_batch(np.random.default_rng(1), 1)
+    p1, m1 = torch.from_numpy(p1).to(dev), torch.from_numpy(m1).to(dev)
+    x1 = cuda_hist.points_occupancy(p1, m1, GRID).reshape(1, 1, GRID[2], GRID[0], GRID[1])
+    g1 = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, tuple(x1.shape)).astype(np.float32)).to(dev)
+    graph_times = {
+        "points_occupancy": float(np.median([graph_ms(
+            lambda: cuda_hist.points_occupancy(p1, m1, GRID)) for _ in range(3)])),
+        "stencil_dk (9,5,5)": float(np.median([graph_ms(
+            lambda: cuda_conv.stencil_dk(x1, g1, (9, 5, 5))) for _ in range(3)]))}
+    print(f"[timing] B=1 64^3 ({smi}), device ms a call inside a CUDA graph: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in graph_times.items()), flush=True)
+    del p1, m1, x1, g1
 
     def bincount_library(f, m, w, size):
         """One torch.bincount per channel over b·size + flat (points that do not

@@ -36,16 +36,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # pts, mask, out, counts, colmin, params, B, N, n_x, n_y, n_z, stream
-    "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # pts, mask, tower, out_x, out_y, counts, flags, colmin, params,
-    # B, N, n_x, n_y, n_z, stream
+    # pts, mask, out, bitmap, nonempty, partials, B, N, n_x, n_y, n_z, chunks,
+    # chunk_len, stream
+    "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # pts, mask, tower, out_x, out_y, counts, flags, colmin, partials,
+    # B, N, n_x, n_y, n_z, chunks, chunk_len, stream
     "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _P),
-    # pts, mask, tower, counts, towers, params, B, N, n_x, n_y, n_z, stream
-    "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # pts, mask, ids, params, B, N, n_x, n_y, n_z, invalid, stream
-    "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+                          _I, _I, _I, _I, _I, _I, _I, _P),
+    # pts, mask, tower, counts, towers, partials, B, N, n_x, n_y, n_z, chunks,
+    # chunk_len, stream
+    "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # pts, mask, ids, partials, B, N, n_x, n_y, n_z, invalid, chunks, chunk_len, stream
+    "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # ids, mask, flag, counts, flagged, B, N, size, stream
     "snt_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ids, mask, weights, counts, wsum, B, N, size, stream
@@ -61,10 +63,10 @@ _SIGNATURES = {
     "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # k_z, k_x, k_y -> bytes of shared memory a block of the mma kernel needs
     "snt_stencil_mma_smem": (_I, _I, _I),
-    # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, stream
-    "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # B, Z, X, Y -> blocks of the dk kernel's first pass
-    "snt_stencil_dk_blocks": (_I, _I, _I, _I),
+    # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, fast, z tiles a block, stream
+    "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # B, Z, X, Y, fast, z tiles a block -> blocks of the dk kernel's first pass
+    "snt_stencil_dk_blocks": (_I, _I, _I, _I, _I, _I),
     # x, wt, out, B, C_in, C_out, Z, X, Y, x strides (sample, channel, voxel),
     # out strides (sample, channel, voxel), vec_out, stream
     "snt_conv3d_mc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P),

@@ -13,7 +13,9 @@ twins, and the differentiable compositions.
   fused ``>= τ`` mask (``csrc/stencil_mma.cu``).
 - ``stencil_dk`` is the port of ``pallas_conv.stencil_dk``: the gradient of
   that conv with respect to its kernel, ``dk[dz,dx,dy] = Σ x_pad[b, z+dz,
-  x+dx, y+dy]·g[b, z, x, y]`` (``csrc/stencil_dk.cu``).
+  x+dx, y+dy]·g[b, z, x, y]`` (``csrc/stencil_dk.cu``: an unrolled,
+  register-blocked kernel for (9,5,5) and a generic one for every other
+  kernel size, picked by the same ``stencil_route``).
 - ``fused_geneo_conv`` and ``fused_geneo_conv_mxu`` are their namesakes in
   ``pallas_conv``: relu∘tanh of the conv as a ``torch.autograd.Function``
   whose forward is the f32 or the tensor-core stencil and whose backward,
@@ -43,9 +45,16 @@ MXU_LAUNCHES = _build.LaunchCounter("stencil_mma")
 MAX_KZ = 16  # the kernels' k_z is a template parameter, instantiated 1..16
 MAX_BLOCK_SHARED = 232448  # bytes of shared memory one block can use on sm_90
 LO_SCALE = 512.0  # 2⁹: shifts the kernel's bf16 residual into bf16's mantissa window
-# the kernel sizes the f32 stencil's unrolled, register-blocked kernel is built for
+# the kernel sizes the f32 stencil's and the kernel gradient's unrolled,
+# register-blocked kernels are built for
 FAST_KERNEL_SIZES = ((9, 5, 5),)
-_ROUTE_FLAG = {"generic": 0, "fast": 1}  # the C entry's `fast` argument
+_ROUTE_FLAG = {"generic": 0, "fast": 1}  # the C entries' `fast` argument
+# the kernel gradient's unrolled kernel: a block's g tile (z, x, y), and the
+# blocks an SM its registers allow; the card's SMs
+DK_FAST_TILE = (4, 16, 32)
+DK_FAST_BLOCKS_PER_SM = 4
+DK_MAX_Z_TILES = 4  # the most g tiles a block of it walks along z
+SMS = 132
 
 
 def _check_volume(name: str, x: torch.Tensor) -> None:
@@ -76,12 +85,29 @@ def _check_conv_args(x: torch.Tensor, kernel: torch.Tensor) -> None:
 
 
 def stencil_route(kernel_size) -> str:
-    """Which of the f32 stencil's two kernels a launch takes, from the kernel
-    size alone: ``"fast"`` (tap loops unrolled at compile time, a sliding
-    window of inputs in registers, 16-byte halo staging) for a size of
+    """Which of two kernels a launch of the f32 stencil or of its kernel
+    gradient takes, from the kernel size alone: ``"fast"`` (tap loops
+    unrolled at compile time, a sliding window in registers) for a size of
     ``FAST_KERNEL_SIZES``, at every batch and volume (on the card it is the
     faster one from batch 1 up), else ``"generic"`` (runtime k_x and k_y)."""
     return "fast" if tuple(int(k) for k in kernel_size) in FAST_KERNEL_SIZES else "generic"
+
+
+def stencil_dk_plan(b: int, z: int, x: int, y: int) -> int:
+    """How many g tiles along z each block of the unrolled kernel gradient
+    walks (1, 2 or 4): the most that still leaves every SM its
+    ``DK_FAST_BLOCKS_PER_SM`` blocks. A block adds its sums over its tiles
+    and writes one partial a tap, so more tiles a block means fewer
+    partials and a cheaper fixed-order reduce; fewer blocks than the card
+    holds would leave SMs idle."""
+    tz, tx, ty = DK_FAST_TILE
+    tiles_z = -(-z // tz)
+    blocks = b * tiles_z * -(-x // tx) * -(-y // ty)
+    zg = 1
+    while 2 * zg <= min(DK_MAX_Z_TILES, tiles_z) \
+            and blocks // (2 * zg) >= SMS * DK_FAST_BLOCKS_PER_SM:
+        zg *= 2
+    return zg
 
 
 def geneo_stencil_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -259,20 +285,29 @@ def stencil_dk(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int, in
     if x.device.type == "cpu":
         return stencil_dk_plain(x, g, kernel_size)
     _check_launch(x, kernel_size)
+    return _launch_dk(x, g, kernel_size, stencil_route(kernel_size))
+
+
+def _launch_dk(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int, int],
+               route: str) -> torch.Tensor:
+    """One launch of the kernel gradient on checked CUDA tensors, through the
+    kernel ``route`` names (``stencil_route`` picks it; the card tests
+    force either)."""
     b, _, z, xx, yy = x.shape
     k_z, k_x, k_y = kernel_size
     x = x.contiguous()
     g = g.contiguous()
+    zg = stencil_dk_plan(b, z, xx, yy) if route == "fast" else 1
     lib = _build.load()
-    n_blocks = lib.snt_stencil_dk_blocks(b, z, xx, yy)
+    n_blocks = lib.snt_stencil_dk_blocks(b, z, xx, yy, _ROUTE_FLAG[route], zg)
     dk = torch.empty(kernel_size, dtype=torch.float32, device=x.device)
-    partial = torch.empty((n_blocks, k_z * k_x * k_y), dtype=torch.float32,
+    partial = torch.empty((k_z * k_x * k_y, n_blocks), dtype=torch.float32,
                           device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.snt_stencil_dk(
             x.data_ptr(), g.data_ptr(), dk.data_ptr(), partial.data_ptr(),
-            b, z, xx, yy, k_z, k_x, k_y, ctypes.c_void_p(stream))
+            b, z, xx, yy, k_z, k_x, k_y, _ROUTE_FLAG[route], zg, ctypes.c_void_p(stream))
     _build.check(err, "stencil_dk")
     DK_LAUNCHES.add()
     return dk

@@ -49,6 +49,9 @@ ID_ROW = 512  # the TPU kernels lay a grid out in rows of 512 bins (their n_hi r
 
 _BIG = 3.4e38  # the TPU kernel's masked-bound sentinel
 
+BOUNDS_UNIT = 1024  # points a block of the bounds pass takes a step: 256 threads x 4
+BOUNDS_TARGET_BLOCKS = 1056  # one full wave of 256-thread blocks on 132 SMs
+
 
 def edge_bins(rel: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """``clip(ceil(rel − 1e-4) − 1, 0, n − 1)`` as int64.
@@ -206,7 +209,8 @@ def _check_launch_shape(points: torch.Tensor, grid_shape) -> Tuple[int, int, int
         raise ValueError(f"no points kernel for device {points.device}")
     b, n, _ = points.shape
     n_x, n_y, n_z = (int(g) for g in grid_shape)
-    if min(b, n, n_x, n_y, n_z) < 1 or b * n_x * n_y * n_z >= 2**31 or n >= 2**31:
+    if min(b, n, n_x, n_y, n_z) < 1 or b > 65535 or b * n_x * n_y * n_z >= 2**31 \
+            or n >= 2**31:
         raise ValueError(f"unsupported points shape B={b} N={n} grid={grid_shape}")
     return b, n, n_x, n_y, n_z
 
@@ -253,6 +257,25 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def bounds_plan(b: int, n: int) -> Tuple[int, int]:
+    """``(chunks, chunk_len)`` of the bounds pass the four raw-points
+    kernels share: each sample's N points are cut into ``chunks`` chunks of
+    ``chunk_len`` points (a multiple of ``BOUNDS_UNIT``, the last chunk
+    ragged, none empty), one block a chunk, so that ``b·chunks`` reaches
+    ``BOUNDS_TARGET_BLOCKS`` where the points allow it: the card is full at
+    B=1 as at B=64, and the partial bounds a consumer block reduces stay
+    few."""
+    units = -(-n // BOUNDS_UNIT)
+    per_sample = max(1, min(units, -(-BOUNDS_TARGET_BLOCKS // b)))
+    chunk_units = -(-units // per_sample)
+    return -(-units // chunk_units), chunk_units * BOUNDS_UNIT
+
+
+def _partials(b: int, chunks: int, dev: torch.device) -> torch.Tensor:
+    """Scratch of the bounds pass: (B, chunks, 6) f32 min and max a chunk."""
+    return torch.empty((b, chunks, 6), dtype=torch.float32, device=dev)
+
+
 def points_occupancy(points: torch.Tensor, mask: torch.Tensor,
                      grid_shape: Tuple[int, int, int]) -> torch.Tensor:
     """(B, N, 3) f32 points + (B, N) bool mask → (B, n_z·n_x·n_y) f32 {0,1}
@@ -269,17 +292,21 @@ def points_occupancy(points: torch.Tensor, mask: torch.Tensor,
     points = points.contiguous()
     mask = mask.contiguous()
     dev = points.device
-    out = torch.empty((b, size), dtype=torch.float32, device=dev)
-    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
-    colmin = torch.empty((b, n_y), dtype=torch.int32, device=dev)
-    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    chunks, chunk_len = bounds_plan(b, n)
+    out = torch.empty((b, size), dtype=torch.float32, device=dev)  # every element written
+    # one scratch, zeroed by the kernel where it must be: a bit a voxel (whole
+    # 16-byte words), the voxels set in each y column, the bounds partials
+    words = -(-(b * -(-size // 32)) // 4) * 4
+    scratch = torch.empty(words + b * n_y + b * chunks * 6, dtype=torch.int32, device=dev)
+    bitmap = scratch.data_ptr()
+    nonempty = bitmap + 4 * words
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_occupancy(
-            points.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), colmin.data_ptr(), params.data_ptr(),
-            b, n, n_x, n_y, n_z, ctypes.c_void_p(stream))
+            points.data_ptr(), mask.data_ptr(), out.data_ptr(), bitmap, nonempty,
+            nonempty + 4 * b * n_y, b, n, n_x, n_y, n_z, chunks, chunk_len,
+            ctypes.c_void_p(stream))
     _build.check(err, "points_occupancy")
     LAUNCHES.add()
     return out
@@ -309,14 +336,16 @@ def points_binary(points: torch.Tensor, mask: torch.Tensor, tower: torch.Tensor,
     counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
     flags = torch.zeros((b, size), dtype=torch.uint8, device=dev)
     colmin = torch.empty((b, n_y), dtype=torch.int32, device=dev)
-    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    chunks, chunk_len = bounds_plan(b, n)
+    partials = _partials(b, chunks, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_binary(
             points.data_ptr(), mask.data_ptr(), tower.data_ptr(), out_x.data_ptr(),
             out_y.data_ptr(), counts.data_ptr(), flags.data_ptr(), colmin.data_ptr(),
-            params.data_ptr(), b, n, n_x, n_y, n_z, ctypes.c_void_p(stream))
+            partials.data_ptr(), b, n, n_x, n_y, n_z, chunks, chunk_len,
+            ctypes.c_void_p(stream))
     _build.check(err, "points_binary")
     BINARY_LAUNCHES.add()
     return out_x, out_y
@@ -353,13 +382,15 @@ def points_bin_counts(points: torch.Tensor, mask: torch.Tensor,
     dev = points.device
     counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
     towers = torch.zeros((b, size), dtype=torch.int32, device=dev) if channels == 2 else None
-    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    chunks, chunk_len = bounds_plan(b, n)
+    partials = _partials(b, chunks, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_bin_counts(
             points.data_ptr(), mask.data_ptr(), _ptr(tower), counts.data_ptr(),
-            _ptr(towers), params.data_ptr(), b, n, n_x, n_y, n_z, ctypes.c_void_p(stream))
+            _ptr(towers), partials.data_ptr(), b, n, n_x, n_y, n_z, chunks, chunk_len,
+            ctypes.c_void_p(stream))
     _build.check(err, "points_bin_counts")
     BIN_COUNTS_LAUNCHES.add()
     return counts.view(torch.float32), None if towers is None else towers.view(torch.float32)
@@ -381,13 +412,15 @@ def flat_ids(points: torch.Tensor, mask: torch.Tensor,
     points, mask = points.contiguous(), mask.contiguous()
     dev = points.device
     ids = torch.empty((b, n), dtype=torch.int32, device=dev)
-    params = torch.empty((b, 6), dtype=torch.float32, device=dev)
+    chunks, chunk_len = bounds_plan(b, n)
+    partials = _partials(b, chunks, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_flat_ids(points.data_ptr(), mask.data_ptr(), ids.data_ptr(),
-                               params.data_ptr(), b, n, n_x, n_y, n_z,
-                               invalid_id(n_x * n_y * n_z), ctypes.c_void_p(stream))
+                               partials.data_ptr(), b, n, n_x, n_y, n_z,
+                               invalid_id(n_x * n_y * n_z), chunks, chunk_len,
+                               ctypes.c_void_p(stream))
     _build.check(err, "flat_ids")
     FLAT_IDS_LAUNCHES.add()
     return ids

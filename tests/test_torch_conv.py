@@ -76,9 +76,55 @@ def test_plain_matches_pallas_at_the_shapes_the_dispatch_separates(shape, ks, ro
     ((9, 5, 5), "fast"), (torch.Size((9, 5, 5)), "fast"), ([9, 5, 5], "fast"),
     ((9, 6, 6), "generic"), ((5, 5, 9), "generic"), ((5, 9, 5), "generic"),
     ((3, 3, 3), "generic"), ((9, 9, 9), "generic"), ((4, 7, 2), "generic"),
+    ((1, 1, 1), "generic"), ((16, 3, 3), "generic"), ((9, 5, 6), "generic"),
 ])
 def test_stencil_route(ks, route):
+    """One rule routes the stencil and its kernel gradient alike."""
     assert cuda_conv.stencil_route(ks) == route
+
+
+@pytest.mark.parametrize("b,z,x,y,want", [
+    (16, 64, 64, 64, 2),    # the train batch: 1024 blocks of two tiles
+    (64, 64, 64, 64, 4),    # 1024 blocks of four tiles (the most)
+    (8, 64, 64, 64, 1),     # 1024 blocks: two tiles a block would leave SMs idle
+    (1, 64, 64, 64, 1),     # 128 blocks
+    (4, 128, 128, 128, 4),  # 128³ at the large-grid batch
+    (2, 13, 37, 70, 1),
+    (1, 4, 4, 4, 1),
+])
+def test_stencil_dk_plan(b, z, x, y, want):
+    """Each block of the unrolled kernel gradient walks 1, 2 or 4 g tiles
+    along z: the most that keeps DK_FAST_BLOCKS_PER_SM blocks on every SM,
+    never more tiles than the volume has."""
+    zg = cuda_conv.stencil_dk_plan(b, z, x, y)
+    assert zg == want
+    tz, tx, ty = cuda_conv.DK_FAST_TILE
+    tiles_z = -(-z // tz)
+    blocks = b * -(-tiles_z // zg) * -(-x // tx) * -(-y // ty)
+    assert zg == 1 or blocks >= cuda_conv.SMS * cuda_conv.DK_FAST_BLOCKS_PER_SM
+    assert zg <= max(1, min(cuda_conv.DK_MAX_Z_TILES, tiles_z))
+
+
+@pytest.mark.parametrize("shape,ks,route", [
+    ((2, 1, 16, 16, 64), (9, 5, 5), "fast"),   # two y tiles, Y a multiple of 4
+    ((1, 1, 13, 18, 40), (9, 5, 5), "fast"),   # ragged z, x and y tiles
+    ((2, 1, 9, 17, 35), (9, 5, 5), "fast"),    # Y no multiple of 4: 4-byte staging
+    ((2, 1, 16, 16, 16), (1, 1, 1), "generic"),
+    ((1, 1, 16, 12, 20), (16, 3, 3), "generic"),
+])
+def test_stencil_dk_plain_matches_pallas_at_the_shapes_the_route_separates(shape, ks, route):
+    """The kernel gradient has two kernels on the card; ``stencil_route``
+    picks one from the kernel size alone. On both sides of the rule, and at
+    the volume shapes the unrolled kernel treats differently, the plain
+    version agrees with the Pallas kernel (interpret mode) within the JAX
+    package's own bounds."""
+    assert cuda_conv.stencil_route(ks) == route
+    rng = np.random.default_rng(sum(shape) + sum(ks))
+    x = (rng.random(shape) > 0.7).astype(np.float32)
+    g = rng.normal(0, 1, shape).astype(np.float32)
+    want = np.asarray(pallas_dk(jnp.asarray(x), jnp.asarray(g), ks, interpret=True))
+    got = stencil_dk(torch.from_numpy(x), torch.from_numpy(g), ks).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("ks", [(9, 6, 6), (4, 7, 2)])

@@ -53,6 +53,89 @@ def test_occupancy_kernel_counts_launches(dev):
     assert cuda_hist.LAUNCHES.count == before + 1
 
 
+def _points_family_exact(dev, pts, mask, grid):
+    """K1 against its plain version and twice for the same bits; K3, K6 and
+    K9, which share its bounds pass, against theirs on the same points."""
+    pt, mt = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+    tower = mt & torch.from_numpy(np.random.default_rng(4).random(mask.shape) < 0.1).to(dev)
+    before = cuda_hist.LAUNCHES.count
+    got = cuda_hist.points_occupancy(pt, mt, grid)
+    assert cuda_hist.LAUNCHES.count == before + 1
+    assert torch.equal(got, cuda_hist.points_occupancy_plain(pt, mt, grid))
+    assert torch.equal(got, cuda_hist.points_occupancy(pt, mt, grid))
+    binary = cuda_hist.points_binary(pt, mt, tower, grid)
+    for a, b in zip(binary, cuda_hist.points_binary_plain(pt, mt, tower, grid)):
+        assert torch.equal(a, b)
+    assert torch.equal(binary[0], got)
+    for a, b in zip(cuda_hist.points_bin_counts(pt, mt, tower, grid),
+                    cuda_hist.points_bin_counts_plain(pt, mt, tower, grid)):
+        assert torch.equal(a, b)
+    assert torch.equal(cuda_hist.flat_ids(pt, mt, grid), cuda_hist.flat_ids_plain(pt, mt, grid))
+    return got
+
+
+@pytest.mark.parametrize("b,n,grid", [(1, 131072, (64, 64, 64)), (3, 131072, (64, 64, 64)),
+                                      (64, 65536, (64, 64, 64)), (2, 131072, (64, 64, 256)),
+                                      (3, 131071, (48, 40, 56)), (4, 3001, (12, 10, 14)),
+                                      (2, 1025, (16, 16, 16)), (2, 60000, (128, 128, 128)),
+                                      (1, 20000, (4, 9000, 4))])
+def test_occupancy_kernel_exact_at_batch_and_chunking(dev, b, n, grid):
+    """One sample, a few and the batch-64 pipeline's count; non-cubic grids;
+    N a multiple of the bounds pass's 1024-point unit or not (then the
+    points are read one at a time); a grid whose bitmap does not fit in
+    shared memory (128³) and one with more y columns than shared memory
+    counts (n_y = 9000): both mark in device memory."""
+    pts, mask = _cloud(b + n, b, n)
+    _points_family_exact(dev, pts, mask, grid)
+
+
+def test_occupancy_kernel_one_point_zero_extent_and_all_masked(dev):
+    pts = np.zeros((3, 5000, 3), np.float32)
+    mask = np.zeros((3, 5000), bool)
+    pts[0] = np.random.default_rng(5).uniform(0, 9, (5000, 3))
+    mask[0, 17] = True        # one valid point
+    pts[1] = 2.5
+    mask[1, :300] = True      # every point at one place: zero extent
+    got = _points_family_exact(dev, pts, mask, (16, 16, 16))  # sample 2: all masked
+    assert [int(v) for v in got.sum(1)] == [1, 1, 0]
+
+
+def _full_column(n, y, reps=1, extra=()):
+    """Every (z, x) voxel of y column `y` of an n^3 grid holds `reps` points."""
+    pts = [[ix + 0.5, y + 0.5, iz + 0.5] for iz in range(n) for ix in range(n)
+           for _ in range(reps)]
+    return np.asarray(pts + [[0.5, 0.5, 0.5], [n - 0.1] * 3] + list(extra), np.float32)
+
+
+def _stack(clouds):
+    n = max(len(c) for c in clouds)
+    pts = np.zeros((len(clouds), n, 3), np.float32)
+    mask = np.zeros((len(clouds), n), bool)
+    for i, c in enumerate(clouds):
+        pts[i, :len(c)], mask[i, :len(c)] = c, True
+    return pts, mask
+
+
+def test_occupancy_kernel_full_columns_in_part_of_a_batch(dev):
+    """Sample 0 fills two y columns (one voxel of one of them holds more
+    points), sample 1 one, sample 2 none: only the full columns take the
+    exact count > column-min rewrite."""
+    more = [[1.5, 3.5, 1.5]] * 3
+    two = _full_column(8, 0, reps=2, extra=[[ix + 0.5, 3.5, iz + 0.5] for iz in range(8)
+                                            for ix in range(8)] + more)
+    pts, mask = _stack([two, _full_column(8, 0, reps=2),
+                        np.random.default_rng(6).uniform(0, 8, (200, 3)).astype(np.float32)])
+    got = _points_family_exact(dev, pts, mask, (8, 8, 8)).reshape(3, 8, 8, 8)
+    assert int(got[1, :, :, 0].sum()) == 1 and int(got[0, :, :, 3].sum()) == 1
+
+
+@pytest.mark.parametrize("grid,y", [((32, 32, 32), 5), ((128, 8, 128), 7)])
+def test_occupancy_kernel_full_column_of_many_voxels(dev, grid, y):
+    """(128, 8, 128): a column of 16384 voxels, counted in two slabs."""
+    pts, mask = _stack([_full_column(grid[0], y)])
+    _points_family_exact(dev, pts, mask, grid)
+
+
 @pytest.mark.parametrize("ks", [(9, 5, 5), (9, 6, 6), (3, 3, 3), (9, 9, 9), (4, 7, 2)])
 @pytest.mark.parametrize("shape", [(2, 16, 16, 16), (1, 13, 37, 70)])
 @pytest.mark.parametrize("activation", [True, False])
@@ -138,6 +221,48 @@ def test_stencil_dk_kernel_matches_plain(dev, ks, shape):
     # the largest tap
     assert torch.equal(got, again)  # fixed-order reduction: bit-identical
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 64, 64), (16, 64, 64, 64), (2, 13, 37, 70),
+                                   (2, 9, 17, 35), (3, 5, 9, 33)])
+def test_stencil_dk_fast_and_generic_routes_agree(dev, shape):
+    """(9,5,5) takes the unrolled kernel at every batch and volume (Y a
+    multiple of the 32-wide tile or not, of 4 or not); the generic kernel,
+    forced on the same input, sums the same products in another order. Both
+    within 1e-4·max|dk| of the plain version, each bit-identical run to run."""
+    assert cuda_conv.stencil_route((9, 5, 5)) == "fast"
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((rng.random(shape) > 0.8).astype(np.float32))[:, None].to(dev)
+    g = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))[:, None].to(dev)
+    before = cuda_conv.DK_LAUNCHES.count
+    got = cuda_conv.stencil_dk(x, g, (9, 5, 5))
+    assert cuda_conv.DK_LAUNCHES.count == before + 1
+    want = cuda_conv.stencil_dk_plain(x, g, (9, 5, 5))
+    tol = 1e-4 * float(want.abs().max())
+    for route in ("fast", "generic"):
+        a = cuda_conv._launch_dk(x, g, (9, 5, 5), route)
+        assert torch.equal(a, cuda_conv._launch_dk(x, g, (9, 5, 5), route))
+        assert float((a - want).abs().max()) <= tol
+    assert torch.equal(got, cuda_conv._launch_dk(x, g, (9, 5, 5), "fast"))
+
+
+@pytest.mark.parametrize("ks", [(1, 1, 1), (9, 6, 6), (16, 3, 3)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16), (1, 13, 37, 70)])
+def test_stencil_dk_generic_route_at_other_sizes(dev, ks, shape):
+    assert cuda_conv.stencil_route(ks) == "generic"
+    rng = np.random.default_rng(sum(ks) * sum(shape))
+    x = torch.from_numpy((rng.random(shape) > 0.7).astype(np.float32))[:, None].to(dev)
+    g = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))[:, None].to(dev)
+    got = cuda_conv.stencil_dk(x, g, ks)
+    assert torch.equal(got, cuda_conv.stencil_dk(x, g, ks))
+    want = cuda_conv.stencil_dk_plain(x, g, ks)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_stencil_dk_fast_route_is_refused_for_other_kernel_sizes(dev):
+    x = torch.zeros((1, 1, 8, 8, 8), device=dev)
+    with pytest.raises(RuntimeError, match="stencil_dk"):
+        cuda_conv._launch_dk(x, x, (9, 6, 6), "fast")
 
 
 @pytest.mark.parametrize("ks", [(9, 5, 5), (9, 6, 6)])

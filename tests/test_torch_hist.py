@@ -323,3 +323,33 @@ def test_int64_ids_past_int32_count_nowhere():
         assert counts[0].tolist() == [0.0] * 5 + [1.0, 0.0, 1.0] + [0.0] * 8
     ids = cuda_hist._ids_int32(flat, 16)
     assert ids.dtype == torch.int32 and ids.tolist() == [[5, 16, -1, 7]]
+
+
+# ---- the bounds pass's chunk plan (the four raw-points kernels), on the CPU --------
+
+@pytest.mark.parametrize("b,n", [(1, 131072), (64, 131072), (16, 65536), (8, 131072),
+                                 (4, 131072), (3, 9000), (1, 1), (4, 1025), (2, 2048),
+                                 (1, 131071), (65535, 7), (1, 2**31 - 1)])
+def test_bounds_plan_covers_every_point_and_fills_the_card(b, n):
+    """Every point in exactly one chunk of whole units, no chunk empty; the
+    blocks reach at least half the target where the points allow it, and
+    never pass it by a sample's worth (the partials a consumer block reduces
+    stay few); the same arguments give the same plan."""
+    chunks, chunk_len = cuda_hist.bounds_plan(b, n)
+    assert (chunks, chunk_len) == cuda_hist.bounds_plan(b, n)
+    assert chunk_len % cuda_hist.BOUNDS_UNIT == 0 and chunk_len > 0
+    assert (chunks - 1) * chunk_len < n <= chunks * chunk_len
+    units = -(-n // cuda_hist.BOUNDS_UNIT)
+    assert 2 * b * chunks >= min(cuda_hist.BOUNDS_TARGET_BLOCKS, b * units)
+    assert b * chunks < cuda_hist.BOUNDS_TARGET_BLOCKS + b
+    assert chunks <= 65535
+
+
+@pytest.mark.parametrize("b,n,want", [
+    (1, 131072, (128, 1024)),   # a served request: one unit a block, 128 blocks
+    (64, 131072, (16, 8192)),   # the batch-64 pipeline: 1024 blocks of 8 units
+    (16, 65536, (64, 1024)),    # the train batch: 1024 blocks of one unit
+    (1, 100, (1, 1024)),
+])
+def test_bounds_plan_at_the_main_paths_shapes(b, n, want):
+    assert cuda_hist.bounds_plan(b, n) == want
