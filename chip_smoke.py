@@ -10,9 +10,10 @@ nvcc, holds each against its plain PyTorch version on the card and times
 both, with one PyTorch library call beside those that have one (the
 multi-channel conv at every shape its plan treats differently, twice for
 bit-equal outputs; the f32 stencil and its kernel gradient through both
-of their kernels; at batch 1 the occupancy kernel and the kernel gradient
-also inside a CUDA graph, whose replay times the device where a loop of
-calls would time the host). Then it
+of their kernels; at batch 1 the occupancy kernel and the kernel gradient,
+the training grids at batch 16 and the sorted-ids counts at 128³ also
+inside a CUDA graph, whose replay times the device where a loop of calls
+would time the host). Then it
 drives the port's main paths through their entry points, at the serving
 defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
 experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
@@ -947,21 +948,28 @@ def main(argv=None) -> int:
         print(f"[timing] B={b} 64^3 N={TRAIN_POINTS} ({smi}), median of 4 alternating "
               "rounds [min-max] ms; library = torch.nn.grad.conv3d_weight on the padded "
               "grid (cuDNN f32, TF32 off): " + fmt_times(t), flush=True)
-    # at B=1 the loops above time the host's launch rate: the device time of a
-    # call, captured in a CUDA graph and replayed, median of 3
+    # at small batch the loops above time the host's launch rate: the device
+    # time of a call, captured in a CUDA graph and replayed, median of 3
     p1, m1, _ = padded_batch(np.random.default_rng(1), 1)
     p1, m1 = torch.from_numpy(p1).to(dev), torch.from_numpy(m1).to(dev)
     x1 = cuda_hist.points_occupancy(p1, m1, GRID).reshape(1, 1, GRID[2], GRID[0], GRID[1])
     g1 = torch.from_numpy(np.random.default_rng(1).normal(
         0, 1, tuple(x1.shape)).astype(np.float32)).to(dev)
-    graph_times = {
-        "points_occupancy": float(np.median([graph_ms(
-            lambda: cuda_hist.points_occupancy(p1, m1, GRID)) for _ in range(3)])),
-        "stencil_dk (9,5,5)": float(np.median([graph_ms(
-            lambda: cuda_conv.stencil_dk(x1, g1, (9, 5, 5))) for _ in range(3)]))}
-    print(f"[timing] B=1 64^3 ({smi}), device ms a call inside a CUDA graph: "
+    p16, m16, l16 = padded_batch(np.random.default_rng(100 + TRAIN_BATCH), TRAIN_BATCH,
+                                 n_pad=TRAIN_POINTS)
+    k3_args = on_card(p16, m16, (l16 == TOWER) & m16)
+    big_f, big_m, big_w = big_ids
+    graph_fns = {
+        "points_occupancy B=1": lambda: cuda_hist.points_occupancy(p1, m1, GRID),
+        "stencil_dk (9,5,5) B=1": lambda: cuda_conv.stencil_dk(x1, g1, (9, 5, 5)),
+        f"points_binary B={TRAIN_BATCH}": lambda: cuda_hist.points_binary(*k3_args, GRID),
+        f"sorted_bin_counts B={BIG_BATCH} 128^3": lambda: cuda_hist.sorted_bin_counts(
+            big_f, big_m, big_w, 128 ** 3)}
+    graph_times = {k: float(np.median([graph_ms(fn) for _ in range(3)]))
+                   for k, fn in graph_fns.items()}
+    print(f"[timing] 64^3, K8 at 128^3 ({smi}), device ms a call inside a CUDA graph: "
           + ", ".join(f"{k} {v:.4f}" for k, v in graph_times.items()), flush=True)
-    del p1, m1, x1, g1
+    del p1, m1, x1, g1, k3_args, graph_fns
 
     def bincount_library(f, m, w, size):
         """One torch.bincount per channel over b·size + flat (points that do not
@@ -974,7 +982,6 @@ def main(argv=None) -> int:
 
     tower16_d = on_card(tower16)[0]
     tp_d, tm_d = on_card(tp, tm)
-    big_f, big_m, big_w = big_ids
     hist_times = {
         "points_bin_counts": paired_ms(
             lambda: cuda_hist.points_bin_counts(tp_d, tm_d, tower16_d, GRID),
@@ -998,7 +1005,6 @@ def main(argv=None) -> int:
             lambda: cuda_hist.bin_counts(big_f, big_m, 128 ** 3, big_w),
             lambda: cuda_hist.bin_counts_plain(big_f, big_m, 128 ** 3, big_w), 5)}
 
-    big_keys = torch.where(big_m, big_f, 128 ** 3)  # what K8's first kernel makes
     # the two id kernels in turns, at three sizes: "plain" is K7 here
     versus = {f"sorted_bin_counts vs bin_counts {label}": paired_ms(
         lambda: cuda_hist.sorted_bin_counts(f, m, w, size),
@@ -1008,13 +1014,13 @@ def main(argv=None) -> int:
                                      ("B1 N131072 256^3", *huge_ids, 256 ** 3),
                                      (f"B1 N{DENSE_POINTS} 256^3 uniform ids", *dense_ids,
                                       256 ** 3))}
-    sort_ms = cuda_ms(lambda: torch.sort(big_keys, dim=1), 5)
+    slower = [k for k, v in versus.items() if "128^3" in k or "256^3" in k
+              if v["ms"] > v["plain_ms"]]
     print(f"[timing] B={BIG_BATCH} 128^3 N={MAX_POINTS}, two channels ({smi}), median of 4 "
           "alternating rounds [min-max] ms; library = one torch.bincount a channel: "
-          + fmt_times(big_times) + f" | the torch.sort of the keys between K8's two "
-          f"kernels alone: {sort_ms:.4f} ms | K8 ('kernel') against K7 ('plain') in turns: "
-          + fmt_times(versus), flush=True)
-    del tp_d, tm_d, tower16_d, big_ids, huge_ids, dense_ids, big_f, big_m, big_w, big_keys
+          + fmt_times(big_times) + " | K8 ('kernel') against K7 ('plain') in turns: "
+          + fmt_times(versus) + f" | K8 slower than K7 at: {slower or 'none'}", flush=True)
+    del tp_d, tm_d, tower16_d, big_ids, huge_ids, dense_ids, big_f, big_m, big_w
     torch.cuda.empty_cache()
 
     # ---- 8b. K10 multi-channel conv vs plain: every UNet layer shape -----------
@@ -1740,8 +1746,7 @@ def main(argv=None) -> int:
         # points, mask and tower flags in, two f32 count grids out
         "points_bin_counts": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 14.0
                                       + 2 * grid_bytes(TRAIN_BATCH)),
-        # int32 ids, mask and flags in, two f32 count grids out (a sort's
-        # traffic is not in the bound)
+        # int32 ids, mask and flags in, two f32 count grids out
         "bin_counts": bound_ms(TRAIN_BATCH * TRAIN_POINTS * 6.0 + 2 * grid_bytes(TRAIN_BATCH)),
         "sorted_bin_counts": bound_ms(BIG_BATCH * MAX_POINTS * 6.0
                                       + 2 * 4.0 * BIG_BATCH * 128 ** 3),

@@ -1,18 +1,24 @@
-"""Device times of the occupancy kernel (K1) and the kernel gradient (K4).
+"""Device times of the points kernels (K1, K3), the sorted-ids counts (K8)
+and the kernel gradient (K4).
 
 Run on a machine with the card, from the root of a checkout:
 
     python3 scenenet_tpu_torch/csrc/bench/points_dk_times.py [--root DIR] [--passes]
+        [--kernels k1,k4,k3,k8]
 
 It times K1 at batch 1 and 64 (64^3, 131072 padded points of 40k-70k
-synthetic 1 cm LiDAR points) and K4 at batch 1 and 16 (64^3, (9,5,5), ~20%
-occupancy), each as a loop of calls (which at batch 1 measures the host's
-launch rate) and as one call captured in a CUDA graph and replayed (the
-device's time), medians of five, in ms. ``--root`` times the package of
-another checkout instead (an unpacked earlier commit, to compare two
-versions in one run: this tree, the other, this tree, the other).
-``--passes`` adds K1's time by kernel from ``torch.profiler``. Not part of
-the kernel library; the numbers in PERF.md name it.
+synthetic 1 cm LiDAR points), K4 at batch 1 and 16 (64^3, (9,5,5), ~20%
+occupancy), K3 at batch 1 and 16 (64^3, 65536 padded points, the tower
+points flagged: the train step's shapes) and K8 at 128^3 batch 4 and 256^3
+batch 1 (131072 padded points, their bin ids made by the plain version of
+the ids kernel, the tower points flagged), each as a loop of calls (which
+at small batch measures the host's launch rate) and as one call captured
+in a CUDA graph and replayed (the device's time), medians of five, in ms.
+``--root`` times the package of another checkout instead (an unpacked
+earlier commit, to compare two versions in one run: this tree, the other,
+this tree, the other). ``--passes`` adds each kernel's time by pass from
+``torch.profiler``. Not part of the kernel library; the numbers in PERF.md
+name it.
 """
 
 import argparse
@@ -23,6 +29,7 @@ import torch
 
 
 def crop(rng, n):
+    """A crop and its tower mask: 60% ground, 30% a tower column, 10% clutter."""
     span = rng.uniform(40, 80)
     ng, nt = int(n * 0.6), int(n * 0.3)
     ground = np.column_stack([rng.uniform(0, span, (ng, 2)), rng.normal(0, 0.15, ng)])
@@ -30,18 +37,21 @@ def crop(rng, n):
                              rng.uniform(0, 35, nt)])
     rest = rng.uniform([0, 0, 0], [span, span, 12], (n - ng - nt, 3))
     xyz = np.round(np.concatenate([ground, tower, rest]), 2)
-    return (xyz - xyz.min(0)).astype(np.float32)
+    is_tower = np.zeros(n, bool)
+    is_tower[ng:ng + nt] = True
+    return (xyz - xyz.min(0)).astype(np.float32), is_tower
 
 
 def batch(seed, b, n_pad=131072, lo=40000, hi=70000):
     rng = np.random.default_rng(seed)
     pts = np.zeros((b, n_pad, 3), np.float32)
     mask = np.zeros((b, n_pad), bool)
+    tower = np.zeros((b, n_pad), bool)
     for i in range(b):
-        n = int(rng.integers(lo, hi))
-        pts[i, :n] = crop(rng, n)
+        n = min(int(rng.integers(lo, hi)), n_pad)
+        pts[i, :n], tower[i, :n] = crop(rng, n)
         mask[i, :n] = True
-    return pts, mask
+    return pts, mask, tower
 
 
 def loop_ms(fn, iters=20, warmup=3):
@@ -74,10 +84,30 @@ def median(fn, k=5):
     return float(np.median([fn() for _ in range(k)]))
 
 
+def report(label, fn, passes):
+    try:
+        graph = f"{median(lambda: graph_ms(fn)):.4f} ms"
+    except RuntimeError as e:  # a version whose call cannot be captured
+        graph = f"not capturable ({str(e)[:80]})"
+    print(f"{label}: loop {median(lambda: loop_ms(fn)):.4f} ms, graph {graph}", flush=True)
+    if not passes:
+        return
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            print(f"  {e.key[:70]}: {e.self_device_time_total / e.count / 1e3:.4f} "
+                  f"ms x{e.count}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose scenenet_tpu_torch to time")
-    ap.add_argument("--passes", action="store_true", help="K1's time by kernel (profiler)")
+    ap.add_argument("--passes", action="store_true", help="each kernel's time by pass")
+    ap.add_argument("--kernels", default="k1,k4,k3,k8", help="which of k1,k4,k3,k8 to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("points_dk_times: no CUDA device", file=sys.stderr)
@@ -87,31 +117,29 @@ def main() -> int:
 
     _build.load()
     dev = torch.device("cuda")
+    which = set(opts.kernels.split(","))
     print(f"{opts.root}: {torch.cuda.get_device_name(0)}, {_build.library_path().name}")
     grid = (64, 64, 64)
-    for b in (1, 64):
-        pts, mask = (torch.from_numpy(a).to(dev) for a in batch(10 + b, b))
-        fn = lambda: cuda_hist.points_occupancy(pts, mask, grid)  # noqa: E731
-        print(f"K1 points_occupancy B={b}: loop {median(lambda: loop_ms(fn)):.4f} ms, "
-              f"graph {median(lambda: graph_ms(fn)):.4f} ms", flush=True)
-        if opts.passes:
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    print(f"  B={b} {e.key[:70]}: {e.self_device_time_total / e.count / 1e3:.4f} "
-                          f"ms x{e.count}")
-    for b in (1, 16):
+    for b in (1, 64) if "k1" in which else ():
+        pts, mask, _ = (torch.from_numpy(a).to(dev) for a in batch(10 + b, b))
+        report(f"K1 points_occupancy B={b}",
+               lambda: cuda_hist.points_occupancy(pts, mask, grid), opts.passes)
+    for b in (1, 16) if "k4" in which else ():
         rng = np.random.default_rng(b)
         shape = (b, 1, *grid)
         x = torch.from_numpy((rng.random(shape) > 0.8).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(dev)
-        fn = lambda: cuda_conv.stencil_dk(x, g, (9, 5, 5))  # noqa: E731
-        print(f"K4 stencil_dk (9,5,5) B={b}: loop {median(lambda: loop_ms(fn)):.4f} ms, "
-              f"graph {median(lambda: graph_ms(fn)):.4f} ms", flush=True)
+        report(f"K4 stencil_dk (9,5,5) B={b}",
+               lambda: cuda_conv.stencil_dk(x, g, (9, 5, 5)), opts.passes)
+    for b in (1, 16) if "k3" in which else ():
+        pts, mask, tower = (torch.from_numpy(a).to(dev) for a in batch(30 + b, b, 65536))
+        report(f"K3 points_binary B={b} N=65536",
+               lambda: cuda_hist.points_binary(pts, mask, tower, grid), opts.passes)
+    for b, side in ((4, 128), (1, 256)) if "k8" in which else ():
+        pts, mask, tower = (torch.from_numpy(a).to(dev) for a in batch(50 + b, b))
+        ids = cuda_hist.flat_ids_plain(pts, mask, (side,) * 3)
+        report(f"K8 sorted_bin_counts {side}^3 B={b} N=131072",
+               lambda: cuda_hist.sorted_bin_counts(ids, mask, tower, side ** 3), opts.passes)
     return 0
 
 

@@ -22,7 +22,7 @@
 //   3. the min count of every y column over all (z, x);
 //   4. occupancy = count > column min, as float {0, 1}, in (z, x, y) order;
 //   5. (binary only) tower presence = 1 where any valid point flagged as
-//      tower lands in the voxel, else 0.
+//      tower lands in the voxel, else 0 (a bit a voxel, as occupancy).
 //
 // Bound on the H100: device-memory bytes, not arithmetic. At B=64 a 64^3
 // sample of 131072 padded points is 1.5 MB of points and mask and 1 MB of
@@ -70,9 +70,41 @@
 // all 8192 words); used as a filter, so that only a block's first point in
 // a voxel reaches L2, it takes 0.073.
 //
-// The binary, counts and ids entries keep their count and binarize passes
-// (int32 atomics into a grid the wrapper zeroes; tower presence by plain
-// uint8 stores of 1, race-free) behind the shared bounds pass.
+// The training grids (snt_points_binary) come from the same four launches
+// as occupancy, so the two entries cannot drift: tower presence is "some
+// valid flagged point landed here", one bit a voxel with no column min. The
+// bounds pass zeroes a second bitmap right after the first, mark_kernel
+// sets a valid flagged point's bit of it too (the mask gates the flag), and
+// expand_kernel writes both grids, 16 bytes a thread each; full columns are
+// occupancy's alone. The shared-memory filter holds the occupancy bits only:
+// two 32 KB bitmaps at 64^3 do not fit under kMarkSmem, and a flagged point's
+// bit is set by an atomicOr whose result is not read, so it waits for
+// nothing. At B=16, N=65536 the bytes are the points, mask and flags twice
+// (29 MB) and two grids once (33.5 MB). The previous design zeroed a 16 MB
+// int32 count grid and a 4 MB flag grid in the wrapper, then counted by
+// global atomics, took each column's min from the count grid and wrote both
+// outputs from both grids: about 90 MB of grid traffic and six launches.
+//
+// What the measurements said for the training grids (H100, B=16, N=65536,
+// 64^3, inside a CUDA graph; points_dk_times.py --passes and throwaway
+// builds of the variants): the previous design 0.094 ms; this one 0.053 with
+// the mark pass over the bounds plan's 1024-point chunks, of which marking
+// 0.030, expand 0.011 (33.5 MB, 3.1 TB/s), bounds 0.008. Marking over
+// whole runs of bounds chunks, 3072 points a block (mark_plan: up to 4096
+// points, never under 264 blocks), 0.050-0.053 (marking 0.026): the filter
+// catches more repeats and its setup is paid less often. 4096 points with
+// no floor on the blocks: 0.050 at B=16 but marking 0.010 -> 0.015 at B=1
+// (16 blocks); 8192: 0.053. Without the shared filter (read the word, then
+// atomicOr): 0.059; a tower bit read before its atomicOr: 0.055; the
+// block's first point in a voxel reading the word before its atomicOr:
+// 0.050; a second shared filter for the tower bits (64 KB, opted in):
+// 0.049, inside the spread of the kept design in the same call, so not
+// kept. What holds marking: an L2 atomic for each block's first point in
+// a voxel, whose result the thread waits for.
+//
+// The counts and ids entries keep their own passes (int32 atomics into
+// grids the wrapper zeroes, converted in place; the ids as they are) behind
+// the shared bounds pass.
 //
 // Every operation of the id recipe is written as an _rn intrinsic, so nvcc
 // cannot contract (p - lo) * inv - 1e-4 into an FMA: bin ids match the TPU
@@ -101,8 +133,6 @@ constexpr int kFixThreads = 512;       // full_column_kernel
 constexpr int kSlab = 11264;           // voxels of a column counted at once: 44 KB
 constexpr int kShareY = 8192;          // the most y columns mark_kernel counts in shared memory
 constexpr int kMarkSmem = 45 * 1024;   // mark_kernel's dynamic shared memory at most
-constexpr int kColTy = 32;  // y columns per column-min block
-constexpr int kColRows = 8;  // row lanes per column-min block
 constexpr float kBig = 3.4e38f;  // the TPU kernel's masked-bound sentinel
 
 __device__ __forceinline__ int edge_bin(float rel, int n) {
@@ -152,6 +182,20 @@ __device__ __forceinline__ void load4(const float* __restrict__ pts,
 #pragma unroll
     for (int a = 0; a < 3; ++a) p[j][a] = m[j] ? pts[(base + i) * 3 + a] : 0.0f;
   }
+}
+
+// The tower flags of the same four points, gated by their mask bits m: one
+// 4-byte load where vec (then the flags' pointer is 4-byte aligned too).
+__device__ __forceinline__ void load_flags4(const uint8_t* __restrict__ flag, size_t base,
+                                            int i0, bool vec, const bool m[4], bool t[4]) {
+  if (vec) {
+    const uint32_t ff = *reinterpret_cast<const uint32_t*>(flag + base + i0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = m[j] && ((ff >> (8 * j)) & 0xffu);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = m[j] && flag[base + i0 + j];
 }
 
 // Point pi (= b*N + i) where `in` (i < N) and its mask bit are set: its
@@ -291,13 +335,20 @@ __device__ void sample_params(const float* __restrict__ partials, int b, int chu
 // point reads its word in device memory first (most points land in a voxel
 // already set) and then sets the bit. The thread that finds a bit clear in
 // device memory counts the voxel, in shared memory where shared_y (one
-// global add a column a block at the end), else in device memory. Grid
-// (chunks, B) of the bounds plan, walked in the reverse order of the bounds
-// pass, so that the first blocks read the points the L2 still holds; a
-// thread's next four points are in flight while it marks.
+// global add a column a block at the end), else in device memory. Tower
+// presence (`tower` non-null, points_binary): a valid point whose flag is
+// set also sets its bit of `tbits` (same layout, zeroed with the bitmap) by
+// an atomicOr whose result is not read, so it waits for nothing; no shared
+// filter for those bits (see the header). Grid (mark chunks, B): chunks of
+// chunk_len points, whole chunks of the bounds plan (ops/cuda_hist.py
+// mark_plan; `chunks` is the bounds pass's count, for the partials), walked
+// in the reverse order of the bounds pass, so that the first blocks read
+// the points the L2 still holds; a thread's next four points are in flight
+// while it marks.
 __global__ void __launch_bounds__(kThreads)
 mark_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-            const float* __restrict__ partials, uint32_t* __restrict__ bitmap,
+            const uint8_t* __restrict__ tower, const float* __restrict__ partials,
+            uint32_t* __restrict__ bitmap, uint32_t* __restrict__ tbits,
             int* __restrict__ nonempty, int N, int chunks, int chunk_len, int n_x, int n_y,
             int n_z, int wps, int vec, int smem_bits, int shared_y) {
   extern __shared__ uint32_t s_dyn[];
@@ -309,14 +360,20 @@ mark_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
     for (int w = threadIdx.x; w < wps; w += kThreads) s_bits[w] = 0u;
   if (shared_y)
     for (int y = threadIdx.x; y < n_y; y += kThreads) s_ne[y] = 0;
+  const size_t base = (size_t)b * N;
   int i0 = chunk * chunk_len + 4 * threadIdx.x;
   const int end = (int)min((long long)N, (long long)(chunk + 1) * chunk_len);
   float p[4][3];
   bool m[4] = {false, false, false, false};
+  bool t[4] = {false, false, false, false};
   bool have = i0 < end;
-  if (have) load4(pts, mask, (size_t)b * N, N, i0, vec, p, m);  // in flight meanwhile
+  if (have) {  // in flight meanwhile
+    load4(pts, mask, base, N, i0, vec, p, m);
+    if (tower != nullptr) load_flags4(tower, base, i0, vec, m, t);
+  }
   sample_params(partials, b, chunks, n_x, n_y, n_z, s_q);  // synchronises: shared zeroed
   uint32_t* gbits = bitmap + (size_t)b * wps;
+  uint32_t* gtower = tower == nullptr ? nullptr : tbits + (size_t)b * wps;
   int* ne = nonempty + (size_t)b * n_y;
   auto count = [&](unsigned id) {
     const unsigned y = id % (unsigned)n_y;
@@ -327,15 +384,24 @@ mark_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
   };
   while (have) {
     unsigned id[4];
-    bool mm[4];
+    bool mm[4], tt[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       mm[j] = m[j];
+      tt[j] = t[j];
       id[j] = m[j] ? (unsigned)flat_bin_id(p[j], s_q, n_x, n_y, n_z) : 0u;
     }
     i0 += kUnit;
     have = i0 < end;
-    if (have) load4(pts, mask, (size_t)b * N, N, i0, vec, p, m);
+    if (have) {
+      load4(pts, mask, base, N, i0, vec, p, m);
+      if (tower != nullptr) load_flags4(tower, base, i0, vec, m, t);
+    }
+    if (gtower != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (tt[j]) atomicOr(gtower + (id[j] >> 5), 1u << (id[j] & 31));
+    }
     if (smem_bits) {
       bool first[4];  // the block's first point in its voxel
 #pragma unroll
@@ -366,27 +432,35 @@ mark_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
     if (s_ne[y]) atomicAdd(ne + y, s_ne[y]);
 }
 
-// out[b, v] = bit v of sample b's words of the bitmap, as f32 {0, 1}: four
-// voxels a thread and one 16-byte store where size % 4 == 0 and the output
-// is aligned (vec), else one voxel a thread.
+// out[b, v] = bit v of sample b's words of the bitmap, as f32 {0, 1}, and
+// out_t[b, v] the same of `tbits` where out_t is non-null (points_binary):
+// four voxels a thread and one 16-byte store a grid where size % 4 == 0 and
+// the outputs are aligned (vec), else one voxel a thread.
 __global__ void __launch_bounds__(kThreads)
-expand_kernel(const uint32_t* __restrict__ bitmap, float* __restrict__ out, unsigned size,
+expand_kernel(const uint32_t* __restrict__ bitmap, const uint32_t* __restrict__ tbits,
+              float* __restrict__ out, float* __restrict__ out_t, unsigned size,
               unsigned total, int wps, int vec) {
   const unsigned stride = gridDim.x * kThreads;
   const unsigned first = blockIdx.x * kThreads + threadIdx.x;
+  auto nibble = [](uint32_t nib) {
+    return make_float4((float)(nib & 1u), (float)((nib >> 1) & 1u), (float)((nib >> 2) & 1u),
+                       (float)(nib >> 3));
+  };
   if (vec) {
     for (unsigned q = first; q < total / 4; q += stride) {
       const unsigned b = 4 * q / size, v = 4 * q - b * size;
-      const uint32_t nib = (__ldg(bitmap + (size_t)b * wps + (v >> 5)) >> (v & 31)) & 0xfu;
-      reinterpret_cast<float4*>(out)[q] =
-          make_float4((float)(nib & 1u), (float)((nib >> 1) & 1u), (float)((nib >> 2) & 1u),
-                      (float)(nib >> 3));
+      const size_t w = (size_t)b * wps + (v >> 5);
+      reinterpret_cast<float4*>(out)[q] = nibble((__ldg(bitmap + w) >> (v & 31)) & 0xfu);
+      if (out_t != nullptr)
+        reinterpret_cast<float4*>(out_t)[q] = nibble((__ldg(tbits + w) >> (v & 31)) & 0xfu);
     }
     return;
   }
   for (unsigned i = first; i < total; i += stride) {
     const unsigned b = i / size, v = i - b * size;
-    out[i] = (float)((__ldg(bitmap + (size_t)b * wps + (v >> 5)) >> (v & 31)) & 1u);
+    const size_t w = (size_t)b * wps + (v >> 5);
+    out[i] = (float)((__ldg(bitmap + w) >> (v & 31)) & 1u);
+    if (out_t != nullptr) out_t[i] = (float)((__ldg(tbits + w) >> (v & 31)) & 1u);
   }
 }
 
@@ -473,63 +547,6 @@ full_column_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ ma
   }
 }
 
-// Pass 2, binary form: counts[b, id] += 1 for every valid point, and
-// flags[b, id] = 1 for every valid point with tower[b, i] set (a plain
-// store: no atomics needed).
-__global__ void __launch_bounds__(kThreads)
-count_tower_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                   const uint8_t* __restrict__ tower, const float* __restrict__ partials,
-                   int* __restrict__ counts, uint8_t* __restrict__ flags, int N,
-                   int chunks, int n_x, int n_y, int n_z) {
-  __shared__ float s_q[6];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t pi = (size_t)b * N + i;
-  float p[3];
-  const bool valid = load_point(pts, mask, pi, i < N, p);  // in flight meanwhile
-  sample_params(partials, b, chunks, n_x, n_y, n_z, s_q);
-  if (!valid) return;
-  const size_t size = (size_t)n_x * n_y * n_z;
-  const size_t id = flat_bin_id(p, s_q, n_x, n_y, n_z);
-  atomicAdd(counts + b * size + id, 1);
-  if (tower[pi]) flags[b * size + id] = 1;
-}
-
-// Pass 3: colmin[b, y] = min over (z, x) of counts[b, z, x, y].
-__global__ void colmin_kernel(const int* __restrict__ counts,
-                              int* __restrict__ colmin, int rows, int n_y) {
-  __shared__ int s_min[kColRows][kColTy];
-  const int b = blockIdx.y;
-  const int y = blockIdx.x * kColTy + threadIdx.x;
-  int v = INT_MAX;
-  if (y < n_y) {
-    const int* c = counts + (size_t)b * rows * n_y;
-    for (int r = threadIdx.y; r < rows; r += kColRows)
-      v = min(v, c[(size_t)r * n_y + y]);
-  }
-  s_min[threadIdx.y][threadIdx.x] = v;
-  __syncthreads();
-  if (threadIdx.y == 0 && y < n_y) {
-    for (int r = 1; r < kColRows; ++r) v = min(v, s_min[r][threadIdx.x]);
-    colmin[(size_t)b * n_y + y] = v;
-  }
-}
-
-// Pass 4, binary form: x = counts > colmin, y = flags != 0.
-__global__ void binarize_tower_kernel(const int* __restrict__ counts,
-                                      const int* __restrict__ colmin,
-                                      const uint8_t* __restrict__ flags,
-                                      float* __restrict__ out_x,
-                                      float* __restrict__ out_y, size_t total,
-                                      size_t size, int n_y) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t b = i / size;
-    out_x[i] = counts[i] > colmin[b * n_y + i % n_y] ? 1.0f : 0.0f;
-    out_y[i] = flags[i] ? 1.0f : 0.0f;
-  }
-}
-
 // Pass 2, counts form: counts as above, and towers[b, id] += 1 for every
 // valid point with tower[b, i] set. `tower` and `towers` may both be null
 // (one channel).
@@ -591,34 +608,37 @@ void launch_bounds(const float* pts, const uint8_t* mask, float* partials, int B
       static_cast<uint32_t*>(zero_b), n_b);
 }
 
-}  // namespace
-
-// pts (B, N, 3) f32, mask (B, N) bool/uint8, out (B, n_z*n_x*n_y) f32 (any
-// contents: every element is written). Scratch from the caller: bitmap of
-// B*ceil(size/32) words, nonempty (B, n_y) int32 (both zeroed here),
-// partials (B, chunks, 6) f32, where chunks * chunk_len >= N and chunk_len
-// is a multiple of 1024 (ops/cuda_hist.py bounds_plan). Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int snt_points_occupancy(const float* pts, const uint8_t* mask, float* out,
-                                    uint32_t* bitmap, int* nonempty, float* partials, int B,
-                                    int N, int n_x, int n_y, int n_z, int chunks,
-                                    int chunk_len, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len)) return (int)cudaErrorInvalidValue;
+// K1 (tower, out_t null) and K3: the bounds pass zeroes the bitmap(s) and
+// nonempty, the mark pass sets the bits, the expand pass writes the
+// grid(s), full_column_kernel rewrites occupancy's full columns.
+int launch_occupancy(const float* pts, const uint8_t* mask, const uint8_t* tower, float* out,
+                     float* out_t, uint32_t* bitmap, uint32_t* tbits, int* nonempty,
+                     float* partials, int B, int N, int n_x, int n_y, int n_z, int chunks,
+                     int chunk_len, int mark_len, cudaStream_t s) {
+  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len) || mark_len <= 0 ||
+      mark_len % chunk_len != 0 || (tower != nullptr && tbits < bitmap))
+    return (int)cudaErrorInvalidValue;
+  const int mark_chunks = (int)(((long long)N + mark_len - 1) / mark_len);
   const unsigned size = (unsigned)n_x * n_y * n_z, total = size * (unsigned)B;
   const int wps = (int)((size + 31) / 32);  // bitmap words a sample
-  launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, bitmap, (size_t)B * wps,
-                nonempty, (size_t)B * n_y, s);
+  if (tower == nullptr) tbits = nullptr;
+  // one zeroed span: the occupancy bitmap, and the tower bitmap after it
+  const size_t zeroed = (size_t)(tbits == nullptr ? bitmap : tbits) - (size_t)bitmap;
+  launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, bitmap,
+                zeroed / sizeof(uint32_t) + (size_t)B * wps, nonempty, (size_t)B * n_y, s);
   const int shared_y = n_y <= kShareY;
   const size_t ne_bytes = shared_y ? sizeof(int) * n_y : 0;
   const int smem_bits = sizeof(uint32_t) * (size_t)wps + ne_bytes <= kMarkSmem;
-  mark_kernel<<<dim3(chunks, B), kThreads, (smem_bits ? sizeof(uint32_t) * wps : 0) + ne_bytes,
-                s>>>(pts, mask, partials, bitmap, nonempty, N, chunks, chunk_len, n_x, n_y,
-                     n_z, wps, use_vec(pts, mask, N), smem_bits, shared_y);
-  const int vec_out = size % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0;
+  const int vec = use_vec(pts, mask, N) && reinterpret_cast<size_t>(tower) % 4 == 0;
+  mark_kernel<<<dim3(mark_chunks, B), kThreads,
+                (smem_bits ? sizeof(uint32_t) * wps : 0) + ne_bytes, s>>>(
+      pts, mask, tower, partials, bitmap, tbits, nonempty, N, chunks, mark_len, n_x, n_y, n_z,
+      wps, vec, smem_bits, shared_y);
+  const int vec_out = size % 4 == 0 && reinterpret_cast<size_t>(out) % 16 == 0 &&
+                      reinterpret_cast<size_t>(out_t) % 16 == 0;
   const unsigned blocks = ((vec_out ? total / 4 : total) + kThreads - 1) / kThreads;
-  expand_kernel<<<blocks < 16384 ? blocks : 16384, kThreads, 0, s>>>(bitmap, out, size, total,
-                                                                     wps, vec_out);
+  expand_kernel<<<blocks < 16384 ? blocks : 16384, kThreads, 0, s>>>(
+      bitmap, tbits, out, out_t, size, total, wps, vec_out);
   const int cells = n_z * n_x;
   const int slab = cells < kSlab ? cells : kSlab;
   full_column_kernel<<<B, kFixThreads, sizeof(int) * slab, s>>>(
@@ -626,31 +646,41 @@ extern "C" int snt_points_occupancy(const float* pts, const uint8_t* mask, float
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// pts (B, N, 3) f32, mask (B, N) bool/uint8, out (B, n_z*n_x*n_y) f32 (any
+// contents: every element is written). Scratch from the caller: bitmap of
+// B*ceil(size/32) words, nonempty (B, n_y) int32 (both zeroed here),
+// partials (B, chunks, 6) f32, where chunks * chunk_len >= N and chunk_len
+// is a multiple of 1024 (ops/cuda_hist.py bounds_plan); the mark pass takes
+// chunks of mark_len points, a multiple of chunk_len (mark_plan). Launches
+// on `stream`; returns cudaGetLastError().
+extern "C" int snt_points_occupancy(const float* pts, const uint8_t* mask, float* out,
+                                    uint32_t* bitmap, int* nonempty, float* partials, int B,
+                                    int N, int n_x, int n_y, int n_z, int chunks,
+                                    int chunk_len, int mark_len, void* stream) {
+  return launch_occupancy(pts, mask, nullptr, out, nullptr, bitmap, nullptr, nonempty, partials,
+                          B, N, n_x, n_y, n_z, chunks, chunk_len, mark_len,
+                          static_cast<cudaStream_t>(stream));
+}
+
 // pts (B, N, 3) f32, mask and tower (B, N) bool/uint8, out_x and out_y
-// (B, n_z*n_x*n_y) f32. Scratch from the caller: counts (B, size) int32
-// ZEROED, flags (B, size) uint8 ZEROED, colmin (B, n_y) int32, partials
-// (B, chunks, 6) f32 as for snt_points_occupancy. Launches on `stream`;
+// (B, n_z*n_x*n_y) f32 (any contents: every element is written): x is
+// snt_points_occupancy's grid, y tower presence. Scratch as for
+// snt_points_occupancy, and tbits, the tower bitmap of B*ceil(size/32)
+// words, past the occupancy bitmap in the same allocation: the words from
+// `bitmap` to the end of `tbits` are zeroed here. Launches on `stream`;
 // returns cudaGetLastError().
 extern "C" int snt_points_binary(const float* pts, const uint8_t* mask,
-                                 const uint8_t* tower, float* out_x,
-                                 float* out_y, int* counts, uint8_t* flags,
-                                 int* colmin, float* partials, int B, int N,
-                                 int n_x, int n_y, int n_z, int chunks, int chunk_len,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len)) return (int)cudaErrorInvalidValue;
-  const size_t size = (size_t)n_x * n_y * n_z;
-  launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, nullptr, 0, nullptr, 0, s);
-  dim3 cgrid((N + kThreads - 1) / kThreads, B);
-  count_tower_kernel<<<cgrid, kThreads, 0, s>>>(pts, mask, tower, partials, counts, flags,
-                                                N, chunks, n_x, n_y, n_z);
-  dim3 mgrid((n_y + kColTy - 1) / kColTy, B);
-  colmin_kernel<<<mgrid, dim3(kColTy, kColRows), 0, s>>>(
-      counts, colmin, n_z * n_x, n_y);
-  const size_t total = size * B;
-  binarize_tower_kernel<<<elementwise_blocks(total), 256, 0, s>>>(
-      counts, colmin, flags, out_x, out_y, total, size, n_y);
-  return (int)cudaGetLastError();
+                                 const uint8_t* tower, float* out_x, float* out_y,
+                                 uint32_t* bitmap, uint32_t* tbits, int* nonempty,
+                                 float* partials, int B, int N, int n_x, int n_y, int n_z,
+                                 int chunks, int chunk_len, int mark_len, void* stream) {
+  if (tower == nullptr || out_y == nullptr || tbits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_occupancy(pts, mask, tower, out_x, out_y, bitmap, tbits, nonempty, partials, B,
+                          N, n_x, n_y, n_z, chunks, chunk_len, mark_len,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // pts (B, N, 3) f32, mask (B, N) bool/uint8, tower (B, N) bool/uint8 or null.

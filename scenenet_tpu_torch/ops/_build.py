@@ -37,12 +37,12 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # pts, mask, out, bitmap, nonempty, partials, B, N, n_x, n_y, n_z, chunks,
-    # chunk_len, stream
-    "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # pts, mask, tower, out_x, out_y, counts, flags, colmin, partials,
-    # B, N, n_x, n_y, n_z, chunks, chunk_len, stream
-    "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _P),
+    # chunk_len, mark_len, stream
+    "snt_points_occupancy": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # pts, mask, tower, out_x, out_y, bitmap, tower bitmap, nonempty, partials, B, N,
+    # n_x, n_y, n_z, chunks, chunk_len, mark_len, stream
+    "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P),
     # pts, mask, tower, counts, towers, partials, B, N, n_x, n_y, n_z, chunks,
     # chunk_len, stream
     "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -52,10 +52,9 @@ _SIGNATURES = {
     "snt_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ids, mask, weights, counts, wsum, B, N, size, stream
     "snt_bin_counts_weighted": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # ids, mask, keys, B, N, size, stream
-    "snt_sort_keys": (_P, _P, _P, _I, _I, _I, _P),
-    # keys, order, flag, counts, flagged, B, N, size, stream
-    "snt_sorted_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ids, mask, flag, counts, flagged, scratch, B, N, size, shift, chunks,
+    # chunk_len, stream
+    "snt_sorted_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, fast, stream
     "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,

@@ -22,7 +22,7 @@ Two take flat bin ids computed beforehand (``csrc/bin_counts.cu``):
 - ``bin_counts`` (``pallas_bin_counts``): counts and flagged counts by
   integer atomics, or sums of float weights at bf16 precision;
 - ``sorted_bin_counts`` (``pallas_sorted_bin_counts``): the same counts for
-  large grids, from ids sorted per sample.
+  large grids, slab by slab, from the ids partitioned by slab (no sort).
 
 Unlike the TPU kernels they take any grid. For a CUDA tensor each wrapper
 launches its kernel; for a CPU tensor it runs its plain version, which
@@ -32,7 +32,7 @@ follows the same f32 recipe op by op, so the two are bit-identical.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -51,6 +51,11 @@ _BIG = 3.4e38  # the TPU kernel's masked-bound sentinel
 
 BOUNDS_UNIT = 1024  # points a block of the bounds pass takes a step: 256 threads x 4
 BOUNDS_TARGET_BLOCKS = 1056  # one full wave of 256-thread blocks on 132 SMs
+MARK_POINTS = 4096  # points a block of the mark pass takes at most
+MARK_MIN_BLOCKS = 264  # two blocks an SM: the least the mark pass is cut to
+SLAB_BINS = 4096  # bins K8's slab pass counts a block
+MAX_PARTS = 4096  # K8's partition parts a sample at most
+SORTED_TARGET_BLOCKS = 264  # two 256-thread blocks an SM for K8's partition passes
 
 
 def edge_bins(rel: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -253,27 +258,86 @@ def _ids_int32(flat: torch.Tensor, size: int) -> torch.Tensor:
     return flat.to(torch.int32).contiguous()
 
 
+def _flags(weights: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Contiguous bool flags ``weights != 0`` for the kernels (a bool tensor
+    as it is), or None."""
+    if weights is None:
+        return None
+    return (weights if weights.dtype == torch.bool else weights != 0).contiguous()
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def bounds_plan(b: int, n: int) -> Tuple[int, int]:
+def bounds_plan(b: int, n: int, target: int = BOUNDS_TARGET_BLOCKS) -> Tuple[int, int]:
     """``(chunks, chunk_len)`` of the bounds pass the four raw-points
     kernels share: each sample's N points are cut into ``chunks`` chunks of
     ``chunk_len`` points (a multiple of ``BOUNDS_UNIT``, the last chunk
     ragged, none empty), one block a chunk, so that ``b·chunks`` reaches
-    ``BOUNDS_TARGET_BLOCKS`` where the points allow it: the card is full at
-    B=1 as at B=64, and the partial bounds a consumer block reduces stay
-    few."""
+    ``target`` blocks where the points allow it: the card is full at B=1 as
+    at B=64, and the partial bounds a consumer block reduces stay few. K8's
+    partition passes take the same plan with their own target."""
     units = -(-n // BOUNDS_UNIT)
-    per_sample = max(1, min(units, -(-BOUNDS_TARGET_BLOCKS // b)))
+    per_sample = max(1, min(units, -(-target // b)))
     chunk_units = -(-units // per_sample)
     return -(-units // chunk_units), chunk_units * BOUNDS_UNIT
+
+
+def mark_plan(b: int, chunks: int, chunk_len: int) -> int:
+    """Points a block of K1's and K3's mark pass takes: whole chunks of the
+    bounds plan, up to ``MARK_POINTS`` where that leaves the pass at least
+    ``MARK_MIN_BLOCKS`` blocks. A longer chunk lets a block's shared-memory
+    filter catch more repeats and amortises its setup (zeroing the filter,
+    reducing the bounds partials); at B=1 and at B=64 the bounds chunk
+    stands as it is."""
+    f = max(1, min(MARK_POINTS // chunk_len, b * chunks // MARK_MIN_BLOCKS))
+    return f * chunk_len
+
+
+def sorted_counts_plan(b: int, n: int, size: int) -> Tuple[int, int, int, int, int]:
+    """``(shift, parts, chunks, chunk_len, scratch_words)`` of K8.
+
+    A sample's bins are cut into ``parts`` parts of ``2**shift`` bins: one
+    ``SLAB_BINS`` slab each (shift 12) up to 256³, wider parts past it, so
+    that a sample never has more than ``MAX_PARTS`` (the partition passes
+    keep a histogram of them in shared memory; the slab pass then skips the
+    points of a part's other slabs). The partition passes cut the points as
+    :func:`bounds_plan` does, to ``SORTED_TARGET_BLOCKS`` blocks: fewer and
+    longer chunks than the bounds pass, so that a block reserves each part's
+    range with one global atomic for many points. Scratch, int32 words: the
+    count, fill and start of each part, then a bucket slot a point."""
+    shift = SLAB_BINS.bit_length() - 1
+    while -(-size >> shift) > MAX_PARTS:
+        shift += 1
+    parts = -(-size >> shift)
+    chunks, chunk_len = bounds_plan(b, n, SORTED_TARGET_BLOCKS)
+    return shift, parts, chunks, chunk_len, 3 * b * parts + b * n
 
 
 def _partials(b: int, chunks: int, dev: torch.device) -> torch.Tensor:
     """Scratch of the bounds pass: (B, chunks, 6) f32 min and max a chunk."""
     return torch.empty((b, chunks, 6), dtype=torch.float32, device=dev)
+
+
+def bitmap_words(b: int, size: int) -> int:
+    """32-bit words of one bitmap of K1 and K3 (a bit a voxel, B samples of
+    ``size`` voxels), rounded up to whole 16-byte words, so that K3's tower
+    bitmap, right after the occupancy one, starts aligned."""
+    return -(-(b * -(-size // 32)) // 4) * 4
+
+
+def _occupancy_scratch(b: int, size: int, n_y: int, chunks: int, bitmaps: int,
+                       dev: torch.device) -> Tuple[torch.Tensor, List[int]]:
+    """One int32 scratch of K1 (one bitmap) or K3 (two), zeroed by the kernel
+    where it must be. Returns the tensor (the caller holds it until the
+    launch is queued) and the addresses of its parts: the bitmaps, the voxels
+    set in each y column, the bounds partials."""
+    words = bitmap_words(b, size)
+    scratch = torch.empty(bitmaps * words + b * n_y + b * chunks * 6, dtype=torch.int32,
+                          device=dev)
+    offsets = [k * words for k in range(bitmaps)] + [bitmaps * words, bitmaps * words + b * n_y]
+    return scratch, [scratch.data_ptr() + 4 * o for o in offsets]
 
 
 def points_occupancy(points: torch.Tensor, mask: torch.Tensor,
@@ -294,18 +358,13 @@ def points_occupancy(points: torch.Tensor, mask: torch.Tensor,
     dev = points.device
     chunks, chunk_len = bounds_plan(b, n)
     out = torch.empty((b, size), dtype=torch.float32, device=dev)  # every element written
-    # one scratch, zeroed by the kernel where it must be: a bit a voxel (whole
-    # 16-byte words), the voxels set in each y column, the bounds partials
-    words = -(-(b * -(-size // 32)) // 4) * 4
-    scratch = torch.empty(words + b * n_y + b * chunks * 6, dtype=torch.int32, device=dev)
-    bitmap = scratch.data_ptr()
-    nonempty = bitmap + 4 * words
+    scratch, parts = _occupancy_scratch(b, size, n_y, chunks, 1, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_occupancy(
-            points.data_ptr(), mask.data_ptr(), out.data_ptr(), bitmap, nonempty,
-            nonempty + 4 * b * n_y, b, n, n_x, n_y, n_z, chunks, chunk_len,
+            points.data_ptr(), mask.data_ptr(), out.data_ptr(), *parts, b, n, n_x, n_y, n_z,
+            chunks, chunk_len, mark_plan(b, chunks, chunk_len),
             ctypes.c_void_p(stream))
     _build.check(err, "points_occupancy")
     LAUNCHES.add()
@@ -331,21 +390,17 @@ def points_binary(points: torch.Tensor, mask: torch.Tensor, tower: torch.Tensor,
     size = n_x * n_y * n_z
     points, mask, tower = points.contiguous(), mask.contiguous(), tower.contiguous()
     dev = points.device
-    out_x = torch.empty((b, size), dtype=torch.float32, device=dev)
-    out_y = torch.empty((b, size), dtype=torch.float32, device=dev)
-    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
-    flags = torch.zeros((b, size), dtype=torch.uint8, device=dev)
-    colmin = torch.empty((b, n_y), dtype=torch.int32, device=dev)
     chunks, chunk_len = bounds_plan(b, n)
-    partials = _partials(b, chunks, dev)
+    out_x = torch.empty((b, size), dtype=torch.float32, device=dev)  # every element written
+    out_y = torch.empty((b, size), dtype=torch.float32, device=dev)
+    scratch, parts = _occupancy_scratch(b, size, n_y, chunks, 2, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_binary(
             points.data_ptr(), mask.data_ptr(), tower.data_ptr(), out_x.data_ptr(),
-            out_y.data_ptr(), counts.data_ptr(), flags.data_ptr(), colmin.data_ptr(),
-            partials.data_ptr(), b, n, n_x, n_y, n_z, chunks, chunk_len,
-            ctypes.c_void_p(stream))
+            out_y.data_ptr(), *parts, b, n, n_x, n_y, n_z, chunks, chunk_len,
+            mark_plan(b, chunks, chunk_len), ctypes.c_void_p(stream))
     _build.check(err, "points_binary")
     BINARY_LAUNCHES.add()
     return out_x, out_y
@@ -456,7 +511,7 @@ def bin_counts(flat: torch.Tensor, mask: torch.Tensor, size: int,
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         if weights is None or indicator:
-            flag = None if weights is None else (weights != 0).contiguous()
+            flag = _flags(weights)
             second = (None if weights is None
                       else torch.zeros((b, size), dtype=torch.int32, device=dev))
             err = lib.snt_bin_counts(flat.data_ptr(), mask.data_ptr(), _ptr(flag),
@@ -482,12 +537,12 @@ def sorted_bin_counts(flat: torch.Tensor, mask: torch.Tensor,
     second grid; ``weights=None`` with two channels gives zeros. Which
     points count is :func:`bin_counts`'s rule.
 
-    For a CUDA tensor a first kernel makes one key a point (its id, or
-    ``size``, past every bin, where it counts nowhere), ``torch.sort``
-    orders each sample's keys, and the second kernel histograms each slab
-    of bins from its contiguous run of the sorted keys, reading a point's
-    flag through the sort's permutation; it writes every output element, so
-    nothing is zeroed here.
+    For a CUDA tensor no sort is made: the kernels partition the points by
+    slabs of ``SLAB_BINS`` bins (a count pass, then a scatter of one
+    ``id | flag << 31`` word a point into its slab's bucket) and count each
+    slab from its bucket in shared memory, writing every output element
+    once, so nothing is zeroed here (:func:`sorted_counts_plan`). Nothing
+    waits for the device: the call can be captured in a CUDA graph.
     A CPU tensor takes :func:`sorted_bin_counts_plain`; a CUDA tensor
     launches the kernel or raises.
     """
@@ -502,18 +557,17 @@ def sorted_bin_counts(flat: torch.Tensor, mask: torch.Tensor,
     dev = flat.device
     flat = _ids_int32(flat, size)
     mask = mask.contiguous()
-    flag = None if weights is None else (weights != 0).contiguous()
-    keys = torch.empty((b, n), dtype=torch.int32, device=dev)
+    flag = _flags(weights)
+    shift, _, chunks, chunk_len, words = sorted_counts_plan(b, n, size)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
     counts = torch.empty((b, size), dtype=torch.float32, device=dev)
     second = torch.empty((b, size), dtype=torch.float32, device=dev) if channels == 2 else None
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib.snt_sort_keys(flat.data_ptr(), mask.data_ptr(), keys.data_ptr(),
-                                       b, n, size, stream), "sorted_bin_counts (keys)")
-        keys, order = torch.sort(keys, dim=1)
-        err = lib.snt_sorted_bin_counts(keys.data_ptr(), order.data_ptr(), _ptr(flag),
-                                        counts.data_ptr(), _ptr(second), b, n, size, stream)
+        err = lib.snt_sorted_bin_counts(flat.data_ptr(), mask.data_ptr(), _ptr(flag),
+                                        counts.data_ptr(), _ptr(second), scratch.data_ptr(),
+                                        b, n, size, shift, chunks, chunk_len, stream)
     _build.check(err, "sorted_bin_counts")
     SORTED_COUNTS_LAUNCHES.add()
     return counts, second

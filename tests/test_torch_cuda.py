@@ -53,20 +53,39 @@ def test_occupancy_kernel_counts_launches(dev):
     assert cuda_hist.LAUNCHES.count == before + 1
 
 
-def _points_family_exact(dev, pts, mask, grid):
+def _tower_flags(mask, rule):
+    """Tower flags for K3: "random" (a tenth of all points, masked ones
+    too: the kernel must gate a flag by its mask), "all" (every point) or
+    "masked" (only the masked points: no tower voxel at all)."""
+    if rule == "all":
+        return np.ones(mask.shape, bool)
+    if rule == "masked":
+        return ~mask
+    return np.random.default_rng(4).random(mask.shape) < 0.1
+
+
+def _points_family_exact(dev, pts, mask, grid, flags="random"):
     """K1 against its plain version and twice for the same bits; K3, K6 and
-    K9, which share its bounds pass, against theirs on the same points."""
+    K9, which share its bounds pass, against theirs on the same points (K3
+    twice, its occupancy equal to K1's, its presence to the valid flagged
+    points' counts)."""
     pt, mt = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
-    tower = mt & torch.from_numpy(np.random.default_rng(4).random(mask.shape) < 0.1).to(dev)
+    raw = torch.from_numpy(_tower_flags(mask, flags)).to(dev)
+    tower = mt & raw
     before = cuda_hist.LAUNCHES.count
     got = cuda_hist.points_occupancy(pt, mt, grid)
     assert cuda_hist.LAUNCHES.count == before + 1
     assert torch.equal(got, cuda_hist.points_occupancy_plain(pt, mt, grid))
     assert torch.equal(got, cuda_hist.points_occupancy(pt, mt, grid))
-    binary = cuda_hist.points_binary(pt, mt, tower, grid)
-    for a, b in zip(binary, cuda_hist.points_binary_plain(pt, mt, tower, grid)):
-        assert torch.equal(a, b)
+    before = cuda_hist.BINARY_LAUNCHES.count
+    binary = cuda_hist.points_binary(pt, mt, raw, grid)
+    assert cuda_hist.BINARY_LAUNCHES.count == before + 1
+    for a, b, c in zip(binary, cuda_hist.points_binary_plain(pt, mt, tower, grid),
+                       cuda_hist.points_binary(pt, mt, raw, grid)):
+        assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(binary[0], got)
+    flagged = cuda_hist.points_bin_counts_plain(pt, mt, tower, grid)[1]
+    assert torch.equal(binary[1], (flagged > 0).float())
     for a, b in zip(cuda_hist.points_bin_counts(pt, mt, tower, grid),
                     cuda_hist.points_bin_counts_plain(pt, mt, tower, grid)):
         assert torch.equal(a, b)
@@ -89,15 +108,22 @@ def test_occupancy_kernel_exact_at_batch_and_chunking(dev, b, n, grid):
     _points_family_exact(dev, pts, mask, grid)
 
 
-def test_occupancy_kernel_one_point_zero_extent_and_all_masked(dev):
+@pytest.mark.parametrize("flags", ["random", "all", "masked"])
+def test_occupancy_kernel_one_point_zero_extent_and_all_masked(dev, flags):
+    """K1 and K3 (with tower flags on a tenth of the points, on all, or on
+    the masked ones alone, which count nowhere)."""
     pts = np.zeros((3, 5000, 3), np.float32)
     mask = np.zeros((3, 5000), bool)
     pts[0] = np.random.default_rng(5).uniform(0, 9, (5000, 3))
     mask[0, 17] = True        # one valid point
     pts[1] = 2.5
     mask[1, :300] = True      # every point at one place: zero extent
-    got = _points_family_exact(dev, pts, mask, (16, 16, 16))  # sample 2: all masked
+    got = _points_family_exact(dev, pts, mask, (16, 16, 16), flags)  # sample 2: all masked
     assert [int(v) for v in got.sum(1)] == [1, 1, 0]
+    towers = cuda_hist.points_binary(*(torch.from_numpy(a).to(dev) for a in
+                                       (pts, mask, _tower_flags(mask, flags))), (16, 16, 16))[1]
+    want = {"random": None, "all": [1, 1, 0], "masked": [0, 0, 0]}[flags]
+    assert want is None or [int(v) for v in towers.sum(1)] == want
 
 
 def _full_column(n, y, reps=1, extra=()):
@@ -116,17 +142,24 @@ def _stack(clouds):
     return pts, mask
 
 
-def test_occupancy_kernel_full_columns_in_part_of_a_batch(dev):
+@pytest.mark.parametrize("flags", ["random", "all"])
+def test_occupancy_kernel_full_columns_in_part_of_a_batch(dev, flags):
     """Sample 0 fills two y columns (one voxel of one of them holds more
     points), sample 1 one, sample 2 none: only the full columns take the
-    exact count > column-min rewrite."""
+    exact count > column-min rewrite. K3 with every point a tower point:
+    its presence keeps the whole full column, its occupancy does not."""
     more = [[1.5, 3.5, 1.5]] * 3
     two = _full_column(8, 0, reps=2, extra=[[ix + 0.5, 3.5, iz + 0.5] for iz in range(8)
                                             for ix in range(8)] + more)
     pts, mask = _stack([two, _full_column(8, 0, reps=2),
                         np.random.default_rng(6).uniform(0, 8, (200, 3)).astype(np.float32)])
-    got = _points_family_exact(dev, pts, mask, (8, 8, 8)).reshape(3, 8, 8, 8)
+    got = _points_family_exact(dev, pts, mask, (8, 8, 8), flags).reshape(3, 8, 8, 8)
     assert int(got[1, :, :, 0].sum()) == 1 and int(got[0, :, :, 3].sum()) == 1
+    if flags == "all":
+        towers = cuda_hist.points_binary(*(torch.from_numpy(a).to(dev) for a in
+                                           (pts, mask, _tower_flags(mask, flags))), (8, 8, 8))[1]
+        towers = towers.reshape(3, 8, 8, 8)
+        assert int(towers[1, :, :, 0].sum()) == 64 and int(towers[0, :, :, 3].sum()) == 64
 
 
 @pytest.mark.parametrize("grid,y", [((32, 32, 32), 5), ((128, 8, 128), 7)])
@@ -598,6 +631,92 @@ def test_sorted_bin_counts_kernel_one_hot_bin_and_all_masked(dev):
     counts, flagged = cuda_hist.sorted_bin_counts(flat, mask, mask, size)
     assert float(counts[0, 12345]) == 70000 == float(counts.sum())
     assert float(flagged[0, 12345]) == 70000 == float(flagged.sum())
+
+
+def _sorted_exact(dev, flat, mask, w, size):
+    """K8 with two channels, one, and none flagged, against its plain
+    version and K7; returns the two-channel counts."""
+    args = [torch.as_tensor(a).to(dev) for a in (flat, mask, w)]
+    got = cuda_hist.sorted_bin_counts(*args, size)
+    other = cuda_hist.bin_counts(args[0], args[1], size, args[2])
+    for g, w_, o in zip(got, cuda_hist.sorted_bin_counts_plain(*args, size), other):
+        assert torch.equal(g, w_) and torch.equal(g, o)
+    one = cuda_hist.sorted_bin_counts(*args[:2], None, size, channels=1)
+    assert one[1] is None and torch.equal(one[0], got[0])
+    return got
+
+
+@pytest.mark.parametrize("size", [3 * 4096, 4096 * 4096 + 17, 128 ** 3, 256 ** 3,
+                                  2 ** 25 + 5, 3 * 2 ** 26])
+def test_sorted_bin_counts_kernel_slab_edges(dev, size):
+    """Ids on both sides of every slab edge near 4096 and at size − 1, and
+    negative ids, at sizes of one to many 4096-bin slabs; past 256³ a part
+    of the partition holds several slabs (four at 2**25 + 5, B=2; sixteen at
+    3·2**26, B=1)."""
+    b = 2 if size < 2 ** 26 else 1
+    n = 20000
+    rng = np.random.default_rng(size % 1000)
+    flat = rng.integers(-50, size, (b, n)).astype(np.int32)
+    edges = [4095, 4096, 4097, 8191, 8192, size - 4097, size - 4096, size - 1, size,
+             -1, -4096, -(2 ** 31)]
+    flat[:, :len(edges) * 3] = np.repeat(np.array(edges, np.int32), 3)[None]
+    mask = rng.random((b, n)) > 0.1
+    mask[:, :len(edges) * 3] = True
+    w = rng.random((b, n)) < 0.5
+    counts, flagged = _sorted_exact(dev, flat, mask, w, size)
+    for e in (4095, 4096, 4097, 8191, 8192, size - 1):
+        assert float(counts[0, e]) >= 3
+    keep = mask & (flat >= 0) & (flat < size)
+    assert float(counts.sum()) == keep.sum() and float(flagged.sum()) == (keep & w).sum()
+
+
+@pytest.mark.parametrize("b,n", [(1, 300000), (3, 131072), (2, 70001)])
+def test_sorted_bin_counts_kernel_one_slab_over_many_blocks(dev, b, n):
+    """Every point in one slab (bins 8192 .. 12287 of 128³), read by every
+    block of the partition passes: one part's range reserved by all of
+    them, one slab block counting it all."""
+    rng = np.random.default_rng(n)
+    flat = rng.integers(8192, 12288, (b, n)).astype(np.int32)
+    mask = rng.random((b, n)) > 0.05
+    counts, _ = _sorted_exact(dev, flat, mask, rng.random((b, n)) < 0.3, 128 ** 3)
+    assert float(counts[:, 8192:12288].sum()) == mask.sum() == float(counts.sum())
+    assert cuda_hist.sorted_counts_plan(b, n, 128 ** 3)[2] > 1
+
+
+def test_sorted_bin_counts_kernel_negative_ids(dev):
+    """Negative ids (int32 and int64) count nowhere, whatever their mask."""
+    rng = np.random.default_rng(9)
+    flat = rng.integers(-(2 ** 31), 2 ** 20, (2, 50000)).astype(np.int64)
+    flat[1, ::2] = -rng.integers(1, 2 ** 40, flat[1, ::2].shape)
+    mask = np.ones(flat.shape, bool)
+    w = rng.random(flat.shape) < 0.5
+    got = _sorted_exact(dev, flat.astype(np.int32), mask, w, 128 ** 3)
+    wide = _sorted_exact(dev, flat, mask, w, 128 ** 3)
+    assert torch.equal(got[0][0], wide[0][0])
+    assert float(wide[0].sum()) == ((flat >= 0) & (flat < 128 ** 3)).sum()
+
+
+def test_sorted_bin_counts_kernel_in_a_cuda_graph(dev):
+    """Captured in a CUDA graph and replayed, K8 gives the eager call's
+    counts: no step of it waits for the host."""
+    rng = np.random.default_rng(12)
+    size = 128 ** 3
+    flat = torch.from_numpy(rng.integers(0, size, (4, 131072)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((4, 131072)) > 0.3).to(dev)
+    w = torch.from_numpy(rng.random((4, 131072)) < 0.3).to(dev)
+    want = cuda_hist.sorted_bin_counts(flat, mask, w, size)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_hist.sorted_bin_counts(flat, mask, w, size)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_hist.sorted_bin_counts(flat, mask, w, size)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_int64_ids_past_int32_count_nowhere_on_card(dev):

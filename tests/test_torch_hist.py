@@ -353,3 +353,72 @@ def test_bounds_plan_covers_every_point_and_fills_the_card(b, n):
 ])
 def test_bounds_plan_at_the_main_paths_shapes(b, n, want):
     assert cuda_hist.bounds_plan(b, n) == want
+
+
+@pytest.mark.parametrize("b,n", [(4, 131072), (1, 131072), (16, 65536), (1, 300000)])
+def test_bounds_plan_takes_a_target(b, n):
+    """K8's partition passes: the same rules at their own target of blocks."""
+    chunks, chunk_len = cuda_hist.bounds_plan(b, n, cuda_hist.SORTED_TARGET_BLOCKS)
+    assert chunk_len % cuda_hist.BOUNDS_UNIT == 0
+    assert (chunks - 1) * chunk_len < n <= chunks * chunk_len
+    units = -(-n // cuda_hist.BOUNDS_UNIT)
+    assert 2 * b * chunks >= min(cuda_hist.SORTED_TARGET_BLOCKS, b * units)
+    assert b * chunks < cuda_hist.SORTED_TARGET_BLOCKS + b
+    assert cuda_hist.bounds_plan(b, n) == cuda_hist.bounds_plan(
+        b, n, cuda_hist.BOUNDS_TARGET_BLOCKS)
+
+
+# ---- K8's slab partition plan and K3's bitmaps, on the CPU -------------------------
+
+@pytest.mark.parametrize("b,n,size", [(4, 131072, 128 ** 3), (1, 131072, 256 ** 3),
+                                      (4, 32768, 64 * 64 * 256), (16, 65536, 64 ** 3),
+                                      (3, 9000, 512), (2, 1000, 4097), (1, 7, 1),
+                                      (2, 20000, 2 ** 25 + 5), (1, 20000, 2 ** 31 - 1),
+                                      (1, 4 * 1024 * 1024, 256 ** 3)])
+def test_sorted_counts_plan_covers_every_bin_and_point(b, n, size):
+    """Parts of 2**shift bins, whole slabs each, cover the grid with at most
+    MAX_PARTS a sample; the chunks cover the points; the scratch holds three
+    ints a part and one word a point."""
+    shift, parts, chunks, chunk_len, words = cuda_hist.sorted_counts_plan(b, n, size)
+    assert shift >= 12 and (1 << shift) % cuda_hist.SLAB_BINS == 0
+    assert (parts - 1) << shift < size <= parts << shift
+    assert parts <= cuda_hist.MAX_PARTS
+    assert shift == 12 or -(-size >> (shift - 1)) > cuda_hist.MAX_PARTS  # the narrowest
+    assert (chunks, chunk_len) == cuda_hist.bounds_plan(b, n, cuda_hist.SORTED_TARGET_BLOCKS)
+    assert words == 3 * b * parts + b * n
+
+
+@pytest.mark.parametrize("b,n,size,want", [
+    (4, 131072, 128 ** 3, (12, 512, 64, 2048)),   # the 128³ route: 512 slabs, 256 blocks
+    (1, 131072, 256 ** 3, (12, 4096, 128, 1024)),  # 256³: 4096 slabs, one part each
+    (1, 20000, 2 ** 25 + 5, (14, 2049, 20, 1024)),  # past 256³: four slabs a part
+])
+def test_sorted_counts_plan_at_the_main_paths_shapes(b, n, size, want):
+    assert cuda_hist.sorted_counts_plan(b, n, size)[:4] == want
+
+
+@pytest.mark.parametrize("b,size,want", [(16, 64 ** 3, 16 * 8192), (1, 512, 16),
+                                         (3, 12 * 10 * 14, 160), (1, 33, 4), (64, 64 ** 3, 524288)])
+def test_bitmap_words_are_whole_16_byte_words(b, size, want):
+    """K3's tower bitmap starts right after the occupancy one: a bit a voxel
+    of every sample, rounded up to whole 16-byte words."""
+    words = cuda_hist.bitmap_words(b, size)
+    assert words == want and words % 4 == 0 and 32 * words >= b * size
+
+
+@pytest.mark.parametrize("b,n,want", [
+    (1, 131072, 1024),   # a served request: the bounds chunk, 128 blocks
+    (64, 131072, 8192),  # the batch-64 pipeline: the bounds chunk already long
+    (16, 65536, 3072),   # the train batch: three bounds chunks a block, 352 blocks
+    (1, 65536, 1024), (4, 131072, 1024), (3, 9000, 1024), (1, 100, 1024),
+])
+def test_mark_plan_takes_whole_bounds_chunks(b, n, want):
+    """The mark pass of K1 and K3 takes whole chunks of the bounds plan, at
+    most MARK_POINTS points, and never fewer than MARK_MIN_BLOCKS blocks
+    where the bounds pass had more."""
+    chunks, chunk_len = cuda_hist.bounds_plan(b, n)
+    mark_len = cuda_hist.mark_plan(b, chunks, chunk_len)
+    assert mark_len == want and mark_len % chunk_len == 0
+    assert mark_len <= max(chunk_len, cuda_hist.MARK_POINTS)
+    blocks = b * -(-n // mark_len)
+    assert blocks >= min(b * chunks, cuda_hist.MARK_MIN_BLOCKS)
