@@ -11,9 +11,10 @@ both, with one PyTorch library call beside those that have one (the
 multi-channel conv at every shape its plan treats differently, twice for
 bit-equal outputs; the f32 stencil and its kernel gradient through both
 of their kernels; at batch 1 the occupancy kernel and the kernel gradient,
-the training grids at batch 16 and the sorted-ids counts at 128³ also
-inside a CUDA graph, whose replay times the device where a loop of calls
-would time the host). Then it
+the tensor-core stencil at batch 1 and 64, the training grids and the ids
+counts (beside the sorted-ids counts) at batch 16 and the sorted-ids counts
+at 128³ also inside a CUDA graph, whose replay times the device where a
+loop of calls would time the host). Then it
 drives the port's main paths through their entry points, at the serving
 defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
 experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
@@ -672,9 +673,12 @@ def main(argv=None) -> int:
             for split in (True, False):
                 for act in (True, False):
                     got = cuda_conv.geneo_stencil_conv_mxu(xk, kern, activation=act, split=split)
+                    again = cuda_conv.geneo_stencil_conv_mxu(xk, kern, activation=act,
+                                                             split=split)
                     want = cuda_conv.geneo_stencil_conv_mxu_plain(xk, kern, activation=act,
                                                                   split=split)
                     torch.cuda.synchronize()
+                    check(torch.equal(got, again), f"K5 {label} {ks}: two runs differ")
                     err = float((got - want).abs().max())
                     tol = MXU_TOL * max(1.0, float(want.abs().max()))
                     check(bool(torch.isfinite(got).all()), f"K5 {label} {ks}: non-finite")
@@ -701,7 +705,7 @@ def main(argv=None) -> int:
                          f"without head), fused tau flips vs plain {int(flips.sum())} "
                          f"(outside band {bad}); vs K2 f32 max|dprob| {f32_err:.3g}, tau "
                          f"flips {f32_flips} of {int(mask.sum())} set")
-    print("[K5 stencil_mma] " + " | ".join(parts), flush=True)
+    print("[K5 stencil_mma] bit-identical run to run | " + " | ".join(parts), flush=True)
     del x_big
 
     # ---- 7c. fused_geneo_conv_mxu: K5 forward, the shared f32 backward -----------
@@ -810,8 +814,11 @@ def main(argv=None) -> int:
         for weights in (None, w):
             got = cuda_hist.bin_counts(f, m, size, weights)
             want = cuda_hist.bin_counts_plain(f, m, size, weights)
+            # the route past 2**24 points a sample: 64-bit counters, a finishing pass
+            counter = cuda_hist._launch_bin_counts(f, m, size, weights, "counter")
             torch.cuda.synchronize()
-            k7_err = max(k7_err, exact(f"K7 {label}", got, want))
+            k7_err = max(k7_err, exact(f"K7 {label}", got, want),
+                         exact(f"K7 counter route {label}", counter, want))
         check(float(got[0].sum()) == float(m.sum()), f"K7 {label}: a padded point was counted")
         parts.append(f"{label}: {int(got[0].sum())} points, {int(got[1].sum())} tower, 0 differ")
     fw = torch.from_numpy(np.random.default_rng(32).normal(1.0, 0.5, iflat.shape)
@@ -835,7 +842,9 @@ def main(argv=None) -> int:
         moved += int(((dev_hist[i] - want_h).abs() > ORACLE_TOL).sum())
     check(o_err <= ORACLE_TOL, f"voxelize_batch_from_indices is {o_err:.3g} from the host oracle")
     check(moved <= 0.01 * hist.numel(), f"voxelize_batch: {moved} voxels off the host oracle")
-    print(f"[K7 bin_counts] exact (1 and 2 channels, padded ids of 0 never counted) | "
+    print(f"[K7 bin_counts] exact (1 and 2 channels, padded ids of 0 never counted; "
+          f"route {cuda_hist.bin_counts_route(TRAIN_POINTS)} at N={TRAIN_POINTS}, the counter "
+          f"route too) | "
           + " | ".join(parts) + f" | float weights (bf16, f32 atomics): max|d| {fw_err:.3g} "
           f"of sums up to {float(want[1].abs().max()):.3g}, counts exact | "
           f"voxelize_batch_from_indices vs hist_on_voxel_np/reg_on_voxel_np on {TRAIN_BATCH} "
@@ -958,18 +967,28 @@ def main(argv=None) -> int:
     p16, m16, l16 = padded_batch(np.random.default_rng(100 + TRAIN_BATCH), TRAIN_BATCH,
                                  n_pad=TRAIN_POINTS)
     k3_args = on_card(p16, m16, (l16 == TOWER) & m16)
+    p64, m64, _ = padded_batch(np.random.default_rng(64), 64)
+    x64 = cuda_hist.points_occupancy(*on_card(p64, m64), GRID).reshape(64, 1, GRID[2], GRID[0],
+                                                                     GRID[1])
     big_f, big_m, big_w = big_ids
     graph_fns = {
         "points_occupancy B=1": lambda: cuda_hist.points_occupancy(p1, m1, GRID),
         "stencil_dk (9,5,5) B=1": lambda: cuda_conv.stencil_dk(x1, g1, (9, 5, 5)),
+        "stencil_mma (9,5,5) B=1": lambda: cuda_conv.geneo_stencil_conv_mxu(x1, kern),
+        "stencil_mma (9,5,5) B=64": lambda: cuda_conv.geneo_stencil_conv_mxu(x64, kern),
         f"points_binary B={TRAIN_BATCH}": lambda: cuda_hist.points_binary(*k3_args, GRID),
+        f"bin_counts B={TRAIN_BATCH} 2ch": lambda: cuda_hist.bin_counts(
+            d_iflat, d_im, 64 ** 3, d_itow),
+        f"sorted_bin_counts B={TRAIN_BATCH} 2ch (beside K7)": lambda: cuda_hist.sorted_bin_counts(
+            d_iflat, d_im, d_itow, 64 ** 3),
         f"sorted_bin_counts B={BIG_BATCH} 128^3": lambda: cuda_hist.sorted_bin_counts(
             big_f, big_m, big_w, 128 ** 3)}
-    graph_times = {k: float(np.median([graph_ms(fn) for _ in range(3)]))
-                   for k, fn in graph_fns.items()}
+    with torch.no_grad():
+        graph_times = {k: float(np.median([graph_ms(fn) for _ in range(3)]))
+                       for k, fn in graph_fns.items()}
     print(f"[timing] 64^3, K8 at 128^3 ({smi}), device ms a call inside a CUDA graph: "
           + ", ".join(f"{k} {v:.4f}" for k, v in graph_times.items()), flush=True)
-    del p1, m1, x1, g1, k3_args, graph_fns
+    del p1, m1, x1, g1, k3_args, graph_fns, p64, m64, x64
 
     def bincount_library(f, m, w, size):
         """One torch.bincount per channel over b·size + flat (points that do not

@@ -1,17 +1,22 @@
-"""Device times of the points kernels (K1, K3), the sorted-ids counts (K8)
-and the kernel gradient (K4).
+"""Device times of the points kernels (K1, K3), the ids counts (K7, K8),
+the kernel gradient (K4) and the tensor-core stencil (K5).
 
 Run on a machine with the card, from the root of a checkout:
 
     python3 scenenet_tpu_torch/csrc/bench/points_dk_times.py [--root DIR] [--passes]
-        [--kernels k1,k4,k3,k8]
+        [--kernels k1,k4,k3,k8,k5,k7]
 
 It times K1 at batch 1 and 64 (64^3, 131072 padded points of 40k-70k
 synthetic 1 cm LiDAR points), K4 at batch 1 and 16 (64^3, (9,5,5), ~20%
 occupancy), K3 at batch 1 and 16 (64^3, 65536 padded points, the tower
 points flagged: the train step's shapes) and K8 at 128^3 batch 4 and 256^3
 batch 1 (131072 padded points, their bin ids made by the plain version of
-the ids kernel, the tower points flagged), each as a loop of calls (which
+the ids kernel, the tower points flagged), K5 at batch 1 and 64 (64^3,
+(9,5,5), ~20% occupancy, split, relu(tanh), and at 64 without the head),
+K7 at 64^3 batch 16 (65536
+padded points, int32 ids as the host-exact loader makes them, the tower
+points flagged: two channels) and 128^3 batch 4 (131072), with K8 on the
+64^3 input beside it, each as a loop of calls (which
 at small batch measures the host's launch rate) and as one call captured
 in a CUDA graph and replayed (the device's time), medians of five, in ms.
 ``--root`` times the package of another checkout instead (an unpacked
@@ -107,7 +112,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose scenenet_tpu_torch to time")
     ap.add_argument("--passes", action="store_true", help="each kernel's time by pass")
-    ap.add_argument("--kernels", default="k1,k4,k3,k8", help="which of k1,k4,k3,k8 to time")
+    ap.add_argument("--kernels", default="k1,k4,k3,k8,k5,k7",
+                    help="which of k1,k4,k3,k8,k5,k7 to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("points_dk_times: no CUDA device", file=sys.stderr)
@@ -140,6 +146,25 @@ def main() -> int:
         ids = cuda_hist.flat_ids_plain(pts, mask, (side,) * 3)
         report(f"K8 sorted_bin_counts {side}^3 B={b} N=131072",
                lambda: cuda_hist.sorted_bin_counts(ids, mask, tower, side ** 3), opts.passes)
+    kern = torch.from_numpy(np.random.default_rng(5).normal(0, 0.1, (9, 5, 5))
+                            .astype(np.float32)).to(dev)
+    for b in (1, 64) if "k5" in which else ():
+        rng = np.random.default_rng(60 + b)
+        x = torch.from_numpy((rng.random((b, 1, *grid)) > 0.8).astype(np.float32)).to(dev)
+        report(f"K5 stencil_mma (9,5,5) B={b}",
+               lambda: cuda_conv.geneo_stencil_conv_mxu(x, kern), opts.passes)
+        if b == 64:  # what the relu(tanh) head costs
+            report(f"K5 stencil_mma (9,5,5) B={b} without the head",
+                   lambda: cuda_conv.geneo_stencil_conv_mxu(x, kern, activation=False), False)
+    for b, side, n in ((16, 64, 65536), (4, 128, 131072)) if "k7" in which else ():
+        pts, mask, tower = (torch.from_numpy(a).to(dev) for a in batch(70 + b, b, n))
+        ids = cuda_hist.flat_ids_plain(pts, mask, (side,) * 3)
+        report(f"K7 bin_counts {side}^3 B={b} N={n} two channels",
+               lambda: cuda_hist.bin_counts(ids, mask, side ** 3, tower), opts.passes)
+        if side == 64:
+            report(f"K8 sorted_bin_counts {side}^3 B={b} N={n} (beside K7)",
+                   lambda: cuda_hist.sorted_bin_counts(ids, mask, tower, side ** 3),
+                   opts.passes)
     return 0
 
 

@@ -18,12 +18,43 @@
 // Bound on the H100: device-memory traffic and atomics, not arithmetic:
 // 6 bytes a point in, 4 bytes a voxel and channel out.
 //
-// snt_bin_counts: one thread a point, int32 atomicAdd into grids the
-// wrapper zeroes, then the int32 counts are converted to f32 in place. At
-// 64^3 a batch-16 pair of grids is 32 MB and the 50 MB L2 absorbs the
-// atomics. The weighted form adds its bf16-rounded weights with f32
-// atomicAdd, whose order changes from run to run: its sums are not
-// bit-reproducible (the counts are).
+// snt_bin_counts, two routes (ops/cuda_hist.py bin_counts_route picks):
+//   - float (N <= 2^24, every main path): one memset of both f32 outputs
+//     (allocated as one), then one thread a point adds 1.0f to counts and,
+//     where flagged, 1.0f to flagged, by atomics nobody waits for, in the L2
+//     (a batch-16 pair of 64^3 grids is 33.5 MB, under its 50 MB). Exact:
+//     no voxel can pass 2^24 points, below which every partial sum of ones
+//     is an f32 integer. Two device operations a call.
+//   - counter (past 2^24 points a sample): one 64-bit counter a voxel in a
+//     scratch, zeroed by one memset, the count in its low half and the
+//     flagged count in its high half (as K8's slab pass does in shared
+//     memory): one atomic a point, and a half cannot carry into the other (N
+//     < 2^31). A finishing pass reads each counter once and writes both f32
+//     grids with streaming stores. Three device operations a call.
+// Both read the ids in their own width (int32 or int64: no conversion pass)
+// and the flags in theirs (1, 2, 4 or 8 bytes, nonzero bits meaning set; for
+// a float, nonzero bits other than the sign: -0.0 is not set, NaN is), so no
+// `weights != 0` pass either, and load a point's mask, id and flag together.
+// Nothing waits for the host: the call can be captured in a CUDA graph. The
+// previous design zeroed two int32 grids with torch.zeros, counted with two
+// atomics a point and converted each grid to f32 in place (five operations
+// and a flag pass, every grid read and written twice more). The weighted
+// form adds its bf16-rounded weights with f32 atomicAdd, whose order changes
+// from run to run: its sums are not bit-reproducible (the counts are); it
+// keeps the previous design's passes.
+//
+// What the measurements said (H100, 700 W, inside a CUDA graph, 64^3, B=16,
+// 65536 points, two channels; points_dk_times.py --kernels k7 --passes, the
+// previous design's kernel 0.0594-0.0605 ms in the same calls): the counter
+// route 0.0448 (memset 0.0104, count 0.0150, finish 0.0164: the finishing
+// pass costs more than the second atomic it saves), with discard.global.L2 of the read
+// counters 0.0456; the float route 0.0309 (memset 0.0094, count 0.0192),
+// with warp-aggregated atomics (__match_any_sync) 0.0308, with four points a
+// thread 0.0327-0.0342, with mask, id and flag loaded together 0.0307 (kept:
+// no worse); K8's slab partition on the same input 0.0758-0.0770. On the
+// smoke's host-exact ids (20% tower points) the float route takes 0.0287.
+// At 128^3, B=4: the float route 0.0304-0.0307, the counter route
+// 0.0669-0.0705, the previous design's kernel 0.0918-0.0920.
 //
 // snt_sorted_bin_counts: at 256^3 one channel of counts is 64 MB, more
 // than L2, so random atomics would each go to device memory. Instead every
@@ -90,25 +121,126 @@ constexpr int kSlabBins = 4096;  // a slab: 4096 64-bit counters, 32 KB shared
 constexpr int kSlabThreads = 256;
 constexpr int kMaxParts = 4096;  // parts a sample: the scatter pass's 32 KB of shared
 
-// counts[b, id] += 1 for every valid in-range id; flagged[b, id] += 1 where
-// the point's flag is set too. `flag` and `flagged` may both be null.
-__global__ void id_count_kernel(const int* __restrict__ ids,
-                                const uint8_t* __restrict__ mask,
-                                const uint8_t* __restrict__ flag,
-                                int* __restrict__ counts,
-                                int* __restrict__ flagged, int N, int size) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t pi = (size_t)b * N + i;
-  if (i >= N || !mask[pi]) return;
-  const int id = ids[pi];
-  if (id < 0 || id >= size) return;
-  const size_t at = (size_t)b * size + id;
-  atomicAdd(counts + at, 1);
-  if (flag != nullptr && flag[pi]) atomicAdd(flagged + at, 1);
+// The flag of point i as its raw bits, W bytes wide (W = 0: no flags).
+template <int W>
+__device__ __forceinline__ unsigned long long flag_bits(const void* flag, size_t i) {
+  if (W == 1) return static_cast<const uint8_t*>(flag)[i];
+  if (W == 2) return static_cast<const uint16_t*>(flag)[i];
+  if (W == 4) return static_cast<const uint32_t*>(flag)[i];
+  if (W == 8) return static_cast<const unsigned long long*>(flag)[i];
+  return 0;
 }
 
-// counts as above; wsum[b, id] += bf16(weight) in f32.
+// cell[b, id] += 1 for every valid in-range id: a 32-bit count (W = 0), or
+// a 64-bit counter whose high half also counts the points whose flag bits
+// meet `value_bits` (W = 1, 2, 4, 8). Grid (ceil(N / 256), B).
+template <typename Id, int W>
+__global__ void __launch_bounds__(kCountThreads)
+cell_count_kernel(const Id* __restrict__ ids, const uint8_t* __restrict__ mask,
+                  const void* __restrict__ flag, unsigned long long value_bits,
+                  void* __restrict__ cells, int N, int size) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const size_t pi = (size_t)b * N + i;
+  // mask, id and flag loaded together, none waiting for another
+  const bool keep = mask[pi] != 0;
+  const long long id = (long long)ids[pi];
+  const bool set = (flag_bits<W>(flag, pi) & value_bits) != 0ull;
+  if (!keep || id < 0 || id >= size) return;
+  const size_t at = (size_t)b * size + (size_t)id;
+  if (W == 0)
+    atomicAdd(static_cast<unsigned*>(cells) + at, 1u);
+  else
+    atomicAdd(static_cast<unsigned long long*>(cells) + at, set ? 0x100000001ull : 1ull);
+}
+
+// The float route: counts[b, id] += 1.0f and, where the point's flag bits
+// meet `value_bits` (W > 0), flagged[b, id] += 1.0f, straight into the f32
+// outputs the caller zeroes: exact while no voxel passes 2^24 points (N <=
+// 2^24). One thread a point (four a thread, all loaded before the first
+// atomic, was slower: 0.0223 against 0.0192 ms at 64^3, B = 16). Grid
+// (ceil(N / 256), B).
+template <typename Id, int W>
+__global__ void __launch_bounds__(kCountThreads)
+float_count_kernel(const Id* __restrict__ ids, const uint8_t* __restrict__ mask,
+                   const void* __restrict__ flag, unsigned long long value_bits,
+                   float* __restrict__ counts, float* __restrict__ flagged, int N, int size) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N) return;
+  const size_t pi = (size_t)b * N + i;
+  // mask, id and flag loaded together, none waiting for another
+  const bool keep = mask[pi] != 0;
+  const long long id = (long long)ids[pi];
+  const bool set = (flag_bits<W>(flag, pi) & value_bits) != 0ull;
+  if (!keep || id < 0 || id >= size) return;
+  const size_t at = (size_t)b * size + (size_t)id;
+  atomicAdd(counts + at, 1.0f);
+  if (set) atomicAdd(flagged + at, 1.0f);
+}
+
+// The finishing pass: counts[k] = low half of cell k, flagged[k] = its high
+// half (kTwo), else counts[k] = cell k, as f32, each output written once
+// with streaming stores; `total` cells, 16-byte words of them a thread.
+template <bool kTwo>
+__global__ void cells_to_float_kernel(const void* __restrict__ cells, float* __restrict__ counts,
+                                      float* __restrict__ flagged, size_t total) {
+  constexpr int kPer = kTwo ? 2 : 4;  // cells a 16-byte load
+  const size_t words = total / kPer;
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < words; k += stride) {
+    if (kTwo) {
+      const ulonglong2 e = __ldcs(static_cast<const ulonglong2*>(cells) + k);
+      __stcs(reinterpret_cast<float2*>(counts) + k,
+             make_float2((float)(unsigned)e.x, (float)(unsigned)e.y));
+      __stcs(reinterpret_cast<float2*>(flagged) + k,
+             make_float2((float)(unsigned)(e.x >> 32), (float)(unsigned)(e.y >> 32)));
+    } else {
+      const uint4 e = __ldcs(static_cast<const uint4*>(cells) + k);
+      __stcs(reinterpret_cast<float4*>(counts) + k,
+             make_float4((float)e.x, (float)e.y, (float)e.z, (float)e.w));
+    }
+  }
+  // the ragged tail, fewer than kPer cells
+  const size_t k = words * kPer + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < total) {
+    if (kTwo) {
+      const unsigned long long e = static_cast<const unsigned long long*>(cells)[k];
+      counts[k] = (float)(unsigned)e;
+      flagged[k] = (float)(unsigned)(e >> 32);
+    } else {
+      counts[k] = (float)static_cast<const unsigned*>(cells)[k];
+    }
+  }
+}
+
+// One count pass: the float route (cells null) into the outputs, else the
+// counter route into cells.
+template <typename Id>
+cudaError_t count_pass(const Id* ids, const uint8_t* mask, const void* flag, int flag_bytes,
+                       unsigned long long value_bits, void* cells, float* counts,
+                       float* flagged, int B, int N, int size, cudaStream_t s) {
+  const dim3 grid((N + kCountThreads - 1) / kCountThreads, B);
+  switch (flag_bytes) {
+#define SNT_W(W)                                                                              \
+  case W:                                                                                     \
+    if (cells == nullptr)                                                                     \
+      float_count_kernel<Id, W><<<grid, kCountThreads, 0, s>>>(ids, mask, flag, value_bits,  \
+                                                               counts, flagged, N, size);    \
+    else                                                                                      \
+      cell_count_kernel<Id, W><<<grid, kCountThreads, 0, s>>>(ids, mask, flag, value_bits,   \
+                                                              cells, N, size);                \
+    return cudaSuccess;
+    SNT_W(0) SNT_W(1) SNT_W(2) SNT_W(4) SNT_W(8)
+#undef SNT_W
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// counts[b, id] += 1 (int32, zeroed by the caller) for every valid in-range
+// id; wsum[b, id] += bf16(weight) in f32.
 __global__ void id_weight_kernel(const int* __restrict__ ids,
                                  const uint8_t* __restrict__ mask,
                                  const float* __restrict__ weights,
@@ -341,24 +473,57 @@ slab_count_kernel(const uint32_t* __restrict__ bucket, const int* __restrict__ s
 
 }  // namespace
 
-// ids (B, N) int32, mask (B, N) bool/uint8, flag (B, N) bool/uint8 or null.
-// counts (B, size) int32 ZEROED by the caller, flagged the same or null
-// (with a null `flag` a non-null `flagged` stays all zero). On return both
-// hold the counts as f32, converted in place. Launches on `stream`; returns
+// ids (B, N) int32 (id_bytes 4) or int64 (8), mask (B, N) bool/uint8, flag
+// (B, N) of flag_bytes (1, 2, 4 or 8) a point, set where its bits are
+// nonzero (flag_float: other than the sign bit), or null (flag_bytes 0).
+// counts and flagged (B, size) f32 (flagged null without flags), every
+// element written. cells null: the float route (N <= 2^24), a memset of
+// the outputs (one where flagged follows counts in memory) and the float
+// count pass. Else the counter route: cells is a scratch of B * size
+// counters of 8 bytes (with flags) or 4, of any contents, 16-byte aligned
+// as the outputs; a memset of it, the counter pass and the finishing pass.
+// Three operations at most on `stream`, none waiting for the host; returns
 // cudaGetLastError().
-extern "C" int snt_bin_counts(const int* ids, const uint8_t* mask,
-                              const uint8_t* flag, int* counts, int* flagged,
-                              int B, int N, int size, void* stream) {
+extern "C" int snt_bin_counts(const void* ids, int id_bytes, const uint8_t* mask,
+                              const void* flag, int flag_bytes, int flag_float, void* cells,
+                              float* counts, float* flagged, int B, int N, int size,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || N <= 0 || size <= 0 || (flag != nullptr && flagged == nullptr))
+  const bool two = flag != nullptr;
+  if (B <= 0 || B > 65535 || N <= 0 || size <= 0 || (id_bytes != 4 && id_bytes != 8) ||
+      two != (flag_bytes != 0) || two != (flagged != nullptr) ||
+      (cells == nullptr && N > (1 << 24)) ||
+      (cells != nullptr && (reinterpret_cast<size_t>(cells) % 16 != 0 ||
+                            reinterpret_cast<size_t>(counts) % 16 != 0 ||
+                            reinterpret_cast<size_t>(flagged) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
+  const unsigned long long all =
+      flag_bytes >= 8 ? ~0ull : (flag_bytes == 0 ? 0ull : (1ull << (8 * flag_bytes)) - 1ull);
+  const unsigned long long value_bits =
+      flag_float && flag_bytes > 0 ? all >> 1 : all;  // a float's sign bit does not count
   const size_t total = (size_t)B * size;
-  dim3 grid((N + kCountThreads - 1) / kCountThreads, B);
-  id_count_kernel<<<grid, kCountThreads, 0, s>>>(ids, mask, flag, counts, flagged,
-                                                N, size);
-  counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(counts, total);
-  if (flagged != nullptr)
-    counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(flagged, total);
+  cudaError_t e = cudaSuccess;
+  if (cells != nullptr) {
+    e = cudaMemsetAsync(cells, 0, total * (two ? 8 : 4), s);
+  } else if (two && flagged == counts + total) {
+    e = cudaMemsetAsync(counts, 0, 2 * total * sizeof(float), s);
+  } else {
+    e = cudaMemsetAsync(counts, 0, total * sizeof(float), s);
+    if (e == cudaSuccess && two) e = cudaMemsetAsync(flagged, 0, total * sizeof(float), s);
+  }
+  if (e != cudaSuccess) return (int)e;
+  e = id_bytes == 8
+          ? count_pass(static_cast<const long long*>(ids), mask, flag, flag_bytes, value_bits,
+                       cells, counts, flagged, B, N, size, s)
+          : count_pass(static_cast<const int*>(ids), mask, flag, flag_bytes, value_bits, cells,
+                       counts, flagged, B, N, size, s);
+  if (e != cudaSuccess || cells == nullptr) return e != cudaSuccess ? (int)e
+                                                                     : (int)cudaGetLastError();
+  const int blocks = elementwise_blocks(total / (two ? 2 : 4) + 1);
+  if (two)
+    cells_to_float_kernel<true><<<blocks, 256, 0, s>>>(cells, counts, flagged, total);
+  else
+    cells_to_float_kernel<false><<<blocks, 256, 0, s>>>(cells, counts, nullptr, total);
   return (int)cudaGetLastError();
 }
 

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # pts, mask, ids, partials, B, N, n_x, n_y, n_z, invalid, chunks, chunk_len, stream
     "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # ids, mask, flag, counts, flagged, B, N, size, stream
-    "snt_bin_counts": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ids, id bytes, mask, flag, flag bytes, flag is float, cells, counts, flagged, B,
+    # N, size, stream
+    "snt_bin_counts": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     # ids, mask, weights, counts, wsum, B, N, size, stream
     "snt_bin_counts_weighted": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ids, mask, flag, counts, flagged, scratch, B, N, size, shift, chunks,
@@ -58,10 +59,10 @@ _SIGNATURES = {
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, fast, stream
     "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,
-    # stream
-    "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # k_z, k_x, k_y -> bytes of shared memory a block of the mma kernel needs
-    "snt_stencil_mma_smem": (_I, _I, _I),
+    # z tile, stream
+    "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # k_z, k_x, k_y, z tile -> bytes of shared memory a block of the mma kernel needs
+    "snt_stencil_mma_smem": (_I, _I, _I, _I),
     # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, fast, z tiles a block, stream
     "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # B, Z, X, Y, fast, z tiles a block -> blocks of the dk kernel's first pass

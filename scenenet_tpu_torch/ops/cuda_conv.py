@@ -10,7 +10,8 @@ twins, and the differentiable compositions.
 - ``geneo_stencil_conv_mxu`` is the port of ``pallas_conv.geneo_stencil_conv_mxu``:
   the same conv on the tensor cores, x rounded to bf16, the kernel split
   into bf16 ``hi`` + 2⁻⁹·bf16 ``lo``, f32 accumulation, and an optional
-  fused ``>= τ`` mask (``csrc/stencil_mma.cu``).
+  fused ``>= τ`` mask (``csrc/stencil_mma.cu``: one mma packs two halo
+  planes and two output planes; ``stencil_mma_plan`` picks its z tile).
 - ``stencil_dk`` is the port of ``pallas_conv.stencil_dk``: the gradient of
   that conv with respect to its kernel, ``dk[dz,dx,dy] = Σ x_pad[b, z+dz,
   x+dx, y+dy]·g[b, z, x, y]`` (``csrc/stencil_dk.cu``: an unrolled,
@@ -55,6 +56,12 @@ DK_FAST_TILE = (4, 16, 32)
 DK_FAST_BLOCKS_PER_SM = 4
 DK_MAX_Z_TILES = 4  # the most g tiles a block of it walks along z
 SMS = 132
+# the tensor-core stencil: a tile's output x and y, its two z extents (16, or
+# 8 where the tall tile would leave an SM's block fewer than MMA_GROUPS
+# tiles), and the groups of warps of its one block an SM, which take turns
+MMA_TILE_X, MMA_TILE_Y = 16, 32
+MMA_TALL_Z, MMA_SHORT_Z = 16, 8
+MMA_GROUPS = 2
 
 
 def _check_volume(name: str, x: torch.Tensor) -> None:
@@ -108,6 +115,38 @@ def stencil_dk_plan(b: int, z: int, x: int, y: int) -> int:
             and blocks // (2 * zg) >= SMS * DK_FAST_BLOCKS_PER_SM:
         zg *= 2
     return zg
+
+
+def stencil_mma_smem(kernel_size, tz: int) -> int:
+    """Bytes of shared memory a block of the tensor-core stencil needs at
+    z tile ``tz``: the B fragments of every (dx, 8-input chunk, pair step),
+    hi and lo, 16 bytes a lane, and for each of its ``MMA_GROUPS`` groups
+    the larger of its bf16 halo tile (planes ``tz + 2·steps − 2``, rows
+    ``16 + k_x − 1``, a row pitch of 8 mod 16 elements) and its staged f32
+    output tile (``tz`` x 16 x 36). ``csrc/stencil_mma.cu`` computes the
+    same (``snt_stencil_mma_smem``)."""
+    k_z, k_x, k_y = (int(k) for k in kernel_size)
+    steps = (k_z + 2) // 2  # ceil((k_z + 1) / 2): an output pair's halo planes, in pairs
+    chunks = (k_y + 10) // 8  # ceil((4 + k_y - 1) / 8): a y quad's inputs, in eights
+    pitch = -(-(MMA_TILE_Y - 4 + 8 * chunks) // 8) * 8
+    pitch += 8 if pitch % 16 == 0 else 0
+    frags = k_x * chunks * steps * 32 * 16
+    tile = (tz + 2 * steps - 2) * (MMA_TILE_X + k_x - 1) * pitch * 2
+    staged = tz * MMA_TILE_X * (MMA_TILE_Y + 4) * 4
+    return frags + MMA_GROUPS * max(tile, staged)
+
+
+def stencil_mma_plan(b: int, z: int, x: int, y: int, kernel_size) -> int:
+    """The tensor-core stencil's z tile: ``MMA_TALL_Z`` (16 output planes a
+    tile, fewer halo planes staged an output) where that still gives the
+    one block on every SM ``MMA_GROUPS`` tiles (one for each group) and its
+    shared memory fits, else ``MMA_SHORT_Z`` (twice the tiles: batch 1 and
+    the micro-batcher's small batches)."""
+    tiles = b * -(-z // MMA_TALL_Z) * -(-x // MMA_TILE_X) * -(-y // MMA_TILE_Y)
+    if tiles >= SMS * MMA_GROUPS \
+            and stencil_mma_smem(kernel_size, MMA_TALL_Z) <= MAX_BLOCK_SHARED:
+        return MMA_TALL_Z
+    return MMA_SHORT_Z
 
 
 def geneo_stencil_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
@@ -221,14 +260,24 @@ def geneo_stencil_conv_mxu(x: torch.Tensor, kernel: torch.Tensor,
         raise RuntimeError("the raw tensor-core stencil is forward only: use "
                            "fused_geneo_conv_mxu for a differentiable conv")
     b, _, z, xx, yy = x.shape
+    return _launch_mma(x, kernel, activation, split, tau,
+                       stencil_mma_plan(b, z, xx, yy, kernel.shape))
+
+
+def _launch_mma(x: torch.Tensor, kernel: torch.Tensor, activation: bool, split: bool,
+                tau: Optional[float], tz: int) -> torch.Tensor:
+    """One launch of the tensor-core stencil on checked CUDA tensors at z
+    tile ``tz`` (``stencil_mma_plan`` picks it; the card tests force
+    either)."""
+    b, _, z, xx, yy = x.shape
     k_z, k_x, k_y = kernel.shape
-    lib = _build.load()
-    shared = lib.snt_stencil_mma_smem(k_z, k_x, k_y)
+    shared = stencil_mma_smem(kernel.shape, tz)
     if shared > MAX_BLOCK_SHARED:
         raise ValueError(
             f"kernel {tuple(kernel.shape)} needs {shared} bytes of shared memory a "
             f"block for its weight fragments and halo tile; the limit is "
             f"{MAX_BLOCK_SHARED}")
+    lib = _build.load()
     x = x.contiguous()
     kernel = kernel.contiguous()
     out = torch.empty_like(x)
@@ -237,7 +286,7 @@ def geneo_stencil_conv_mxu(x: torch.Tensor, kernel: torch.Tensor,
         err = lib.snt_stencil_mma(
             x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
             b, z, xx, yy, k_z, k_x, k_y, int(bool(activation)), int(bool(split)),
-            int(tau is not None), float(0.0 if tau is None else tau),
+            int(tau is not None), float(0.0 if tau is None else tau), tz,
             ctypes.c_void_p(stream))
     _build.check(err, "stencil_mma")
     MXU_LAUNCHES.add()

@@ -19,8 +19,10 @@ and id recipe:
 
 Two take flat bin ids computed beforehand (``csrc/bin_counts.cu``):
 
-- ``bin_counts`` (``pallas_bin_counts``): counts and flagged counts by
-  integer atomics, or sums of float weights at bf16 precision;
+- ``bin_counts`` (``pallas_bin_counts``): counts and flagged counts as the
+  two halves of one 64-bit counter a voxel (one integer atomic a point, then
+  one pass that writes both f32 grids), or sums of float weights at bf16
+  precision;
 - ``sorted_bin_counts`` (``pallas_sorted_bin_counts``): the same counts for
   large grids, slab by slab, from the ids partitioned by slab (no sort).
 
@@ -266,6 +268,47 @@ def _flags(weights: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return (weights if weights.dtype == torch.bool else weights != 0).contiguous()
 
 
+# the flag dtypes K7 reads as they are: (bytes a flag, whether it is a float,
+# whose sign bit alone does not make it set)
+FLAG_FORMATS = {torch.bool: (1, False), torch.uint8: (1, False), torch.int8: (1, False),
+                torch.int16: (2, False), torch.int32: (4, False), torch.int64: (8, False),
+                torch.float16: (2, True), torch.bfloat16: (2, True),
+                torch.float32: (4, True), torch.float64: (8, True)}
+
+
+FLOAT_COUNT_MAX_POINTS = 2 ** 24  # f32 adds of 1.0 stay exact up to this count
+
+
+def bin_counts_route(n: int) -> str:
+    """K7's route for N points a sample: ``"float"`` (f32 atomics straight
+    into the zeroed outputs: two device operations, one atomic a point and
+    one more a flagged point) where no voxel can pass ``2**24`` points,
+    else ``"counter"`` (a 64-bit counter a voxel, zeroed, counted and read
+    once by a finishing pass: three operations, exact to N < 2**31)."""
+    return "float" if n <= FLOAT_COUNT_MAX_POINTS else "counter"
+
+
+def bin_counts_scratch(b: int, size: int, flagged: bool) -> Tuple[torch.dtype, int]:
+    """``(dtype, elements)`` of K7's counter route's scratch: one 64-bit
+    counter a voxel with flags (the count in its low half, the flagged count
+    in its high half: a count below 2**31 never carries into it), one 32-bit
+    count without."""
+    return (torch.int64 if flagged else torch.int32), b * size
+
+
+def _flag_operand(weights: Optional[torch.Tensor]
+                  ) -> Tuple[Optional[torch.Tensor], int, int]:
+    """``(tensor, bytes a flag, is float)`` for K7: the weights as they are
+    where ``FLAG_FORMATS`` has their dtype (no pass over them), else the
+    bool ``weights != 0``; ``(None, 0, 0)`` without weights."""
+    if weights is None:
+        return None, 0, 0
+    if weights.dtype not in FLAG_FORMATS:
+        weights = weights != 0
+    width, is_float = FLAG_FORMATS[weights.dtype]
+    return weights.contiguous(), width, int(is_float)
+
+
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -490,42 +533,70 @@ def bin_counts(flat: torch.Tensor, mask: torch.Tensor, size: int,
     A point counts where its mask is set and its id lies in ``[0, size)``;
     any other counts nowhere (a padded point's id 0 never reaches bin 0).
     ``indicator=True``: the weights are {0, 1} flags (any dtype; nonzero
-    means set) and the second grid counts the flagged points, exactly, by
-    integer atomics. ``indicator=False``: float weights, each rounded to
+    means set) and the second grid counts the flagged points, exactly (f32
+    atomics of 1.0 up to 2**24 points a sample, 64-bit counters past it).
+    ``indicator=False``: float weights, each rounded to
     bf16 and summed in f32 with float atomics, whose order changes from run
     to run: those sums are not bit-reproducible (the counts are).
 
-    The count grids are zeroed here and converted to f32 in place by the
-    kernel. A CPU tensor takes :func:`bin_counts_plain`; a CUDA tensor
-    launches the kernel or raises.
+    For a CUDA tensor the indicator form reads the ids (int32 or int64) and
+    the flags (a dtype of ``FLAG_FORMATS``) as they are and counts by the
+    route :func:`bin_counts_route` picks: two or three device operations,
+    none waiting for the host, so the call can be captured in a CUDA graph.
+    A CPU tensor takes :func:`bin_counts_plain`; a CUDA tensor launches the
+    kernel or raises.
     """
     _check_ids(flat, mask, size, weights)
     if flat.device.type == "cpu":
         return bin_counts_plain(flat, mask, size, weights, indicator)
     b, n = _check_ids_launch(flat, size)
+    if weights is None or indicator:
+        counts, second = _launch_bin_counts(flat, mask, size, weights, bin_counts_route(n))
+        FLAT_COUNTS_LAUNCHES.add()
+        return counts, second
     dev = flat.device
-    flat = _ids_int32(flat, size)
     mask = mask.contiguous()
-    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if weights is None or indicator:
-            flag = _flags(weights)
-            second = (None if weights is None
-                      else torch.zeros((b, size), dtype=torch.int32, device=dev))
-            err = lib.snt_bin_counts(flat.data_ptr(), mask.data_ptr(), _ptr(flag),
-                                     counts.data_ptr(), _ptr(second), b, n, size, stream)
-            second = None if second is None else second.view(torch.float32)
-        else:
-            w = weights.to(torch.float32).contiguous()
-            second = torch.zeros((b, size), dtype=torch.float32, device=dev)
-            err = lib.snt_bin_counts_weighted(flat.data_ptr(), mask.data_ptr(), w.data_ptr(),
-                                              counts.data_ptr(), second.data_ptr(), b, n,
-                                              size, stream)
+        flat = _ids_int32(flat, size)
+        counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
+        w = weights.to(torch.float32).contiguous()
+        second = torch.zeros((b, size), dtype=torch.float32, device=dev)
+        err = lib.snt_bin_counts_weighted(flat.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                                          counts.data_ptr(), second.data_ptr(), b, n, size,
+                                          stream)
     _build.check(err, "bin_counts")
     FLAT_COUNTS_LAUNCHES.add()
     return counts.view(torch.float32), second
+
+
+def _launch_bin_counts(flat: torch.Tensor, mask: torch.Tensor, size: int,
+                       weights: Optional[torch.Tensor], route: str
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of K7's indicator form on checked CUDA tensors, through
+    the route ``route`` names (:func:`bin_counts_route` picks it; the card
+    tests force either). The two outputs are one allocation, the flagged
+    grid right after the counts, so that the float route zeroes both with
+    one memset."""
+    b, n = flat.shape
+    dev = flat.device
+    flat, mask = flat.contiguous(), mask.contiguous()
+    flag, width, is_float = _flag_operand(weights)
+    both = torch.empty((1 if flag is None else 2, b, size), dtype=torch.float32, device=dev)
+    scratch = None
+    if route == "counter":
+        dtype, cells = bin_counts_scratch(b, size, flag is not None)
+        scratch = torch.empty(cells, dtype=dtype, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.snt_bin_counts(flat.data_ptr(), flat.element_size(), mask.data_ptr(),
+                                 _ptr(flag), width, is_float, _ptr(scratch),
+                                 both[0].data_ptr(), None if flag is None else both[1].data_ptr(),
+                                 b, n, size, stream)
+    _build.check(err, "bin_counts")
+    return both[0], None if flag is None else both[1]
 
 
 def sorted_bin_counts(flat: torch.Tensor, mask: torch.Tensor,

@@ -105,6 +105,51 @@ def test_stencil_dk_plan(b, z, x, y, want):
     assert zg <= max(1, min(cuda_conv.DK_MAX_Z_TILES, tiles_z))
 
 
+@pytest.mark.parametrize("b,z,x,y,ks,want", [
+    (64, 64, 64, 64, (9, 5, 5), 16),   # the batch-64 pipeline: 2048 blocks of the tall tile
+    (16, 64, 64, 64, (9, 5, 5), 16),   # the train batch: 512 blocks
+    (8, 64, 64, 64, (9, 5, 5), 8),     # --max-batch 8: 256 tall blocks would be under 264
+    (1, 64, 64, 64, (9, 5, 5), 8),     # a request: 64 short blocks, not 32 tall ones
+    (1, 40, 144, 200, (9, 5, 5), 8),
+    (4, 128, 128, 128, (9, 5, 5), 16),  # the large grid
+    (64, 64, 64, 64, (16, 6, 14), 8),  # the tall tile's shared memory would not fit
+])
+def test_stencil_mma_plan(b, z, x, y, ks, want):
+    """The tensor-core stencil's z tile: the tall one where it still gives
+    every SM's block a tile for each of its MMA_GROUPS groups and fits a
+    block's shared memory."""
+    tz = cuda_conv.stencil_mma_plan(b, z, x, y, ks)
+    assert tz == want
+    tall_tiles = b * -(-z // 16) * -(-x // cuda_conv.MMA_TILE_X) * -(-y // cuda_conv.MMA_TILE_Y)
+    if tz == cuda_conv.MMA_TALL_Z:
+        assert tall_tiles >= cuda_conv.SMS * cuda_conv.MMA_GROUPS
+        assert cuda_conv.stencil_mma_smem(ks, tz) <= cuda_conv.MAX_BLOCK_SHARED
+
+
+@pytest.mark.parametrize("ks,tall,short", [
+    ((9, 5, 5), 89600, 64000),      # 25 fragment blocks; 24 and 16 halo planes of 20 x 40
+    ((1, 1, 1), 74240, 37376),      # the staged f32 outputs outgrow the halo tile
+    ((9, 6, 6), 143616, 105984),    # 9 inputs a y quad: two 8-input chunks, a pitch of 56
+    ((16, 16, 16), 443392, 387840),  # over the limit at either tile: the wrapper raises
+])
+def test_stencil_mma_smem(ks, tall, short):
+    """A block's shared memory: the B fragments (k_x x chunks x pair steps,
+    512 bytes each) and, for each of the two groups of warps, the larger of
+    its bf16 halo tile and its staged f32 output tile (16 x 36 a plane)."""
+    assert cuda_conv.stencil_mma_smem(ks, 16) == tall
+    assert cuda_conv.stencil_mma_smem(ks, 8) == short
+    k_z, k_x, k_y = ks
+    frags = k_x * ((k_y + 10) // 8) * ((k_z + 2) // 2) * 512
+    assert tall - frags >= 2 * 16 * 16 * 36 * 4 and short - frags >= 2 * 8 * 16 * 36 * 4
+
+
+def test_mma_wrapper_raises_before_launching_an_oversize_kernel():
+    """The shared-memory check needs no card: it raises before any launch."""
+    x = torch.zeros((1, 1, 8, 8, 8)).to("meta")
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_conv._launch_mma(x, torch.zeros((16, 16, 16)).to("meta"), True, True, None, 8)
+
+
 @pytest.mark.parametrize("shape,ks,route", [
     ((2, 1, 16, 16, 64), (9, 5, 5), "fast"),   # two y tiles, Y a multiple of 4
     ((1, 1, 13, 18, 40), (9, 5, 5), "fast"),   # ragged z, x and y tiles

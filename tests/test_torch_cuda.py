@@ -396,6 +396,75 @@ def test_mma_kernel_refuses_grad_and_oversize(dev):
         cuda_conv.geneo_stencil_conv_mxu(x, torch.zeros((17, 3, 3), device=dev))
 
 
+def _mma_both_tiles(x, k, **kw):
+    """The tensor-core stencil at both z tiles, each launched twice: every
+    output sums the same mma in the same order, so all four are bit-equal."""
+    runs = [cuda_conv._launch_mma(x, k, kw.get("activation", True), kw.get("split", True),
+                                  kw.get("tau"), tz)
+            for tz in (cuda_conv.MMA_TALL_Z, cuda_conv.MMA_SHORT_Z) for _ in range(2)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    return runs[0]
+
+
+@pytest.mark.parametrize("ks,shape", [
+    ((1, 5, 5), (2, 24, 40, 64)),     # k_z = 1: one pair step, half of B live
+    ((16, 5, 5), (2, 24, 40, 64)),    # k_z = 16: nine pair steps, a plane past the halo
+    ((9, 5, 11), (2, 20, 33, 70)),    # k_y > 9: two 8-input chunks
+    ((9, 3, 14), (1, 17, 20, 45)),    # three chunks
+    ((9, 6, 6), (2, 24, 40, 64)),     # even sizes: asymmetric pads
+    ((8, 4, 4), (2, 19, 23, 37)),     # even k_z: the pair steps' last plane is 0
+    ((9, 5, 5), (1, 64, 64, 64)),     # batch 1 at 64^3 (the short tile's case)
+    ((9, 5, 5), (3, 64, 64, 64)),
+    ((9, 5, 5), (1, 40, 144, 200)),   # ragged z, x and y tiles
+])
+@pytest.mark.parametrize("split", [True, False])
+def test_mma_kernel_packed_planes_match_plain(dev, ks, shape, split):
+    """Both z tiles, bit-identical from run to run and to each other, within
+    MXU_TOL of the plain version; with split, within the f32 stencil's
+    bound; the fused tau-mask flips only inside the 1e-5 band."""
+    rng = np.random.default_rng(sum(ks) * 7 + sum(shape))
+    x = torch.from_numpy((rng.random(shape) > 0.7).astype(np.float32))[:, None].to(dev)
+    k = torch.from_numpy(rng.normal(0, 0.3, ks).astype(np.float32)).to(dev)
+    got = _mma_both_tiles(x, k, split=split)
+    want = cuda_conv.geneo_stencil_conv_mxu_plain(x, k, split=split)
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+    assert torch.equal(cuda_conv.geneo_stencil_conv_mxu(x, k, split=split), got)
+    if split:
+        f32 = cuda_conv.geneo_stencil_conv_plain(x, k)
+        assert float((got - f32).abs().max()) <= 1e-4
+    mask = _mma_both_tiles(x, k, split=split, tau=0.65)
+    assert torch.equal(mask, (got >= 0.65).float())
+    flips = (mask != (want >= 0.65).float()) & ((want - 0.65).abs() > 1e-5)
+    assert int(flips.sum()) == 0
+
+
+@pytest.mark.parametrize("ks,idx", [
+    ((1, 5, 5), (0, 0, 4)), ((16, 5, 5), (15, 4, 0)), ((16, 5, 5), (0, 2, 2)),
+    ((9, 5, 5), (1, 3, 1)), ((9, 5, 5), (7, 1, 3)), ((8, 3, 3), (7, 2, 2)),
+    ((9, 5, 11), (4, 2, 9)), ((9, 3, 14), (3, 1, 13))])
+def test_mma_kernel_single_tap_packed_fragments(dev, ks, idx):
+    """One tap at a time, at both z tiles: odd and even dz (the two halo
+    planes of a step), both output planes of a pair, every 8-input chunk.
+    A wrong B fragment entry shows as a wrong shift."""
+    rng = np.random.default_rng(sum(idx) + 100)
+    x = torch.from_numpy((rng.random((2, 1, 21, 19, 45)) > 0.6).astype(np.float32)).to(dev)
+    k = torch.from_numpy(_tap(ks, idx)).to(dev)
+    got = _mma_both_tiles(x, k, activation=False)
+    want = cuda_conv.geneo_stencil_conv_plain(x, k, activation=False).round()
+    assert torch.equal(got, want) and 0 < int(got.sum()) < got.numel()
+
+
+def test_mma_smem_formula_matches_the_library(dev):
+    """The plan's shared-memory formula is the kernel's own."""
+    from scenenet_tpu_torch.ops import _build
+    lib = _build.load()
+    for ks in [(9, 5, 5), (9, 6, 6), (16, 3, 11), (2, 2, 20), (1, 1, 1), (16, 16, 16)]:
+        for tz in (cuda_conv.MMA_TALL_Z, cuda_conv.MMA_SHORT_Z):
+            assert lib.snt_stencil_mma_smem(*ks, tz) == cuda_conv.stencil_mma_smem(ks, tz)
+
+
 @pytest.mark.parametrize("ks", [(9, 5, 5), (9, 6, 6)])
 def test_fused_geneo_conv_mxu_grads_on_card(dev, ks):
     """Tensor-core forward, the f32 backward of fused_geneo_conv."""
@@ -717,6 +786,109 @@ def test_sorted_bin_counts_kernel_in_a_cuda_graph(dev):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _k7_both_routes(flat, mask, size, w):
+    """K7's indicator form through its two routes, equal to each other and
+    to the public call (which counts one launch)."""
+    before = cuda_hist.FLAT_COUNTS_LAUNCHES.count
+    got = cuda_hist.bin_counts(flat, mask, size, w)
+    assert cuda_hist.FLAT_COUNTS_LAUNCHES.count == before + 1
+    for route in ("float", "counter"):
+        other = cuda_hist._launch_bin_counts(flat, mask, size, w, route)
+        assert torch.equal(other[0], got[0])
+        assert (other[1] is None and got[1] is None) or torch.equal(other[1], got[1])
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.int8, torch.int16,
+                                   torch.int32, torch.int64, torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64])
+def test_bin_counts_kernel_reads_flags_in_their_dtype(dev, dtype):
+    """K7 reads the flags as they are: nonzero set, and for a float -0.0
+    not set, NaN and a subnormal set, as ``weights != 0``."""
+    size, b, n = 16 ** 3, 2, 9000
+    flat, mask, w = _flat_case(3, b, n, size)
+    w = torch.from_numpy(w.astype(np.float64)) * 3.0
+    if dtype.is_floating_point:
+        w[0, :4] = torch.tensor([-0.0, float("nan"), 1e-40, -2.0], dtype=torch.float64)
+    w = w.to(dtype)
+    args = [torch.from_numpy(a).to(dev) for a in (flat, mask)]
+    got = _k7_both_routes(*args, size, w.to(dev))
+    want = cuda_hist.bin_counts_plain(*args, size, w.to(dev))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_bin_counts_kernel_int64_ids(dev, channels):
+    """int64 ids read as they are: ids past int32's range, negative ones and
+    ones that int32 would wrap into range count nowhere; the rest exactly."""
+    size, b, n = 64 ** 3, 2, 50000
+    rng = np.random.default_rng(4)
+    flat = rng.integers(0, size, (b, n)).astype(np.int64)
+    flat[:, ::3] += rng.integers(1, 4, flat[:, ::3].shape) * 2 ** 32  # wraps into range
+    flat[:, 1::7] = -rng.integers(1, 2 ** 40, flat[:, 1::7].shape)
+    flat[1, 2::11] = 2 ** 31 + 5
+    mask = rng.random((b, n)) > 0.1
+    w = rng.random((b, n)) < 0.4
+    args = [torch.from_numpy(a).to(dev) for a in (flat, mask)]
+    dw = torch.from_numpy(w).to(dev) if channels == 2 else None
+    got = _k7_both_routes(*args, size, dw)
+    want = cuda_hist.bin_counts_plain(*args, size, dw)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) if channels == 1 else torch.equal(got[1], want[1])
+    assert float(got[0].sum()) == (mask & (flat >= 0) & (flat < size)).sum()
+
+
+def test_bin_counts_kernel_one_voxel_holds_every_point(dev):
+    """Every point of sample 0 in one voxel, all flagged: both grids at
+    70000 there (on the counter route both halves of one counter). Sample 1:
+    every point in voxel 0 and none flagged, so the flagged grid (the high
+    half) stays 0: a count never carries into it. Sample 2: all masked, ids
+    0, counts nowhere. Both routes, int32 and int64 ids."""
+    n = 70000
+    flat = torch.zeros((3, n), dtype=torch.int32, device=dev)
+    flat[0] = 12345
+    mask = torch.ones((3, n), dtype=torch.bool, device=dev)
+    mask[2] = False
+    flags = torch.zeros((3, n), dtype=torch.bool, device=dev)
+    flags[0] = True
+    flags[2] = True
+    for ids in (flat, flat.long()):
+        counts, flagged = _k7_both_routes(ids, mask, 64 ** 3, flags)
+        assert float(counts[0, 12345]) == n == float(counts[0].sum())
+        assert float(flagged[0, 12345]) == n == float(flagged[0].sum())
+        assert float(counts[1, 0]) == n == float(counts[1].sum())
+        assert float(flagged[1].abs().sum()) == 0
+        assert float(counts[2].abs().sum()) == 0 and float(flagged[2].abs().sum()) == 0
+        one = _k7_both_routes(ids, mask, 64 ** 3, None)
+        assert one[1] is None and torch.equal(one[0], counts)
+
+
+@pytest.mark.parametrize("route", ["float", "counter"])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_bin_counts_kernel_in_a_cuda_graph(dev, channels, route):
+    """Captured in a CUDA graph and replayed, K7 gives the eager call's
+    counts on either route: its memset and passes wait for no host step."""
+    rng = np.random.default_rng(13)
+    size = 64 ** 3
+    flat = torch.from_numpy(rng.integers(-5, size + 5, (16, 65536)).astype(np.int32)).to(dev)
+    mask = torch.from_numpy(rng.random((16, 65536)) > 0.3).to(dev)
+    w = torch.from_numpy(rng.random((16, 65536)) < 0.3).to(dev) if channels == 2 else None
+    want = cuda_hist.bin_counts_plain(flat, mask, size, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_hist._launch_bin_counts(flat, mask, size, w, route)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_hist._launch_bin_counts(flat, mask, size, w, route)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) if channels == 1 else torch.equal(got[1], want[1])
 
 
 def test_int64_ids_past_int32_count_nowhere_on_card(dev):

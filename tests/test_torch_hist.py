@@ -325,6 +325,46 @@ def test_int64_ids_past_int32_count_nowhere():
     assert ids.dtype == torch.int32 and ids.tolist() == [[5, 16, -1, 7]]
 
 
+# ---- K7's route, scratch and flag rule, on the CPU --------------------------------
+
+@pytest.mark.parametrize("n,want", [(65536, "float"), (131072, "float"), (1, "float"),
+                                    (2 ** 24, "float"), (2 ** 24 + 1, "counter"),
+                                    (2 ** 31 - 1, "counter")])
+def test_bin_counts_route(n, want):
+    """f32 atomics of 1.0 where no voxel can pass 2**24 points, the 64-bit
+    counters past it."""
+    assert cuda_hist.bin_counts_route(n) == want
+
+
+@pytest.mark.parametrize("b,size,flagged,want", [
+    (16, 64 ** 3, True, (torch.int64, 16 * 64 ** 3)),  # 33.5 MB: one counter a voxel
+    (16, 64 ** 3, False, (torch.int32, 16 * 64 ** 3)),
+    (4, 128 ** 3, True, (torch.int64, 4 * 128 ** 3)),
+    (3, 12 * 10 * 14, False, (torch.int32, 3 * 12 * 10 * 14)),
+])
+def test_bin_counts_scratch(b, size, flagged, want):
+    assert cuda_hist.bin_counts_scratch(b, size, flagged) == want
+
+
+@pytest.mark.parametrize("dtype", list(cuda_hist.FLAG_FORMATS))
+def test_flag_formats_bit_rule_is_nonzero(dtype):
+    """K7 reads a flag's raw bits: set where they are nonzero, for a float
+    where they are nonzero outside the sign bit. On these values (-0.0, NaN,
+    infinities, subnormals, ±1) that rule is ``weights != 0``."""
+    width, is_float = cuda_hist.FLAG_FORMATS[dtype]
+    vals = [0.0, -0.0, 1.0, -1.0, 3.0, float("nan"), float("inf"), float("-inf"), 1e-40,
+            -1e-40, 6e-8, 2.0 ** -140]
+    w = torch.tensor(vals, dtype=torch.float64).nan_to_num(
+        nan=0.0 if not dtype.is_floating_point else float("nan"), posinf=7.0, neginf=-7.0)
+    w = w.to(dtype)
+    assert w.element_size() == width
+    bits = w.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[width])
+    bits = bits.to(torch.int64) & ((1 << (8 * width)) - 1 if width < 8 else -1)
+    if is_float:
+        bits = bits & ((1 << (8 * width - 1)) - 1)
+    assert torch.equal(bits != 0, w != 0)
+
+
 # ---- the bounds pass's chunk plan (the four raw-points kernels), on the CPU --------
 
 @pytest.mark.parametrize("b,n", [(1, 131072), (64, 131072), (16, 65536), (8, 131072),
