@@ -12,8 +12,9 @@ multi-channel conv at every shape its plan treats differently, twice for
 bit-equal outputs; the f32 stencil and its kernel gradient through both
 of their kernels; at batch 1 the occupancy kernel and the kernel gradient,
 the tensor-core stencil at batch 1 and 64, the training grids and the ids
-counts (beside the sorted-ids counts) at batch 16 and the sorted-ids counts
-at 128³ also inside a CUDA graph, whose replay times the device where a
+counts (beside the sorted-ids counts) at batch 16, the raw-points counts
+and the bin ids at batch 1 and 16 and the sorted-ids counts at 128³ also
+inside a CUDA graph, whose replay times the device where a
 loop of calls would time the host). Then it
 drives the port's main paths through their entry points, at the serving
 defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
@@ -959,8 +960,8 @@ def main(argv=None) -> int:
               "grid (cuDNN f32, TF32 off): " + fmt_times(t), flush=True)
     # at small batch the loops above time the host's launch rate: the device
     # time of a call, captured in a CUDA graph and replayed, median of 3
-    p1, m1, _ = padded_batch(np.random.default_rng(1), 1)
-    p1, m1 = torch.from_numpy(p1).to(dev), torch.from_numpy(m1).to(dev)
+    p1, m1, l1 = padded_batch(np.random.default_rng(1), 1)
+    p1, m1, w1 = on_card(p1, m1, (l1 == TOWER) & m1)
     x1 = cuda_hist.points_occupancy(p1, m1, GRID).reshape(1, 1, GRID[2], GRID[0], GRID[1])
     g1 = torch.from_numpy(np.random.default_rng(1).normal(
         0, 1, tuple(x1.shape)).astype(np.float32)).to(dev)
@@ -982,13 +983,18 @@ def main(argv=None) -> int:
         f"sorted_bin_counts B={TRAIN_BATCH} 2ch (beside K7)": lambda: cuda_hist.sorted_bin_counts(
             d_iflat, d_im, d_itow, 64 ** 3),
         f"sorted_bin_counts B={BIG_BATCH} 128^3": lambda: cuda_hist.sorted_bin_counts(
-            big_f, big_m, big_w, 128 ** 3)}
+            big_f, big_m, big_w, 128 ** 3),
+        "points_bin_counts B=1 2ch": lambda: cuda_hist.points_bin_counts(p1, m1, w1, GRID),
+        f"points_bin_counts B={TRAIN_BATCH} 2ch": lambda: cuda_hist.points_bin_counts(
+            *k3_args, GRID),
+        "flat_ids B=1": lambda: cuda_hist.flat_ids(p1, m1, GRID),
+        f"flat_ids B={TRAIN_BATCH}": lambda: cuda_hist.flat_ids(k3_args[0], k3_args[1], GRID)}
     with torch.no_grad():
         graph_times = {k: float(np.median([graph_ms(fn) for _ in range(3)]))
                        for k, fn in graph_fns.items()}
     print(f"[timing] 64^3, K8 at 128^3 ({smi}), device ms a call inside a CUDA graph: "
           + ", ".join(f"{k} {v:.4f}" for k, v in graph_times.items()), flush=True)
-    del p1, m1, x1, g1, k3_args, graph_fns, p64, m64, x64
+    del p1, m1, w1, x1, g1, k3_args, graph_fns, p64, m64, x64
 
     def bincount_library(f, m, w, size):
         """One torch.bincount per channel over b·size + flat (points that do not

@@ -1,10 +1,10 @@
-"""Device times of the points kernels (K1, K3), the ids counts (K7, K8),
-the kernel gradient (K4) and the tensor-core stencil (K5).
+"""Device times of the points kernels (K1, K3, K6, K9), the ids counts (K7,
+K8), the kernel gradient (K4) and the tensor-core stencil (K5).
 
 Run on a machine with the card, from the root of a checkout:
 
     python3 scenenet_tpu_torch/csrc/bench/points_dk_times.py [--root DIR] [--passes]
-        [--kernels k1,k4,k3,k8,k5,k7]
+        [--kernels k1,k4,k3,k8,k5,k7,k6,k9]
 
 It times K1 at batch 1 and 64 (64^3, 131072 padded points of 40k-70k
 synthetic 1 cm LiDAR points), K4 at batch 1 and 16 (64^3, (9,5,5), ~20%
@@ -16,7 +16,9 @@ the ids kernel, the tower points flagged), K5 at batch 1 and 64 (64^3,
 K7 at 64^3 batch 16 (65536
 padded points, int32 ids as the host-exact loader makes them, the tower
 points flagged: two channels) and 128^3 batch 4 (131072), with K8 on the
-64^3 input beside it, each as a loop of calls (which
+64^3 input beside it, K6 at 64^3 batch 1 (131072 padded points) and 16
+(65536), two channels, the tower points flagged, and K9 at 64^3 batch 1
+and 16 and at 128^3 batch 4 (131072), each as a loop of calls (which
 at small batch measures the host's launch rate) and as one call captured
 in a CUDA graph and replayed (the device's time), medians of five, in ms.
 ``--root`` times the package of another checkout instead (an unpacked
@@ -112,8 +114,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose scenenet_tpu_torch to time")
     ap.add_argument("--passes", action="store_true", help="each kernel's time by pass")
-    ap.add_argument("--kernels", default="k1,k4,k3,k8,k5,k7",
-                    help="which of k1,k4,k3,k8,k5,k7 to time")
+    ap.add_argument("--kernels", default="k1,k4,k3,k8,k5,k7,k6,k9",
+                    help="which of k1,k4,k3,k8,k5,k7,k6,k9 to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("points_dk_times: no CUDA device", file=sys.stderr)
@@ -165,6 +167,15 @@ def main() -> int:
             report(f"K8 sorted_bin_counts {side}^3 B={b} N={n} (beside K7)",
                    lambda: cuda_hist.sorted_bin_counts(ids, mask, tower, side ** 3),
                    opts.passes)
+    for b, n in ((1, 131072), (16, 65536)) if "k6" in which else ():
+        pts, mask, tower = (torch.from_numpy(a).to(dev) for a in batch(80 + b, b, n))
+        report(f"K6 points_bin_counts 64^3 B={b} N={n} two channels",
+               lambda: cuda_hist.points_bin_counts(pts, mask, tower, grid), opts.passes)
+    for b, side, n in ((1, 64, 131072), (16, 64, 65536), (4, 128, 131072)) if "k9" in which \
+            else ():
+        pts, mask, _ = (torch.from_numpy(a).to(dev) for a in batch(90 + b, b, n))
+        report(f"K9 flat_ids {side}^3 B={b} N={n}",
+               lambda: cuda_hist.flat_ids(pts, mask, (side,) * 3), opts.passes)
     return 0
 
 

@@ -8,8 +8,8 @@
 //     snt_points_binary: the training prep, which adds tower presence;
 //   - pallas_points_bin_counts (binarize=False, channels 1 or 2) by
 //     snt_points_bin_counts: the counts and tower counts themselves, for
-//     the density and tower-fraction grids (the int32 counts are converted
-//     to f32 in place);
+//     the density and tower-fraction grids (f32 atomics straight into the
+//     outputs);
 //   - pallas_flat_ids (_points_ids_kernel) by snt_flat_ids: the ids as the
 //     output, masked points set to a sentinel.
 //
@@ -102,9 +102,81 @@
 // kept. What holds marking: an L2 atomic for each block's first point in
 // a voxel, whose result the thread waits for.
 //
-// The counts and ids entries keep their own passes (int32 atomics into
-// grids the wrapper zeroes, converted in place; the ids as they are) behind
-// the shared bounds pass.
+// The counts (snt_points_bin_counts, K6) carry K7's float route over
+// (bin_counts.cu): both f32 grids are one allocation, zeroed by the bounds
+// pass through its zero_a / zero_b arguments, and count_kernel adds 1.0f
+// into them by atomics nobody waits for, one a valid point and one more a
+// flagged one, exact while no voxel can pass 2^24 points. Two launches and
+// no convert pass; past 2^24 points a sample (ops/cuda_hist.py
+// points_bin_counts_route) int32 atomics into the same memory and one pass
+// that converts both grids in place. count_kernel walks the bounds pass's
+// chunks, four points a thread (load4, load_flags4, the flags gated by the
+// mask), the next four in flight, and reduces its sample's partials once a
+// block. The previous design: two torch.zeros fills of int32 grids, the
+// bounds pass, one thread a point (4096 blocks at B=16, each reducing 64
+// partials first) and two in-place convert passes: six operations, every
+// grid written three times.
+//
+// K6's count pass and K9's ids pass are launched as programmatic
+// dependents of the bounds pass (launch_after), which triggers them as its
+// blocks start: their blocks take the SMs as the bounds blocks leave, load
+// their first points (inputs the bounds pass does not write) and wait
+// (griddepcontrol.wait) for the whole bounds pass, its partials and K6's
+// zeroed grids, before reading them. A CUDA graph keeps the edge.
+//
+// The ids (snt_flat_ids, K9): the bounds pass, then ids_kernel over whole
+// runs of bounds chunks (mark_plan, as K1's and K3's mark pass: 3072
+// points a block at B=16), four points a thread and their ids as one
+// 16-byte store where N % 4 == 0 and the pointers are aligned, else point by
+// point; masked points get `invalid` and their coordinates never reach an
+// id. The previous design: one point a thread, 4-byte loads and stores,
+// 4096 blocks at B=16 each reducing 64 partials before writing 256 ids.
+//
+// What the measurements said for K6 and K9 (NVIDIA H100 80GB HBM3, 700 W,
+// inside a CUDA graph, 64^3; points_dk_times.py --kernels k6,k9 --passes,
+// throwaway builds of the variants, each beside the previous design in the
+// same call). K6 at B=16, N=65536, two channels, 30% tower points: the
+// previous design 0.0721-0.0736 ms (fills 2x0.0053, bounds 0.0082, counts
+// 0.0239, converts 2x0.0151); a memset of the one allocation, the bounds
+// pass and the count pass over mark_plan's 3072-point chunks 0.0438-0.0454
+// (memset 0.0093; bounds 0.0080, as the memset evicts the points: K9's
+// bounds pass over the same shape takes 0.0040; counts 0.0249); the same
+// with the count pass over the 1024-point bounds chunks 0.0422-0.0424
+// (4096 points a block 0.0456, 7168 0.0490); the bounds pass before the
+// memset 0.0412; the bounds pass zeroing both grids and the count pass
+// over the bounds chunks, 0.0403-0.0407 (bounds and zeroing 0.0149: 47 MB,
+// 3.2 TB/s; counts 0.0237), 0.0373-0.0374 on the smoke's inputs (20% tower
+// points); kept, with the dependent launch below. Streaming loads of the
+// points in the count pass: 0.0404-0.0405, no gain. One point a thread,
+// four in flight (lane-strided loads): 0.0457 against 0.0454. A
+// block-local table of the voxels of each 1024-point step in shared memory
+// (2048 slots, atomicCAS then shared adds, one global atomic a voxel a
+// step) to merge repeats: 0.0437 against 0.0404, and 0.0530 against 0.0436
+// on a uniform cloud. On that cloud (no repeats) the design above takes
+// 0.0436: what holds the count pass is the L2's f32 atomics, about 56 G a
+// second here, more distinct lines costing more. B=1
+// (131072 padded points): 0.0077 against 0.0135-0.0136. K9 at B=16: the
+// previous design 0.0131-0.0133 (bounds 0.0040, ids 0.0080); this one
+// 0.0104-0.0107 (ids 0.0053), over 1024-point chunks 0.0121, over 7168
+// 0.0124; B=1 0.0057-0.0079 against 0.0058-0.0065, 128^3 B=4 0.0082-0.0086
+// against 0.0083-0.0085. A one-read design, a thread-block cluster of 8
+// blocks of 1024 threads a sample that stages its points in shared memory
+// (16384 points a block at most), reduces the bounds through distributed
+// shared memory and writes the ids from the staged points: 0.0168 at
+// B=16, 0.0124 at B=1 and at 128^3 B=4, against 0.0120, 0.0058 and 0.0082
+// for the two passes in the same call; a cooperative grid whose blocks
+// hold their four points a thread in registers across a grid barrier (the
+// bounds and the ids in one launch where the bounds chunk is one step,
+// capped at 32 registers for eight blocks an SM: spills): 0.0127-0.0128 at
+// B=16, 0.0060-0.0072 at B=1, 0.0084-0.0087 at 128^3 B=4, against 0.0106,
+// 0.0057-0.0060 and 0.0078-0.0079: neither kept. What holds K9 at B=16:
+// the shared bounds pass (0.0040) and a second launch; the ids pass moves
+// 17.6 MB in 0.0053 (3.3 TB/s, from the L2). The dependent launch, kept
+// (same call, against the plain launches): K6 0.0383-0.0389 against
+// 0.0402 at B=16, 0.0069 against 0.0077 at B=1; K9 0.0101 against 0.0104
+// at B=16, 0.0051-0.0057 against 0.0057-0.0058 at B=1, 0.0068-0.0071
+// against 0.0081 at 128^3 B=4; without the bounds pass's early trigger (the
+// dependents launched as its blocks exit) 0.0400 and 0.0102.
 //
 // Every operation of the id recipe is written as an _rn intrinsic, so nvcc
 // cannot contract (p - lo) * inv - 1e-4 into an FMA: bin ids match the TPU
@@ -198,17 +270,6 @@ __device__ __forceinline__ void load_flags4(const uint8_t* __restrict__ flag, si
   for (int j = 0; j < 4; ++j) t[j] = m[j] && flag[base + i0 + j];
 }
 
-// Point pi (= b*N + i) where `in` (i < N) and its mask bit are set: its
-// coordinates into p, and true; a masked point's coordinates are never read.
-__device__ __forceinline__ bool load_point(const float* __restrict__ pts,
-                                          const uint8_t* __restrict__ mask, size_t pi,
-                                          bool in, float p[3]) {
-  const bool valid = in && mask[pi];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) p[a] = valid ? pts[pi * 3 + a] : 0.0f;
-  return valid;
-}
-
 __device__ __forceinline__ void warp_minmax(float lo[3], float hi[3]) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -245,6 +306,9 @@ bounds_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
   const int b = blockIdx.y, chunk = blockIdx.x;
   const size_t blk = (size_t)b * gridDim.x + chunk;
   const size_t workers = (size_t)gridDim.x * gridDim.y * kThreads;
+  // a second pass launched as this one's programmatic dependent (K6, K9)
+  // may take the SMs as these blocks leave; it waits for all of them
+  asm volatile("griddepcontrol.launch_dependents;");
   zero_words(zero_a, n_a, blk * kThreads + threadIdx.x, workers);
   zero_words(zero_b, n_b, blk * kThreads + threadIdx.x, workers);
 
@@ -547,43 +611,128 @@ full_column_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ ma
   }
 }
 
-// Pass 2, counts form: counts as above, and towers[b, id] += 1 for every
-// valid point with tower[b, i] set. `tower` and `towers` may both be null
-// (one channel).
+// The count pass of K6 (the float route, kFloat): counts[b, id] += 1.0f for
+// every valid point and towers[b, id] += 1.0f for every valid point whose
+// tower flag is set (the mask gates the flag), by f32 atomics straight into
+// the outputs the bounds pass zeroed: exact while no voxel can pass 2^24
+// points. The exact route (kFloat false, past 2^24 points a sample) adds
+// int32 ones into the same memory, converted in place afterwards. `tower`
+// and `towers` may be null (one channel, or no flags: towers stays zero).
+// Grid (chunks, B): the bounds pass's chunks of chunk_len points, walked in
+// its reverse order, so that the first blocks read the points the L2 still
+// holds. Four points a thread a step (load4, load_flags4), the next four in
+// flight while it counts.
+template <bool kFloat>
 __global__ void __launch_bounds__(kThreads)
-count_pair_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                  const uint8_t* __restrict__ tower, const float* __restrict__ partials,
-                  int* __restrict__ counts, int* __restrict__ towers, int N, int chunks,
-                  int n_x, int n_y, int n_z) {
+count_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+             const uint8_t* __restrict__ tower, const float* __restrict__ partials,
+             float* __restrict__ counts, float* __restrict__ towers, int N, int chunk_len,
+             int n_x, int n_y, int n_z, int vec) {
   __shared__ float s_q[6];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t pi = (size_t)b * N + i;
-  float p[3];
-  const bool valid = load_point(pts, mask, pi, i < N, p);  // in flight meanwhile
+  const int chunks = gridDim.x;
+  const int b = gridDim.y - 1 - blockIdx.y, chunk = chunks - 1 - blockIdx.x;
+  const size_t base = (size_t)b * N;
+  int i0 = chunk * chunk_len + 4 * threadIdx.x;
+  const int end = (int)min((long long)N, (long long)(chunk + 1) * chunk_len);
+  float p[4][3];
+  bool m[4] = {false, false, false, false};
+  bool t[4] = {false, false, false, false};
+  bool have = i0 < end;
+  if (have) {  // in flight meanwhile
+    load4(pts, mask, base, N, i0, vec, p, m);
+    if (tower != nullptr) load_flags4(tower, base, i0, vec, m, t);
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the bounds pass done: partials, zeros
   sample_params(partials, b, chunks, n_x, n_y, n_z, s_q);
-  if (!valid) return;
   const size_t size = (size_t)n_x * n_y * n_z;
-  const size_t id = flat_bin_id(p, s_q, n_x, n_y, n_z);
-  atomicAdd(counts + b * size + id, 1);
-  if (tower != nullptr && tower[pi]) atomicAdd(towers + b * size + id, 1);
+  float* c = counts + (size_t)b * size;
+  float* w = towers == nullptr ? nullptr : towers + (size_t)b * size;
+  auto add = [](float* at) {
+    if (kFloat)
+      atomicAdd(at, 1.0f);
+    else
+      atomicAdd(reinterpret_cast<int*>(at), 1);
+  };
+  while (have) {
+    unsigned id[4];
+    bool mm[4], tt[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      mm[j] = m[j];
+      tt[j] = t[j];
+      id[j] = m[j] ? (unsigned)flat_bin_id(p[j], s_q, n_x, n_y, n_z) : 0u;
+    }
+    i0 += kUnit;
+    have = i0 < end;
+    if (have) {
+      load4(pts, mask, base, N, i0, vec, p, m);
+      if (tower != nullptr) load_flags4(tower, base, i0, vec, m, t);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (mm[j]) add(c + id[j]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (tt[j]) add(w + id[j]);
+  }
 }
 
-// Pass 2, ids form: ids[b, i] = the point's flat bin id, `invalid` where
-// the mask is off (such a point's coordinates are never read).
+// K9's ids pass: ids[b, i] = the point's flat bin id, `invalid` where the
+// mask is off (such a point's coordinates never reach an id). Grid (pass
+// chunks, B): chunks of pass_len points, whole chunks of the bounds plan
+// (ops/cuda_hist.py mark_plan; `chunks` is the bounds pass's count, for the
+// partials), walked in the reverse order of the bounds pass. Four points a
+// thread a step, the next four in flight, their ids written as one 16-byte
+// store where vec (then the ids are 16-byte aligned too), else point by
+// point.
 __global__ void __launch_bounds__(kThreads)
 ids_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
            const float* __restrict__ partials, int* __restrict__ ids, int N, int chunks,
-           int n_x, int n_y, int n_z, int invalid) {
+           int pass_len, int n_x, int n_y, int n_z, int invalid, int vec) {
   __shared__ float s_q[6];
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t pi = (size_t)b * N + i;
-  float p[3];
-  const bool valid = load_point(pts, mask, pi, i < N, p);  // in flight meanwhile
+  const int b = gridDim.y - 1 - blockIdx.y, chunk = gridDim.x - 1 - blockIdx.x;
+  const size_t base = (size_t)b * N;
+  int i0 = chunk * pass_len + 4 * threadIdx.x;
+  const int end = (int)min((long long)N, (long long)(chunk + 1) * pass_len);
+  float p[4][3];
+  bool m[4] = {false, false, false, false};
+  bool have = i0 < end;
+  if (have) load4(pts, mask, base, N, i0, vec, p, m);  // in flight meanwhile
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the bounds pass done: partials
   sample_params(partials, b, chunks, n_x, n_y, n_z, s_q);
-  if (i >= N) return;
-  ids[pi] = valid ? (int)flat_bin_id(p, s_q, n_x, n_y, n_z) : invalid;
+  while (have) {
+    int id[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) id[j] = m[j] ? (int)flat_bin_id(p[j], s_q, n_x, n_y, n_z) : invalid;
+    const int at = i0;
+    i0 += kUnit;
+    have = i0 < end;
+    if (have) load4(pts, mask, base, N, i0, vec, p, m);
+    if (vec) {
+      *reinterpret_cast<int4*>(ids + base + at) = make_int4(id[0], id[1], id[2], id[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (at + j < end) ids[base + at + j] = id[j];
+    }
+  }
+}
+
+// Launch `kernel` on (grid, kThreads) so that it may start while the kernel
+// before it on the stream drains (programmatic dependent launch): it reads
+// only its inputs until its griddepcontrol.wait.
+template <typename... Params, typename... Args>
+cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 bool bad_shape(int B, int N, int n_x, int n_y, int n_z, int chunks, int chunk_len) {
@@ -684,41 +833,54 @@ extern "C" int snt_points_binary(const float* pts, const uint8_t* mask,
 }
 
 // pts (B, N, 3) f32, mask (B, N) bool/uint8, tower (B, N) bool/uint8 or null.
-// counts (B, n_z*n_x*n_y) int32 ZEROED by the caller, towers the same or
-// null (with a null `tower` a non-null `towers` stays all zero). On return
-// both hold the counts as f32, converted in place. Scratch: partials as for
-// snt_points_occupancy. Launches on `stream`; returns cudaGetLastError().
+// counts (B, n_z*n_x*n_y) f32 of any contents, towers null or the same grid
+// right after it in one allocation (with a null `tower` a non-null `towers`
+// is all zero): the bounds pass zeroes both. Scratch: partials as for
+// snt_points_occupancy; the count pass takes the bounds pass's chunks.
+// exact == 0: the float route (N <= 2^24), f32 atomics straight into the
+// outputs: two launches. exact == 1: int32 atomics into the same memory and
+// one pass that converts it to f32 in place: three launches. Nothing waits
+// for the host. Launches on `stream`; returns cudaGetLastError().
 extern "C" int snt_points_bin_counts(const float* pts, const uint8_t* mask,
-                                     const uint8_t* tower, int* counts,
-                                     int* towers, float* partials, int B, int N,
-                                     int n_x, int n_y, int n_z, int chunks, int chunk_len,
-                                     void* stream) {
+                                     const uint8_t* tower, float* counts, float* towers,
+                                     float* partials, int B, int N, int n_x, int n_y, int n_z,
+                                     int chunks, int chunk_len, int exact, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len) ||
-      (tower != nullptr && towers == nullptr))
-    return (int)cudaErrorInvalidValue;
   const size_t total = (size_t)n_x * n_y * n_z * B;
-  launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, nullptr, 0, nullptr, 0, s);
-  dim3 cgrid((N + kThreads - 1) / kThreads, B);
-  count_pair_kernel<<<cgrid, kThreads, 0, s>>>(pts, mask, tower, partials, counts, towers,
-                                               N, chunks, n_x, n_y, n_z);
-  counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(counts, total);
-  if (towers != nullptr)
-    counts_to_float_kernel<<<elementwise_blocks(total), 256, 0, s>>>(towers, total);
+  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len) ||
+      (tower != nullptr && towers == nullptr) ||
+      (towers != nullptr && towers != counts + total) || (exact == 0 && N > (1 << 24)))
+    return (int)cudaErrorInvalidValue;
+  const size_t grids = (towers == nullptr ? 1 : 2) * total;
+  launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, counts, grids, nullptr, 0, s);
+  const int vec = use_vec(pts, mask, N) && reinterpret_cast<size_t>(tower) % 4 == 0;
+  const cudaError_t e =
+      launch_after(exact == 0 ? count_kernel<true> : count_kernel<false>, dim3(chunks, B), s, pts,
+                   mask, tower, (const float*)partials, counts, towers, N, chunk_len, n_x, n_y,
+                   n_z, vec);
+  if (e != cudaSuccess || exact == 0) return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  counts_to_float_kernel<<<elementwise_blocks(grids), 256, 0, s>>>(reinterpret_cast<int*>(counts),
+                                                                   grids);
   return (int)cudaGetLastError();
 }
 
 // pts (B, N, 3) f32, mask (B, N) bool/uint8 -> ids (B, N) int32: each valid
 // point's flat (z, x, y) bin id, `invalid` for the others. Scratch: partials
-// as for snt_points_occupancy. Launches on `stream`; returns cudaGetLastError().
+// as for snt_points_occupancy; the ids pass takes chunks of pass_len points,
+// a multiple of chunk_len (ops/cuda_hist.py mark_plan). Two launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int snt_flat_ids(const float* pts, const uint8_t* mask, int* ids,
                             float* partials, int B, int N, int n_x, int n_y,
-                            int n_z, int invalid, int chunks, int chunk_len, void* stream) {
+                            int n_z, int invalid, int chunks, int chunk_len, int pass_len,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, N, n_x, n_y, n_z, chunks, chunk_len) || pass_len <= 0 ||
+      pass_len % chunk_len != 0)
+    return (int)cudaErrorInvalidValue;
   launch_bounds(pts, mask, partials, B, N, chunks, chunk_len, nullptr, 0, nullptr, 0, s);
-  dim3 cgrid((N + kThreads - 1) / kThreads, B);
-  ids_kernel<<<cgrid, kThreads, 0, s>>>(pts, mask, partials, ids, N, chunks, n_x, n_y, n_z,
-                                        invalid);
-  return (int)cudaGetLastError();
+  const int vec = use_vec(pts, mask, N) && reinterpret_cast<size_t>(ids) % 16 == 0;
+  const dim3 grid((unsigned)(((long long)N + pass_len - 1) / pass_len), B);
+  const cudaError_t e = launch_after(ids_kernel, grid, s, pts, mask, (const float*)partials, ids,
+                                     N, chunks, pass_len, n_x, n_y, n_z, invalid, vec);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }

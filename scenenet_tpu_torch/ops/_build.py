@@ -44,10 +44,11 @@ _SIGNATURES = {
     "snt_points_binary": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P),
     # pts, mask, tower, counts, towers, partials, B, N, n_x, n_y, n_z, chunks,
-    # chunk_len, stream
-    "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # pts, mask, ids, partials, B, N, n_x, n_y, n_z, invalid, chunks, chunk_len, stream
-    "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # chunk_len, exact, stream
+    "snt_points_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # pts, mask, ids, partials, B, N, n_x, n_y, n_z, invalid, chunks, chunk_len,
+    # pass_len, stream
+    "snt_flat_ids": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # ids, id bytes, mask, flag, flag bytes, flag is float, cells, counts, flagged, B,
     # N, size, stream
     "snt_bin_counts": (_P, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),

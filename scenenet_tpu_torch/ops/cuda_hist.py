@@ -288,6 +288,15 @@ def bin_counts_route(n: int) -> str:
     return "float" if n <= FLOAT_COUNT_MAX_POINTS else "counter"
 
 
+def points_bin_counts_route(n: int) -> str:
+    """K6's route for N points a sample, by :func:`bin_counts_route`'s rule:
+    ``"float"`` (f32 atomics straight into the outputs the bounds pass
+    zeroes: two device operations) where no voxel can pass ``2**24`` points,
+    else ``"int32"`` (int32 atomics into the same memory and a pass that
+    converts it to f32 in place: three operations, exact to N < 2**31)."""
+    return "float" if n <= FLOAT_COUNT_MAX_POINTS else "int32"
+
+
 def bin_counts_scratch(b: int, size: int, flagged: bool) -> Tuple[torch.dtype, int]:
     """``(dtype, elements)`` of K7's counter route's scratch: one 64-bit
     counter a voxel with flags (the count in its low half, the flagged count
@@ -328,12 +337,12 @@ def bounds_plan(b: int, n: int, target: int = BOUNDS_TARGET_BLOCKS) -> Tuple[int
 
 
 def mark_plan(b: int, chunks: int, chunk_len: int) -> int:
-    """Points a block of K1's and K3's mark pass takes: whole chunks of the
-    bounds plan, up to ``MARK_POINTS`` where that leaves the pass at least
-    ``MARK_MIN_BLOCKS`` blocks. A longer chunk lets a block's shared-memory
-    filter catch more repeats and amortises its setup (zeroing the filter,
-    reducing the bounds partials); at B=1 and at B=64 the bounds chunk
-    stands as it is."""
+    """Points a block of K1's and K3's mark pass, and of K9's ids pass, takes:
+    whole chunks of the bounds plan, up to ``MARK_POINTS`` where that leaves
+    the pass at least ``MARK_MIN_BLOCKS`` blocks. A longer chunk lets a
+    block's shared-memory filter catch more repeats and amortises its setup
+    (zeroing the filter, reducing the bounds partials); at B=1 and at B=64
+    the bounds chunk stands as it is."""
     f = max(1, min(MARK_POINTS // chunk_len, b * chunks // MARK_MIN_BLOCKS))
     return f * chunk_len
 
@@ -458,11 +467,13 @@ def points_bin_counts(points: torch.Tensor, mask: torch.Tensor,
     the second grid and returns None for it; ``tower=None`` with two
     channels gives zeros.
 
-    Bounds and ids as in :func:`points_occupancy` (the multiply recipe). The
-    int32 count grids are zeroed here, filled by the kernel's atomics and
-    converted to f32 in place: the returned tensors are views of that same
-    memory. A CPU tensor takes :func:`points_bin_counts_plain`; a CUDA
-    tensor launches the kernel or raises.
+    Bounds and ids as in :func:`points_occupancy` (the multiply recipe). For
+    a CUDA tensor both grids are one allocation, zeroed by the bounds pass
+    and counted by the route :func:`points_bin_counts_route` picks: the
+    returned tensors are views of it. Nothing waits for the host, so the
+    call can be captured in a CUDA graph. A CPU tensor takes
+    :func:`points_bin_counts_plain`; a CUDA tensor launches the kernel or
+    raises.
     """
     _check_points(points, mask)
     if channels not in (1, 2):
@@ -473,25 +484,40 @@ def points_bin_counts(points: torch.Tensor, mask: torch.Tensor,
         _check_flag(tower, mask, "tower")
     if points.device.type == "cpu":
         return points_bin_counts_plain(points, mask, tower, grid_shape, channels)
-    b, n, n_x, n_y, n_z = _check_launch_shape(points, grid_shape)
+    _check_launch_shape(points, grid_shape)
+    got = _launch_points_bin_counts(points, mask, tower, grid_shape, channels,
+                                    points_bin_counts_route(points.shape[1]))
+    BIN_COUNTS_LAUNCHES.add()
+    return got
+
+
+def _launch_points_bin_counts(points: torch.Tensor, mask: torch.Tensor,
+                              tower: Optional[torch.Tensor], grid_shape: Tuple[int, int, int],
+                              channels: int, route: str
+                              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of K6 on checked CUDA tensors, through the route ``route``
+    names (:func:`points_bin_counts_route` picks it; the card tests force
+    either). The tower grid lies right after the counts in one allocation;
+    the count pass takes the bounds pass's chunks (1024 points a block at
+    the train batch: longer ones were slower)."""
+    b, n, _ = points.shape
+    n_x, n_y, n_z = (int(g) for g in grid_shape)
     size = n_x * n_y * n_z
     points, mask = points.contiguous(), mask.contiguous()
     tower = None if tower is None else tower.contiguous()
     dev = points.device
-    counts = torch.zeros((b, size), dtype=torch.int32, device=dev)
-    towers = torch.zeros((b, size), dtype=torch.int32, device=dev) if channels == 2 else None
+    both = torch.empty((channels, b, size), dtype=torch.float32, device=dev)
     chunks, chunk_len = bounds_plan(b, n)
     partials = _partials(b, chunks, dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.snt_points_bin_counts(
-            points.data_ptr(), mask.data_ptr(), _ptr(tower), counts.data_ptr(),
-            _ptr(towers), partials.data_ptr(), b, n, n_x, n_y, n_z, chunks, chunk_len,
-            ctypes.c_void_p(stream))
+            points.data_ptr(), mask.data_ptr(), _ptr(tower), both[0].data_ptr(),
+            None if channels == 1 else both[1].data_ptr(), partials.data_ptr(), b, n, n_x,
+            n_y, n_z, chunks, chunk_len, int(route == "int32"), ctypes.c_void_p(stream))
     _build.check(err, "points_bin_counts")
-    BIN_COUNTS_LAUNCHES.add()
-    return counts.view(torch.float32), None if towers is None else towers.view(torch.float32)
+    return both[0], None if channels == 1 else both[1]
 
 
 def flat_ids(points: torch.Tensor, mask: torch.Tensor,
@@ -518,7 +544,7 @@ def flat_ids(points: torch.Tensor, mask: torch.Tensor,
         err = lib.snt_flat_ids(points.data_ptr(), mask.data_ptr(), ids.data_ptr(),
                                partials.data_ptr(), b, n, n_x, n_y, n_z,
                                invalid_id(n_x * n_y * n_z), chunks, chunk_len,
-                               ctypes.c_void_p(stream))
+                               mark_plan(b, chunks, chunk_len), ctypes.c_void_p(stream))
     _build.check(err, "flat_ids")
     FLAT_IDS_LAUNCHES.add()
     return ids

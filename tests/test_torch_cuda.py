@@ -612,6 +612,177 @@ def test_flat_ids_kernel_exact(dev, grid, n):
                                                       channels=1)[0])
 
 
+def _offset_view(t):
+    """A contiguous copy of ``t`` whose storage starts one element into its
+    allocation: its pointer is off every 16-byte (and, for one byte an
+    element, every 4-byte) boundary, so the kernels take their point-by-point
+    path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+def _k6_k9_exact(pts, mask, tower, grid, channels=2):
+    """K6 (both routes, the public call counting one launch) and K9 equal to
+    their plain versions; returns K6's grids and K9's ids."""
+    before = (cuda_hist.BIN_COUNTS_LAUNCHES.count, cuda_hist.FLAT_IDS_LAUNCHES.count)
+    got = cuda_hist.points_bin_counts(pts, mask, tower, grid, channels=channels)
+    ids = cuda_hist.flat_ids(pts, mask, grid)
+    assert (cuda_hist.BIN_COUNTS_LAUNCHES.count, cuda_hist.FLAT_IDS_LAUNCHES.count) == (
+        before[0] + 1, before[1] + 1)
+    want = cuda_hist.points_bin_counts_plain(pts, mask, tower, grid, channels)
+    for route in ("float", "int32"):
+        forced = cuda_hist._launch_points_bin_counts(pts, mask, tower, grid, channels, route)
+        for g, f, w in zip(got, forced, want):
+            assert (w is None and g is None and f is None) or (
+                torch.equal(g, w) and torch.equal(f, w))
+    assert torch.equal(ids, cuda_hist.flat_ids_plain(pts, mask, grid))
+    return got, ids
+
+
+@pytest.mark.parametrize("n", [9001, 65536 + 2, 131072 - 1])  # N % 4 != 0
+@pytest.mark.parametrize("offset", [False, True])
+def test_points_bin_counts_and_flat_ids_ragged_and_unaligned(dev, n, offset):
+    """N % 4 != 0, and points, mask and flags as views one element into
+    their allocations: both kernels point by point, exact. The tower flags
+    are not gated here (a tenth of every point, masked ones too) and the
+    masked points' coordinates are NaN: neither reaches a count or an id."""
+    pts, mask = _cloud(31, 3, n)
+    pts[~mask] = np.nan
+    flags = np.random.default_rng(32).random(mask.shape) < 0.1
+    args = [torch.from_numpy(a).to(dev) for a in (pts, mask, flags)]
+    if offset:
+        args = [_offset_view(a) for a in args]
+        assert args[0].data_ptr() % 16 and args[1].data_ptr() % 4 and args[2].data_ptr() % 4
+    (counts, towers), ids = _k6_k9_exact(*args, (64, 64, 64))
+    assert float(counts.sum()) == mask.sum() and float(towers.sum()) == (mask & flags).sum()
+    assert bool((ids[~args[1]] == cuda_hist.invalid_id(64 ** 3)).all())
+
+
+@pytest.mark.parametrize("b,n", [(16, 65536), (1, 131072), (4, 131072)])
+def test_points_bin_counts_ungated_flags_and_nan_masked_points(dev, b, n):
+    """The main path's shapes (four points a thread, 16-byte loads): tower
+    flags set on masked points too count nowhere, NaN coordinates of masked
+    points reach neither the bounds, a count nor an id."""
+    pts, mask = _cloud(33 + b, b, n)
+    pts[~mask] = np.nan
+    flags = np.random.default_rng(34).random(mask.shape) < 0.3
+    args = [torch.from_numpy(a).to(dev) for a in (pts, mask, flags)]
+    (counts, towers), ids = _k6_k9_exact(*args, (64, 64, 64))
+    assert float(towers.sum()) == (mask & flags).sum()
+    assert float(counts.sum()) == mask.sum()
+    # one channel, and two with no flags (zeros)
+    _k6_k9_exact(args[0], args[1], None, (64, 64, 64), channels=1)
+    _, zeros = cuda_hist.points_bin_counts(args[0], args[1], None, (64, 64, 64))
+    assert float(zeros.abs().sum()) == 0
+
+
+def test_points_bin_counts_one_voxel_holds_every_point(dev):
+    """Sample 0: every point at one place (a zero-extent cloud: voxel 0),
+    all flagged; sample 1: 70000 points at one place and one far away, so
+    that all but one share a voxel; sample 2: all masked. Exact on both
+    routes, K9's ids all 0 for sample 0."""
+    n = 70000
+    pts = np.zeros((3, n, 3), np.float32)
+    pts[0] = [1.5, 2.5, 3.5]
+    pts[1] = [0.25, 0.25, 0.25]
+    pts[1, -1] = [30.0, 30.0, 30.0]
+    mask = np.ones((3, n), bool)
+    mask[2] = False
+    flags = np.zeros((3, n), bool)
+    flags[0] = True
+    args = [torch.from_numpy(a).to(dev) for a in (pts, mask, flags)]
+    (counts, towers), ids = _k6_k9_exact(*args, (64, 64, 64))
+    assert float(counts[0, 0]) == n == float(towers[0, 0]) == float(towers[0].sum())
+    assert float(counts[1].max()) == n - 1 and float(counts[1].sum()) == n
+    assert float(towers[1].sum()) == 0 and float(counts[2].abs().sum()) == 0
+    assert int(ids[0].abs().sum()) == 0
+
+
+def test_points_bin_counts_past_2_24_points_a_sample(dev):
+    """2**24 + 3 of one sample's 2**24 + 5 points in one voxel: the wrapper
+    takes the int32 route, whose count rounds to f32 once (to 2**24 + 4) as
+    the plain version's does; f32 atomics would stop at 2**24. The float
+    route is refused past 2**24 points."""
+    n = 2 ** 24 + 5
+    pts = torch.full((1, n, 3), 2.0, device=dev)
+    pts[0, :2] = torch.tensor([[0.0, 0.0, 0.0], [9.0, 9.0, 9.0]], device=dev)
+    mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+    flags = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    flags[0, ::2] = True
+    assert cuda_hist.points_bin_counts_route(n) == "int32"
+    got = cuda_hist.points_bin_counts(pts, mask, flags, (8, 8, 8))
+    want = cuda_hist.points_bin_counts_plain(pts, mask, flags, (8, 8, 8))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(got[0].max()) == float(np.float32(n - 2)) == 2 ** 24 + 4
+    with pytest.raises(RuntimeError):
+        cuda_hist._launch_points_bin_counts(pts, mask, flags, (8, 8, 8), 2, "float")
+
+
+@pytest.mark.parametrize("b,n", [(16, 65536), (1, 131072)])
+def test_points_bin_counts_and_flat_ids_in_a_cuda_graph(dev, b, n):
+    """Captured in a CUDA graph and replayed, K6 and K9 give the eager
+    call's grids and ids: nothing in them waits for the host."""
+    pts, mask = _cloud(35, b, n)
+    flags = np.random.default_rng(36).random(mask.shape) < 0.2
+    pt, mt, ft = (torch.from_numpy(a).to(dev) for a in (pts, mask, flags))
+    want = cuda_hist.points_bin_counts(pt, mt, ft, (64, 64, 64))
+    want_ids = cuda_hist.flat_ids(pt, mt, (64, 64, 64))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_hist.points_bin_counts(pt, mt, ft, (64, 64, 64))
+        cuda_hist.flat_ids(pt, mt, (64, 64, 64))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cuda_hist.points_bin_counts(pt, mt, ft, (64, 64, 64))
+        ids = cuda_hist.flat_ids(pt, mt, (64, 64, 64))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(ids, want_ids)
+
+
+def _device_ops(fn, calls=10):
+    """Device operations (kernels and memsets) of ``calls`` calls of ``fn``,
+    by name, from torch.profiler, after a warm-up call. A second pass that
+    starts while the bounds pass drains may lose a record in one call, so
+    the names are counted over several."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def test_points_bin_counts_takes_two_device_operations(dev):
+    """K6 at the train step's shape: the bounds pass, which zeroes both grids,
+    and the count pass (at most three, and no convert pass); the int32 route
+    adds one convert pass for both grids. K9: the bounds and the ids pass.
+    Each a call: no operation more often than the calls."""
+    pts, mask = _cloud(37, 16, 65536)
+    flags = np.random.default_rng(38).random(mask.shape) < 0.2
+    pt, mt, ft = (torch.from_numpy(a).to(dev) for a in (pts, mask, flags))
+    for fn, want in (
+            (lambda: cuda_hist.points_bin_counts(pt, mt, ft, (64, 64, 64)),
+             ["bounds_kernel", "count_kernel<true>"]),
+            (lambda: cuda_hist._launch_points_bin_counts(pt, mt, ft, (64, 64, 64), 2, "int32"),
+             ["bounds_kernel", "count_kernel<false>", "counts_to_float_kernel"]),
+            (lambda: cuda_hist.flat_ids(pt, mt, (64, 64, 64)), ["bounds_kernel", "ids_kernel"])):
+        ops = _device_ops(fn)
+        assert len(ops) == len(want) and max(ops.values()) <= 10, ops
+        assert all(sum(w in name for name in ops) == 1 for w in want), ops
+
+
 def _flat_case(seed, b, n, size):
     rng = np.random.default_rng(seed)
     flat = rng.integers(0, max(size // 7, 1), (b, n)).astype(np.int32) * 7 % size

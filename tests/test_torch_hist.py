@@ -462,3 +462,45 @@ def test_mark_plan_takes_whole_bounds_chunks(b, n, want):
     assert mark_len <= max(chunk_len, cuda_hist.MARK_POINTS)
     blocks = b * -(-n // mark_len)
     assert blocks >= min(b * chunks, cuda_hist.MARK_MIN_BLOCKS)
+
+
+# ---- K6's and K9's second pass: its chunk plan and K6's route, on the CPU ----------
+
+@pytest.mark.parametrize("kernel", ["K6 count", "K9 ids"])
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("n", [777, 9001, 65536 - 3, 131072 + 5])  # no multiple of 1024
+def test_points_second_pass_takes_whole_bounds_chunks(kernel, b, n):
+    """K6's count pass takes the bounds plan's chunks as they are; K9's ids
+    pass whole runs of them by mark_plan (at most MARK_POINTS points, or the
+    one bounds chunk, and no fewer than MARK_MIN_BLOCKS blocks where the
+    bounds pass had more). Either covers every point with no empty block,
+    and its chunks start on a 1024-point unit (four points a thread)."""
+    chunks, chunk_len = cuda_hist.bounds_plan(b, n)
+    pass_len = chunk_len if kernel == "K6 count" else cuda_hist.mark_plan(b, chunks, chunk_len)
+    assert pass_len % chunk_len == 0 and pass_len % cuda_hist.BOUNDS_UNIT == 0
+    assert pass_len <= max(chunk_len, cuda_hist.MARK_POINTS)
+    pass_chunks = -(-n // pass_len)
+    assert (pass_chunks - 1) * pass_len < n <= pass_chunks * pass_len
+    assert b * pass_chunks >= min(b * chunks, cuda_hist.MARK_MIN_BLOCKS)
+    assert pass_chunks <= chunks <= 65535  # the grid's x dimension
+
+
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("n,want", [(777, "float"), (65536 - 3, "float"), (131072 + 5, "float"),
+                                    (2 ** 24, "float"), (2 ** 24 + 1, "int32"),
+                                    (2 ** 31 - 1, "int32")])
+def test_points_bin_counts_route(b, n, want):
+    """K6 counts by f32 atomics where no voxel can pass 2**24 points, by
+    int32 atomics and a convert pass past it: K7's rule, by the points a
+    sample (N) alone, whatever the batch B. Where the float route is taken
+    every count a voxel can reach is an f32 integer; past it the int32
+    counts hold any N the wrappers take."""
+    route = cuda_hist.points_bin_counts_route(n)
+    assert route == want
+    if n <= 2 ** 24 < b * n:  # a batch past 2**24 points in all: each sample's voxels are its own
+        assert route == "float"
+    assert (route == "float") == (cuda_hist.bin_counts_route(n) == "float")
+    if route == "float":
+        assert float(np.float32(n)) == n and float(np.float32(n - 1)) == n - 1
+    else:
+        assert n < 2 ** 31
