@@ -28,9 +28,21 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
 - it serves 16 concurrent requests through a server built as
   ``serve --inference mxu --max-batch 8`` builds it, then through
   ``--max-batch auto``, and one request through ``--model quantile``;
-- it trains for two epochs through the train CLI on seeded synthetic
-  TS40K-style crops, then checks three train steps of the kernel backend
-  against the plain one;
+- it checks B10, the halo conv of the spatially sharded path, at a 128³
+  volume of batch 4 cut into 4 z-slabs of 32 planes with their halos: K2
+  and K4 with the slab's own halo planes against their plain versions
+  (both kernels of each), the slabs' outputs against the SAME conv, and
+  ``halo_stencil_conv``'s backward against autograd, timed beside the
+  SAME form;
+- it trains for two epochs through the train CLI with the defaults, which
+  pick the grid cache: every step after the warm-up one CUDA graph
+  replay; the wrappers' launch counts are checked, and the kernels that
+  the replays ran are counted from a ``torch.profiler`` trace; then one epoch through the point cache with augmentation and
+  one through the streaming loader; holds a cached fit whose step replays
+  from the graph against the same batches through ``train_step``; times
+  the train step by route (streaming, point cache, grid cache, 16 steps
+  an epoch); then checks three train steps of the kernel backend against
+  the plain one;
 - it trains through ``cli.train --host-indices`` at the same width (bins
   from the host in float64, counted by the ids kernel), and at a 128³
   grid (batch 4, 131072 points) with and without ``--host-indices`` (both
@@ -48,9 +60,10 @@ It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once. ``--profile`` adds ``torch.profiler`` passes over the batched
-serving and over the train step at both widths (device busy share, device
-items per dispatch or step; for the UNet step also the conv kernel's and
-the weight gradient's share of the device time).
+serving, the train epoch of each route (idle share, device items and host
+launch calls a step) and the train step at both widths (device busy share,
+device items per dispatch or step; for the UNet step also the conv
+kernel's and the weight gradient's share of the device time).
 """
 
 from __future__ import annotations
@@ -145,6 +158,42 @@ UNET_TRAIN_LAUNCHES, UNET_EVAL_LAUNCHES = 35, 18  # 18 forward + 17 dx (none at 
 # statistics are held to 3e-3 absolute plus 3e-3 relative
 UNET_LOSS_RTOL, UNET_STATS_TOL = 1e-3, 3e-3
 BIG_FIT, BIG_TEST = 18, 4  # the 128³ runs' smaller directory: 4 train steps an epoch
+HALO_SLABS, HALO_Z = 4, 32  # B10: a 128³ volume's z in 4 slabs of 32 planes (+8 halo)
+ROUTE_SAMPLES = 256  # the train step by route: 16 steps an epoch at batch 16
+# the runtime calls by which the host starts work on the card, as the profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemsetAsync",
+                     "cudaMemcpyAsync")
+# a kernel that each wrapper on the train CLI's path launches once a call, as
+# the profiler names it: a CUDA graph's replay runs these without calling a
+# wrapper, so what the cached steps ran is read from the trace. K3's expand
+# pass is K1's too; K1 is on no train path.
+RUN_MARKS = {"points_binary": re.compile(r"\bexpand_kernel\b"),
+             "stencil_conv": re.compile(r"\bstencil(_fast)?_kernel\b"),
+             "stencil_dk": re.compile(r"\breduce_taps_kernel\b")}
+
+
+class tee_stdout:
+    """What a with-block prints, printed and kept (``text``)."""
+
+    def __enter__(self):
+        self.buf, self.out = io.StringIO(), sys.stdout
+        sys.stdout = self
+        return self
+
+    def write(self, text: str) -> int:
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.out
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -396,7 +445,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from scenenet_tpu_torch.cli import train as train_cli
     from scenenet_tpu_torch.cli.serve import _Pipeline, build_server, make_handler
-    from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, TS40K
+    from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K
+    from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
     from scenenet_tpu_torch.losses import resolve_criterion
     from scenenet_tpu_torch.models.scenenet import SceneNet
     from scenenet_tpu_torch.models.unet3d import BLOCKS, UNet3D
@@ -411,6 +461,7 @@ def main(argv=None) -> int:
         TrainConfig, Trainer, make_device_voxelize_prep, metrics,
     )
     from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
+    from scenenet_tpu_torch.train.step_graph import WARMUP as GRAPH_WARMUP
     from scenenet_tpu_torch.utils.config import load_config
 
     counters = {"points_occupancy": cuda_hist.LAUNCHES,
@@ -431,10 +482,11 @@ def main(argv=None) -> int:
     def read_counts():
         return {k: c.count for k, c in counters.items()}
 
-    def profiled(fn):
+    def profiled(fn, calls=None):
         """fn under torch.profiler: wall seconds, device busy µs, the count of
         device items, the six largest of them as text, and the device µs by
-        kernel name and (inclusive of its kernels) by host operator."""
+        kernel name and (inclusive of its kernels) by host operator. ``calls``,
+        where given, gets the count of every host event by name."""
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
@@ -447,6 +499,9 @@ def main(argv=None) -> int:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in on_dev)
         check(busy_us > 0, "the profiler recorded no device time")
+        if calls is not None:
+            calls.update((e.key, e.count) for e in prof.key_averages()
+                         if e.device_type != torch.autograd.DeviceType.CUDA)
         top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]
         by_name = {e.key: e.device_time_total for e in prof.key_averages()
                    if e.device_type != torch.autograd.DeviceType.CUDA}
@@ -454,6 +509,16 @@ def main(argv=None) -> int:
         return wall, busy_us, sum(e.count for e in on_dev), ", ".join(
             f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
             for e in top), by_name
+
+    def kernel_runs(prof):
+        """The device runs in ``prof``'s trace of each kernel of RUN_MARKS."""
+        runs = dict.fromkeys(RUN_MARKS, 0)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for k, mark in RUN_MARKS.items():
+                    if mark.search(e.key):
+                        runs[k] += e.count
+        return runs
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -899,6 +964,117 @@ def main(argv=None) -> int:
     del got, other
     print(f"[K8 sorted_bin_counts] exact (1 and 2 channels) on all {len(k8_cases)} inputs, "
           "and equal to K7 on each | " + " | ".join(parts), flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- 7g. B10 halo_stencil_conv: K2 and K4 VALID in z, a 128^3 volume in 4 slabs --
+    # the spatially sharded shape (BASELINE config 5): batch 4, 128^3, cut in z into
+    # 4 slabs of 32 planes, each with its neighbours' 8 halo planes (zeros past the ends)
+    hp, hm, _ = padded_batch(np.random.default_rng(128), BIG_BATCH)
+    vol = voxelize_batch_occupancy(*on_card(hp, hm), BIG_GRID)[:, None]
+    hk = SceneNet.create(kernel_size=(9, 5, 5), seed=0).combined_kernel().detach().to(dev)
+    halo_pad = F.pad(vol, (0, 0, 0, 0, 4, 4))
+    slabs = [halo_pad[:, :, i * HALO_Z:(i + 1) * HALO_Z + 8].contiguous()
+             for i in range(HALO_SLABS)]
+    g_slab = torch.from_numpy(np.random.default_rng(9).normal(
+        0, 1, (BIG_BATCH, 1, HALO_Z, 128, 128)).astype(np.float32)).to(dev)
+    halo_conv_err = halo_dk_err = 0.0
+    outs = []
+    with torch.no_grad():
+        for i, sl in enumerate(slabs):
+            got = cuda_conv.geneo_stencil_conv(sl, hk, z_prepadded=True)
+            check(tuple(got.shape) == (BIG_BATCH, 1, HALO_Z, 128, 128), f"halo slab {i}: shape")
+            check(torch.equal(got, cuda_conv.geneo_stencil_conv(sl, hk, z_prepadded=True)),
+                  f"halo K2 slab {i}: two runs differ")
+            want = cuda_conv.geneo_stencil_conv_plain(sl, hk, z_prepadded=True)
+            generic = cuda_conv._launch_stencil(sl, hk, True, "generic", z_prepadded=True)
+            for label, a in (("unrolled", got), ("generic", generic)):
+                err = float((a - want).abs().max())
+                check(err <= PROB_TOL, f"halo K2 {label} slab {i}: max|dprob| {err:.3g}")
+                halo_conv_err = max(halo_conv_err, err)
+            dk = cuda_conv.stencil_dk(sl, g_slab, (9, 5, 5), z_prepadded=True)
+            check(torch.equal(dk, cuda_conv.stencil_dk(sl, g_slab, (9, 5, 5), z_prepadded=True)),
+                  f"halo K4 slab {i}: two runs differ")
+            want = cuda_conv.stencil_dk_plain(sl, g_slab, (9, 5, 5), z_prepadded=True)
+            scale = float(want.abs().max())
+            for label, a in (("unrolled", dk),
+                             ("generic", cuda_conv._launch_dk(sl, g_slab, (9, 5, 5), "generic",
+                                                              z_prepadded=True))):
+                err = float((a - want).abs().max())
+                check(err <= DK_REL_TOL * scale, f"halo K4 {label} slab {i}: max|ddk| {err:.3g} "
+                                                 f"of {scale:.3g}")
+                halo_dk_err = max(halo_dk_err, err)
+            outs.append(got)
+        same = cuda_conv.geneo_stencil_conv(vol, hk)
+    concat = torch.cat(outs, dim=2)
+    concat_err = float((concat - same).abs().max())
+    check(concat_err <= 1e-6, f"halo slabs' concatenation differs from the SAME conv by "
+                              f"{concat_err:.3g}")
+    concat_bits = torch.equal(concat, same)
+    # the backward through the entry point, on an interior slab, against autograd of
+    # the plain VALID-z conv (cuDNN f32, TF32 off)
+    xa, ka = slabs[1].clone().requires_grad_(), hk.clone().requires_grad_()
+    cuda_conv.halo_stencil_conv(xa, ka, True).backward(g_slab)
+    xb, kb = slabs[1].clone().requires_grad_(), hk.clone().requires_grad_()
+    torch.relu(torch.tanh(F.conv3d(F.pad(xb, (2, 2, 2, 2, 0, 0)), kb[None, None]))).backward(
+        g_slab)
+    halo_dx_err = float((xa.grad - xb.grad).abs().max())
+    halo_bwd_dk = float((ka.grad - kb.grad).abs().max())
+    check(halo_dx_err <= PROB_TOL, f"halo backward: max|ddx| {halo_dx_err:.3g}")
+    check(halo_bwd_dk <= DK_REL_TOL * float(kb.grad.abs().max()),
+          f"halo backward: max|ddk| {halo_bwd_dk:.3g}")
+    halo_dk_err = max(halo_dk_err, halo_bwd_dk)
+    del xa, ka, xb, kb, outs, concat, same
+    # the entry point as the spatial path calls it, every slab forward and backward:
+    # its launches (two K2, forward and dx, and one K4 a slab)
+    reset_counts()
+    for sl in slabs:
+        xa, ka = sl.clone().requires_grad_(), hk.clone().requires_grad_()
+        cuda_conv.halo_stencil_conv(xa, ka, True).backward(g_slab)
+    torch.cuda.synchronize()
+    halo_counts = read_counts()
+    check(halo_counts["stencil_conv"] == 2 * HALO_SLABS
+          and halo_counts["stencil_dk"] == HALO_SLABS, f"halo entry point launched {halo_counts}")
+    del xa, ka
+    sl, interior = slabs[1], vol[:, :, HALO_Z:2 * HALO_Z].contiguous()
+    sl_pad = F.pad(sl, (2, 2, 2, 2, 0, 0))
+    with torch.no_grad():
+        halo_times = {
+            "stencil_conv_halo": paired_ms(
+                lambda: cuda_conv.geneo_stencil_conv(sl, hk, z_prepadded=True),
+                lambda: cuda_conv.geneo_stencil_conv_plain(sl, hk, z_prepadded=True), 5,
+                library_fn=lambda: torch.relu(torch.tanh(F.conv3d(sl_pad, hk[None, None])))),
+            "stencil_dk_halo": paired_ms(
+                lambda: cuda_conv.stencil_dk(sl, g_slab, (9, 5, 5), z_prepadded=True),
+                lambda: cuda_conv.stencil_dk_plain(sl, g_slab, (9, 5, 5), z_prepadded=True), 5,
+                library_fn=lambda: torch.nn.grad.conv3d_weight(sl_pad, (1, 1, 9, 5, 5), g_slab))}
+        halo_graph = {
+            "K2 halo": lambda: cuda_conv.geneo_stencil_conv(sl, hk, z_prepadded=True),
+            "K2 SAME": lambda: cuda_conv.geneo_stencil_conv(interior, hk),
+            "K4 halo": lambda: cuda_conv.stencil_dk(sl, g_slab, (9, 5, 5), z_prepadded=True),
+            "K4 SAME": lambda: cuda_conv.stencil_dk(interior, g_slab, (9, 5, 5))}
+        halo_graph = {k: float(np.median([graph_ms(fn) for _ in range(3)]))
+                      for k, fn in halo_graph.items()}
+    slab_vox = BIG_BATCH * HALO_Z * 128 * 128
+    halo_bounds = {  # x with its halo in, the output (or g in and 225 floats out)
+        "stencil_conv_halo": bound_ms(4.0 * BIG_BATCH * (HALO_Z + 8) * 128 * 128
+                                      + 4.0 * slab_vox, 2.0 * 225 * slab_vox),
+        "stencil_dk_halo": bound_ms(4.0 * BIG_BATCH * (HALO_Z + 8) * 128 * 128
+                                    + 4.0 * slab_vox + 4.0 * 225, 2.0 * 225 * slab_vox)}
+    print(f"[B10 halo_stencil_conv] B={BIG_BATCH} 128^3 in {HALO_SLABS} z-slabs of {HALO_Z} + 8 "
+          f"halo planes, k(9,5,5): K2 prepadded vs plain max|dprob| {halo_conv_err:.3g} (unrolled "
+          f"and generic kernel), K4 prepadded max|ddk| {halo_dk_err:.3g}, each bit-identical run "
+          f"to run | slabs' concatenation vs SAME K2 max|d| {concat_err:.3g} (bit-identical: "
+          f"{concat_bits}) | backward through halo_stencil_conv vs autograd of the plain conv: "
+          f"max|ddx| {halo_dx_err:.3g}, max|ddk| {halo_bwd_dk:.3g} | entry point, {HALO_SLABS} "
+          f"slabs forward and backward, launches {halo_counts}", flush=True)
+    print(f"[timing] B10 one slab B={BIG_BATCH} {HALO_Z}+8 x 128 x 128 ({smi}): median of 4 "
+          "alternating rounds [min-max] ms; library = F.conv3d / conv3d_weight on the "
+          "xy-padded slab (cuDNN f32, TF32 off): " + fmt_times(halo_times)
+          + " | device ms a call inside a CUDA graph, the halo form beside the SAME form on "
+          "the slab's 32 planes: " + ", ".join(f"{k} {v:.4f}" for k, v in halo_graph.items())
+          + " | bounds " + ", ".join(f"{k} {v[0]:.4f} ms by {v[1]}"
+                                     for k, v in halo_bounds.items()), flush=True)
+    del vol, halo_pad, slabs, g_slab, sl, interior, sl_pad
     torch.cuda.empty_cache()
 
     # ---- 8. kernel timing ---------------------------------------------------
@@ -1384,20 +1560,45 @@ def main(argv=None) -> int:
         write_dataset(tmp / "ts40k")
         data_s = time.perf_counter() - t0
 
-        # ---- 10. main path: the train CLI at the defaults' width ------------
+        # ---- 10. main path: the train CLI with the defaults, the grid cache ------
+        # device_cache auto picks the grid cache, as the JAX CLI does: K3 builds it
+        # (64 samples a launch), then every step is one CUDA graph replay of the
+        # gather, the cast, kernel synthesis, K2, the loss, K4, Adam and the counts
         out_dir = tmp / "out"
         ckpt_dir = out_dir / "ckpt"
         argv = ["--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}",
-                f"max_epochs={TRAIN_EPOCHS}", "device_cache=False", "num_workers=4",
+                f"max_epochs={TRAIN_EPOCHS}", "num_workers=4",
                 f"output_dir={out_dir}", f"checkpoint_dir={ckpt_dir}"]
         n_train = N_FIT - int(N_FIT * 0.1)
+        n_val = N_FIT - n_train
         steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+        eval_batches = TRAIN_EPOCHS * -(-n_val // TRAIN_BATCH) + -(-N_TEST // TRAIN_BATCH)
+        cached_fits = []  # the Trainer of every cached fit the CLI runs
+        run_cached = Trainer._run_cached_epochs
+
+        def spy(self, *a, **kw):
+            cached_fits.append(self)
+            return run_cached(self, *a, **kw)
+
+        Trainer._run_cached_epochs = spy
+        from torch.profiler import ProfilerActivity, profile
+
         reset_counts()
         t0 = time.perf_counter()
-        scores = train_cli.main(argv)
-        torch.cuda.synchronize()
+        # traced, to read what the graph's replays ran on the card
+        with profile(activities=[ProfilerActivity.CUDA]) as train_prof, \
+                tee_stdout() as said:
+            scores = train_cli.main(argv)
+            torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         train_counts = read_counts()
+        train_runs = kernel_runs(train_prof)
+        check("[device_cache auto] -> 'grids'" in said.text,
+              "the defaults did not pick the grid cache")
+        check(len(cached_fits) == 1 and cached_fits[0].cached_epochs.runner.captured
+              and cached_fits[0].cached_epochs.runner.replays == steps - GRAPH_WARMUP,
+              f"the defaults' fit did not replay a captured step {steps - GRAPH_WARMUP} times")
+        grid_graph = cached_fits[0].cached_epochs.runner
         losses = {k: v for k, v in scores.items() if k.endswith("loss")}
         check(set(losses) == {"train_loss", "val_loss", "test_loss"}, f"losses {losses}")
         check(all(math.isfinite(v) for v in losses.values()), f"non-finite loss {losses}")
@@ -1415,28 +1616,191 @@ def main(argv=None) -> int:
         # much thinner than a voxel) may stay put; frozen ones must
         check(not moved & frozen and len(moved) >= init.num_trainable_params() // 2,
               f"moved {sorted(moved)}, frozen {sorted(frozen)}")
-        for k in ("points_binary", "stencil_conv", "stencil_dk"):
-            check(train_counts[k] >= steps, f"{k} launched {train_counts[k]} times in "
-                                            f"{steps} train steps")
-        check(train_counts["stencil_dk"] == steps,
-              f"stencil_dk launched {train_counts['stencil_dk']} times, {steps} steps")
-        print(f"[train] train CLI, defaults width (B={TRAIN_BATCH}, 64^3, {TRAIN_POINTS} "
-              f"points, (9,5,5), geneo_tversky), {N_FIT}+{N_TEST} synthetic crops "
-              f"(written in {data_s:.1f} s), {TRAIN_EPOCHS} epochs = {steps} steps in "
-              f"{train_s:.1f} s | losses " + ", ".join(f"{k} {v:.6f}" for k, v in
-                                                       sorted(losses.items()))
+        # run on the card: K3 once a 64-sample load of the cache and once an evaluation
+        # batch; K2 once a step and an evaluation batch; K4 once a step. Launched by the
+        # wrappers: the same, but of the steps only the eager ones and the capture's
+        builds = -(-n_train // 64)
+        launched = GRAPH_WARMUP + 1
+        check(train_runs == {"points_binary": builds + eval_batches,
+                             "stencil_conv": steps + eval_batches, "stencil_dk": steps},
+              f"grid-cache training ran {train_runs} on the card: {builds} cache loads, "
+              f"{steps} steps, {eval_batches} evaluation batches")
+        check(train_counts["points_binary"] == builds + eval_batches
+              and train_counts["stencil_conv"] == launched + eval_batches
+              and train_counts["stencil_dk"] == launched,
+              f"grid-cache training launched {train_counts}: {builds} cache loads, "
+              f"{launched} steps launched, {eval_batches} evaluation batches")
+        print(f"[train] cli.train with the defaults (B={TRAIN_BATCH}, 64^3, {TRAIN_POINTS} "
+              f"points, (9,5,5), geneo_tversky, device_cache auto -> 'grids'), {N_FIT}+{N_TEST} "
+              f"synthetic crops (written in {data_s:.1f} s), {TRAIN_EPOCHS} epochs = {steps} "
+              f"steps in {train_s:.1f} s (traced): {GRAPH_WARMUP} warm-up steps, then one "
+              f"captured step replayed {grid_graph.replays} times | run on the card "
+              f"{train_runs} | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(losses.items()))
               + f" | test_F1Score {scores['test_F1Score']:.4f} | {len(moved)} of "
               f"{init.num_trainable_params()} trainable parameters moved | checkpoints "
               f"last.npz + {topk} | launches {train_counts}", flush=True)
 
-        # ---- 11. train parity: cuda backend vs plain backend ---------------
+        # ---- 10b. the other routes: the point cache with augmentation, streaming ---
+        route_runs = {}
+        for tag, extra in (("points", ["device_cache=points", "augment=True"]),
+                           ("streaming", ["device_cache=False"])):
+            cached_fits.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            run_scores = train_cli.main(["--set", *DEFAULTS_SET, "--set",
+                                         f"data_path={tmp / 'ts40k'}", "max_epochs=1",
+                                         "num_workers=4", f"output_dir={tmp / tag}",
+                                         f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
+            torch.cuda.synchronize()
+            run_counts = read_counts()
+            run_steps = n_train // TRAIN_BATCH
+            check(all(math.isfinite(v) for k, v in run_scores.items() if k.endswith("loss")),
+                  f"{tag}: losses {run_scores}")
+            check(run_counts["stencil_dk"] == run_steps
+                  and run_counts["points_binary"] >= run_steps,
+                  f"{tag}: launches {run_counts}")
+            check((tag == "points") == (len(cached_fits) == 1), f"{tag}: route")
+            route_runs[tag] = (time.perf_counter() - t0, run_scores["train_loss"], run_counts)
+        Trainer._run_cached_epochs = run_cached
+        print("[train routes] cli.train 1 epoch: " + " | ".join(
+            f"{tag}: {s:.1f} s, train_loss {loss:.6f}, launches {c}"
+            for tag, (s, loss, c) in route_runs.items()), flush=True)
+
+        # ---- 10c. a cached step replayed from the graph vs the same step streamed -
         ds = TS40K(str(tmp / "ts40k"), "fit", transform=PointPadding(max_points=TRAIN_POINTS))
-        loader = PointCloudLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=4, seed=0,
-                                  drop_last=True)
-        batches = list(loader)[:3]
         crit = resolve_criterion("geneo_tversky")(**load_config(
             None, train_cli.parse_overrides(DEFAULTS_SET)).criterion_params())
         prep = make_device_voxelize_prep(GRID, (TOWER,))
+        point_cache = DevicePointCache(ds, dev)
+        grid_cache = DeviceGridCache(point_cache, prep)
+        # 3 batches an epoch, 2 epochs: the first epoch the warm-up steps, the second
+        # the capture and 2 replays
+        three = DeviceGridCache.__new__(DeviceGridCache)
+        three.x, three.y = grid_cache.x[:3 * TRAIN_BATCH], grid_cache.y[:3 * TRAIN_BATCH]
+        twins = {}
+        for tag in ("graph", "streamed"):
+            net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+            twins[tag] = Trainer(net, crit, TrainConfig(
+                run_dir=str(tmp / f"twin_{tag}"), checkpoint_dir=str(tmp / f"twin_ckpt_{tag}"),
+                max_epochs=2, early_stop_metric=None))
+        twins["graph"].fit_grid_cached(three, TRAIN_BATCH, augment=False,
+                                       generator=torch.Generator(dev).manual_seed(3))
+        check(twins["graph"].cached_epochs.runner.replays == 6 - GRAPH_WARMUP,
+              "the twin did not replay")
+        streamed = twins["streamed"]
+        streamed.setup_optimizer(capturable=True)  # the cached route's optimizer
+        twin_gen = torch.Generator(dev).manual_seed(3)
+        twin_losses, twin_counts, band = [], [], 0
+        for _ in range(2):
+            order = torch.randperm(3 * TRAIN_BATCH, generator=twin_gen, device=dev)
+            ms, loss_sum = metrics.init_metric_state(dev), 0.0
+            for b in range(3):
+                rows = order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
+                xb, yb = three.x[rows].float(), three.y[rows].float()
+                with torch.no_grad():
+                    band += int(((streamed.model(xb) - TAU).abs() <= PROB_TOL).sum())
+                ms, loss = streamed.train_step(ms, xb, yb)
+                loss_sum += float(loss)
+            twin_losses.append(loss_sum / 3)
+            twin_counts.append(metrics.metric_counts(ms))
+        graph_losses = [json.loads(line)["train_loss"]
+                        for line in open(tmp / "twin_graph" / "metrics.jsonl")]
+        for e in range(2):
+            check(abs(graph_losses[e] - twin_losses[e]) <= 1e-5 * abs(twin_losses[e]),
+                  f"graph vs streamed epoch {e}: loss {graph_losses[e]} vs {twin_losses[e]}")
+            dcount = sum(abs(a - c) for a, c in zip(twins["graph"].train_counts[e],
+                                                     twin_counts[e]))
+            check(dcount <= 2 * band, f"graph vs streamed epoch {e}: counts "
+                                      f"{twins['graph'].train_counts[e]} vs {twin_counts[e]}")
+        twin_dp = max(float((a - c).detach().abs()) for a, c in zip(
+            twins["graph"].model.parameters(), streamed.model.parameters()))
+        check(twin_dp <= 1e-5, f"graph vs streamed: parameters differ by {twin_dp:.3g}")
+        same_bits = all(torch.equal(a, c) for a, c in zip(twins["graph"].model.parameters(),
+                                                           streamed.model.parameters()))
+        print(f"[train graph vs eager] fit_grid_cached, 2 epochs of 3 steps ({GRAPH_WARMUP} "
+              f"eager warm-up steps, then the captured step replayed "
+              f"{6 - GRAPH_WARMUP} times) vs the same "
+              f"batches through train_step: losses {graph_losses} vs {twin_losses}, counts "
+              f"{twins['graph'].train_counts} vs {twin_counts} ({band} voxels within 1e-5 of "
+              f"tau), max|dparam| {twin_dp:.3g} (bit-identical: {same_bits})", flush=True)
+        del twins, streamed, three
+
+        # ---- 10d. the train step by route: streaming, point cache, grid cache -----
+        # at least 16 steps an epoch: the 51 training crops repeated to 256 samples
+        reps = torch.arange(ROUTE_SAMPLES, device=dev) % len(point_cache)
+        point_cache.points, point_cache.labels, point_cache.mask = (
+            a.index_select(0, reps) for a in (point_cache.points, point_cache.labels,
+                                              point_cache.mask))
+        grid_cache.x, grid_cache.y = (a.index_select(0, reps) for a in (grid_cache.x,
+                                                                         grid_cache.y))
+        route_steps = ROUTE_SAMPLES // TRAIN_BATCH
+        route_trainers = {}
+        for tag in ("streaming", "points", "grids"):
+            net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+            t = Trainer(net, crit, TrainConfig(run_dir=str(tmp / f"route_{tag}"),
+                                               checkpoint_dir=str(tmp / f"route_c_{tag}"),
+                                               max_epochs=1, early_stop_metric=None),
+                        batch_prep=prep if tag != "grids" else None)
+            if tag == "points":  # the configuration auto sends to the point cache
+                t.fit_cached(point_cache, TRAIN_BATCH, augment=True,
+                             generator=torch.Generator(dev).manual_seed(0))
+            elif tag == "grids":  # the defaults
+                t.fit_grid_cached(grid_cache, TRAIN_BATCH, augment=False,
+                                  generator=torch.Generator(dev).manual_seed(0))
+            else:
+                t.setup_optimizer()
+            route_trainers[tag] = t
+        stream_ds = Subset(ds, [i % n_train for i in range(ROUTE_SAMPLES)])
+        stream_loader = PointCloudLoader(stream_ds, TRAIN_BATCH, shuffle=True, num_workers=4,
+                                         seed=0, drop_last=True)
+
+        def streamed_epoch():
+            t = route_trainers["streaming"]
+            ms = metrics.init_metric_state(dev)
+            for batch in stream_loader:
+                ms, _ = t.train_step(ms, *t.to_device(batch))
+            metrics.metric_counts(ms)
+
+        epoch_fns = {"streaming": streamed_epoch,
+                     "points": route_trainers["points"].cached_epochs.run_epoch,
+                     "grids": route_trainers["grids"].cached_epochs.run_epoch}
+        epoch_fns["streaming"]()  # the loader's first epoch
+        route_ms = {k: [] for k in epoch_fns}
+        for r in range(4):
+            for tag, fn in (epoch_fns.items() if r % 2 == 0 else list(epoch_fns.items())[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                route_ms[tag].append((time.perf_counter() - t0) * 1e3 / route_steps)
+        route_step_ms = {k: float(np.median(v)) for k, v in route_ms.items()}
+        print(f"[timing] train step by cache route, defaults width (B={TRAIN_BATCH}, 64^3, "
+              f"{TRAIN_POINTS} points, (9,5,5), geneo_tversky, adam), epochs of {route_steps} "
+              f"steps ({ROUTE_SAMPLES} samples), {smi}: ms a step, median of 4 epochs in "
+              f"alternating order [min-max]: " + ", ".join(
+                  f"{k} {route_step_ms[k]:.3f} [{min(v):.3f}-{max(v):.3f}]"
+                  for k, v in route_ms.items())
+              + " (streaming: the host loader, 4 workers; points: augment=True, K3 in the "
+              "step; grids: augment=False, the defaults)", flush=True)
+        if opts.profile:
+            for tag, fn in epoch_fns.items():
+                calls = {}
+                wall, busy_us, n_items, largest, _ = profiled(fn, calls)
+                host = sum(v for k, v in calls.items() if k in HOST_LAUNCH_CALLS)
+                print(f"[profile] train epoch by route, {tag} ({smi}): {route_steps} steps in "
+                      f"{wall * 1e3:.1f} ms wall, device busy {busy_us / 1e3:.3f} ms = idle "
+                      f"share {1 - busy_us / 1e6 / wall:.4f}, {n_items / route_steps:.1f} device "
+                      f"items a step, {host / route_steps:.1f} host launch calls a step "
+                      f"({', '.join(f'{k} {v}' for k, v in calls.items() if v)}); largest: "
+                      f"{largest}", flush=True)
+        del route_trainers, epoch_fns, point_cache, grid_cache
+        torch.cuda.empty_cache()
+
+        # ---- 11. train parity: cuda backend vs plain backend ---------------
+        loader = PointCloudLoader(ds, TRAIN_BATCH, shuffle=True, num_workers=4, seed=0,
+                                  drop_last=True)
+        batches = list(loader)[:3]
         trainers = {}
         for backend in ("cuda", "torch"):
             net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=backend).to(dev)
@@ -1742,7 +2106,8 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(cnn_losses.items()))
               + f" | launches {cnn_counts}", flush=True)
 
-    main_runs = [serve_counts, headline_counts, batched_counts, train_counts, host_counts,
+    main_runs = [serve_counts, headline_counts, batched_counts, train_counts,
+                 *(c for _, _, c in route_runs.values()), host_counts,
                  *big_counts.values(), big_serve_counts, counts_path, unet_counts, cnn_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
@@ -1788,6 +2153,11 @@ def main(argv=None) -> int:
                            >= sum(mc_bounds[c][0] for c in UNET_CONVS
                                   if mc_bounds[c][1] == "bytes") else "bytes")
 
+    # B10's halo forms: their launches are those of their own entry point's run
+    bounds.update(halo_bounds)
+    total["stencil_conv_halo"] = halo_counts["stencil_conv"]
+    total["stencil_dk_halo"] = halo_counts["stencil_dk"]
+
     def entry(name, source, replaces, err, t, shape):
         b_ms, by = bounds[name]
         return {"name": name, "route": "cuda", "source": f"scenenet_tpu_torch/csrc/{source}",
@@ -1819,6 +2189,12 @@ def main(argv=None) -> int:
               hist_times["flat_ids"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3"),
         entry("conv3d_mc", "conv3d_mc.cu", "pallas_conv_mc.py:100", k10_err, mc_sum,
               f"B={TRAIN_BATCH} 64^3, the sum over UNet3D's 18 forward convs"),
+        entry("stencil_conv_halo", "stencil_conv.cu", "pallas_conv.py:918", halo_conv_err,
+              halo_times["stencil_conv_halo"],
+              f"B={BIG_BATCH} z-slab {HALO_Z}+8 x128x128 k(9,5,5), z_prepadded"),
+        entry("stencil_dk_halo", "stencil_dk.cu", "pallas_conv.py:918", halo_dk_err,
+              halo_times["stencil_dk_halo"],
+              f"B={BIG_BATCH} z-slab {HALO_Z}+8 x128x128 k(9,5,5), z_prepadded"),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on the main paths")

@@ -2,9 +2,16 @@
 
 PyTorch twin of ``scenenet_tpu.cli.train`` on TS40K: builds criterion →
 model → data → trainer from a config, fits with per-metric checkpoints and
-early stopping on the streaming loader, then tests with the best
-checkpoint. ``model`` is ``scenenet`` or one of the black-box baselines,
-``cnn`` (:class:`CnnBaseline` with the config's kernel size) and ``unet``
+early stopping, then tests with the best checkpoint. ``device_cache``
+picks the training route as the JAX CLI does: ``auto`` (the default)
+takes the grid cache (:class:`DeviceGridCache` + ``fit_grid_cached``,
+voxelization paid once) when it fits 35% of the card's memory, the point
+cache (:class:`DevicePointCache` + ``fit_cached``, voxelized every step)
+first under ``augment: true``, and the streaming loader when neither
+fits or the model is stateful (``unet``); ``points``/``true`` and
+``grids`` ask for a cache, ``false`` for the streaming loader. ``model``
+is ``scenenet`` or one of the black-box baselines, ``cnn``
+(:class:`CnnBaseline` with the config's kernel size) and ``unet``
 (:class:`UNet3D`, whose BatchNorm statistics ride along in every
 checkpoint).
 
@@ -15,21 +22,26 @@ Usage:
 ``--host-indices`` takes the host-exact route: the loader computes each
 point's bin in float64 (pyntcloud parity) and the device only counts. The
 JAX CLI takes that route whenever its native loader is absent; the port has
-no native loader yet, so a flag selects it. ``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
-the kernels' plain versions. A run configured by ``--set`` alone needs no
-PyYAML. What the config asks for and the port does not have yet raises,
-naming its ROADMAP item.
+no native loader yet, so a flag selects it; its bins come from the host
+workers, so it streams. ``--device`` defaults to ``cuda`` and raises
+without a card; ``cpu`` runs the kernels' plain versions. A run
+configured by ``--set`` alone needs no PyYAML. What the config asks for
+and the port does not have yet raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import math
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
+
+import torch
 
 from scenenet_tpu_torch.cli.serve import resolve_device
 from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K, random_split
+from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
 from scenenet_tpu_torch.losses import resolve_criterion
 from scenenet_tpu_torch.models import CnnBaseline, SceneNet, UNet3D
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
@@ -75,21 +87,62 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError("use_wandb is not ported yet: ROADMAP A10")
 
 
-def resolve_device_cache(cfg: ExperimentConfig) -> bool:
-    """``auto`` resolves to the streaming loader (no device cache), and says
-    so; an explicit cache raises."""
-    if cfg.device_cache == "auto":
-        if cfg.model == "unet":
-            # BatchNorm running statistics: the cached fits are stateless-only
-            print("[device_cache auto] -> false (stateful model)")
-        else:
-            print("[device_cache auto] -> false (device-resident epochs are not ported "
-                  "yet: ROADMAP A6)")
+def _resolve_device_cache_auto(cfg: ExperimentConfig, n_samples: int,
+                               device: torch.device) -> Union[str, bool]:
+    """The training route ``device_cache: auto`` picks, logged as the JAX
+    CLI logs it: the grid cache (uint8 x and y grids) before the point
+    cache (f32 xyz, int32 label and bool mask a padded point), the point
+    cache first when ``augment`` asks for arbitrary-angle rotations, each
+    only within a budget of 35% of the card's memory (16 GiB on the CPU,
+    the JAX package's fallback), and the streaming loader when neither
+    fits or the model is stateful."""
+    if not cfg.device_voxelization:
+        print("[device_cache auto] -> false (needs device_voxelization)")
         return False
-    if cfg.device_cache not in (False, None, "false", "False"):
-        raise NotImplementedError(f"device_cache={cfg.device_cache!r} (device-resident "
-                                  "epochs) is not ported yet: ROADMAP A6")
+    if cfg.model == "unet":
+        # BatchNorm running statistics: the cached fits are stateless-only
+        print("[device_cache auto] -> false (stateful model)")
+        return False
+    memory = torch.cuda.mem_get_info(device)[1] if device.type == "cuda" else 16 << 30
+    budget = int(0.35 * memory)  # room for the conv scratch, the model and evaluation
+    grid_voxels = math.prod(cfg.voxel_grid_size)
+    sizes = {"grids": n_samples * 2 * grid_voxels, "points": n_samples * cfg.max_points * 17}
+    order = ("points", "grids") if cfg.augment else ("grids", "points")
+    for cand in order:
+        if sizes[cand] <= budget:
+            print(f"[device_cache auto] -> {cand!r} "
+                  f"(cache {sizes[cand] / 1e9:.2f} GB ≤ budget "
+                  f"{budget / 1e9:.2f} GB; augment={cfg.augment})")
+            return cand
+    print(f"[device_cache auto] -> false (smallest cache "
+          f"{min(sizes.values()) / 1e9:.2f} GB > budget {budget / 1e9:.2f} GB)")
     return False
+
+
+def resolve_device_cache(cfg: ExperimentConfig, n_samples: int, device: torch.device,
+                         host_indices: bool = False) -> Union[str, bool]:
+    """The training route: ``"grids"``, ``"points"`` or False (the streaming
+    loader). ``auto`` decides by :func:`_resolve_device_cache_auto`;
+    ``true`` is the point cache, as in the JAX CLI. ``--host-indices``
+    streams: its bin indices come from the host workers."""
+    value = cfg.device_cache
+    if isinstance(value, str) and value.lower() in ("false", "none", "true"):
+        value = value.lower() == "true"
+    if value == "auto":
+        if host_indices:
+            print("[device_cache auto] -> false (--host-indices: the bin indices come "
+                  "from the host loader)")
+            return False
+        return _resolve_device_cache_auto(cfg, n_samples, device)
+    if not value:
+        return False
+    if value not in (True, "points", "grids"):
+        raise ValueError(f"device_cache must be auto, false, true, points or grids, "
+                         f"got {cfg.device_cache!r}")
+    if host_indices:
+        raise ValueError(f"device_cache={cfg.device_cache!r} bins on the card; "
+                         "--host-indices needs the streaming loader (device_cache=false)")
+    return "points" if value is True else value
 
 
 def resolve_backend(cfg: ExperimentConfig, device) -> str:
@@ -126,7 +179,6 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         host_indices: bool = False) -> Dict[str, float]:
     device = resolve_device(device)
     _refuse_unported(cfg)
-    resolve_device_cache(cfg)
     fix_randomness(cfg.seed)
     run_dir = os.path.join(cfg.output_dir, cfg.project)
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
@@ -148,9 +200,7 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     test_ds = TS40K(cfg.data_path, split="test", transform=transform)
     train_idx, val_idx = random_split(len(fit), cfg.val_split, seed=cfg.seed)
     train_ds, val_ds = Subset(fit, train_idx), Subset(fit, val_idx)
-    train_loader = PointCloudLoader(train_ds, cfg.batch_size, shuffle=True,
-                                    num_workers=cfg.num_workers, seed=cfg.seed,
-                                    drop_last=len(train_ds) >= cfg.batch_size)
+    device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
     val_loader = PointCloudLoader(val_ds, cfg.batch_size, num_workers=cfg.num_workers)
     test_loader = PointCloudLoader(test_ds, cfg.batch_size, num_workers=cfg.num_workers)
 
@@ -161,12 +211,31 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         early_stop_metric=cfg.early_stop_metric,
         early_stop_patience=cfg.early_stop_patience, checkpoint_dir=ckpt_dir,
         checkpoint_top_k=cfg.checkpoint_top_k, run_dir=run_dir,
-        precision=cfg.precision, epoch_chunks=cfg.epoch_chunks,
+        use_wandb=cfg.use_wandb, precision=cfg.precision,
+        compiler_options=cfg.compiler_options, epoch_chunks=cfg.epoch_chunks,
         checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
     prep = make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
                                      use_indices=host_indices)
     trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
-    _, best = trainer.fit(train_loader, val_loader if len(val_ds) else None)
+    val = val_loader if len(val_ds) else None
+    if device_cache:
+        # the dataset resident on the card, the epochs without the host loader:
+        # "points" voxelizes every step (point-space augmentation), "grids" once
+        gen = torch.Generator(device).manual_seed(cfg.seed)
+        cache = DevicePointCache(train_ds, device)
+        if device_cache == "grids":
+            grids = DeviceGridCache(cache, prep)
+            del cache  # free the resident points
+            _, best = trainer.fit_grid_cached(grids, cfg.batch_size, augment=cfg.augment,
+                                              generator=gen, val_loader=val)
+        else:
+            _, best = trainer.fit_cached(cache, cfg.batch_size, augment=cfg.augment,
+                                         generator=gen, val_loader=val)
+    else:
+        train_loader = PointCloudLoader(train_ds, cfg.batch_size, shuffle=True,
+                                        num_workers=cfg.num_workers, seed=cfg.seed,
+                                        drop_last=len(train_ds) >= cfg.batch_size)
+        _, best = trainer.fit(train_loader, val)
 
     print(f"{'=' * 20} best scores {'=' * 20}")
     for k, v in sorted(best.items()):
@@ -211,6 +280,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                         help="bin on the host in float64 (pyntcloud parity); the device "
                              "counts the given indices")
     parser.add_argument("--sweep", type=str, default=None, help="not ported yet")
+    parser.add_argument("--sweep-runs", type=int, default=4, help="not ported yet")
     args = parser.parse_args(argv)
     if args.sweep:
         raise NotImplementedError("--sweep (random-search sweeps) is not ported yet: "

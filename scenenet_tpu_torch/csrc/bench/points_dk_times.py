@@ -1,10 +1,11 @@
 """Device times of the points kernels (K1, K3, K6, K9), the ids counts (K7,
-K8), the kernel gradient (K4) and the tensor-core stencil (K5).
+K8), the f32 stencil (K2), its kernel gradient (K4) and the tensor-core
+stencil (K5).
 
 Run on a machine with the card, from the root of a checkout:
 
     python3 scenenet_tpu_torch/csrc/bench/points_dk_times.py [--root DIR] [--passes]
-        [--kernels k1,k4,k3,k8,k5,k7,k6,k9]
+        [--kernels k1,k4,k3,k8,k5,k7,k6,k9,k2]
 
 It times K1 at batch 1 and 64 (64^3, 131072 padded points of 40k-70k
 synthetic 1 cm LiDAR points), K4 at batch 1 and 16 (64^3, (9,5,5), ~20%
@@ -18,7 +19,8 @@ padded points, int32 ids as the host-exact loader makes them, the tower
 points flagged: two channels) and 128^3 batch 4 (131072), with K8 on the
 64^3 input beside it, K6 at 64^3 batch 1 (131072 padded points) and 16
 (65536), two channels, the tower points flagged, and K9 at 64^3 batch 1
-and 16 and at 128^3 batch 4 (131072), each as a loop of calls (which
+and 16 and at 128^3 batch 4 (131072), K2 at batch 1, 16 and 64 (64^3,
+(9,5,5), ~20% occupancy, relu(tanh)), each as a loop of calls (which
 at small batch measures the host's launch rate) and as one call captured
 in a CUDA graph and replayed (the device's time), medians of five, in ms.
 ``--root`` times the package of another checkout instead (an unpacked
@@ -114,8 +116,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=".", help="checkout whose scenenet_tpu_torch to time")
     ap.add_argument("--passes", action="store_true", help="each kernel's time by pass")
-    ap.add_argument("--kernels", default="k1,k4,k3,k8,k5,k7,k6,k9",
-                    help="which of k1,k4,k3,k8,k5,k7,k6,k9 to time")
+    ap.add_argument("--kernels", default="k1,k4,k3,k8,k5,k7,k6,k9,k2",
+                    help="which of k1,k4,k3,k8,k5,k7,k6,k9,k2 to time")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("points_dk_times: no CUDA device", file=sys.stderr)
@@ -176,6 +178,11 @@ def main() -> int:
         pts, mask, _ = (torch.from_numpy(a).to(dev) for a in batch(90 + b, b, n))
         report(f"K9 flat_ids {side}^3 B={b} N={n}",
                lambda: cuda_hist.flat_ids(pts, mask, (side,) * 3), opts.passes)
+    for b in (1, 16, 64) if "k2" in which else ():
+        rng = np.random.default_rng(20 + b)
+        x = torch.from_numpy((rng.random((b, 1, *grid)) > 0.8).astype(np.float32)).to(dev)
+        report(f"K2 stencil_conv (9,5,5) B={b}",
+               lambda: cuda_conv.geneo_stencil_conv(x, kern), opts.passes)
     return 0
 
 

@@ -2,11 +2,17 @@
 // optional relu(tanh(.)) head, in f32, for Hopper (sm_90a).
 //
 // Replaces: scenenet_tpu/ops/pallas_conv.py, geneo_stencil_conv
-// (_stencil_kernel, VMEM-resident, and _stencil_kernel_hbm, HBM-streamed).
+// (_stencil_kernel, VMEM-resident, and _stencil_kernel_hbm, HBM-streamed),
+// and its z_prepadded form, the forward of halo_stencil_conv.
 //
-// out[b,z,x,y] = sum_{dz,dx,dy} x[b, z-pz+dz, x-px+dx, y-py+dy] * k[dz,dx,dy]
-// with torch's asymmetric SAME pads p = (k-1)//2 low, k//2 high (taps that
-// fall outside the volume read 0), so even kernels such as (9,6,6) are right.
+// out[b,z,x,y] = sum_{dz,dx,dy} x[b, z-zlo+dz, x-px+dx, y-py+dy] * k[dz,dx,dy]
+// with torch's asymmetric SAME pads p = (k-1)//2 low, k//2 high in x and y
+// (taps that fall outside the volume read 0), so even kernels such as
+// (9,6,6) are right. In z the caller gives the input's extent Zin and its
+// low pad zlo: the SAME conv is (Zin = Z, zlo = pz = (k_z-1)//2); the halo
+// conv of a spatially sharded volume, whose z slab already carries its
+// neighbours' k_z - 1 planes, is (Zin = Z + k_z - 1, zlo = 0), VALID in z,
+// and reads no zero plane there.
 //
 // Bound on the H100: the SMs' f32 FMAs. A 64^3 volume with a (9,5,5) kernel
 // is 262144 voxels x 225 taps = 59 MFMA per sample against 2 MB of input and
@@ -75,7 +81,7 @@ template <int KZ>
 __global__ void __launch_bounds__(kTy * kTx)
 stencil_kernel(const float* __restrict__ x, const float* __restrict__ w,
                float* __restrict__ out, int Z, int X, int Y, int kx, int ky,
-               int activation, int tiles_y) {
+               int activation, int tiles_y, int Zin, int zlo) {
   extern __shared__ float smem[];
   constexpr int SZ = kTz + KZ - 1;
   const int SX = kTx + kx - 1;
@@ -88,21 +94,21 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int y0 = (blockIdx.x % tiles_y) * kTy;
   const int x0 = (blockIdx.x / tiles_y) * kTx;
   const int z0 = blockIdx.y * kTz;
-  const int pz = (KZ - 1) / 2, px = (kx - 1) / 2, py = (ky - 1) / 2;
+  const int px = (kx - 1) / 2, py = (ky - 1) / 2;
   const int tid = threadIdx.y * kTy + threadIdx.x;
   constexpr int kThreads = kTy * kTx;
 
   for (int i = tid; i < nk; i += kThreads) sw[i] = w[i];
-  const float* xb = x + (size_t)b * Z * X * Y;
+  const float* xb = x + (size_t)b * Zin * X * Y;
   const int tile = SZ * SX * SY;
   for (int i = tid; i < tile; i += kThreads) {
     const int sy = i % SY;
     const int t = i / SY;
     const int sxx = t % SX;
     const int sz = t / SX;
-    const int gz = z0 - pz + sz, gx = x0 - px + sxx, gy = y0 - py + sy;
+    const int gz = z0 - zlo + sz, gx = x0 - px + sxx, gy = y0 - py + sy;
     float v = 0.0f;
-    if (gz >= 0 && gz < Z && gx >= 0 && gx < X && gy >= 0 && gy < Y)
+    if (gz >= 0 && gz < Zin && gx >= 0 && gx < X && gy >= 0 && gy < Y)
       v = xb[((size_t)gz * X + gx) * Y + gy];
     sx[i] = v;
   }
@@ -147,7 +153,7 @@ stencil_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 template <int KZ>
 int launch(const float* x, const float* w, float* out, int B, int Z, int X,
-           int Y, int kx, int ky, int activation, cudaStream_t s) {
+           int Y, int kx, int ky, int activation, int Zin, int zlo, cudaStream_t s) {
   const size_t smem =
       sizeof(float) * ((size_t)KZ * kx * ky +
                        (size_t)(kTz + KZ - 1) * (kTx + kx - 1) * (kTy + ky - 1));
@@ -160,7 +166,7 @@ int launch(const float* x, const float* w, float* out, int B, int Z, int X,
   const int tiles_x = (X + kTx - 1) / kTx;
   dim3 grid(tiles_y * tiles_x, (Z + kTz - 1) / kTz, B);
   stencil_kernel<KZ><<<grid, dim3(kTy, kTx), smem, s>>>(
-      x, w, out, Z, X, Y, kx, ky, activation, tiles_y);
+      x, w, out, Z, X, Y, kx, ky, activation, tiles_y, Zin, zlo);
   return (int)cudaGetLastError();
 }
 
@@ -198,12 +204,19 @@ __device__ inline void cp_async16(float* dst, const float* src, bool ok) {
                : "memory");
 }
 
-template <int KZ, int KX, int KY, int RX, int TZ, int NB>
+// HALO: the input is a z slab that carries its k_z - 1 halo planes (Zin = Z +
+// KZ - 1, no low pad); else the SAME conv (Zin = Z, low pad pz). Both are
+// compile-time forms: with the low pad a runtime argument the SAME form took
+// 4% longer at B=16 and 64 on the H100 (in a CUDA graph, 0.0590 against 0.0565
+// ms at B=16, bench/points_dk_times.py).
+template <int KZ, int KX, int KY, int RX, int TZ, int NB, bool HALO>
 __global__ void __launch_bounds__(kFastThreads, NB)
 stencil_fast_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     float* __restrict__ out, int Z, int X, int Y, int activation,
                     int tiles_y, int vec) {
   using F = Fast<KZ, KX, KY, RX, TZ, NB>;
+  constexpr int zlo = HALO ? 0 : (KZ - 1) / 2;
+  const int Zin = HALO ? Z + KZ - 1 : Z;
   extern __shared__ __align__(16) float fsmem[];
   float* sw = fsmem;                 // [dy][dz * KX + dx], rows of WROW
   float* sx = fsmem + KY * F::WROW;  // the halo tile, (SZ, SX, SYV)
@@ -212,7 +225,7 @@ stencil_fast_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int y0 = (blockIdx.x % tiles_y) * kFastTy;
   const int x0 = (blockIdx.x / tiles_y) * F::TX;
   const int z0 = blockIdx.y * TZ;
-  constexpr int pz = (KZ - 1) / 2, px = (KX - 1) / 2, py = (KY - 1) / 2;
+  constexpr int px = (KX - 1) / 2, py = (KY - 1) / 2;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
@@ -220,23 +233,23 @@ stencil_fast_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int dy = i / F::WROW, r = i % F::WROW;
     sw[i] = r < KZ * KX ? w[r * KY + dy] : 0.0f;
   }
-  const float* xb = x + (size_t)b * Z * X * Y;
+  const float* xb = x + (size_t)b * Zin * X * Y;
   if (vec) {
     // 16 bytes a copy: a chunk of 4 y lies all inside the volume or all outside
     constexpr int CH = F::SYV / 4;
     for (int i = tid; i < F::SZ * F::SX * CH; i += kFastThreads) {
       const int r = i / CH, c = i - r * CH;
       const int sz = r / F::SX;
-      const int gz = z0 - pz + sz, gx = x0 - px + (r - sz * F::SX), gy = y0 - F::YL + 4 * c;
-      const bool ok = gz >= 0 && gz < Z && gx >= 0 && gx < X && gy >= 0 && gy < Y;
+      const int gz = z0 - zlo + sz, gx = x0 - px + (r - sz * F::SX), gy = y0 - F::YL + 4 * c;
+      const bool ok = gz >= 0 && gz < Zin && gx >= 0 && gx < X && gy >= 0 && gy < Y;
       cp_async16(sx + r * F::SYV + 4 * c, ok ? xb + ((size_t)gz * X + gx) * Y + gy : xb, ok);
     }
   } else {
     // any alignment: a row at a time, 4 bytes a copy; a warp takes every eighth row
     for (int r = warp; r < F::SZ * F::SX; r += kFastThreads / 32) {
       const int sz = r / F::SX;
-      const int gz = z0 - pz + sz, gx = x0 - px + (r - sz * F::SX);
-      const bool row_ok = gz >= 0 && gz < Z && gx >= 0 && gx < X;
+      const int gz = z0 - zlo + sz, gx = x0 - px + (r - sz * F::SX);
+      const bool row_ok = gz >= 0 && gz < Zin && gx >= 0 && gx < X;
       const float* src = xb + (row_ok ? ((size_t)gz * X + gx) * Y : 0);
       for (int c = F::YL - py + lane; c < F::YL - py + F::SY; c += 32) {
         const int gy = y0 - F::YL + c;
@@ -311,13 +324,13 @@ stencil_fast_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int KZ, int KX, int KY, int RX, int TZ, int NB>
+template <int KZ, int KX, int KY, int RX, int TZ, int NB, bool HALO>
 int launch_fast(const float* x, const float* w, float* out, int B, int Z, int X, int Y,
                 int activation, cudaStream_t s) {
   using F = Fast<KZ, KX, KY, RX, TZ, NB>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB>,
+    cudaError_t e = cudaFuncSetAttribute(stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB, HALO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)F::SMEM);
     if (e != cudaSuccess) return (int)e;
@@ -328,32 +341,39 @@ int launch_fast(const float* x, const float* w, float* out, int B, int Z, int X,
   dim3 grid(tiles_y * tiles_x, (Z + TZ - 1) / TZ, B);
   // rows of the volume start on 16-byte boundaries: the halo goes 16 bytes a copy
   const int vec = Y % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
-  stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB><<<grid, kFastThreads, F::SMEM, s>>>(
+  stencil_fast_kernel<KZ, KX, KY, RX, TZ, NB, HALO><<<grid, kFastThreads, F::SMEM, s>>>(
       x, w, out, Z, X, Y, activation, tiles_y, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (B, Z, X, Y) f32, kernel (k_z, k_x, k_y) f32, out (B, Z, X, Y) f32, all
-// contiguous; 1 <= k_z <= 16. `fast` != 0 takes the unrolled kernel, which
-// exists for (9,5,5) alone (any other size is refused); 0 the generic one.
-// Launches on `stream`; returns cudaGetLastError().
+// x (B, Zin, X, Y) f32, kernel (k_z, k_x, k_y) f32, out (B, Z, X, Y) f32, all
+// contiguous; 1 <= k_z <= 16. Output plane z reads input planes z - zlo ...
+// z - zlo + k_z - 1, a plane outside 0 ... Zin - 1 reading zeros: the SAME conv
+// is (Zin = Z, zlo = (k_z - 1) / 2), the VALID-z conv of a slab that carries
+// its halo planes (Zin = Z + k_z - 1, zlo = 0). `fast` != 0 takes the unrolled
+// kernel, which exists for (9,5,5) and those two forms alone (anything else is
+// refused); 0 the generic one, any (Zin, zlo). Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int snt_stencil_conv(const float* x, const float* w, float* out,
                                 int B, int Z, int X, int Y, int kz, int kx,
-                                int ky, int activation, int fast, void* stream) {
+                                int ky, int activation, int fast, int Zin, int zlo,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Z <= 0 || X <= 0 || Y <= 0 || kx <= 0 || ky <= 0)
+  if (B <= 0 || Z <= 0 || X <= 0 || Y <= 0 || kx <= 0 || ky <= 0 || Zin <= 0 || zlo < 0)
     return (int)cudaErrorInvalidValue;
   if (fast) {
-    if (kz == 9 && kx == 5 && ky == 5)
-      return launch_fast<9, 5, 5, 2, 8, 4>(x, w, out, B, Z, X, Y, activation, s);
+    if (kz == 9 && kx == 5 && ky == 5 && Zin == Z && zlo == (kz - 1) / 2)
+      return launch_fast<9, 5, 5, 2, 8, 4, false>(x, w, out, B, Z, X, Y, activation, s);
+    if (kz == 9 && kx == 5 && ky == 5 && Zin == Z + kz - 1 && zlo == 0)
+      return launch_fast<9, 5, 5, 2, 8, 4, true>(x, w, out, B, Z, X, Y, activation, s);
     return (int)cudaErrorInvalidValue;
   }
   switch (kz) {
 #define SNT_KZ(K) \
   case K:         \
-    return launch<K>(x, w, out, B, Z, X, Y, kx, ky, activation, s);
+    return launch<K>(x, w, out, B, Z, X, Y, kx, ky, activation, Zin, zlo, s);
     SNT_KZ(1) SNT_KZ(2) SNT_KZ(3) SNT_KZ(4) SNT_KZ(5) SNT_KZ(6) SNT_KZ(7)
     SNT_KZ(8) SNT_KZ(9) SNT_KZ(10) SNT_KZ(11) SNT_KZ(12) SNT_KZ(13)
     SNT_KZ(14) SNT_KZ(15) SNT_KZ(16)

@@ -1,13 +1,17 @@
 // GENEO stencil kernel gradient, in f32, for Hopper (sm_90a).
 //
 // Replaces: scenenet_tpu/ops/pallas_conv.py, stencil_dk (_stencil_dk_kernel,
-// VMEM-resident, and _stencil_dk_kernel_hbm, HBM-streamed): the kernels
+// VMEM-resident, and _stencil_dk_kernel_hbm, HBM-streamed), and its
+// z_prepadded form, which halo_stencil_conv's backward takes: the kernels
 // here serve every volume size.
 //
-// dk[dz,dx,dy] = sum_{b,z,x,y} x[b, z-pz+dz, x-px+dx, y-py+dy] * g[b,z,x,y]
-// with torch's asymmetric SAME pads p = (k-1)//2 low, k//2 high (taps that
-// fall outside the volume read 0), so even kernels such as (9,6,6) are right.
-// This is the gradient of the SAME conv of K2 (stencil_conv.cu) with
+// dk[dz,dx,dy] = sum_{b,z,x,y} x[b, z-zlo+dz, x-px+dx, y-py+dy] * g[b,z,x,y]
+// with torch's asymmetric SAME pads p = (k-1)//2 low, k//2 high in x and y
+// (taps that fall outside the volume read 0), so even kernels such as
+// (9,6,6) are right. g has Z planes, x has Zin: the SAME form is (Zin = Z,
+// zlo = pz = (k_z-1)//2), the halo form (Zin = Z + k_z - 1, zlo = 0), where
+// x's slab carries its neighbours' planes and is VALID in z. This is the
+// gradient of K2's conv (stencil_conv.cu, the same Zin and zlo) with
 // respect to its kernel, given the cotangent g of the conv's output.
 //
 // Bound on the H100: the SMs' f32 FMAs, as in the forward. At batch 16 and
@@ -93,7 +97,7 @@ template <int KZ>
 __global__ void __launch_bounds__(kThreads)
 stencil_dk_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   float* __restrict__ partial, int Z, int X, int Y, int kx,
-                  int ky, int tiles_y) {
+                  int ky, int tiles_y, int Zin, int zlo) {
   extern __shared__ float smem[];
   constexpr int SZ = kTz + KZ - 1;
   const int SX = kTx + kx - 1;
@@ -109,10 +113,10 @@ stencil_dk_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int y0 = (blockIdx.x % tiles_y) * kTy;
   const int x0 = (blockIdx.x / tiles_y) * kTx;
   const int z0 = blockIdx.y * kTz;
-  const int pz = (KZ - 1) / 2, px = (kx - 1) / 2, py = (ky - 1) / 2;
+  const int px = (kx - 1) / 2, py = (ky - 1) / 2;
   const int tid = threadIdx.x;
   const size_t vol = (size_t)Z * X * Y;
-  const float* xb = x + b * vol;
+  const float* xb = x + b * (size_t)Zin * X * Y;
   const float* gb = g + b * vol;
 
   for (int i = tid; i < SZ * SX * SY; i += kThreads) {
@@ -120,9 +124,9 @@ stencil_dk_kernel(const float* __restrict__ x, const float* __restrict__ g,
     const int t = i / SY;
     const int sxx = t % SX;
     const int sz = t / SX;
-    const int gz = z0 - pz + sz, gx = x0 - px + sxx, gy = y0 - py + sy;
+    const int gz = z0 - zlo + sz, gx = x0 - px + sxx, gy = y0 - py + sy;
     float v = 0.0f;
-    if (gz >= 0 && gz < Z && gx >= 0 && gx < X && gy >= 0 && gy < Y)
+    if (gz >= 0 && gz < Zin && gx >= 0 && gx < X && gy >= 0 && gy < Y)
       v = xb[((size_t)gz * X + gx) * Y + gy];
     sx[(sz * SX + sxx) * SYP + sy] = v;
   }
@@ -199,7 +203,7 @@ reduce_taps_kernel(const float* __restrict__ partial, float* __restrict__ dk,
 
 template <int KZ>
 int launch(const float* x, const float* g, float* dk, float* partial, int B,
-           int Z, int X, int Y, int kx, int ky, cudaStream_t s) {
+           int Z, int X, int Y, int kx, int ky, int Zin, int zlo, cudaStream_t s) {
   const size_t smem = sizeof(float) * smem_floats<KZ>(kx, ky);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -210,7 +214,7 @@ int launch(const float* x, const float* g, float* dk, float* partial, int B,
   const int tiles_x = (X + kTx - 1) / kTx;
   dim3 grid(tiles_y * tiles_x, (Z + kTz - 1) / kTz, B);
   stencil_dk_kernel<KZ><<<grid, kThreads, smem, s>>>(x, g, partial, Z, X, Y, kx,
-                                                     ky, tiles_y);
+                                                     ky, tiles_y, Zin, zlo);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n_blocks = (int)(grid.x * grid.y * grid.z);
@@ -260,12 +264,17 @@ __device__ __forceinline__ void store_column(float* col, const float (&v)[N]) {
     c4[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
 }
 
-template <int KZ, int KX, int KY, int TZ, int TX, int NB>
+// HALO: x is a z slab that carries its k_z - 1 halo planes (Zin = Z + KZ - 1, no
+// low pad); else the SAME form (Zin = Z, low pad pz), at compile time as in the
+// forward (stencil_conv.cu).
+template <int KZ, int KX, int KY, int TZ, int TX, int NB, bool HALO>
 __global__ void __launch_bounds__(32 * KY, NB)
 stencil_dk_fast_kernel(const float* __restrict__ x, const float* __restrict__ g,
                        float* __restrict__ partial, int Z, int X, int Y, int tiles_y,
                        int zg) {
   using F = FastDk<KZ, KX, KY, TZ, TX, NB>;
+  constexpr int zlo = HALO ? 0 : (KZ - 1) / 2;
+  const int Zin = HALO ? Z + KZ - 1 : Z;
   extern __shared__ __align__(16) float fsmem[];
   float* sx = fsmem;            // x halo column (sxx, sy) at (sxx * SY + sy) * ZPX
   float* sg = fsmem + F::HALO;  // g column (lx, ly) at (lx * 32 + ly) * ZPG
@@ -273,10 +282,10 @@ stencil_dk_fast_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int b = blockIdx.z;
   const int y0 = (blockIdx.x % tiles_y) * kTy;
   const int x0 = (blockIdx.x / tiles_y) * TX;
-  constexpr int pz = (KZ - 1) / 2, px = (KX - 1) / 2, py = (KY - 1) / 2;
+  constexpr int px = (KX - 1) / 2, py = (KY - 1) / 2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long plane = (long long)X * Y;
-  const float* xb = x + b * plane * Z;
+  const float* xb = x + b * plane * Zin;
   const float* gb = g + b * plane * Z;
 
   // warp = dy; lane = y0 + lane
@@ -301,12 +310,12 @@ stencil_dk_fast_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const int sxx = c / F::SY, sy = c - sxx * F::SY;
       const int gx = x0 - px + sxx, gy = y0 - py + sy;
       const bool ok = gx >= 0 && gx < X && gy >= 0 && gy < Y;
-      const long long at = ((long long)(z0 - pz) * X + gx) * Y + gy;
+      const long long at = ((long long)(z0 - zlo) * X + gx) * Y + gy;
       float v[F::SZ];
 #pragma unroll
       for (int u = 0; u < F::SZ; ++u) {
-        const int gz = z0 - pz + u;
-        v[u] = ok && gz >= 0 && gz < Z ? xb[at + u * plane] : 0.0f;
+        const int gz = z0 - zlo + u;
+        v[u] = ok && gz >= 0 && gz < Zin ? xb[at + u * plane] : 0.0f;
       }
       store_column(sx + c * F::ZPX, v);
     }
@@ -368,20 +377,20 @@ dim3 fast_grid(int B, int Z, int X, int Y, int zg) {
   return dim3(((Y + kTy - 1) / kTy) * ((X + TX - 1) / TX), (tiles_z + zg - 1) / zg, B);
 }
 
-template <int KZ, int KX, int KY, int TZ, int TX, int NB>
+template <int KZ, int KX, int KY, int TZ, int TX, int NB, bool HALO>
 int launch_fast(const float* x, const float* g, float* dk, float* partial, int B, int Z,
                 int X, int Y, int zg, cudaStream_t s) {
   using F = FastDk<KZ, KX, KY, TZ, TX, NB>;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(stencil_dk_fast_kernel<KZ, KX, KY, TZ, TX, NB>,
+    cudaError_t e = cudaFuncSetAttribute(stencil_dk_fast_kernel<KZ, KX, KY, TZ, TX, NB, HALO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)F::SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid = fast_grid<KZ, KX, KY, TZ, TX, NB>(B, Z, X, Y, zg);
-  stencil_dk_fast_kernel<KZ, KX, KY, TZ, TX, NB><<<grid, F::kThreads, F::SMEM, s>>>(
+  stencil_dk_fast_kernel<KZ, KX, KY, TZ, TX, NB, HALO><<<grid, F::kThreads, F::SMEM, s>>>(
       x, g, partial, Z, X, Y, (Y + kTy - 1) / kTy, zg);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -408,26 +417,33 @@ extern "C" int snt_stencil_dk_blocks(int B, int Z, int X, int Y, int fast, int z
   return ((Y + kTy - 1) / kTy) * ((X + kTx - 1) / kTx) * ((Z + kTz - 1) / kTz) * B;
 }
 
-// x, g (B, Z, X, Y) f32 contiguous; dk (k_z, k_x, k_y) f32; partial scratch
-// as above. 1 <= k_z <= 16. `fast` != 0 takes the unrolled kernel, which
-// exists for (9,5,5) alone (any other size is refused), each of its blocks
-// taking `zg` >= 1 tiles along z (ops/cuda_conv.py stencil_dk_plan); 0 the
-// generic one (`zg` unused). Launches on `stream`; returns cudaGetLastError().
+// x (B, Zin, X, Y), g (B, Z, X, Y) f32 contiguous; dk (k_z, k_x, k_y) f32;
+// partial scratch as above; g plane z meets x planes z - zlo ... z - zlo +
+// k_z - 1 (zeros outside 0 ... Zin - 1): (Zin = Z, zlo = (k_z - 1) / 2) is the
+// SAME form, (Zin = Z + k_z - 1, zlo = 0) the halo form. 1 <= k_z <= 16.
+// `fast` != 0 takes the unrolled kernel, which exists for (9,5,5) and those two
+// forms alone (anything else is refused), each of its blocks taking `zg` >= 1
+// tiles along z (ops/cuda_conv.py stencil_dk_plan); 0 the generic one, any
+// (Zin, zlo) (`zg` unused).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int snt_stencil_dk(const float* x, const float* g, float* dk,
                               float* partial, int B, int Z, int X, int Y, int kz,
-                              int kx, int ky, int fast, int zg, void* stream) {
+                              int kx, int ky, int fast, int zg, int Zin, int zlo,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Z <= 0 || X <= 0 || Y <= 0 || kx <= 0 || ky <= 0)
+  if (B <= 0 || Z <= 0 || X <= 0 || Y <= 0 || kx <= 0 || ky <= 0 || Zin <= 0 || zlo < 0)
     return (int)cudaErrorInvalidValue;
   if (fast) {
-    if (kz == 9 && kx == 5 && ky == 5 && zg >= 1)
-      return launch_fast<SNT_DK_FAST>(x, g, dk, partial, B, Z, X, Y, zg, s);
+    if (kz == 9 && kx == 5 && ky == 5 && zg >= 1 && Zin == Z && zlo == (kz - 1) / 2)
+      return launch_fast<SNT_DK_FAST, false>(x, g, dk, partial, B, Z, X, Y, zg, s);
+    if (kz == 9 && kx == 5 && ky == 5 && zg >= 1 && Zin == Z + kz - 1 && zlo == 0)
+      return launch_fast<SNT_DK_FAST, true>(x, g, dk, partial, B, Z, X, Y, zg, s);
     return (int)cudaErrorInvalidValue;
   }
   switch (kz) {
 #define SNT_KZ(K) \
   case K:         \
-    return launch<K>(x, g, dk, partial, B, Z, X, Y, kx, ky, s);
+    return launch<K>(x, g, dk, partial, B, Z, X, Y, kx, ky, Zin, zlo, s);
     SNT_KZ(1) SNT_KZ(2) SNT_KZ(3) SNT_KZ(4) SNT_KZ(5) SNT_KZ(6) SNT_KZ(7)
     SNT_KZ(8) SNT_KZ(9) SNT_KZ(10) SNT_KZ(11) SNT_KZ(12) SNT_KZ(13)
     SNT_KZ(14) SNT_KZ(15) SNT_KZ(16)

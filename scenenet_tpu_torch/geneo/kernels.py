@@ -29,11 +29,11 @@ _EPS = 1e-8
 
 
 def _get(params: Params, name: str, default: float) -> torch.Tensor:
-    """Optional scalar parameter, defaulting on the device of ``radius``."""
+    """Optional scalar parameter, defaulting on the device of ``radius`` (a
+    fill on the device: no copy from the host, so a CUDA graph can hold it)."""
     if name in params:
         return params[name]
-    return torch.tensor(default, dtype=torch.float32,
-                        device=params["radius"].device)
+    return torch.full((), default, dtype=torch.float32, device=params["radius"].device)
 
 
 def _iota(n: int, like: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ The reference's quirks are kept:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -42,6 +43,14 @@ def hist_frequency_estimation(y: np.ndarray, hist_len: int = 10
     idxs = (hist_len * np.asarray(y).reshape(-1)).astype(np.int64)
     freqs = np.bincount(idxs, minlength=hist_len)
     return freqs, ranges
+
+
+@functools.lru_cache(maxsize=None)
+def _table_on(values: Tuple[float, ...], dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once: a copy from the host
+    on every call could not be captured in a CUDA graph."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +82,10 @@ class WeightedMSE:
 
     def dens_target(self, y: torch.Tensor) -> torch.Tensor:
         """Normalized density of each target value."""
-        ranges = torch.tensor(self.ranges, dtype=y.dtype, device=y.device)
+        ranges = _table_on(self.ranges, y.dtype, y.device)
         vals = torch.argmin(torch.abs(y[..., None] - ranges), dim=-1).to(torch.int32)
         for idx, f in enumerate(self.freqs):
-            vals = torch.where(vals == idx, torch.tensor(f, dtype=torch.int32,
-                                                         device=y.device), vals)
+            vals = vals.masked_fill(vals == idx, f)
         fmin, fmax = min(self.freqs), max(self.freqs)
         return (vals - fmin).to(y.dtype) / float(fmax - fmin)
 

@@ -57,15 +57,17 @@ _SIGNATURES = {
     # ids, mask, flag, counts, flagged, scratch, B, N, size, shift, chunks,
     # chunk_len, stream
     "snt_sorted_bin_counts": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, fast, stream
-    "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, fast, input Z, low z pad,
+    # stream
+    "snt_stencil_conv": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, kernel, out, B, Z, X, Y, k_z, k_x, k_y, activation, split, has_tau, tau,
     # z tile, stream
     "snt_stencil_mma": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # k_z, k_x, k_y, z tile -> bytes of shared memory a block of the mma kernel needs
     "snt_stencil_mma_smem": (_I, _I, _I, _I),
-    # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, fast, z tiles a block, stream
-    "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, g, dk, partial, B, Z, X, Y, k_z, k_x, k_y, fast, z tiles a block, x's Z,
+    # low z pad, stream
+    "snt_stencil_dk": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # B, Z, X, Y, fast, z tiles a block -> blocks of the dk kernel's first pass
     "snt_stencil_dk_blocks": (_I, _I, _I, _I, _I, _I),
     # x, wt, out, B, C_in, C_out, Z, X, Y, x strides (sample, channel, voxel),

@@ -17,6 +17,15 @@ twins, and the differentiable compositions.
   x+dx, y+dy]·g[b, z, x, y]`` (``csrc/stencil_dk.cu``: an unrolled,
   register-blocked kernel for (9,5,5) and a generic one for every other
   kernel size, picked by the same ``stencil_route``).
+- ``z_prepadded=True`` gives both the VALID-z form of the spatially sharded
+  path: the input's z slab already carries its neighbours' k_z − 1 halo
+  planes, so z is not padded again and Z − (k_z − 1) output planes come
+  out. The kernels take the input's z extent and low z pad as arguments;
+  the SAME route passes (Z, (k_z − 1)//2), the halo route (Z, 0).
+- ``halo_stencil_conv`` is the port of ``pallas_conv.halo_stencil_conv``:
+  that VALID-z conv as a ``torch.autograd.Function`` with the JAX package's
+  backward (dx by the halo form of the f32 stencil on the flipped kernel
+  over g padded in z, dk by the halo form of ``stencil_dk``).
 - ``fused_geneo_conv`` and ``fused_geneo_conv_mxu`` are their namesakes in
   ``pallas_conv``: relu∘tanh of the conv as a ``torch.autograd.Function``
   whose forward is the f32 or the tensor-core stencil and whose backward,
@@ -37,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from scenenet_tpu_torch.ops import _build
-from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
+from scenenet_tpu_torch.ops.conv3d import conv3d_f32, conv3d_same, same_pads
 
 LAUNCHES = _build.LaunchCounter("stencil_conv")
 DK_LAUNCHES = _build.LaunchCounter("stencil_dk")
@@ -149,30 +158,54 @@ def stencil_mma_plan(b: int, z: int, x: int, y: int, kernel_size) -> int:
     return MMA_SHORT_Z
 
 
+def _z_form(z_in: int, k_z: int, z_prepadded: bool) -> Tuple[int, int]:
+    """(output planes, low z pad) of the conv over ``z_in`` input planes:
+    SAME keeps the extent and pads (k_z − 1)//2 below; the halo form reads
+    the slab's own halo planes, pads nothing and loses k_z − 1 planes."""
+    if not z_prepadded:
+        return z_in, (k_z - 1) // 2
+    z_out = z_in - (k_z - 1)
+    if z_out < 1:
+        raise ValueError(f"Z={z_in} too small for kernel z={k_z} (prepadded)")
+    return z_out, 0
+
+
+def _xy_pads(kernel_size) -> tuple:
+    """``F.pad`` widths of the SAME pads in x and y alone (z VALID)."""
+    return same_pads(kernel_size)[:4] + (0, 0)
+
+
 def geneo_stencil_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
-                             activation: bool = True) -> torch.Tensor:
-    """Plain PyTorch version: ``conv3d_same`` then relu∘tanh."""
-    out = conv3d_same(x, kernel[None, None])
+                             activation: bool = True,
+                             z_prepadded: bool = False) -> torch.Tensor:
+    """Plain PyTorch version: ``conv3d_same`` (or, ``z_prepadded``, the
+    conv VALID in z and SAME in x and y) then relu∘tanh."""
+    if z_prepadded:
+        _z_form(x.shape[2], kernel.shape[0], True)
+        out = F.conv3d(F.pad(x, _xy_pads(kernel.shape)), kernel[None, None].to(x.dtype))
+    else:
+        out = conv3d_same(x, kernel[None, None])
     return torch.relu(torch.tanh(out)) if activation else out
 
 
 def _launch_stencil(x: torch.Tensor, kernel: torch.Tensor, activation: bool,
-                    route: str) -> torch.Tensor:
+                    route: str, z_prepadded: bool = False) -> torch.Tensor:
     """One launch of the f32 stencil on checked CUDA tensors, through the
     kernel ``route`` names (``stencil_route`` picks it; the card tests force
-    either)."""
+    either); SAME in z, or VALID (``z_prepadded``)."""
     b, _, z, xx, yy = x.shape
     k_z, k_x, k_y = kernel.shape
+    z_out, z_lo = _z_form(z, k_z, z_prepadded)
     x = x.contiguous()
     kernel = kernel.contiguous()
-    out = torch.empty_like(x)
+    out = torch.empty((b, 1, z_out, xx, yy), dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.snt_stencil_conv(
             x.data_ptr(), kernel.data_ptr(), out.data_ptr(),
-            b, z, xx, yy, k_z, k_x, k_y, int(bool(activation)), _ROUTE_FLAG[route],
-            ctypes.c_void_p(stream))
+            b, z_out, xx, yy, k_z, k_x, k_y, int(bool(activation)), _ROUTE_FLAG[route],
+            z, z_lo, ctypes.c_void_p(stream))
     _build.check(err, "stencil_conv")
     LAUNCHES.add()
     return out
@@ -185,23 +218,25 @@ def geneo_stencil_conv(x: torch.Tensor, kernel: torch.Tensor,
 
     x : (B, 1, Z, X, Y) float32; kernel : (k_z, k_x, k_y) float32.
     Returns (B, 1, Z, X, Y) float32. Forward only on the CUDA path: the
-    differentiable form is :func:`fused_geneo_conv`.
+    differentiable forms are :func:`fused_geneo_conv` and
+    :func:`halo_stencil_conv`.
+
+    ``z_prepadded=True`` treats the input's z extent as already carrying
+    the k_z − 1 halo planes (the spatially sharded path): VALID in z, SAME
+    in x and y, and Z − (k_z − 1) output planes.
 
     A CPU tensor takes :func:`geneo_stencil_conv_plain`; a CUDA tensor
     launches the kernel or raises.
     """
-    if z_prepadded:
-        raise NotImplementedError(
-            "z_prepadded (VALID-z halo conv of the spatially sharded path) "
-            "is not ported yet: ROADMAP B10")
     _check_conv_args(x, kernel)
+    _z_form(x.shape[2], kernel.shape[0], z_prepadded)
     if x.device.type == "cpu":
-        return geneo_stencil_conv_plain(x, kernel, activation)
+        return geneo_stencil_conv_plain(x, kernel, activation, z_prepadded)
     _check_launch(x, kernel.shape)
     if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
         raise RuntimeError("the raw CUDA stencil is forward only: use "
-                           "fused_geneo_conv for a differentiable conv")
-    return _launch_stencil(x, kernel, activation, stencil_route(kernel.shape))
+                           "fused_geneo_conv or halo_stencil_conv for a differentiable conv")
+    return _launch_stencil(x, kernel, activation, stencil_route(kernel.shape), z_prepadded)
 
 
 def split_kernel_bf16(kernel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -294,13 +329,15 @@ def _launch_mma(x: torch.Tensor, kernel: torch.Tensor, activation: bool, split: 
 
 
 def stencil_dk_plain(x: torch.Tensor, g: torch.Tensor,
-                     kernel_size: Tuple[int, int, int]) -> torch.Tensor:
+                     kernel_size: Tuple[int, int, int],
+                     z_prepadded: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`stencil_dk`: one f32 product-sum per
-    tap over the SAME-padded x. (A conv with the batch as input channel
-    would be a conv whose weight is the whole volume.)"""
+    tap over the SAME-padded x (``z_prepadded``: padded in x and y alone).
+    (A conv with the batch as input channel would be a conv whose weight is
+    the whole volume.)"""
     k_z, k_x, k_y = kernel_size
     _, _, z, xx, yy = g.shape
-    xp = F.pad(x, same_pads(kernel_size))[:, 0]
+    xp = F.pad(x, _xy_pads(kernel_size) if z_prepadded else same_pads(kernel_size))[:, 0]
     g0 = g[:, 0]
     dk = torch.empty(kernel_size, dtype=torch.float32, device=x.device)
     for dz in range(k_z):
@@ -315,35 +352,39 @@ def stencil_dk(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int, in
     """Kernel gradient of the SAME stencil conv: x, g (B, 1, Z, X, Y) f32 →
     dk (k_z, k_x, k_y) f32, ``Σ_{b,z,x,y} x_pad[b, z+dz, x+dx, y+dy]·g[b,z,x,y]``.
 
+    ``z_prepadded=True`` is the gradient of the halo conv: x carries the
+    k_z − 1 halo planes (Z + k_z − 1 planes against g's Z) and is padded in
+    x and y alone.
+
     A CPU tensor takes :func:`stencil_dk_plain`; a CUDA tensor launches the
     kernel or raises. The kernel reduces in a fixed order: the same input
     gives the same bits on every run.
     """
-    if z_prepadded:
-        raise NotImplementedError(
-            "z_prepadded (VALID-z kernel gradient of the spatially sharded "
-            "path) is not ported yet: ROADMAP B10")
     _check_volume("x", x)
     _check_volume("g", g)
     kernel_size = tuple(int(k) for k in kernel_size)
-    if x.shape != g.shape or x.device != g.device:
-        raise ValueError(f"x {tuple(x.shape)} on {x.device} and g {tuple(g.shape)} "
-                         f"on {g.device} must match")
     if len(kernel_size) != 3 or min(kernel_size) < 1:
         raise ValueError(f"kernel_size must be three positive ints, got {kernel_size}")
+    z_g = x.shape[2] - (kernel_size[0] - 1) if z_prepadded else x.shape[2]
+    if (g.shape[:2] + g.shape[3:] != x.shape[:2] + x.shape[3:] or g.shape[2] != z_g
+            or x.device != g.device):
+        raise ValueError(f"x {tuple(x.shape)} on {x.device} and g {tuple(g.shape)} "
+                         f"on {g.device} must match (g with {z_g} z planes)")
     if x.device.type == "cpu":
-        return stencil_dk_plain(x, g, kernel_size)
+        return stencil_dk_plain(x, g, kernel_size, z_prepadded)
     _check_launch(x, kernel_size)
-    return _launch_dk(x, g, kernel_size, stencil_route(kernel_size))
+    return _launch_dk(x, g, kernel_size, stencil_route(kernel_size), z_prepadded)
 
 
 def _launch_dk(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int, int],
-               route: str) -> torch.Tensor:
+               route: str, z_prepadded: bool = False) -> torch.Tensor:
     """One launch of the kernel gradient on checked CUDA tensors, through the
     kernel ``route`` names (``stencil_route`` picks it; the card tests
-    force either)."""
-    b, _, z, xx, yy = x.shape
+    force either); the SAME form, or the halo form (``z_prepadded``)."""
+    b, _, z, xx, yy = g.shape
+    z_in = x.shape[2]
     k_z, k_x, k_y = kernel_size
+    z_lo = 0 if z_prepadded else (k_z - 1) // 2
     x = x.contiguous()
     g = g.contiguous()
     zg = stencil_dk_plan(b, z, xx, yy) if route == "fast" else 1
@@ -356,7 +397,8 @@ def _launch_dk(x: torch.Tensor, g: torch.Tensor, kernel_size: Tuple[int, int, in
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.snt_stencil_dk(
             x.data_ptr(), g.data_ptr(), dk.data_ptr(), partial.data_ptr(),
-            b, z, xx, yy, k_z, k_x, k_y, _ROUTE_FLAG[route], zg, ctypes.c_void_p(stream))
+            b, z, xx, yy, k_z, k_x, k_y, _ROUTE_FLAG[route], zg, z_in, z_lo,
+            ctypes.c_void_p(stream))
     _build.check(err, "stencil_dk")
     DK_LAUNCHES.add()
     return dk
@@ -426,3 +468,65 @@ def fused_geneo_conv_mxu(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     exact f32 backward: the gradients see the forward's rounding only
     through the activation's cotangent."""
     return _FusedGeneoConvMxu.apply(x, kernel)
+
+
+def _halo_conv_transpose(g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """dx of the halo conv, plain PyTorch: full correlation of g with the
+    flipped kernel along z (pads k_z − 1 on both sides), mirrored SAME pads
+    in x and y."""
+    k_z = kernel.shape[0]
+    pads = same_pads(kernel.shape)
+    mirrored = (pads[1], pads[0], pads[3], pads[2], k_z - 1, k_z - 1)
+    return conv3d_f32(F.pad(g, mirrored), kernel.flip((0, 1, 2))[None, None])
+
+
+class _HaloStencilConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_ext, kernel, activation):
+        out = geneo_stencil_conv(x_ext, kernel, activation=activation, z_prepadded=True)
+        ctx.activation = activation
+        ctx.save_for_backward(x_ext, kernel, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_ext, kernel, out = ctx.saved_tensors
+        k_z = kernel.shape[0]
+        if ctx.activation:
+            # out = relu(tanh(c)); d/dc = 1 − tanh²(c) where tanh(c) > 0
+            g = g * torch.where(out > 0, 1.0 - out * out, torch.zeros_like(out))
+        g = g.contiguous()
+        dx = dk = None
+        if ctx.needs_input_grad[0]:
+            if all(k % 2 for k in kernel.shape):
+                # odd on every axis: the mirrored x/y pads equal the forward's,
+                # so dx is the halo form of the f32 stencil on the flipped
+                # kernel over g padded by k_z − 1 planes on both sides in z
+                g_ext = F.pad(g, (0, 0, 0, 0, k_z - 1, k_z - 1))
+                dx = geneo_stencil_conv(g_ext, kernel.flip((0, 1, 2)).contiguous(),
+                                        activation=False, z_prepadded=True)
+            else:
+                dx = _halo_conv_transpose(g, kernel)
+        if ctx.needs_input_grad[1]:
+            dk = stencil_dk(x_ext, g, tuple(kernel.shape), z_prepadded=True)
+        return dx, dk, None
+
+
+def halo_stencil_conv(x_ext: torch.Tensor, kernel: torch.Tensor,
+                      activation: bool = False) -> torch.Tensor:
+    """VALID-z / SAME-x/y stencil conv of one z slab of a spatially sharded
+    volume, differentiable in both arguments.
+
+    x_ext : (B, 1, Z_local + k_z − 1, X, Y), the local z slab with its
+    neighbours' halo planes already concatenated (zeros at the volume's
+    ends). Returns (B, 1, Z_local, X, Y); concatenating the slabs' outputs
+    over z equals the unsharded SAME conv. ``activation`` applies relu∘tanh.
+
+    Forward: :func:`geneo_stencil_conv` with ``z_prepadded=True``. Backward
+    (the JAX package's): the cotangent masked by ``out > 0`` under the
+    activation; dx by that halo form of the f32 stencil on the flipped
+    kernel over g padded by k_z − 1 zero planes on both sides in z for
+    kernels odd on every axis, by the plain library conv for the others;
+    dk by :func:`stencil_dk` with ``z_prepadded=True``.
+    """
+    return _HaloStencilConv.apply(x_ext, kernel, bool(activation))

@@ -9,12 +9,19 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   on the device — no host sync inside an epoch beyond the data feed;
 - the epoch loop keeps per-metric top-k checkpoints and ``last.npz``, early
   stopping, the per-epoch log of the interpretable parameters, and one
-  gradient snapshot per epoch.
+  gradient snapshot per epoch;
+- the device-resident epochs (:meth:`Trainer.fit_cached` from a
+  :class:`~scenenet_tpu_torch.data.device_cache.DevicePointCache`,
+  :meth:`Trainer.fit_grid_cached` from a
+  :class:`~scenenet_tpu_torch.data.device_cache.DeviceGridCache`) run
+  every batch of an epoch without the host loader: on a card, one train
+  step captured as a CUDA graph and replayed once a batch
+  (:class:`~scenenet_tpu_torch.train.step_graph.StepGraph`), the
+  counterpart of the JAX package's ``lax.scan`` dispatch.
 
-Not ported yet, and raising where asked for: the device-resident epoch
-caches and their ``epoch_chunks`` (ROADMAP A6), mesh training (A12),
+Not ported yet, and raising where asked for: mesh training (ROADMAP A12),
 resumable snapshots (A7), the bf16 forward and gradient accumulation
-(A13), the point-cloud export of a validation sample (A11).
+(A13), the point-cloud export of a validation sample (A11), wandb (A10).
 """
 
 from __future__ import annotations
@@ -23,21 +30,26 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from scenenet_tpu_torch.data.device_cache import (
+    d4_transform_grids, draw_d4, draw_point_augmentation, gather_augment,
+)
 from scenenet_tpu_torch.ops.voxelize import (
-    voxelize_batch, voxelize_batch_binary, voxelize_batch_from_indices,
+    _is_tower, voxelize_batch, voxelize_batch_binary, voxelize_batch_from_indices,
 )
 from scenenet_tpu_torch.train.callbacks import BestMetricTracker, EarlyStopping
 from scenenet_tpu_torch.train.checkpoint import CheckpointManager, restore_checkpoint
 from scenenet_tpu_torch.train.metrics import (
     DEFAULT_BETA, DEFAULT_TAU, METRIC_NAMES, MetricState, compute_metrics,
-    init_metric_state, update_metrics,
+    init_metric_state, metric_counts, update_metrics,
 )
+from scenenet_tpu_torch.train.preempt import chunk_starts
 from scenenet_tpu_torch.train.state import resolve_optimizer
+from scenenet_tpu_torch.train.step_graph import StepGraph
 from scenenet_tpu_torch.utils.logging import RunLogger
 
 
@@ -56,10 +68,15 @@ class TrainConfig:
     run_dir: str = "runs/default"
     log_gradients: bool = True
     log_pointclouds_every: int = 0  # every N epochs export val sample PLYs (0 = off)
+    use_wandb: bool = False
     debug_nans: bool = False        # torch.autograd.set_detect_anomaly around each step
     profile_dir: Optional[str] = None  # write a torch.profiler trace of epoch 0 there
     precision: str = "f32"
-    epoch_chunks: int = 1           # dispatches per device-resident epoch
+    compiler_options: Optional[dict] = None  # XLA's per-jit options: none apply here
+    # chunks of a device-resident epoch; in the port a chunk boundary changes
+    # nothing yet (every step is one graph replay either way): it becomes a
+    # snapshot point with the preemption guard (ROADMAP A7)
+    epoch_chunks: int = 1
     checkpoint_every_n_steps: int = 0
 
 
@@ -96,7 +113,7 @@ def make_device_voxelize_prep(grid_shape=(64, 64, 64), keep_labels=(15,),
 
     def prep(points, labels, mask, flat_idx=None):
         if use_indices and flat_idx is not None:
-            is_tower = torch.isin(labels, torch.as_tensor(keep_labels, device=labels.device))
+            is_tower = _is_tower(labels, keep_labels)
             hist, reg = voxelize_batch_from_indices(flat_idx, is_tower, mask, grid_shape)
         elif binarize == (True, True):
             x, y = voxelize_batch_binary(points, labels, mask, keep_labels, grid_shape)
@@ -137,19 +154,24 @@ class Trainer:
             raise NotImplementedError("log_pointclouds_every > 0 (the PLY export of a "
                                       "validation sample, utils/viz.py) is not ported "
                                       "yet: ROADMAP A11")
-        if config.epoch_chunks != 1:
-            raise NotImplementedError("epoch_chunks != 1 (chunked device-resident "
-                                      "epochs) is not ported yet: ROADMAP A6")
+        if config.use_wandb:
+            raise NotImplementedError("use_wandb is not ported yet: ROADMAP A10")
+        if config.compiler_options:
+            raise ValueError(f"compiler_options {config.compiler_options!r} are XLA "
+                             "compiler flags; the port compiles with nvcc and takes none")
         self.model = model
         self.criterion = criterion
         self.config = config
-        self.logger = logger or RunLogger(config.run_dir)
+        self.logger = logger or RunLogger(config.run_dir, use_wandb=config.use_wandb)
         self.batch_prep = batch_prep
         self.device = next(model.parameters()).device
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.best = BestMetricTracker()
         self._ckpt: Optional[CheckpointManager] = None
+        # (tp, fp, fn, tn) of every training epoch, in order
+        self.train_counts: List[Tuple[int, int, int, int]] = []
+        self.cached_epochs: Optional["CachedEpochs"] = None  # the last cached fit's epochs
 
     # ---- steps ---------------------------------------------------------------
 
@@ -163,10 +185,12 @@ class Trainer:
         geneo = m.geneo_params_flat() if hasattr(m, "geneo_params_flat") else {}
         return self.criterion(pred, y, cvx, geneo, getattr(m, "last_lambda", None)), pred
 
-    def setup_optimizer(self) -> torch.optim.Optimizer:
-        """A fresh optimizer over the model's trainable parameters."""
+    def setup_optimizer(self, capturable: bool = False) -> torch.optim.Optimizer:
+        """A fresh optimizer over the model's trainable parameters;
+        ``capturable`` keeps its step counts on the device, so that a CUDA
+        graph can hold its update."""
         self.optimizer = resolve_optimizer(self.config.optimizer, self.model.parameters(),
-                                           self.config.learning_rate)
+                                           self.config.learning_rate, capturable=capturable)
         return self.optimizer
 
     def train_step(self, mstate: MetricState, *batch: torch.Tensor
@@ -270,6 +294,7 @@ class Trainer:
                     self.logger.log_params(self._grad_stats(), self.step)
                     grad_logged = True
 
+            self.train_counts.append(metric_counts(mstate))
             scores = {f"train_{k}": v for k, v in
                       compute_metrics(mstate, cfg.fbeta).items()}
             scores["train_loss"] = (float(loss_sum) / loss_count if loss_count
@@ -287,6 +312,144 @@ class Trainer:
             if tracer is not None:
                 tracer.__exit__(None, None, None)
                 tracer.export_chrome_trace(os.path.join(cfg.profile_dir, "epoch0_trace.json"))
+            if stopper is not None and stopper.update(scores):
+                break
+            epoch += 1
+        return self.model, self.best.best
+
+    # ---- device-resident epochs ---------------------------------------------------
+
+    def fit_cached(self, cache, batch_size: int = 16, augment: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   val_loader: Optional[Iterable] = None,
+                   resume_from: Optional[str] = None) -> Tuple[nn.Module, Dict[str, float]]:
+        """Train from a :class:`~scenenet_tpu_torch.data.device_cache.DevicePointCache`.
+
+        Every step gathers its rows of the epoch's permutation out of the
+        resident points, applies the z-rotation and xy flips drawn for it
+        (``augment``), voxelizes them by ``batch_prep`` and takes the
+        optimizer step; on a card the step is one CUDA graph replay
+        (:class:`CachedEpochs`). ``generator`` (on the cache's device)
+        draws the permutations and augmentations; by default one seeded
+        with ``max_epochs``, as the JAX package's key. Stateless models
+        only; needs ``batch_prep``. Checkpoints and early stopping follow
+        ``self.config`` as in :meth:`fit`.
+        """
+        if self.batch_prep is None:
+            raise ValueError("fit_cached needs a batch_prep (the voxelization of a batch)")
+        self._check_cached("fit_cached", cache, batch_size)
+
+        def draw(gen, n_batches):
+            if not augment:
+                return {}
+            angles, flips = draw_point_augmentation(n_batches, batch_size, gen, cache.device)
+            return {"angles": angles, "flips": flips}
+
+        def load(rows, draws, cursor):
+            aug = ((draws["angles"].index_select(0, cursor)[0],
+                    draws["flips"].index_select(0, cursor)[0]) if augment else ())
+            return self.batch_prep(*gather_augment(cache.points, cache.labels, cache.mask,
+                                                   rows, *aug))
+
+        return self._run_cached_epochs(len(cache), batch_size, draw, load, generator,
+                                       val_loader, resume_from)
+
+    def fit_grid_cached(self, grids, batch_size: int = 16, augment: bool = True,
+                        generator: Optional[torch.Generator] = None,
+                        val_loader: Optional[Iterable] = None,
+                        resume_from: Optional[str] = None
+                        ) -> Tuple[nn.Module, Dict[str, float]]:
+        """Train from a :class:`~scenenet_tpu_torch.data.device_cache.DeviceGridCache`:
+        voxelization was paid once at the cache's build, so a step gathers
+        its rows, applies the D4 element drawn for each sample
+        (``augment``, :func:`~scenenet_tpu_torch.data.device_cache.d4_transform_grids`),
+        casts the grids to f32 and takes the optimizer step; on a card one
+        CUDA graph replay. With ``augment=False`` and the same generator it
+        trains as :meth:`fit_cached` does. Stateless models only.
+        """
+        self._check_cached("fit_grid_cached", grids, batch_size)
+
+        def draw(gen, n_batches):
+            return {"d4": draw_d4(n_batches, batch_size, gen, grids.device)} if augment else {}
+
+        def load(rows, draws, cursor):
+            x, y = grids.x.index_select(0, rows), grids.y.index_select(0, rows)
+            if augment:
+                bits = draws["d4"].index_select(0, cursor)[0]
+                x, y = d4_transform_grids(x, *bits), d4_transform_grids(y, *bits)
+            return x.to(torch.float32), y.to(torch.float32)
+
+        return self._run_cached_epochs(len(grids), batch_size, draw, load, generator,
+                                       val_loader, resume_from)
+
+    @torch.no_grad()
+    def evaluate_cached(self, grids, batch_size: int = 16,
+                        prefix: str = "test") -> Dict[str, float]:
+        """Scores of ``self.model`` over a
+        :class:`~scenenet_tpu_torch.data.device_cache.DeviceGridCache` in
+        order, the samples past the last full batch in one tail batch; the
+        loss is the sample-weighted mean, so a ragged tail weighs by its
+        samples."""
+        self._check_cached("evaluate_cached", grids, 1)
+        cfg = self.config
+        n = len(grids)
+        self.model.eval()
+        mstate = init_metric_state(self.device)
+        weighted = torch.zeros((), dtype=torch.float64, device=self.device)
+        for start in range(0, n, batch_size):
+            x = grids.x[start:start + batch_size].to(torch.float32)
+            y = grids.y[start:start + batch_size].to(torch.float32)
+            loss, pred = self._loss(x, y)
+            mstate = update_metrics(mstate, pred, y, cfg.tau)
+            weighted += loss.double() * x.shape[0]
+        scores = {f"{prefix}_{k}": v for k, v in compute_metrics(mstate, cfg.fbeta).items()}
+        scores[f"{prefix}_loss"] = float(weighted) / max(n, 1)
+        self.logger.log_metrics(scores, -1)
+        return scores
+
+    def _check_cached(self, name: str, cache, batch_size: int) -> None:
+        if getattr(self.model, "is_stateful", False):
+            raise ValueError(f"{name} supports stateless models; a stateful model "
+                             "(BatchNorm statistics) streams batches through fit()")
+        if cache.device != self.device:
+            raise ValueError(f"{name}: the cache is on {cache.device}, the model on "
+                             f"{self.device}")
+        if len(cache) < batch_size:
+            raise ValueError(f"{name}: the cache holds {len(cache)} samples < batch "
+                             f"{batch_size}")
+
+    def _run_cached_epochs(self, n: int, batch_size: int, draw, load,
+                           generator: Optional[torch.Generator],
+                           val_loader: Optional[Iterable], resume_from: Optional[str]
+                           ) -> Tuple[nn.Module, Dict[str, float]]:
+        """The epoch loop the cached fits share: :class:`CachedEpochs` trains
+        each epoch on the device; counts, the loss, logging, checkpoints and
+        early stopping come once an epoch, and the validation loader is
+        streamed, as in the JAX package."""
+        if resume_from is not None:
+            raise NotImplementedError("resume_from (resumable snapshots) is not "
+                                      "ported yet: ROADMAP A7")
+        cfg = self.config
+        self.cached_epochs = epochs = CachedEpochs(self, n, batch_size, draw, load, generator)
+        self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
+                                              top_k=cfg.checkpoint_top_k)
+        stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
+                   if cfg.early_stop_metric else None)
+        epoch = 0
+        while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
+            t0 = time.time()
+            mstate, loss_sum = epochs.run_epoch()
+            self.train_counts.append(metric_counts(mstate))
+            scores = {f"train_{k}": v for k, v in compute_metrics(mstate, cfg.fbeta).items()}
+            scores["train_loss"] = float(loss_sum) / epochs.n_batches
+            scores["epoch_time_s"] = time.time() - t0
+            if val_loader is not None:
+                scores.update(self._scores(val_loader, "val"))
+            if hasattr(self.model, "parameters_in_dict"):
+                self.logger.log_params(self.model.parameters_in_dict(), epoch)
+            self.logger.log_metrics(scores, epoch)
+            self.best.update(scores)
+            ckpt.step(self.model, scores, epoch)
             if stopper is not None and stopper.update(scores):
                 break
             epoch += 1
@@ -315,3 +478,90 @@ class Trainer:
                           f"non-finite every epoch); restoring last.npz instead")
             path = last
         return restore_checkpoint(path, template)
+
+
+class CachedEpochs:
+    """The device-resident epochs of one cached fit.
+
+    Each :meth:`run_epoch` draws one permutation of the ``n`` samples and,
+    by ``draw(generator, n_batches)``, the augmentation of every batch
+    into static device buffers, then runs the epoch's ``n // batch_size``
+    steps in ``config.epoch_chunks`` chunks (:func:`chunk_starts`). A step
+    reads the cursor's rows of the permutation, ``load(rows, draws,
+    cursor)`` makes the batch's (x, y) grids, and the forward, the loss,
+    the backward, the optimizer update and the confusion counts follow, all
+    on the device, with no RNG call and no host sync. On a card the step
+    runs under :class:`StepGraph` (warm-up steps, then one CUDA graph
+    replayed a batch) with a capturable optimizer; on the CPU, eagerly.
+    ``generator`` defaults to one seeded with ``max_epochs``.
+    """
+
+    def __init__(self, trainer: Trainer, n: int, batch_size: int, draw, load,
+                 generator: Optional[torch.Generator] = None):
+        cfg = trainer.config
+        dev = trainer.device
+        on_card = dev.type == "cuda"
+        self.trainer = trainer
+        self.n, self.batch_size = n, batch_size
+        self.n_batches = n // batch_size
+        self.chunks = chunk_starts(self.n_batches, cfg.epoch_chunks)
+        self.draw = draw
+        self.generator = (generator if generator is not None
+                          else torch.Generator(dev).manual_seed(cfg.max_epochs))
+        trainer.setup_optimizer(capturable=on_card)
+
+        # the static buffers the step reads and writes
+        self.order = order = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.draws: Dict[str, torch.Tensor] = {}
+        self.cursor = cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+        offsets = torch.arange(batch_size, device=dev)
+        self.mstate = mstate = init_metric_state(dev)
+        self.loss_sum = loss_sum = torch.zeros((), device=dev)
+        self.last_loss = last_loss = torch.zeros((), device=dev)
+        draws = self.draws
+
+        def step():
+            rows = order.index_select(0, cursor * batch_size + offsets)
+            x, y = load(rows, draws, cursor)
+            trainer.model.train()
+            trainer.optimizer.zero_grad(set_to_none=True)
+            # debug_nans: anomaly checks read values on the host, which a
+            # capture cannot hold; run_epoch checks the loss after each step
+            anomaly = cfg.debug_nans and not (on_card
+                                              and torch.cuda.is_current_stream_capturing())
+            with torch.autograd.set_detect_anomaly(anomaly):
+                loss, pred = trainer._loss(x, y)
+                loss.backward()
+            trainer.optimizer.step()
+            for buf, v in zip(mstate, update_metrics(mstate, pred.detach(), y, cfg.tau)):
+                buf.copy_(v)
+            loss = loss.detach()
+            loss_sum.add_(loss)
+            last_loss.copy_(loss)
+            cursor.add_(1)
+
+        self.runner = StepGraph(step, dev)
+
+    def run_epoch(self) -> Tuple[MetricState, torch.Tensor]:
+        """One epoch of training: the epoch's confusion counts and loss sum
+        (device tensors, overwritten by the next epoch)."""
+        trainer = self.trainer
+        dev = trainer.device
+        self.order.copy_(torch.randperm(self.n, generator=self.generator, device=dev))
+        for k, v in self.draw(self.generator, self.n_batches).items():
+            if k in self.draws:
+                self.draws[k].copy_(v)
+            else:
+                self.draws[k] = v
+        for buf in self.mstate:
+            buf.zero_()
+        self.loss_sum.zero_()
+        for start, length in self.chunks:
+            self.cursor.fill_(start)
+            for _ in range(length):
+                self.runner()
+                trainer.step += 1
+                if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
+                    raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} at "
+                                             f"step {trainer.step - 1}")
+        return self.mstate, self.loss_sum

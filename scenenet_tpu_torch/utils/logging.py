@@ -11,11 +11,15 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class RunLogger:
-    def __init__(self, run_dir: str):
+    def __init__(self, run_dir: str, use_wandb: bool = False,
+                 wandb_kwargs: Optional[dict] = None):
+        if use_wandb:
+            raise NotImplementedError("the wandb adapter (use_wandb) is not ported yet: "
+                                      "ROADMAP A10")
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self._metrics = open(os.path.join(run_dir, "metrics.jsonl"), "a")

@@ -21,6 +21,7 @@ import torch
 from scenenet_tpu.ops.conv3d import conv3d_same as jax_conv3d_same
 from scenenet_tpu.ops.pallas_conv import banded_y_weights
 from scenenet_tpu.ops.pallas_conv import fused_geneo_conv as jax_fused
+from scenenet_tpu.ops.pallas_conv import halo_stencil_conv as jax_halo
 from scenenet_tpu.ops.pallas_conv import geneo_stencil_conv_mxu as pallas_mxu
 from scenenet_tpu.ops.pallas_conv import geneo_stencil_conv as pallas_stencil
 from scenenet_tpu.ops.pallas_conv import stencil_dk as pallas_dk
@@ -28,7 +29,7 @@ from scenenet_tpu_torch.ops import cuda_conv
 from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
 from scenenet_tpu_torch.ops.cuda_conv import (
     fused_geneo_conv, fused_geneo_conv_mxu, geneo_stencil_conv, geneo_stencil_conv_mxu,
-    split_kernel_bf16, stencil_dk,
+    halo_stencil_conv, split_kernel_bf16, stencil_dk,
 )
 
 ATOL = 1e-5
@@ -184,8 +185,11 @@ def test_conv3d_same_matches_jax(ks):
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     x = torch.zeros((1, 1, 8, 8, 8))
-    with pytest.raises(NotImplementedError, match="B10"):
-        geneo_stencil_conv(x, torch.zeros((3, 3, 3)), z_prepadded=True)
+    # the halo form (ported since, B10) loses k_z - 1 planes, and needs one left
+    assert geneo_stencil_conv(x, torch.zeros((3, 3, 3)), z_prepadded=True).shape == \
+        (1, 1, 6, 8, 8)
+    with pytest.raises(ValueError, match="prepadded"):
+        geneo_stencil_conv(x, torch.zeros((9, 3, 3)), z_prepadded=True)
     with pytest.raises(ValueError):
         geneo_stencil_conv(torch.zeros((1, 2, 8, 8, 8)), torch.zeros((3, 3, 3)))
     with pytest.raises(TypeError):
@@ -244,7 +248,9 @@ def test_fused_geneo_conv_skips_dx_for_data():
 
 def test_dk_and_mxu_forms_raise():
     x = torch.zeros((1, 1, 8, 8, 8))
-    with pytest.raises(NotImplementedError, match="B10"):
+    # the halo form (ported since, B10) pairs x's Z + k_z - 1 planes with g's Z
+    assert stencil_dk(x, x[:, :, :6], (3, 3, 3), z_prepadded=True).shape == (3, 3, 3)
+    with pytest.raises(ValueError):
         stencil_dk(x, x, (3, 3, 3), z_prepadded=True)
     with pytest.raises(ValueError):
         stencil_dk(x, torch.zeros((1, 1, 8, 8, 7)), (3, 3, 3))
@@ -401,3 +407,91 @@ def test_fused_geneo_conv_mxu_matches_jax_vjp():
     v.backward()
     np.testing.assert_allclose(float(v.detach()), float(v_want), rtol=1e-4)
     np.testing.assert_allclose(kt.grad.numpy(), np.asarray(g_want), rtol=2e-3, atol=2e-3)
+
+
+# ---- the halo conv of the spatially sharded path (VALID in z, SAME in x and y) ----
+
+HALO_SIZES = [(9, 5, 5), (3, 3, 3), (8, 6, 6)]  # the fast route, generic, an even size
+
+
+def _halo_inputs(ks, seed, z_local=16, xy=12, b=2):
+    """An occupancy slab of ``z_local`` planes with its k_z - 1 halo planes
+    (dense enough that relu's gate is open and shut across the slab), a
+    kernel, and the output's cotangent."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, 1, z_local + ks[0] - 1, xy, xy)) > 0.6).astype(np.float32)
+    k = rng.normal(0, 0.2, ks).astype(np.float32)
+    g = rng.normal(0, 1, (b, 1, z_local, xy, xy)).astype(np.float32)
+    return x, k, g
+
+
+@pytest.mark.parametrize("ks", HALO_SIZES)
+def test_prepadded_plain_matches_pallas(ks):
+    """geneo_stencil_conv and stencil_dk with z_prepadded against the Pallas
+    kernels in interpret mode: Z - (k_z - 1) planes out, no z pad."""
+    x, k, g = _halo_inputs(ks, 11)
+    want = np.asarray(pallas_stencil(jnp.asarray(x), jnp.asarray(k), activation=True,
+                                     z_prepadded=True, interpret=True))
+    got = geneo_stencil_conv(torch.from_numpy(x), torch.from_numpy(k), activation=True,
+                             z_prepadded=True).numpy()
+    assert got.shape == want.shape == g.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    want = np.asarray(pallas_dk(jnp.asarray(x), jnp.asarray(g), ks, interpret=True,
+                                z_prepadded=True))
+    got = stencil_dk(torch.from_numpy(x), torch.from_numpy(g), ks, z_prepadded=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("activation", [True, False])
+@pytest.mark.parametrize("ks", HALO_SIZES)
+def test_halo_stencil_conv_matches_jax(ks, activation):
+    """Forward and jax.vjp gradients (dx, dk) of the JAX package's
+    halo_stencil_conv (interpret mode) against the port's autograd Function
+    on the plain versions: 1e-5 forward and dx, 1e-4·max|dk| on dk."""
+    x, k, g = _halo_inputs(ks, sum(ks))
+    out_want, vjp = jax.vjp(lambda a, b: jax_halo(a, b, activation, True),
+                            jnp.asarray(x), jnp.asarray(k))
+    dx_want, dk_want = (np.asarray(v) for v in vjp(jnp.asarray(g)))
+    xt = torch.from_numpy(x).requires_grad_()
+    kt = torch.from_numpy(k).requires_grad_()
+    out = halo_stencil_conv(xt, kt, activation)
+    out.backward(torch.from_numpy(g))
+    assert out.shape == g.shape and xt.grad.shape == x.shape and kt.grad.shape == ks
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_want), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), dx_want, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(kt.grad.numpy(), dk_want, rtol=0,
+                               atol=1e-4 * np.abs(dk_want).max())
+
+
+def _slabs(x, n, k_z):
+    """``x`` (B, 1, Z, X, Y) cut into ``n`` z slabs, each with the planes its
+    neighbours hold as its halo ((k_z - 1)//2 below, k_z//2 above) and zeros
+    past the volume's ends."""
+    lo, hi = (k_z - 1) // 2, k_z // 2
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, lo, hi))
+    z = x.shape[2] // n
+    return [xp[:, :, i * z: (i + 1) * z + k_z - 1] for i in range(n)]
+
+
+@pytest.mark.parametrize("n_slabs", [2, 4])
+@pytest.mark.parametrize("ks", HALO_SIZES)
+def test_halo_slabs_concat_equal_the_same_conv(ks, n_slabs):
+    """A volume cut into z slabs with their neighbours' planes as halos: the
+    concatenation of halo_stencil_conv's outputs is geneo_stencil_conv's
+    SAME conv (1e-6), and the gradients of a loss over the slabs add up to
+    those of the unsharded fused conv."""
+    rng = np.random.default_rng(n_slabs)
+    x = torch.from_numpy((rng.random((2, 1, 16, 12, 12)) > 0.6).astype(np.float32))
+    k = torch.from_numpy(rng.normal(0, 0.2, ks).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, tuple(x.shape)).astype(np.float32))
+    kt = k.clone().requires_grad_()
+    outs = [halo_stencil_conv(s, kt, True) for s in _slabs(x, n_slabs, ks[0])]
+    got = torch.cat(outs, dim=2)
+    want = geneo_stencil_conv(x, k, activation=True)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), rtol=0, atol=1e-6)
+    (got * w).sum().backward()
+    kf = k.clone().requires_grad_()
+    (fused_geneo_conv(x, kf) * w).sum().backward()
+    np.testing.assert_allclose(kt.grad.numpy(), kf.grad.numpy(), rtol=0,
+                               atol=1e-4 * float(kf.grad.abs().max()))

@@ -1273,3 +1273,151 @@ def test_unet_on_card_kernel_backend_matches_plain_backend(dev):
         before = cuda_conv_mc.MC_LAUNCHES.count
         nets["cuda"](x)
         assert cuda_conv_mc.MC_LAUNCHES.count == before + 18
+
+
+# ---- the halo conv (z_prepadded): K2 and K4 VALID in z ---------------------------
+
+def _halo_case(dev, b, z_out, xx, yy, ks, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, 1, z_out + ks[0] - 1, xx, yy)) > 0.7).astype(np.float32)
+    g = rng.normal(0, 1, (b, 1, z_out, xx, yy)).astype(np.float32)
+    k = rng.normal(0, 0.3, ks).astype(np.float32)
+    return (torch.from_numpy(a).to(dev) for a in (x, g, k))
+
+
+@pytest.mark.parametrize("activation", [True, False])
+@pytest.mark.parametrize("shape", [(2, 13, 16, 32), (1, 5, 37, 70), (3, 30, 9, 33)])
+def test_prepadded_stencil_both_routes_match_plain(dev, shape, activation):
+    """K2 with the slab's own halo planes (z_out no multiple of the 8-plane
+    tile; Y a multiple of 4 or not): the unrolled and the generic kernel
+    against the plain VALID-z conv, each bit-identical run to run."""
+    b, z_out, xx, yy = shape
+    x, _, k = _halo_case(dev, b, z_out, xx, yy, (9, 5, 5), sum(shape))
+    got = cuda_conv.geneo_stencil_conv(x, k, activation=activation, z_prepadded=True)
+    assert got.shape == (b, 1, z_out, xx, yy)
+    want = cuda_conv.geneo_stencil_conv_plain(x, k, activation, z_prepadded=True)
+    for route in ("fast", "generic"):
+        a = cuda_conv._launch_stencil(x, k, activation, route, z_prepadded=True)
+        assert torch.equal(a, cuda_conv._launch_stencil(x, k, activation, route, z_prepadded=True))
+        torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, cuda_conv._launch_stencil(x, k, activation, "fast", z_prepadded=True))
+    generic = cuda_conv.geneo_stencil_conv(x, k[:, :3, :3].contiguous(), activation,
+                                           z_prepadded=True)
+    torch.testing.assert_close(generic, cuda_conv.geneo_stencil_conv_plain(
+        x, k[:, :3, :3], activation, z_prepadded=True), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 13, 16, 32), (1, 5, 37, 70), (3, 30, 9, 33)])
+def test_prepadded_dk_both_routes_match_plain(dev, shape):
+    """K4 with x's slab carrying the halo (Z + 8 planes against g's Z; z_out
+    no multiple of the 4-plane tile): both kernels within 1e-4·max|dk| of
+    the plain version, each bit-identical run to run; (3,3,3) generic."""
+    b, z_out, xx, yy = shape
+    x, g, _ = _halo_case(dev, b, z_out, xx, yy, (9, 5, 5), sum(shape) + 1)
+    want = cuda_conv.stencil_dk_plain(x, g, (9, 5, 5), z_prepadded=True)
+    tol = 1e-4 * float(want.abs().max())
+    got = cuda_conv.stencil_dk(x, g, (9, 5, 5), z_prepadded=True)
+    for route in ("fast", "generic"):
+        a = cuda_conv._launch_dk(x, g, (9, 5, 5), route, z_prepadded=True)
+        assert torch.equal(a, cuda_conv._launch_dk(x, g, (9, 5, 5), route, z_prepadded=True))
+        assert float((a - want).abs().max()) <= tol
+    assert torch.equal(got, cuda_conv._launch_dk(x, g, (9, 5, 5), "fast", z_prepadded=True))
+    x3 = x[:, :, 3:-3].contiguous()  # Z + 2 planes for k_z = 3
+    want3 = cuda_conv.stencil_dk_plain(x3, g, (3, 3, 3), z_prepadded=True)
+    got3 = cuda_conv.stencil_dk(x3, g, (3, 3, 3), z_prepadded=True)
+    assert float((got3 - want3).abs().max()) <= 1e-4 * float(want3.abs().max())
+
+
+@pytest.mark.parametrize("ks", [(9, 5, 5), (3, 3, 3), (8, 6, 6)])
+def test_halo_stencil_conv_grads_match_plain(dev, ks):
+    """halo_stencil_conv on the card (K2 forward and dx, K4 dk; the library
+    conv for dx of the even kernel) against its autograd on the CPU's plain
+    versions; the slabs' outputs concatenate to the SAME conv."""
+    x, g, k = _halo_case(dev, 2, 16, 12, 12, ks, sum(ks))
+    outs, grads = [], []
+    for d in (dev, torch.device("cpu")):
+        xa = x.to(d).clone().requires_grad_()
+        ka = k.to(d).clone().requires_grad_()
+        out = cuda_conv.halo_stencil_conv(xa, ka, True)
+        out.backward(g.to(d))
+        outs.append(out.detach().cpu())
+        grads.append((xa.grad.cpu(), ka.grad.cpu()))
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-5)
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=1e-5)
+    assert float((grads[0][1] - grads[1][1]).abs().max()) <= 1e-4 * float(
+        grads[1][1].abs().max())
+    vol = (torch.rand((2, 1, 32, 16, 16), device=dev) > 0.7).float()
+    lo, hi = (ks[0] - 1) // 2, ks[0] // 2
+    padded = torch.nn.functional.pad(vol, (0, 0, 0, 0, lo, hi))
+    slabs = [cuda_conv.geneo_stencil_conv(padded[:, :, i * 8:(i + 1) * 8 + ks[0] - 1], k,
+                                          z_prepadded=True) for i in range(4)]
+    torch.testing.assert_close(torch.cat(slabs, dim=2), cuda_conv.geneo_stencil_conv(vol, k),
+                               rtol=0, atol=1e-6)
+
+
+# ---- the cached train step as a CUDA graph ----------------------------------------
+
+def test_cached_fit_replays_a_graph_as_the_streamed_steps(dev, tmp_path):
+    """fit_grid_cached on the card (3 warm-up steps, then one captured step
+    replayed) against Trainer.fit on the same batches in the same order:
+    losses rtol 1e-5, parameters 1e-5, counts equal. The wrappers count the
+    eager steps' launches and the capture's; the profiler's trace shows K2
+    and K4 run on the card in every step, the replays included."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+
+    from scenenet_tpu_torch.data.device_cache import DeviceGridCache
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train import TrainConfig, Trainer
+
+    rng = np.random.default_rng(0)
+    grids = DeviceGridCache.__new__(DeviceGridCache)
+    occ = rng.random((16, 1, 16, 16, 16)) > 0.8
+    grids.x = torch.from_numpy(occ.astype(np.uint8)).to(dev)
+    grids.y = torch.from_numpy((occ & (rng.random(occ.shape) > 0.7)).astype(np.uint8)).to(dev)
+    crit = resolve_criterion("geneo_tversky")(convex_weight=5, tversky_alpha=2,
+                                                focal_gamma=4, tversky_smooth=1e-6)
+
+    def trainer(tag):
+        net = SceneNet.create(kernel_size=(9, 5, 5), seed=3, backend="cuda").to(dev)
+        return Trainer(net, crit, TrainConfig(run_dir=str(tmp_path / tag), max_epochs=2,
+                                              checkpoint_dir=str(tmp_path / f"c{tag}"),
+                                              early_stop_metric=None))
+
+    cached, streamed = trainer("cached"), trainer("streamed")
+    before = (cuda_conv.LAUNCHES.count, cuda_conv.DK_LAUNCHES.count)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cached.fit_grid_cached(grids, 2, augment=False,
+                               generator=torch.Generator(dev).manual_seed(5))
+        torch.cuda.synchronize()
+    assert (cuda_conv.LAUNCHES.count - before[0], cuda_conv.DK_LAUNCHES.count - before[1]) \
+        == (3 + 1, 3 + 1)
+    runs = {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and re.search(p, e.key))
+            for k, p in (("k2", r"\bstencil(_fast)?_kernel\b"),
+                         ("k4", r"\breduce_taps_kernel\b"))}
+    assert runs == {"k2": 16, "k4": 16}
+    assert cached.cached_epochs.runner.captured and cached.cached_epochs.runner.replays == 13
+    gen = torch.Generator(dev).manual_seed(5)
+
+    def batches():
+        for _ in range(2):
+            order = torch.randperm(16, generator=gen, device=dev)
+            yield [(grids.x[order[i:i + 2]].float(), grids.y[order[i:i + 2]].float())
+                   for i in range(0, 16, 2)]
+
+    epochs = batches()
+
+    class Loader:
+        def __iter__(self):
+            return iter(next(epochs))
+
+    streamed.fit(Loader())
+    assert cached.train_counts == streamed.train_counts
+    for (n, a), b in zip(cached.model.named_parameters(), streamed.model.parameters()):
+        assert float((a - b).detach().abs()) <= 1e-5, n
+    losses = [[r["train_loss"] for r in map(__import__("json").loads,
+                                            open(tmp_path / t / "metrics.jsonl"))]
+              for t in ("cached", "streamed")]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)

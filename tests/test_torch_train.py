@@ -434,7 +434,8 @@ def _cli_cfg(root, tmp_path, **kw):
 def test_cli_run_trains_and_tests(dataset, tmp_path, capsys):
     scores = tcli.run(_cli_cfg(dataset, tmp_path), device="cpu")
     out = capsys.readouterr().out
-    assert "[device_cache auto] -> false" in out and "A6" in out
+    # the defaults' route, as the JAX CLI picks it (A6, ported since): the grid cache
+    assert "[device_cache auto] -> 'grids'" in out
     assert "[test] using best 'train_FBetaScore' checkpoint" in out
     assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["val_loss"])
     assert math.isfinite(scores["test_loss"]) and "test_F1Score" in scores
@@ -555,7 +556,16 @@ def test_cli_default_device_is_cuda(dataset, tmp_path):
     ({"accumulate_grad_batches": 2}, "A13"), ({"checkpoint_every_n_steps": 5}, "A7"),
     ({"optimizer": "lbfgs"}, "A7"), ({"criterion": "dice_bce"}, "A9"),
 ])
-def test_cli_unported_config_raises(dataset, tmp_path, overrides, item):
+def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
+    if "device_cache" in overrides:
+        # ported since (A6): the point cache (True is the point cache) and the
+        # grid cache train end to end
+        scores = tcli.run(_cli_cfg(dataset, tmp_path, **overrides), device="cpu")
+        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+        assert "[device_cache auto]" not in capsys.readouterr().out
+        ckpt = tmp_path / "scenenet_ts40k" / "checkpoints"
+        assert (ckpt / "last.npz").exists()
+        return
     if overrides.get("model") in ("cnn", "unet"):
         # ported since (A8): the black-box baselines now train through the CLI
         try:
@@ -641,13 +651,27 @@ def test_train_config_field_defaults_equal_jax(field):
 @pytest.mark.parametrize("field,value,item", [("log_pointclouds_every", 1, "A11"),
                                               ("epoch_chunks", 2, "A6")])
 def test_train_config_unported_values_raise(field, value, item, tmp_path):
+    if field == "epoch_chunks":
+        # ported since (A6): the chunks of a device-resident epoch
+        trainer = _port_trainer(tmp_path, "torch", **{field: value})
+        assert trainer.config.epoch_chunks == value
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _port_trainer(tmp_path, "torch", **{field: value})
 
 
-def test_cli_passes_epoch_chunks(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tcli.run(_cli_cfg(dataset, tmp_path, epoch_chunks=2), device="cpu")
+def test_cli_passes_epoch_chunks(dataset, tmp_path, monkeypatch):
+    """epoch_chunks reaches the cached fit's TrainConfig, and an epoch in
+    two chunks trains as an epoch in one."""
+    seen = []
+    orig = Trainer._run_cached_epochs
+    monkeypatch.setattr(Trainer, "_run_cached_epochs", lambda self, *a, **kw: (
+        seen.append(self.config.epoch_chunks), orig(self, *a, **kw))[1])
+    scores = {c: tcli.run(_cli_cfg(dataset, tmp_path / str(c), epoch_chunks=c), device="cpu")
+              for c in (1, 2)}
+    assert seen == [1, 2]
+    for k in ("train_loss", "val_loss", "test_loss"):
+        assert scores[1][k] == scores[2][k], k
 
 
 @pytest.mark.parametrize("debug_nans", [True, False])
@@ -854,17 +878,27 @@ def test_cli_host_indices_trains(dataset, tmp_path, monkeypatch, capsys):
     assert math.isfinite(exact["train_loss"]) and k7
 
 
-@pytest.mark.parametrize("host_indices", [False, True])
-def test_cli_trains_at_a_sorted_route_size(dataset, tmp_path, monkeypatch, host_indices):
+@pytest.mark.parametrize("host_indices,device_cache", [
+    pytest.param(False, False, id="False"), pytest.param(True, "auto", id="True"),
+    pytest.param(False, "auto", id="grids")])
+def test_cli_trains_at_a_sorted_route_size(dataset, tmp_path, monkeypatch, host_indices,
+                                           device_cache):
     """A grid and pad length at which the JAX package's routing predicate
     holds ((64,64,128) with 196608 padded points): the train CLI goes
-    through sorted_bin_counts on both routes, and trains."""
+    through sorted_bin_counts on every route, and trains. Streamed (bins on
+    the card, or from host indices) it counts every step's batch; through
+    the grid cache that ``device_cache: auto`` picks, it counts the cache's
+    one load."""
     grid, n_pad = (64, 64, 128), 196608
     assert tv._sorted_route(n_pad, grid) and not tv._sorted_route(MAX_POINTS, grid)
     k8 = _spy(monkeypatch, "sorted_bin_counts")
     others = _spy(monkeypatch, "points_binary") + _spy(monkeypatch, "bin_counts")
     cfg = _cli_cfg(dataset, tmp_path, voxel_grid_size=grid, max_points=n_pad, max_epochs=1,
-                   batch_size=4, val_split=0.0, test_checkpoint="last")
+                   batch_size=4, val_split=0.0, test_checkpoint="last",
+                   device_cache=device_cache)
     scores = tcli.run(cfg, device="cpu", host_indices=host_indices)
     assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
-    assert len(k8) >= 2 + 1 and not others  # 8 fit crops = 2 steps, then the test batch
+    if host_indices or device_cache is False:  # 8 fit crops = 2 steps, then the test batch
+        assert len(k8) >= 2 + 1 and not others
+    else:  # the grid cache: one load of the 8 crops, then the test batch
+        assert len(k8) == 1 + 1 and not others
