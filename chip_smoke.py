@@ -50,11 +50,22 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
 - it takes three train steps on a tower-fraction target and makes density
   grids (the counts kernel), and asks for the bin ids alone (the ids
   kernel);
+- it trains the rest of the training surface through the train CLI, each
+  through ``device_cache: auto`` (the grid cache, every step after the
+  warm-up a graph replay) and traced: ``model=quantile`` (three members,
+  K2 and K4 three times a step), ``precision=bf16`` and
+  ``accumulate_grad_batches=2`` (two captured steps); holds each one's
+  replayed steps against the same batches through ``train_step``,
+  bit-identical; and times the quantile and the bf16 step by cached route;
 - it trains UNet3D at its full ladder (32-64-128-256-256, 18 3x3x3 convs)
   through ``cli.train --set model=unet`` at the defaults' width (batch 16,
   64³), every conv and its input gradient in the multi-channel conv
   kernel, checks three steps of that backend against the plain one, times
-  the step on both, and trains ``model=cnn`` with a (3,3,3) kernel.
+  the step on both, trains it with ``precision=bf16`` (every conv in the
+  conv kernel's bf16 form, held against the plain bf16 version at every
+  layer shape and timed beside the f32 form over the 18 convs in a CUDA
+  graph) and times that step beside the f32 one, and trains ``model=cnn``
+  with a (3,3,3) kernel.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -140,6 +151,12 @@ N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
 # part grows with the square root of the sum's length (x 1.8 at 512 channels)
 MC_ATOL, MC_RTOL, MC_ATOL_CHANNELS = 2e-5, 1e-5, 160
 MC_DW_REL_TOL = 1e-4  # the library's dw in two formulations: sums over 4.2 M voxels
+# K10's bf16 form vs its plain version: the same exact products summed in f32 in
+# another order and rounded once, so neighbouring bf16 values at most: one bf16
+# unit of the result, at most 2^-7 of it
+BF16_UNIT = 2.0 ** -7
+# cuDNN's bf16 dw against the plain version's (f32 sums rounded once), of max|dw|
+MC_BF16_DW_REL_TOL = 1e-2
 # the shapes the multi-channel conv's plan treats differently, beside the UNet's layers
 # at the train batch: (batch, C_in, C_out, (Z, X, Y))
 MC_EXTRA = [(1, 256, 256, (4, 4, 4)),   # batch 1 in the four-sample tile, the K split at its cap
@@ -448,10 +465,10 @@ def main(argv=None) -> int:
     from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K
     from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
     from scenenet_tpu_torch.losses import resolve_criterion
-    from scenenet_tpu_torch.models.scenenet import SceneNet
+    from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
     from scenenet_tpu_torch.models.unet3d import BLOCKS, UNet3D
     from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_conv_mc, cuda_hist
-    from scenenet_tpu_torch.ops.conv3d import conv3d_same, same_pads
+    from scenenet_tpu_torch.ops.conv3d import conv3d_same, cudnn_off, same_pads
     from scenenet_tpu_torch.ops import voxel_np
     from scenenet_tpu_torch.ops.voxelize import (
         batch_flat_ids, voxelize_batch, voxelize_batch_from_indices, voxelize_batch_hist,
@@ -473,7 +490,8 @@ def main(argv=None) -> int:
                 "bin_counts": cuda_hist.FLAT_COUNTS_LAUNCHES,
                 "sorted_bin_counts": cuda_hist.SORTED_COUNTS_LAUNCHES,
                 "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES,
-                "conv3d_mc": cuda_conv_mc.MC_LAUNCHES}
+                "conv3d_mc": cuda_conv_mc.MC_LAUNCHES,
+                "conv3d_mc_bf16": cuda_conv_mc.MC_BF16_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -1385,6 +1403,148 @@ def main(argv=None) -> int:
           + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f}" for (c, o, n), (a, b) in dw_ms.items()),
           flush=True)
 
+    # ---- 8c. K10's bf16 form vs plain: every UNet layer shape, in a CUDA graph ----
+    def bf16_case(seed, b, cin, cout, shape):
+        xm, wm = mc_case(seed, b, cin, cout, shape)
+        return xm.to(torch.bfloat16), wm.to(torch.bfloat16)
+
+    def bf16_check(label, xm, wm):
+        """K10's bf16 form against its plain version (the bf16 values widened,
+        F.conv3d in f32, rounded once) and against itself: within one bf16
+        unit of the result plus the f32 form's tolerance, and the same bits
+        on a second run. The largest difference."""
+        before = cuda_conv_mc.MC_BF16_LAUNCHES.count
+        got = cuda_conv_mc.conv3d_mc_same(xm, wm)
+        again = cuda_conv_mc.conv3d_mc_same(xm, wm)
+        want = cuda_conv_mc.conv3d_mc_same_plain(xm, wm)
+        torch.cuda.synchronize()
+        check(cuda_conv_mc.MC_BF16_LAUNCHES.count == before + 2,
+              f"K10 bf16 {label}: not launched through its own form")
+        check(got.dtype == torch.bfloat16 and got.shape == want.shape
+              and bool(torch.isfinite(got).all()), f"K10 bf16 {label}: dtype, shape or value")
+        d = (got.float() - want.float()).abs()
+        atol = MC_ATOL * max(1.0, math.sqrt(wm.shape[1] / MC_ATOL_CHANNELS))
+        check(bool((d <= atol + BF16_UNIT * want.float().abs()).all()),
+              f"K10 bf16 {label}: max|d| {float(d.max()):.3g} past one bf16 unit")
+        check(torch.equal(got, again), f"K10 bf16 {label}: two runs on the same inputs differ")
+        return float(d.max()), float((d > 0).float().mean())
+
+    k10b_err, parts = 0.0, []
+    for cin, cout, n in mc_shapes:
+        err, frac = bf16_check(f"{cin}->{cout} {n}^3",
+                               *bf16_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n)))
+        k10b_err = max(k10b_err, err)
+        parts.append(f"{cin}->{cout} {n}^3 {err:.3g} ({frac:.2e} of outputs differ)")
+    extra_parts = []
+    for b, cin, cout, shape in MC_EXTRA + [(2, 3, 5, (7, 6, 5)), (1, 1, 1, (1, 1, 1))]:
+        err, _ = bf16_check(f"B={b} {cin}->{cout} {shape}",
+                            *bf16_case(b + cin, b, cin, cout, shape))
+        k10b_err = max(k10b_err, err)
+        extra_parts.append(f"B={b} {cin}->{cout} {shape} {err:.3g}")
+    grad_parts = []
+    for cin, cout, n in ((64, 32, 32), (256, 128, 8)):
+        xm, wm = bf16_case(3, 4, cin, cout, (n, n, n))
+        gm = torch.randn((4, cout, n, n, n), device=dev,
+                         generator=torch.Generator(dev).manual_seed(4)).to(torch.bfloat16)
+        xa, wa = xm.clone().requires_grad_(), wm.clone().requires_grad_()
+        before = cuda_conv_mc.MC_BF16_LAUNCHES.count
+        cuda_conv_mc.fused_conv3d_mc(xa, wa).backward(gm)
+        check(cuda_conv_mc.MC_BF16_LAUNCHES.count == before + 2, "bf16 fused: forward + dx")
+        want_dx = cuda_conv_mc.conv3d_mc_same_plain(gm, wm.flip((2, 3, 4)).transpose(0, 1))
+        want_dw = cuda_conv_mc.conv3d_mc_weight_grad_plain(xm, gm)
+        torch.cuda.synchronize()
+        dx = (xa.grad.float() - want_dx.float()).abs()
+        dx_atol = MC_ATOL * max(1.0, math.sqrt(cout / MC_ATOL_CHANNELS))
+        check(bool((dx <= dx_atol + BF16_UNIT * want_dx.float().abs()).all()),
+              f"bf16 fused {cin}->{cout}: dx off by {float(dx.max()):.3g}")
+        dw_err = float((wa.grad.float() - want_dw.float()).abs().max())
+        dw_scale = float(want_dw.float().abs().max())
+        check(dw_err <= MC_BF16_DW_REL_TOL * dw_scale,
+              f"bf16 fused {cin}->{cout}: dw off by {dw_err:.3g} of {dw_scale:.3g}")
+        grad_parts.append(f"{cin}->{cout} {n}^3: max|ddx| {float(dx.max()):.3g}, max|ddw| "
+                          f"{dw_err:.3g} (max|dw| {dw_scale:.3g})")
+        del xm, wm, gm, xa, wa
+    print(f"[K10 conv3d_mc bf16] B={TRAIN_BATCH}, max|d| vs the plain version (bf16 widened, "
+          f"F.conv3d f32, rounded once), limit one bf16 unit + {MC_ATOL} (x sqrt(C_in/"
+          f"{MC_ATOL_CHANNELS})); every case run twice, bit-identical | " + ", ".join(parts)
+          + " | other shapes: " + ", ".join(extra_parts)
+          + " | fused_conv3d_mc bf16 grads (dx by the form, dw cuDNN bf16) vs the plain "
+          "versions: " + "; ".join(grad_parts), flush=True)
+    torch.cuda.empty_cache()
+
+    # per layer (kernel / plain / library = one cuDNN bf16 F.conv3d), then the 18
+    # convs one after the other in one CUDA graph, the f32 form beside the bf16 one
+    mc16_times, mc16_bounds = {}, {}
+    with torch.no_grad():
+        for cin, cout, n in mc_shapes:
+            xm, wm = bf16_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
+            mc16_times[cin, cout, n] = paired_ms(
+                lambda: cuda_conv_mc.conv3d_mc_same(xm, wm),
+                lambda: cuda_conv_mc.conv3d_mc_same_plain(xm, wm), iters=3,
+                library_fn=lambda: F.conv3d(xm, wm, padding=1), warmup=1)
+            vox = TRAIN_BATCH * n ** 3
+            # bf16 x and w in, bf16 out; a multiply and an add a tap, channel pair
+            # and voxel at the bf16 tensor cores' peak
+            mc16_bounds[cin, cout, n] = bound_ms(2.0 * (vox * (cin + cout) + 27 * cin * cout),
+                                                 2.0 * 27 * cin * cout * vox, BF16_FLOPS)
+            del xm, wm
+            torch.cuda.empty_cache()
+        graph_sums = {}
+        for form in ("f32", "bf16"):
+            layer_in = {}
+            for cin, cout, n in mc_shapes:
+                xm, wm = mc_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
+                if form == "bf16":
+                    xm, wm = xm.to(torch.bfloat16), wm.to(torch.bfloat16)
+                layer_in[cin, cout, n] = (xm, wm)
+            graph_sums[form] = graph_ms(lambda: [cuda_conv_mc.conv3d_mc_same(*layer_in[c])
+                                                 for c in UNET_CONVS], iters=5)
+            del layer_in
+            torch.cuda.empty_cache()
+    # the library's dw at bf16 as fused_conv3d_mc calls it (cuDNN), with cuDNN off,
+    # and the f32 dw; their distance from the plain version (f32 sums, rounded once)
+    dw16 = {}
+    for cin, cout, n in ((1, 32, 64), (32, 32, 64), (128, 64, 32), (512, 256, 8)):
+        xm, _ = bf16_case(5, TRAIN_BATCH, cin, cout, (n, n, n))
+        gm = torch.randn((TRAIN_BATCH, cout, n, n, n), device=dev).to(torch.bfloat16)
+        shape = (cout, cin, 3, 3, 3)
+
+        def dw_off():
+            with cudnn_off():
+                return torch.nn.grad.conv3d_weight(xm, shape, gm, padding=1)
+
+        ref = cuda_conv_mc.conv3d_mc_weight_grad_plain(xm, gm).float()
+        scale = float(ref.abs().max())
+        errs = [float((fn().float() - ref).abs().max()) / scale
+                for fn in (lambda: cuda_conv_mc.conv3d_mc_weight_grad(xm, gm), dw_off)]
+        xf, gf = xm.float(), gm.float()
+        dw16[cin, cout, n] = (cuda_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(xm, gm), 3, 1),
+                              cuda_ms(dw_off, 3, 1),
+                              cuda_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(xf, gf), 3, 1),
+                              *errs)
+        del xm, gm, xf, gf, ref
+        torch.cuda.empty_cache()
+    mc16_sums = {k: sum(mc16_times[c][k] for c in UNET_CONVS)
+                 for k in ("ms", "plain_ms", "library_ms")}
+    mc16_bound_sum = sum(mc16_bounds[c][0] for c in UNET_CONVS)
+    for c, t in mc16_times.items():
+        check(t["ms"] >= mc16_bounds[c][0], f"K10 bf16 {c}: {t['ms']:.4f} ms is under its bound")
+    print(f"[timing] K10 conv3d_mc bf16 form B={TRAIN_BATCH} ({smi}), median of 4 alternating "
+          "rounds, ms kernel / plain / library (one F.conv3d in bf16, cuDNN) / bound (bf16 "
+          "bytes, or the products at the bf16 peak of 989 TFLOP/s): "
+          + " | ".join(f"{c}->{o} {n}^3 {t['ms']:.4f} / {t['plain_ms']:.4f} / "
+                       f"{t['library_ms']:.4f} / {mc16_bounds[c, o, n][0]:.4f}"
+                       for (c, o, n), t in mc16_times.items())
+          + f" | the UNet's 18 forward convs: bf16 form {mc16_sums['ms']:.4f}, plain "
+          f"{mc16_sums['plain_ms']:.4f}, cuDNN bf16 {mc16_sums['library_ms']:.4f}, bound "
+          f"{mc16_bound_sum:.4f} ({mc16_bound_sum / mc16_sums['ms']:.1%} of it) | the 18 "
+          f"convs in one CUDA graph: f32 form {graph_sums['f32']:.4f}, bf16 form "
+          f"{graph_sums['bf16']:.4f} | the library's dw, ms bf16 cuDNN (as fused_conv3d_mc "
+          "calls it) / bf16 cuDNN off / f32 cuDNN off (the f32 model's), and the two bf16 "
+          "ones' max|d| / max|dw| from the plain version: "
+          + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f} / {f:.4f}, {e1:.2e} / {e2:.2e}"
+                      for (c, o, n), (a, b, f, e1, e2) in dw16.items()), flush=True)
+
     # ---- 9. main path: serve ------------------------------------------------
     gpu = _Pipeline(None)  # serving defaults: 64³, 131072 points, (9,5,5), card
     check(gpu.device.type == "cuda" and gpu.backend == "cuda", "pipeline not on the card")
@@ -1674,57 +1834,132 @@ def main(argv=None) -> int:
         prep = make_device_voxelize_prep(GRID, (TOWER,))
         point_cache = DevicePointCache(ds, dev)
         grid_cache = DeviceGridCache(point_cache, prep)
-        # 3 batches an epoch, 2 epochs: the first epoch the warm-up steps, the second
-        # the capture and 2 replays
+        # 3 batches an epoch: fit_grid_cached (the warm-up steps, then the captured
+        # step replayed) against the same batches in the same order through
+        # train_step with the cached route's capturable optimizer: losses, counts
+        # and parameters bit-identical
         three = DeviceGridCache.__new__(DeviceGridCache)
         three.x, three.y = grid_cache.x[:3 * TRAIN_BATCH], grid_cache.y[:3 * TRAIN_BATCH]
-        twins = {}
-        for tag in ("graph", "streamed"):
-            net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
-            twins[tag] = Trainer(net, crit, TrainConfig(
-                run_dir=str(tmp / f"twin_{tag}"), checkpoint_dir=str(tmp / f"twin_ckpt_{tag}"),
-                max_epochs=2, early_stop_metric=None))
-        twins["graph"].fit_grid_cached(three, TRAIN_BATCH, augment=False,
-                                       generator=torch.Generator(dev).manual_seed(3))
-        check(twins["graph"].cached_epochs.runner.replays == 6 - GRAPH_WARMUP,
-              "the twin did not replay")
-        streamed = twins["streamed"]
-        streamed.setup_optimizer(capturable=True)  # the cached route's optimizer
-        twin_gen = torch.Generator(dev).manual_seed(3)
-        twin_losses, twin_counts, band = [], [], 0
-        for _ in range(2):
-            order = torch.randperm(3 * TRAIN_BATCH, generator=twin_gen, device=dev)
-            ms, loss_sum = metrics.init_metric_state(dev), 0.0
-            for b in range(3):
-                rows = order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
-                xb, yb = three.x[rows].float(), three.y[rows].float()
-                with torch.no_grad():
-                    band += int(((streamed.model(xb) - TAU).abs() <= PROB_TOL).sum())
-                ms, loss = streamed.train_step(ms, xb, yb)
-                loss_sum += float(loss)
-            twin_losses.append(loss_sum / 3)
-            twin_counts.append(metrics.metric_counts(ms))
-        graph_losses = [json.loads(line)["train_loss"]
-                        for line in open(tmp / "twin_graph" / "metrics.jsonl")]
-        for e in range(2):
-            check(abs(graph_losses[e] - twin_losses[e]) <= 1e-5 * abs(twin_losses[e]),
-                  f"graph vs streamed epoch {e}: loss {graph_losses[e]} vs {twin_losses[e]}")
-            dcount = sum(abs(a - c) for a, c in zip(twins["graph"].train_counts[e],
-                                                     twin_counts[e]))
-            check(dcount <= 2 * band, f"graph vs streamed epoch {e}: counts "
-                                      f"{twins['graph'].train_counts[e]} vs {twin_counts[e]}")
-        twin_dp = max(float((a - c).detach().abs()) for a, c in zip(
-            twins["graph"].model.parameters(), streamed.model.parameters()))
-        check(twin_dp <= 1e-5, f"graph vs streamed: parameters differ by {twin_dp:.3g}")
-        same_bits = all(torch.equal(a, c) for a, c in zip(twins["graph"].model.parameters(),
-                                                           streamed.model.parameters()))
-        print(f"[train graph vs eager] fit_grid_cached, 2 epochs of 3 steps ({GRAPH_WARMUP} "
-              f"eager warm-up steps, then the captured step replayed "
-              f"{6 - GRAPH_WARMUP} times) vs the same "
-              f"batches through train_step: losses {graph_losses} vs {twin_losses}, counts "
-              f"{twins['graph'].train_counts} vs {twin_counts} ({band} voxels within 1e-5 of "
-              f"tau), max|dparam| {twin_dp:.3g} (bit-identical: {same_bits})", flush=True)
-        del twins, streamed, three
+
+        def graph_twin(tag, make_model, criterion, epochs, **cfg):
+            pair = {}
+            for side in ("graph", "eager"):
+                pair[side] = Trainer(make_model(), criterion, TrainConfig(
+                    run_dir=str(tmp / f"twin_{tag}_{side}"), max_epochs=epochs,
+                    checkpoint_dir=str(tmp / f"twin_ckpt_{tag}_{side}"),
+                    early_stop_metric=None, **cfg))
+            pair["graph"].fit_grid_cached(three, TRAIN_BATCH, augment=False,
+                                          generator=torch.Generator(dev).manual_seed(3))
+            eager = pair["eager"]
+            eager.setup_optimizer(capturable=True)
+            gen = torch.Generator(dev).manual_seed(3)
+            losses, counts = [], []
+            for _ in range(epochs):
+                order = torch.randperm(3 * TRAIN_BATCH, generator=gen, device=dev)
+                ms, loss_sum = metrics.init_metric_state(dev), torch.zeros((), device=dev)
+                for b in range(3):
+                    rows = order[b * TRAIN_BATCH:(b + 1) * TRAIN_BATCH]
+                    ms, loss = eager.train_step(ms, three.x[rows].float(),
+                                                three.y[rows].float())
+                    loss_sum += loss
+                losses.append(float(loss_sum) / 3)
+                counts.append(metrics.metric_counts(ms))
+            got = [json.loads(line)["train_loss"]
+                   for line in open(tmp / f"twin_{tag}_graph" / "metrics.jsonl")]
+            cached = pair["graph"].cached_epochs
+            replays = [g.replays for g in (cached.runner, cached.accumulate_runner)
+                       if g is not None]
+            check(sum(replays) == 3 * epochs - GRAPH_WARMUP * len(replays),
+                  f"graph vs eager, {tag}: replays {replays}")
+            same = (got == losses and pair["graph"].train_counts == counts
+                    and all(torch.equal(a, c) for a, c in zip(
+                        pair["graph"].model.parameters(), eager.model.parameters())))
+            check(same, f"graph vs eager, {tag}: losses {got} vs {losses}, counts "
+                        f"{pair['graph'].train_counts} vs {counts}")
+            return (f"{tag}: {3 * epochs} steps, replays {replays}, losses {got}, counts "
+                    f"{counts}, bit-identical")
+
+        def scenenet():
+            return SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+
+        print(f"[train graph vs eager] fit_grid_cached, 3 steps an epoch ({GRAPH_WARMUP} eager "
+              "warm-up steps, then the captured step replayed) vs the same batches through "
+              "train_step: " + graph_twin("defaults", scenenet, crit, 2), flush=True)
+
+        # ---- 10e. quantile training, bf16 and accumulation through the train CLI ----
+        # each through device_cache auto -> 'grids', traced: a quantile step runs K2
+        # and K4 once a member (Q = 3), bf16 the same kernels on the widened kernel
+        Q = 3
+        Trainer._run_cached_epochs = spy
+        option_runs = {}
+        for tag, extra, q, epochs in (
+                ("quantile", ["model=quantile", "criterion=quantile_geneo"], Q, TRAIN_EPOCHS),
+                ("bf16", ["precision=bf16"], 1, TRAIN_EPOCHS),
+                ("accumulate", ["accumulate_grad_batches=2"], 1, 2 * TRAIN_EPOCHS)):
+            cached_fits.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CUDA]) as opt_prof, \
+                    tee_stdout() as said:
+                opt_scores = train_cli.main(["--set", *DEFAULTS_SET, "--set",
+                                             f"data_path={tmp / 'ts40k'}",
+                                             f"max_epochs={epochs}", "num_workers=4",
+                                             f"output_dir={tmp / tag}",
+                                             f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
+                torch.cuda.synchronize()
+            opt_s = time.perf_counter() - t0
+            opt_counts, opt_runs = read_counts(), kernel_runs(opt_prof)
+            opt_steps = epochs * (n_train // TRAIN_BATCH)
+            opt_eval = epochs * -(-n_val // TRAIN_BATCH) + -(-N_TEST // TRAIN_BATCH)
+            check("[device_cache auto] -> 'grids'" in said.text, f"{tag}: not the grid cache")
+            check(all(math.isfinite(v) for k, v in opt_scores.items() if k.endswith("loss")),
+                  f"{tag}: losses {opt_scores}")
+            cached = cached_fits[0].cached_epochs
+            graphs = [cached.runner] + ([cached.accumulate_runner]
+                                        if cached.accumulate_runner is not None else [])
+            check(all(g.captured for g in graphs)
+                  and sum(g.replays for g in graphs) == opt_steps - GRAPH_WARMUP * len(graphs),
+                  f"{tag}: {len(graphs)} graphs replayed "
+                  f"{[g.replays for g in graphs]} times in {opt_steps} steps")
+            # run on the card, read from the trace: K2 once a member a step and an
+            # evaluation batch, K4 once a member a step, K3 once a cache load and an
+            # evaluation batch; launched by the wrappers: the eager steps' and each
+            # capture's only
+            check(opt_runs == {"points_binary": builds + opt_eval,
+                               "stencil_conv": q * (opt_steps + opt_eval),
+                               "stencil_dk": q * opt_steps},
+                  f"{tag}: ran {opt_runs} on the card in {opt_steps} steps and {opt_eval} "
+                  "evaluation batches")
+            launched = (GRAPH_WARMUP + 1) * len(graphs)
+            check(opt_counts["stencil_conv"] == q * (launched + opt_eval)
+                  and opt_counts["stencil_dk"] == q * launched,
+                  f"{tag}: launched {opt_counts}")
+            option_runs[tag] = (opt_s, opt_steps, opt_scores["train_loss"],
+                                opt_scores["test_loss"], opt_runs, opt_counts,
+                                [g.replays for g in graphs])
+        Trainer._run_cached_epochs = run_cached
+        print("[train options] cli.train with the defaults and, each through device_cache "
+              "auto -> 'grids': " + " | ".join(
+                  f"{tag} ({s:.1f} s, {n} steps, graphs replayed {r}): train_loss "
+                  f"{tl:.6f}, test_loss {te:.6f}, run on the card {ru}, launched {c}"
+                  for tag, (s, n, tl, te, ru, c, r) in option_runs.items())
+              + " (model=quantile criterion=quantile_geneo, 3 members: K2 and K4 three "
+              "times a step; precision=bf16; accumulate_grad_batches=2: two graphs)",
+              flush=True)
+
+        # the same options' cached steps replayed from their graphs against eager steps
+        qcrit = resolve_criterion("quantile_geneo")(quantiles=(0.1, 0.5, 0.9), **load_config(
+            None, train_cli.parse_overrides(DEFAULTS_SET)).criterion_params())
+        twin_parts = [
+            graph_twin("quantile", lambda: QuantileSceneNet.create(
+                kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev), qcrit, 2),
+            graph_twin("accumulate 2", scenenet, crit, 4, accumulate_grad_batches=2),
+            graph_twin("bf16", scenenet, crit, 2, precision="bf16"),
+        ]
+        print(f"[train options graph vs eager] fit_grid_cached, 3 steps an epoch "
+              f"({GRAPH_WARMUP} eager warm-up steps a graph, then replays) vs the same "
+              "batches through train_step: " + " | ".join(twin_parts), flush=True)
+        del three
 
         # ---- 10d. the train step by route: streaming, point cache, grid cache -----
         # at least 16 steps an epoch: the 51 training crops repeated to 256 samples
@@ -1736,16 +1971,25 @@ def main(argv=None) -> int:
                                                                          grid_cache.y))
         route_steps = ROUTE_SAMPLES // TRAIN_BATCH
         route_trainers = {}
-        for tag in ("streaming", "points", "grids"):
-            net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
-            t = Trainer(net, crit, TrainConfig(run_dir=str(tmp / f"route_{tag}"),
-                                               checkpoint_dir=str(tmp / f"route_c_{tag}"),
-                                               max_epochs=1, early_stop_metric=None),
-                        batch_prep=prep if tag != "grids" else None)
-            if tag == "points":  # the configuration auto sends to the point cache
+        # the defaults' model by every route; the quantile ensemble (3 members) and
+        # precision bf16 by the two cached routes
+        for tag in ("streaming", "points", "grids", "points quantile", "grids quantile",
+                    "points bf16", "grids bf16"):
+            route, _, option = tag.partition(" ")
+            if option == "quantile":
+                net, c = QuantileSceneNet.create(kernel_size=(9, 5, 5), seed=0,
+                                                 backend="cuda").to(dev), qcrit
+            else:
+                net, c = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev), crit
+            t = Trainer(net, c, TrainConfig(run_dir=str(tmp / f"route_{tag}"),
+                                            checkpoint_dir=str(tmp / f"route_c_{tag}"),
+                                            max_epochs=1, early_stop_metric=None,
+                                            precision="bf16" if option == "bf16" else "f32"),
+                        batch_prep=prep if route != "grids" else None)
+            if route == "points":  # the configuration auto sends to the point cache
                 t.fit_cached(point_cache, TRAIN_BATCH, augment=True,
                              generator=torch.Generator(dev).manual_seed(0))
-            elif tag == "grids":  # the defaults
+            elif route == "grids":  # the defaults
                 t.fit_grid_cached(grid_cache, TRAIN_BATCH, augment=False,
                                   generator=torch.Generator(dev).manual_seed(0))
             else:
@@ -1762,9 +2006,9 @@ def main(argv=None) -> int:
                 ms, _ = t.train_step(ms, *t.to_device(batch))
             metrics.metric_counts(ms)
 
-        epoch_fns = {"streaming": streamed_epoch,
-                     "points": route_trainers["points"].cached_epochs.run_epoch,
-                     "grids": route_trainers["grids"].cached_epochs.run_epoch}
+        epoch_fns = {"streaming": streamed_epoch}
+        epoch_fns.update((tag, t.cached_epochs.run_epoch) for tag, t in route_trainers.items()
+                         if tag != "streaming")
         epoch_fns["streaming"]()  # the loader's first epoch
         route_ms = {k: [] for k in epoch_fns}
         for r in range(4):
@@ -1782,7 +2026,8 @@ def main(argv=None) -> int:
                   f"{k} {route_step_ms[k]:.3f} [{min(v):.3f}-{max(v):.3f}]"
                   for k, v in route_ms.items())
               + " (streaming: the host loader, 4 workers; points: augment=True, K3 in the "
-              "step; grids: augment=False, the defaults)", flush=True)
+              "step; grids: augment=False, the defaults; quantile: model=quantile, 3 members, "
+              "quantile_geneo; bf16: precision=bf16)", flush=True)
         if opts.profile:
             for tag, fn in epoch_fns.items():
                 calls = {}
@@ -2041,6 +2286,24 @@ def main(argv=None) -> int:
               f"{unet_counts}", flush=True)
         del unet, probs
 
+        # ---- 16b. main path: the bf16 UNet through the train CLI, every conv in K10's
+        # bf16 form (the 1 -> 32 layer too), dw by cuDNN in bf16
+        unet16_scores, unet16_losses, unet16_s, unet16_counts = train_run(
+            "unet_bf16", [f"data_path={tmp / 'ts40k'}", "model=unet", "precision=bf16",
+                          "device_cache=auto"], False)
+        check(unet16_counts["conv3d_mc_bf16"] == UNET_TRAIN_LAUNCHES * unet_steps
+              + UNET_EVAL_LAUNCHES * 2 and unet16_counts["conv3d_mc"] == 0,
+              f"unet bf16: K10 launched {unet16_counts} in {unet_steps} steps and 2 "
+              "evaluation batches")
+        check(all(math.isfinite(v) for v in unet16_losses.values()),
+              f"unet bf16: losses {unet16_losses}")
+        print(f"[train unet bf16] cli.train model=unet precision=bf16, defaults width (B="
+              f"{TRAIN_BATCH}, 64^3): 1 epoch = {unet_steps} steps + 1 validation + 1 test "
+              f"batch in {unet16_s:.1f} s | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(unet16_losses.items()))
+              + f" (f32: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(unet_losses.items()))
+              + f") | launches {unet16_counts}", flush=True)
+
         # ---- 17. UNet train parity and step time: K10 backend vs plain backend ---
         unets = {}
         for backend in ("cuda", "torch"):
@@ -2080,6 +2343,50 @@ def main(argv=None) -> int:
               f"adam ({smi}), median of 4 alternating rounds [min-max] ms/step: "
               + fmt_times({"backend cuda (K10 forward and dx) vs torch": unet_step_t}),
               flush=True)
+        # the bf16 UNet (K10's bf16 form, cuDNN's bf16 dw) beside the f32 one: 3 steps
+        # from the same weights within the JAX package's bf16 budget (loss rtol 5e-2),
+        # then the step times in turns
+        unet16 = Trainer(UNet3D.create(seed=0, backend="cuda", dtype=torch.bfloat16).to(dev),
+                         crit, TrainConfig(run_dir=str(tmp / "unet_bf16_step"),
+                                           checkpoint_dir=str(tmp / "unet_bf16_step_ckpt"),
+                                           precision="bf16"), batch_prep=prep)
+        unet16.setup_optimizer()
+        unet32 = Trainer(UNet3D.create(seed=0, backend="cuda").to(dev), crit,
+                         TrainConfig(run_dir=str(tmp / "unet_f32_step"),
+                                     checkpoint_dir=str(tmp / "unet_f32_step_ckpt")),
+                         batch_prep=prep)
+        unet32.setup_optimizer()
+        bf16_parts = []
+        for i, b in enumerate(batches):
+            db = unet16.to_device(b)
+            l16 = float(unet16.train_step(metrics.init_metric_state(dev), *db)[1])
+            l32 = float(unet32.train_step(metrics.init_metric_state(dev), *db)[1])
+            check(math.isfinite(l16) and abs(l16 - l32) <= 5e-2 * abs(l32),
+                  f"unet bf16 step {i}: loss {l16} vs f32 {l32}")
+            bf16_parts.append(f"step {i}: loss bf16 {l16:.6f} / f32 {l32:.6f}")
+        ms16 = metrics.init_metric_state(dev)
+        unet16_step_t = paired_ms(lambda: unet16.train_step(ms16, *dbatch),
+                                  lambda: unets["cuda"].train_step(ms["cuda"], *dbatch),
+                                  iters=2, warmup=1)
+        print(f"[timing] UNet3D train step bf16 (K10's bf16 form, dw cuDNN bf16) vs f32 "
+              f"(K10 f32) B={TRAIN_BATCH} 64^3 ({smi}), median of 4 alternating rounds "
+              f"[min-max] ms/step: bf16 {unet16_step_t['ms']:.4f} [{unet16_step_t['range'][0]:.4f}-"
+              f"{unet16_step_t['range'][1]:.4f}] vs f32 {unet16_step_t['plain_ms']:.4f} "
+              f"[{unet16_step_t['plain_range'][0]:.4f}-{unet16_step_t['plain_range'][1]:.4f}] | "
+              + " | ".join(bf16_parts), flush=True)
+        if opts.profile:
+            n_prof = 3
+            wall, busy_us, n_items, largest, by_name = profiled(lambda: [
+                unet16.train_step(ms16, *dbatch) for _ in range(n_prof)])
+            k10_us = sum(v for k, v in by_name.items() if "conv3d_mc_" in k)
+            dw_us = by_name.get("aten::convolution_backward", 0.0)
+            print(f"[profile] UNet3D train step bf16, backend cuda, B={TRAIN_BATCH} 64^3 ({smi}): "
+                  f"{n_prof} steps in {wall * 1e3:.1f} ms wall, device busy {busy_us / 1e3:.3f} "
+                  f"ms = idle share {1 - busy_us / 1e6 / wall:.4f}, {n_items / n_prof:.1f} "
+                  f"device items a step; K10 {k10_us / busy_us:.4f} of the device time, the "
+                  f"weight gradients (aten::convolution_backward) {dw_us / busy_us:.4f}; "
+                  f"largest: {largest}", flush=True)
+        del unet16, unet32
         if opts.profile:
             n_prof = 3
             wall, busy_us, n_items, largest, by_name = profiled(lambda: [
@@ -2107,8 +2414,10 @@ def main(argv=None) -> int:
               + f" | launches {cnn_counts}", flush=True)
 
     main_runs = [serve_counts, headline_counts, batched_counts, train_counts,
-                 *(c for _, _, c in route_runs.values()), host_counts,
-                 *big_counts.values(), big_serve_counts, counts_path, unet_counts, cnn_counts]
+                 *(c for _, _, c in route_runs.values()),
+                 *(r[5] for r in option_runs.values()), host_counts,
+                 *big_counts.values(), big_serve_counts, counts_path, unet_counts,
+                 unet16_counts, cnn_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
     # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch
@@ -2153,6 +2462,12 @@ def main(argv=None) -> int:
                            >= sum(mc_bounds[c][0] for c in UNET_CONVS
                                   if mc_bounds[c][1] == "bytes") else "bytes")
 
+    # K10's bf16 form: the same 18 convs, bf16 bytes, the products at the bf16 peak
+    bounds["conv3d_mc_bf16"] = (mc16_bound_sum, "operations" if sum(
+        mc16_bounds[c][0] for c in UNET_CONVS if mc16_bounds[c][1] == "operations")
+        >= sum(mc16_bounds[c][0] for c in UNET_CONVS if mc16_bounds[c][1] == "bytes")
+        else "bytes")
+
     # B10's halo forms: their launches are those of their own entry point's run
     bounds.update(halo_bounds)
     total["stencil_conv_halo"] = halo_counts["stencil_conv"]
@@ -2189,6 +2504,8 @@ def main(argv=None) -> int:
               hist_times["flat_ids"], f"B={TRAIN_BATCH} N={TRAIN_POINTS} 64^3"),
         entry("conv3d_mc", "conv3d_mc.cu", "pallas_conv_mc.py:100", k10_err, mc_sum,
               f"B={TRAIN_BATCH} 64^3, the sum over UNet3D's 18 forward convs"),
+        entry("conv3d_mc_bf16", "conv3d_mc.cu", "pallas_conv_mc.py:100", k10b_err, mc16_sums,
+              f"B={TRAIN_BATCH} 64^3 bf16, the sum over UNet3D's 18 forward convs"),
         entry("stencil_conv_halo", "stencil_conv.cu", "pallas_conv.py:918", halo_conv_err,
               halo_times["stencil_conv_halo"],
               f"B={BIG_BATCH} z-slab {HALO_Z}+8 x128x128 k(9,5,5), z_prepadded"),

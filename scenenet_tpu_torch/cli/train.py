@@ -10,10 +10,14 @@ cache (:class:`DevicePointCache` + ``fit_cached``, voxelized every step)
 first under ``augment: true``, and the streaming loader when neither
 fits or the model is stateful (``unet``); ``points``/``true`` and
 ``grids`` ask for a cache, ``false`` for the streaming loader. ``model``
-is ``scenenet`` or one of the black-box baselines, ``cnn``
+is ``scenenet``, ``quantile`` (:class:`QuantileSceneNet`, one SceneNet a
+quantile of ``quantiles``, trained by the quantile criteria with the same
+quantiles) or one of the black-box baselines, ``cnn``
 (:class:`CnnBaseline` with the config's kernel size) and ``unet``
 (:class:`UNet3D`, whose BatchNorm statistics ride along in every
-checkpoint).
+checkpoint; ``precision: bf16`` computes it in bf16).
+``precision: bf16``, ``accumulate_grad_batches`` and ``geneo_init: smart``
+train as in the JAX CLI.
 
 Usage:
     python -m scenenet_tpu_torch.cli.train --config experiments/defaults.yaml \\
@@ -43,7 +47,7 @@ from scenenet_tpu_torch.cli.serve import resolve_device
 from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K, random_split
 from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
 from scenenet_tpu_torch.losses import resolve_criterion
-from scenenet_tpu_torch.models import CnnBaseline, SceneNet, UNet3D
+from scenenet_tpu_torch.models import CnnBaseline, QuantileSceneNet, SceneNet, UNet3D
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
 from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config
@@ -57,9 +61,6 @@ _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Raise, naming the ROADMAP item, on every value that asks for
     something the port does not have yet."""
-    if cfg.model == "quantile":
-        raise NotImplementedError("model 'quantile' (quantile training, with the quantile "
-                                  "losses of A9) is not ported yet: ROADMAP A8")
     if cfg.dataset != "ts40k":
         raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet: ROADMAP A0")
     meshes = {k: getattr(cfg, k) for k in ("mesh_data", "mesh_space", "mesh_dcn_data",
@@ -78,9 +79,6 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     if not cfg.device_voxelization:
         raise NotImplementedError("device_voxelization=False (host voxelization) is "
                                   "not ported yet: ROADMAP A0")
-    if cfg.geneo_init != "random":
-        raise NotImplementedError(f"geneo_init={cfg.geneo_init!r} is not ported yet: "
-                                  "ROADMAP A2")
     if cfg.export_stablehlo:
         raise NotImplementedError("export_stablehlo is not ported yet: ROADMAP A11")
     if cfg.use_wandb:
@@ -153,10 +151,20 @@ def resolve_backend(cfg: ExperimentConfig, device) -> str:
         raise ValueError(f"model_backend must be auto or one of {sorted(_BACKENDS)}, "
                          f"got {cfg.model_backend!r}")
     backend = _BACKENDS[cfg.model_backend]
-    if backend == "cuda_mxu" and cfg.model != "scenenet":
+    if backend == "cuda_mxu" and cfg.model not in ("scenenet", "quantile"):
         raise ValueError(f"model_backend={cfg.model_backend!r} is SceneNet's tensor-core "
                          f"stencil; model {cfg.model!r} takes auto, cuda/pallas or torch/xla")
     return backend
+
+
+def build_criterion(cfg: ExperimentConfig):
+    """The config's criterion; a quantile criterion targets the quantiles the
+    ensemble's members are built for (``cfg.quantiles``), which the generic
+    criterion parameters leave out."""
+    kw = cfg.criterion_params()
+    if cfg.criterion.startswith("quantile"):
+        kw["quantiles"] = tuple(cfg.quantiles)
+    return resolve_criterion(cfg.criterion)(**kw)
 
 
 def build_model(cfg: ExperimentConfig, device):
@@ -164,12 +172,19 @@ def build_model(cfg: ExperimentConfig, device):
     backend = resolve_backend(cfg, device)
     if cfg.model == "scenenet":
         model = SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
-                                backend=backend)
+                                smart=cfg.geneo_init == "smart", backend=backend)
+    elif cfg.model == "quantile":
+        model = QuantileSceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
+                                        quantiles=tuple(cfg.quantiles), backend=backend)
     elif cfg.model == "cnn":
         model = CnnBaseline.create(conv_num=3, kernel_size=cfg.kernel_size, seed=cfg.seed,
                                    backend=backend)
     elif cfg.model == "unet":
-        model = UNet3D.create(seed=cfg.seed, backend=backend)
+        # precision bf16: bf16 compute inside the model, f32 parameters and
+        # running statistics (the trainer's cast alone would leave the convs'
+        # operands to the f32 statistics)
+        dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
+        model = UNet3D.create(seed=cfg.seed, backend=backend, dtype=dtype)
     else:
         raise NotImplementedError(f"model {cfg.model!r}")
     return model.to(device)
@@ -183,7 +198,7 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     run_dir = os.path.join(cfg.output_dir, cfg.project)
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
 
-    criterion = resolve_criterion(cfg.criterion)(**cfg.criterion_params())
+    criterion = build_criterion(cfg)
     model = build_model(cfg, device)
     if cfg.resume_from_checkpoint:
         ckpt_path = os.path.join(ckpt_dir, cfg.resume_checkpoint_name + ".npz")

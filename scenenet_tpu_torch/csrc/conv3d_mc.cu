@@ -77,6 +77,18 @@
 //    (about 240 TFLOP/s for the card, half the wgmma peak): 3.3 ms as 3xTF32,
 //    2.8 ms with the cross terms in one bf16 mma.
 //
+// The bf16 form (a template flag of the same kernel, entry snt_conv3d_mc_tc_bf16)
+// takes bf16 x and w and writes bf16, for the bf16 UNet. A bf16 value has 8
+// significant bits, so it is exact in TF32 and the split's lo terms are zero:
+// the form runs the hi*hi mma alone, sums in f32 as the f32 form does and
+// rounds each output to bf16 once (after the K-split reduction where there
+// is one). The weights are widened by the split kernel; the inputs are
+// widened as they are staged, by plain loads and shared stores (cp.async
+// copies 4 bytes at least, and the tile keeps its f32 layout), so that
+// staging is not overlapped with the tensor cores as the f32 form's is. Every
+// layer takes it, the UNet's 1 -> 32 layer included (zero-filled to 8
+// channels: the FMA kernel has no bf16 form).
+//
 // The FMA kernel (conv3d_mc_kernel) is the first version of this port. It
 // stays for C_in <= 4 (the UNet's 1->32 layer is bound by its output bytes
 // and has K = 27; padding it to 8 channels would waste seven eighths of the
@@ -324,6 +336,9 @@ __device__ inline void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ inline float widen(float v) { return v; }
+__device__ inline float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // two floats rounded to bf16 in one register: `even` in the low half (the
 // even K slot of an mma fragment), `odd` in the high half
 __device__ inline unsigned pack_bf16(float even, float odd) {
@@ -338,7 +353,9 @@ __device__ inline unsigned pack_bf16(float even, float odd) {
 // C_out): (hi[ci], hi[ci + 4]) as TF32, the B fragment of the hi*hi mma, then
 // (bf16 w[ci] | bf16 lo[ci]) and the same of ci + 4, the B fragment of the
 // bf16 mma that takes both cross terms; hi = tf32(w) rounded, lo = w - hi.
-__global__ void conv3d_mc_split_kernel(const float* __restrict__ w, float4* __restrict__ frag,
+// W: float, or __nv_bfloat16 for the bf16 form (whose lo is zero).
+template <class W>
+__global__ void conv3d_mc_split_kernel(const W* __restrict__ w, float4* __restrict__ frag,
                                        int C_in, int C_out, long long s_co, long long s_ci,
                                        long long s_dz, long long s_dx, long long s_dy, int bn,
                                        int nc, long long total) {
@@ -358,30 +375,39 @@ __global__ void conv3d_mc_split_kernel(const float* __restrict__ w, float4* __re
   const int ci = kKc * c + t;
   const long long off = (long long)co * s_co + (tap / 9) * s_dz + ((tap / 3) % 3) * s_dx +
                         (tap % 3) * s_dy;
-  const float v0 = (co < C_out && ci < C_in) ? w[off + ci * s_ci] : 0.0f;
-  const float v1 = (co < C_out && ci + 4 < C_in) ? w[off + (ci + 4) * s_ci] : 0.0f;
+  const float v0 = (co < C_out && ci < C_in) ? widen(w[off + ci * s_ci]) : 0.0f;
+  const float v1 = (co < C_out && ci + 4 < C_in) ? widen(w[off + (ci + 4) * s_ci]) : 0.0f;
   const unsigned h0 = tf32_rna(v0), h1 = tf32_rna(v1);
   const float l0 = __fsub_rn(v0, __uint_as_float(h0)), l1 = __fsub_rn(v1, __uint_as_float(h1));
   frag[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
                         __uint_as_float(pack_bf16(v0, l0)), __uint_as_float(pack_bf16(v1, l1)));
 }
 
-// out[i] = partial[0][i] + partial[1][i] + ... in that order.
+__device__ inline void store_out(float* o, float v) { *o = v; }
+__device__ inline void store_out(__nv_bfloat16* o, float v) { *o = __float2bfloat16_rn(v); }
+
+// out[i] = partial[0][i] + partial[1][i] + ... in that order (O: float, or
+// __nv_bfloat16 for the bf16 form, rounded once).
+template <class O>
 __global__ void conv3d_mc_reduce_kernel(const float* __restrict__ partial,
-                                        float* __restrict__ out, long long n, int k_splits) {
+                                        O* __restrict__ out, long long n, int k_splits) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     float s = partial[i];
     for (int k = 1; k < k_splits; ++k) s += partial[(long long)k * n + i];
-    out[i] = s;
+    store_out(out + i, s);
   }
 }
 
-template <class T>
+// E: the element type of x and of the output, float or __nv_bfloat16 (the bf16
+// form: hi*hi alone, x widened as it is staged). With k_splits > 1 the
+// kernel writes f32 partial sums to `dst` whatever E is.
+template <class T, class E>
 __global__ void __launch_bounds__(kTcThreads, 1)
-conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfrag,
-                    float* __restrict__ dst, int B, int C_in, int C_out, int Z, int X, int Y,
+conv3d_mc_tc_kernel(const E* __restrict__ x, const float4* __restrict__ wfrag,
+                    void* __restrict__ dst_raw, int B, int C_in, int C_out, int Z, int X, int Y,
                     int tiles_z, int tiles_x, int tiles_y, int co_tiles, int k_splits, int nc) {
+  constexpr bool kHalf = sizeof(E) == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* xbuf = reinterpret_cast<float*>(smem_raw);
   float4* wbuf = reinterpret_cast<float4*>(xbuf + 2 * T::XBUF);
@@ -405,7 +431,9 @@ conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfra
   const int c_end = (int)((long long)(ks + 1) * nc / k_splits);
   const int V = Z * X * Y;
   const int tid = threadIdx.x;
-  dst += (long long)ks * B * C_out * V;  // K split ks writes slab ks of the scratch
+  // K split ks writes slab ks of the f32 scratch
+  float* const partial = static_cast<float*>(dst_raw) + (long long)ks * B * C_out * V;
+  E* const out = static_cast<E*>(dst_raw);
 
   // the halo's global offsets, once: element p of the tile -> offset in x
   // relative to sample b0, channel 0; -1 outside the volume or the batch
@@ -420,7 +448,7 @@ conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfra
     gtab[p] = ok ? lb * C_in * V + (gz * X + gx) * Y + gy : -1;
   }
   __syncthreads();
-  const float* xb = x + (long long)b0 * C_in * V;
+  const E* xb = x + (long long)b0 * C_in * V;
 
   // stage s of this block: chunk c_begin + s / 3, taps of dz = s % 3
   auto prefetch = [&](int s) {
@@ -436,7 +464,13 @@ conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfra
         for (int ch = 0; ch < kKc; ++ch) {
           const int ci = kKc * c + ch;
           const bool ok = g >= 0 && ci < C_in;
-          cp_async4(xd + ch * T::CS + p, ok ? xb + (long long)ci * V + g : x, ok);
+          if constexpr (kHalf) {
+            // the buffer this stage fills is read by no warp before the
+            // __syncthreads at the top of its stage: plain stores may go in
+            xd[ch * T::CS + p] = ok ? widen(xb[(long long)ci * V + g]) : 0.0f;
+          } else {
+            cp_async4(xd + ch * T::CS + p, ok ? xb + (long long)ci * V + g : x, ok);
+          }
         }
       }
     }
@@ -516,11 +550,13 @@ conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfra
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           ahi[e] = __float_as_uint(av[e]) & kTf32Mask;
-          across[e] = pack_bf16(av[e] - __uint_as_float(ahi[e]), av[e]);
+          if constexpr (!kHalf) across[e] = pack_bf16(av[e] - __uint_as_float(ahi[e]), av[e]);
         }
 #pragma unroll
         for (int j = 0; j < T::NT; ++j) {
-          mma_bf16(part[mt][j], across, __float_as_uint(bf[j].z), __float_as_uint(bf[j].w));
+          if constexpr (!kHalf) {
+            mma_bf16(part[mt][j], across, __float_as_uint(bf[j].z), __float_as_uint(bf[j].w));
+          }
           mma_tf32(part[mt][j], ahi, __float_as_uint(bf[j].x), __float_as_uint(bf[j].y));
         }
       }
@@ -548,30 +584,36 @@ conv3d_mc_tc_kernel(const float* __restrict__ x, const float4* __restrict__ wfra
       const int oz = z0 + (slot / (T::TY * T::TX)) % T::TZ;
       const int ob = b0 + slot / (T::TY * T::TX * T::TZ);
       if (ob >= B || oz >= Z || ox >= X || oy >= Y) continue;
-      float* o = dst + (long long)ob * C_out * V + ((long long)oz * X + ox) * Y + oy;
+      const long long ooff = (long long)ob * C_out * V + ((long long)oz * X + ox) * Y + oy;
 #pragma unroll
       for (int j = 0; j < T::NT; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int co = cot * T::BN + (wn * T::NT + j) * 8 + 2 * t + e;
-          if (co < C_out) o[(long long)co * V] = acc[mt][j][2 * h + e];
+          if (co >= C_out) continue;
+          if (k_splits > 1) {
+            partial[ooff + (long long)co * V] = acc[mt][j][2 * h + e];
+          } else {
+            store_out(out + ooff + (long long)co * V, acc[mt][j][2 * h + e]);
+          }
         }
       }
     }
   }
 }
 
+template <class E>
 struct TcArgs {
-  const float* x;
+  const E* x;
   const float4* wfrag;
-  float* out;
+  E* out;
   float* partial;
   int B, C_in, C_out, Z, X, Y, k_splits;
   cudaStream_t s;
 };
 
-template <class T>
-int launch_tc(const TcArgs& a) {
+template <class T, class E>
+int launch_tc(const TcArgs<E>& a) {
   const long long V = (long long)a.Z * a.X * a.Y;
   const long long tiles_z = (a.Z + T::TZ - 1) / T::TZ, tiles_x = (a.X + T::TX - 1) / T::TX,
                   tiles_y = (a.Y + T::TY - 1) / T::TY, tiles_b = (a.B + T::TB - 1) / T::TB,
@@ -584,21 +626,21 @@ int launch_tc(const TcArgs& a) {
     return (int)cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(conv3d_mc_tc_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(conv3d_mc_tc_kernel<T, E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  float* dst = a.k_splits > 1 ? a.partial : a.out;
-  conv3d_mc_tc_kernel<T><<<(unsigned)blocks, kTcThreads, T::SMEM, a.s>>>(
+  void* dst = a.k_splits > 1 ? static_cast<void*>(a.partial) : static_cast<void*>(a.out);
+  conv3d_mc_tc_kernel<T, E><<<(unsigned)blocks, kTcThreads, T::SMEM, a.s>>>(
       a.x, a.wfrag, dst, a.B, a.C_in, a.C_out, a.Z, a.X, a.Y, (int)tiles_z, (int)tiles_x,
       (int)tiles_y, (int)co_tiles, a.k_splits, nc);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.k_splits == 1) return (int)e;
   const long long n = (long long)a.B * a.C_out * V;
   const int rblocks = (int)((n + 255) / 256 < 2048 ? (n + 255) / 256 : 2048);
-  conv3d_mc_reduce_kernel<<<rblocks, 256, 0, a.s>>>(a.partial, a.out, n, a.k_splits);
+  conv3d_mc_reduce_kernel<E><<<rblocks, 256, 0, a.s>>>(a.partial, a.out, n, a.k_splits);
   return (int)cudaGetLastError();
 }
 
@@ -630,20 +672,12 @@ extern "C" int snt_conv3d_mc(const float* x, const float* wt, float* out, int B,
   return launch<64, 4, 4, 16, 19, 144>(a);
 }
 
-// The tensor-core route. w: (C_out, C_in, 3, 3, 3) weights with element
-// strides s_co, s_ci, s_dz, s_dx, s_dy (any view: the flipped, swapped weights
-// of the input gradient need no copy). frag: scratch for the split weight
-// fragments, co_tiles * ceil(C_in / 8) * 27 * BN * 16 floats, where BN is the
-// tile's channel width (32 for tiles 0 and 1, 64 for 2 and 3). x and out are
-// channels first and contiguous. partial: scratch of k_splits * out's size
-// when k_splits > 1, else unused. tile: 0 = 4x8x16 voxels x 32 channels,
-// 1 = 8x8x8 x 32, 2 = 4x8x8 x 64, 3 = 4 samples x 4x4x4 x 64. Launches the
-// split, the conv and, for k_splits > 1, the reduction on `stream`; returns
-// cudaGetLastError().
-extern "C" int snt_conv3d_mc_tc(const float* x, const float* w, float* frag, float* out,
-                                float* partial, int B, int C_in, int C_out, int Z, int X, int Y,
-                                long long s_co, long long s_ci, long long s_dz, long long s_dx,
-                                long long s_dy, int tile, int k_splits, void* stream) {
+namespace {
+
+template <class E>
+int conv3d_mc_tc(const E* x, const E* w, float* frag, E* out, float* partial, int B, int C_in,
+                 int C_out, int Z, int X, int Y, long long s_co, long long s_ci, long long s_dz,
+                 long long s_dx, long long s_dy, int tile, int k_splits, void* stream) {
   if (B <= 0 || C_in <= 0 || C_out <= 0 || Z <= 0 || X <= 0 || Y <= 0 || tile < 0 || tile > 3 ||
       (long long)Z * X * Y > 2147483647LL)
     return (int)cudaErrorInvalidValue;
@@ -652,21 +686,55 @@ extern "C" int snt_conv3d_mc_tc(const float* x, const float* w, float* frag, flo
   const int nc = (C_in + kKc - 1) / kKc;
   const long long co_tiles = (C_out + bn - 1) / bn;
   const long long total = co_tiles * nc * 27 * (bn / 8) * 32;
-  conv3d_mc_split_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  conv3d_mc_split_kernel<E><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       w, reinterpret_cast<float4*>(frag), C_in, C_out, s_co, s_ci, s_dz, s_dx, s_dy, bn, nc,
       total);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const TcArgs a{x, reinterpret_cast<const float4*>(frag), out, partial, B, C_in, C_out,
-                 Z, X, Y, k_splits, s};
+  const TcArgs<E> a{x, reinterpret_cast<const float4*>(frag), out, partial, B, C_in, C_out,
+                    Z, X, Y, k_splits, s};
   switch (tile) {
     case 0:
-      return launch_tc<Tile<1, 4, 8, 16, 32>>(a);
+      return launch_tc<Tile<1, 4, 8, 16, 32>, E>(a);
     case 1:
-      return launch_tc<Tile<1, 8, 8, 8, 32>>(a);
+      return launch_tc<Tile<1, 8, 8, 8, 32>, E>(a);
     case 2:
-      return launch_tc<Tile<1, 4, 8, 8, 64>>(a);
+      return launch_tc<Tile<1, 4, 8, 8, 64>, E>(a);
     default:
-      return launch_tc<Tile<4, 4, 4, 4, 64>>(a);
+      return launch_tc<Tile<4, 4, 4, 4, 64>, E>(a);
   }
+}
+
+}  // namespace
+
+// The tensor-core route. w: (C_out, C_in, 3, 3, 3) weights with element
+// strides s_co, s_ci, s_dz, s_dx, s_dy (any view: the flipped, swapped weights
+// of the input gradient need no copy). frag: scratch for the split weight
+// fragments, co_tiles * ceil(C_in / 8) * 27 * BN * 16 floats, where BN is the
+// tile's channel width (32 for tiles 0 and 1, 64 for 2 and 3). x and out are
+// channels first and contiguous. partial: scratch of k_splits * out's size
+// (f32) when k_splits > 1, else unused. tile: 0 = 4x8x16 voxels x 32
+// channels, 1 = 8x8x8 x 32, 2 = 4x8x8 x 64, 3 = 4 samples x 4x4x4 x 64.
+// Launches the split, the conv and, for k_splits > 1, the reduction on
+// `stream`; returns cudaGetLastError().
+extern "C" int snt_conv3d_mc_tc(const float* x, const float* w, float* frag, float* out,
+                                float* partial, int B, int C_in, int C_out, int Z, int X, int Y,
+                                long long s_co, long long s_ci, long long s_dz, long long s_dx,
+                                long long s_dy, int tile, int k_splits, void* stream) {
+  return conv3d_mc_tc<float>(x, w, frag, out, partial, B, C_in, C_out, Z, X, Y, s_co, s_ci,
+                             s_dz, s_dx, s_dy, tile, k_splits, stream);
+}
+
+// The bf16 form of the tensor-core route: x, w and out are bf16 (their raw
+// 16-bit words), everything else as snt_conv3d_mc_tc; the sums are f32 and
+// each output is rounded to bf16 once.
+extern "C" int snt_conv3d_mc_tc_bf16(const void* x, const void* w, float* frag, void* out,
+                                     float* partial, int B, int C_in, int C_out, int Z, int X,
+                                     int Y, long long s_co, long long s_ci, long long s_dz,
+                                     long long s_dx, long long s_dy, int tile, int k_splits,
+                                     void* stream) {
+  return conv3d_mc_tc<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), frag,
+      static_cast<__nv_bfloat16*>(out), partial, B, C_in, C_out, Z, X, Y, s_co, s_ci, s_dz,
+      s_dx, s_dy, tile, k_splits, stream);
 }

@@ -1,11 +1,18 @@
 """Training criteria."""
 
 from scenenet_tpu_torch.losses.geneo_loss import (
-    GENEOLoss, GENEOTverskyLoss, cvx_loss, positive_regularizer,
+    GENEODiceBCE, GENEODiceLoss, GENEOLoss, GENEOTverskyLoss, cvx_loss, positive_regularizer,
 )
-from scenenet_tpu_torch.losses.registry import resolve_criterion
-from scenenet_tpu_torch.losses.segmentation import FocalTverskyLoss, TverskyLoss
+from scenenet_tpu_torch.losses.quantile import QuantileGENEOLoss, QuantileLoss
+from scenenet_tpu_torch.losses.registry import CRITERION_REGISTRY, resolve_criterion
+from scenenet_tpu_torch.losses.segmentation import (
+    BinaryDiceBCE, BinaryDiceLoss, FocalLoss, FocalTverskyLoss, IoULoss, TverskyLoss,
+    binary_cross_entropy,
+)
 from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE
 
-__all__ = ["GENEOLoss", "GENEOTverskyLoss", "FocalTverskyLoss", "TverskyLoss",
-           "WeightedMSE", "cvx_loss", "positive_regularizer", "resolve_criterion"]
+__all__ = ["BinaryDiceBCE", "BinaryDiceLoss", "CRITERION_REGISTRY", "FocalLoss",
+           "FocalTverskyLoss", "GENEODiceBCE", "GENEODiceLoss", "GENEOLoss",
+           "GENEOTverskyLoss", "IoULoss", "QuantileGENEOLoss", "QuantileLoss", "TverskyLoss",
+           "WeightedMSE", "binary_cross_entropy", "cvx_loss", "positive_regularizer",
+           "resolve_criterion"]

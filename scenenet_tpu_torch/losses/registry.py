@@ -1,16 +1,21 @@
 """Criterion name → constructor registry.
 
-PyTorch twin of :mod:`scenenet_tpu.losses.registry`. Every constructor
-accepts the union of criterion kwargs from the experiment config and
-ignores what it does not use. The criteria not ported yet raise.
+PyTorch twin of :mod:`scenenet_tpu.losses.registry`, with the same names.
+Every constructor accepts the union of criterion kwargs from the
+experiment config and ignores what it does not use.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-from scenenet_tpu_torch.losses.geneo_loss import GENEOLoss, GENEOTverskyLoss
-from scenenet_tpu_torch.losses.segmentation import FocalTverskyLoss, TverskyLoss
+from scenenet_tpu_torch.losses.geneo_loss import (
+    GENEODiceBCE, GENEODiceLoss, GENEOLoss, GENEOTverskyLoss,
+)
+from scenenet_tpu_torch.losses.quantile import QuantileGENEOLoss, QuantileLoss
+from scenenet_tpu_torch.losses.segmentation import (
+    BinaryDiceBCE, BinaryDiceLoss, FocalTverskyLoss, TverskyLoss,
+)
 from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE
 
 
@@ -23,21 +28,21 @@ def _plain(cls):
 
 CRITERION_REGISTRY: Dict[str, Callable] = {
     "mse": WeightedMSE.create,
+    "dice": _plain(BinaryDiceLoss),
+    "dice_bce": BinaryDiceBCE.create,
     "tversky": _plain(TverskyLoss),
     "focal_tversky": _plain(FocalTverskyLoss),
     "geneo": GENEOLoss.create,
+    "geneo_dice": GENEODiceLoss.create,
+    "geneo_dice_bce": GENEODiceBCE.create,
     "geneo_tversky": GENEOTverskyLoss.create,
+    "quantile": QuantileLoss.create,
+    "quantile_geneo": QuantileGENEOLoss.create,
 }
-
-# in the JAX package's registry, not ported yet
-NOT_PORTED = ("dice", "dice_bce", "geneo_dice", "geneo_dice_bce", "quantile",
-              "quantile_geneo")
 
 
 def resolve_criterion(name: str) -> Callable:
     name = name.lower()
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"criterion {name!r} is not ported yet: ROADMAP A9")
     if name not in CRITERION_REGISTRY:
         raise NotImplementedError(f"Criterion {name!r} not implemented")
     return CRITERION_REGISTRY[name]

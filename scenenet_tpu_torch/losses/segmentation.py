@@ -1,8 +1,10 @@
-"""Overlap-based segmentation losses: Tversky and focal Tversky.
+"""Overlap-based segmentation losses: Tversky, Dice, BCE, focal and IoU.
 
-PyTorch twins of the two criteria of :mod:`scenenet_tpu.losses.segmentation`
-that the default training criterion uses. The index is taken over global
-sums of the whole batch.
+PyTorch twins of the criteria of :mod:`scenenet_tpu.losses.segmentation`.
+The Tversky, focal-Tversky and IoU indices are taken over global sums of
+the whole batch; Dice per sample, then reduced. The BCE clamps each log
+term at −100, as ``torch.nn.BCELoss`` does (the JAX package copies that
+clamp).
 """
 
 from __future__ import annotations
@@ -11,6 +13,18 @@ import dataclasses
 
 import torch
 
+from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE
+
+# torch.nn.BCELoss clamps each log term at -100
+_BCE_CLAMP = 100.0
+
+
+def binary_cross_entropy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE with the log terms clamped at −100 (no reduction)."""
+    logp = torch.clamp(torch.log(pred), min=-_BCE_CLAMP)
+    log1mp = torch.clamp(torch.log(1.0 - pred), min=-_BCE_CLAMP)
+    return -(target * logp + (1.0 - target) * log1mp)
+
 
 def _tversky_index(pred: torch.Tensor, target: torch.Tensor, alpha: float,
                    beta: float, smooth: float) -> torch.Tensor:
@@ -18,6 +32,14 @@ def _tversky_index(pred: torch.Tensor, target: torch.Tensor, alpha: float,
     fp = torch.sum((1.0 - target) * pred)
     fn = torch.sum(target * (1.0 - pred))
     return (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)
+
+
+def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return torch.mean(loss)
+    if reduction == "sum":
+        return torch.sum(loss)
+    return loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,3 +68,74 @@ class FocalTverskyLoss:
         t = _tversky_index(pred, target, self.tversky_alpha, self.tversky_beta,
                            self.tversky_smooth)
         return (1.0 - t) ** self.focal_gamma
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryDiceLoss:
+    """Per-sample Dice with a p-power denominator, then the ``reduction``
+    (``mean``, ``sum``, anything else: the per-sample losses)."""
+
+    smooth: float = 1.0
+    p: float = 2.0
+    reduction: str = "mean"
+
+    def __call__(self, pred, target, *_args, **_kw):
+        b = pred.shape[0]
+        pred = pred.reshape(b, -1)
+        target = target.reshape(b, -1)
+        num = torch.sum(pred * target, dim=1) + self.smooth
+        den = torch.sum(pred ** self.p + target ** self.p, dim=1) + self.smooth
+        return _reduce(1.0 - num / den, self.reduction)
+
+
+@dataclasses.dataclass(frozen=True)
+class BinaryDiceBCE:
+    """Histogram-weighted BCE + Dice, the weights those of ``w_mse``."""
+
+    w_mse: WeightedMSE
+    reduction: str = "mean"
+
+    @classmethod
+    def create(cls, targets=None, weighting_scheme_path=None, weight_alpha=1.0,
+               weight_epsilon=0.1, mse_weight=1.0, reduction="mean", **kw):
+        kwargs = ({} if weighting_scheme_path is None
+                  else {"weighting_scheme_path": weighting_scheme_path})
+        return cls(w_mse=WeightedMSE.create(targets=targets, weight_alpha=weight_alpha,
+                                            weight_epsilon=weight_epsilon,
+                                            mse_weight=mse_weight, **kwargs),
+                   reduction=reduction)
+
+    def __call__(self, pred, target, *_args, **_kw):
+        weights = self.w_mse.weight_target(target)
+        bce = binary_cross_entropy(pred, target)
+        dice = BinaryDiceLoss(reduction=self.reduction)(pred, target)
+        if self.reduction in ("mean", "sum"):
+            return _reduce(weights * bce, self.reduction) + dice
+        return weights * bce + dice
+
+
+@dataclasses.dataclass(frozen=True)
+class FocalLoss:
+    """BCE-based focal loss, the focal factor applied to the *reduced* BCE
+    (as the reference does)."""
+
+    focal_alpha: float = 0.5
+    focal_gamma: float = 2.0
+    reduction: str = "mean"
+
+    def __call__(self, pred, target, *_args, **_kw):
+        bce = _reduce(binary_cross_entropy(pred.reshape(-1), target.reshape(-1)),
+                      self.reduction)
+        return self.focal_alpha * (1.0 - torch.exp(-bce)) ** self.focal_gamma * bce
+
+
+@dataclasses.dataclass(frozen=True)
+class IoULoss:
+    """1 − soft IoU over the whole batch."""
+
+    smooth: float = 1.0
+
+    def __call__(self, pred, target, *_args, **_kw):
+        inter = torch.sum(pred * target)
+        union = torch.sum(pred + target) - inter
+        return 1.0 - (inter + self.smooth) / (union + self.smooth)

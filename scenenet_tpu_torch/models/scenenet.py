@@ -10,7 +10,16 @@ checkpoint keys join them with '/').
   slot is kept for checkpoint parity and ignored by the forward.
 - The forward folds the observer kernels by their convex coefficients
   first (convolution is linear in the kernel) and runs one 1-channel
-  conv, then the relu∘tanh head.
+  conv, then the relu∘tanh head. ``fuse_observers=False`` convolves with
+  each observer's kernel and weights the responses after, and
+  :meth:`SceneNet.observer_responses` returns those responses, the
+  white-box view; both take the plain conv on every backend, as the JAX
+  package takes its XLA conv there.
+- Under bf16 parameters and input (the trainer's ``precision: bf16``)
+  the kernels and coefficients are folded in bf16; the kernel backends
+  then widen the folded kernel and x to f32 for the conv, as the JAX
+  package casts them for its Pallas kernels, and the plain conv computes
+  in bf16 (f32 sums, rounded once).
 
 ``backend="torch"`` runs the plain, differentiable conv (the JAX
 ``"xla"``). ``backend="cuda"`` (the JAX ``"pallas"``) runs the
@@ -36,8 +45,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from scenenet_tpu_torch.geneo.kernels import KERNEL_REGISTRY, random_geneo_params
-from scenenet_tpu_torch.ops.conv3d import conv3d_same
+from scenenet_tpu_torch.geneo.kernels import (
+    KERNEL_REGISTRY, random_geneo_params, smart_geneo_params,
+)
+from scenenet_tpu_torch.ops.conv3d import conv3d_same, geneo_conv
 from scenenet_tpu_torch.ops.cuda_conv import (
     fused_geneo_conv, fused_geneo_conv_mxu, geneo_stencil_conv, geneo_stencil_conv_mxu,
 )
@@ -104,6 +115,7 @@ class SceneNet(nn.Module):
         kernel_size: Tuple[int, int, int] = (9, 6, 6),
         version: str = "v2",
         seed: int = 0,
+        smart: bool = False,
         backend: str = "torch",
     ) -> "SceneNet":
         """A model with parameters drawn from ``seed``.
@@ -111,7 +123,9 @@ class SceneNet(nn.Module):
         The numpy ``Generator`` is drawn in the JAX package's order (the
         last λ's index, the GENEO scalars observer by observer, the λs), and
         the λ arithmetic is the same float32 arithmetic, so a seed gives
-        bit-identical parameters in both packages.
+        bit-identical parameters in both packages. ``smart`` takes every
+        observer's hand-tuned scalars (``smart_geneo_params``) in place of
+        the random draws, which then leave the ``Generator`` to the λs.
         """
         geneo_num = dict(geneo_num or {"cy": 1, "cone": 1, "neg": 1})
         rng = np.random.default_rng(seed)
@@ -125,7 +139,9 @@ class SceneNet(nn.Module):
 
         with torch.no_grad():
             for name, kind in model.observers:
-                for p, v in random_geneo_params(kind, rng, kernel_size).items():
+                init = (smart_geneo_params(kind) if smart
+                        else random_geneo_params(kind, rng, kernel_size))
+                for p, v in init.items():
                     model.geneo[name][p].fill_(v)
             lo, hi = (0.0, 0.6) if version == "v1" else (-2.0 / n, 1.0 / n)
             lam = {ln: torch.tensor(rng.uniform(lo, hi), dtype=torch.float32)
@@ -153,18 +169,21 @@ class SceneNet(nn.Module):
             for ln in self.lambda_names
         ])
 
-    def combined_kernel(self) -> torch.Tensor:
+    def combined_kernel(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """The observers folded by their convex coefficients into one
         (k_z, k_x, k_y) kernel — an elementwise sum, as in the JAX
-        package (a matmul there would round the kernels to bf16)."""
-        lams = self.effective_lambdas()
-        return torch.sum(lams[:, None, None, None] * self.synthesize_kernels(), dim=0)
+        package (a matmul there would round the kernels to bf16). The
+        kernels and coefficients are cast to ``dtype`` first, the input's
+        dtype, as the JAX package casts them."""
+        lams = self.effective_lambdas().to(dtype)
+        return torch.sum(lams[:, None, None, None] * self.synthesize_kernels().to(dtype), dim=0)
 
     def forward(
         self,
         x: torch.Tensor,
         inference: "bool | str" = False,
         tau: Optional[float] = None,
+        fuse_observers: bool = True,
     ) -> torch.Tensor:
         """x (B, 1, Z, X, Y) → tower-probability grid of the same shape.
 
@@ -178,8 +197,19 @@ class SceneNet(nn.Module):
         (``"cuda"``) or :func:`fused_geneo_conv_mxu` (``"cuda_mxu"``),
         differentiable in the parameters. ``tau`` returns the
         ``(prob >= τ)`` mask instead of probabilities.
+
+        ``fuse_observers=False`` convolves x with every observer's kernel
+        (the plain conv, on every backend) and sums the responses weighted
+        by the convex coefficients: the same function as the fused conv,
+        summed in another order.
         """
-        combined = self.combined_kernel().to(x.dtype)
+        if not fuse_observers:
+            lams = self.effective_lambdas().to(x.dtype)
+            conv = torch.sum(lams[None, :, None, None, None] * self.observer_responses(x),
+                             dim=1, keepdim=True)
+            out = torch.relu(torch.tanh(conv))
+            return (out >= tau).to(out.dtype) if tau is not None else out
+        combined = self.combined_kernel(x.dtype)
         if inference in ("mxu", "mxu_fast") or (inference and self.backend == "cuda_mxu"):
             return geneo_stencil_conv_mxu(
                 x.detach().float(), combined.detach().float(), activation=True,
@@ -194,6 +224,11 @@ class SceneNet(nn.Module):
         else:
             out = torch.relu(torch.tanh(conv3d_same(x, combined[None, None])))
         return (out >= tau).to(out.dtype) if tau is not None else out
+
+    def observer_responses(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-observer convolution responses (B, G, Z, X, Y): the white-box
+        view, before the coefficients and the head."""
+        return geneo_conv(x, self.synthesize_kernels().to(x.dtype))
 
     # ---- constraint/loss plumbing -------------------------------------------
 
@@ -235,6 +270,15 @@ class SceneNet(nn.Module):
         }
         lam = {ln: ln != self.last_lambda for ln in self.lambda_names}
         return {"geneo": geneo, "lambdas": lam}
+
+
+def GENEONet(geneo_num: Optional[Mapping[str, int]] = None,
+             kernel_size: Tuple[int, int, int] = (9, 6, 6), seed: int = 0,
+             backend: str = "torch") -> SceneNet:
+    """SceneNet v1 (the v1 kernels and the U[0, 0.6] λ draw): the reference's
+    ``GENEONet`` is a duplicate of its ``SCENE_Net``, and the JAX package's
+    ``GENEONet`` is this alias."""
+    return SceneNet.create(geneo_num, kernel_size, version="v1", seed=seed, backend=backend)
 
 
 class QuantileSceneNet(nn.Module):
@@ -333,7 +377,7 @@ class SceneNetClassifier(SceneNet):
         """The SceneNet of ``seed``, and τ = 0.4·u with u the first draw of a
         numpy ``Generator`` seeded ``seed + 17``: U[0, 0.4], as the JAX
         package draws it."""
-        model = super().create(geneo_num, kernel_size, version, seed, backend)
+        model = super().create(geneo_num, kernel_size, version, seed=seed, backend=backend)
         tau = 0.4 * np.random.default_rng(seed + 17).random()
         with torch.no_grad():
             model.tau.copy_(torch.tensor(tau, dtype=torch.float32))

@@ -14,6 +14,14 @@ runs it through :func:`~scenenet_tpu_torch.ops.cuda_conv_mc.fused_conv3d_mc`,
 the hand-written kernel forward and for dx. The 1×1×1 head is a matrix
 product on both (the JAX package computes it outside any kernel too).
 
+``dtype=torch.bfloat16`` mirrors the flax module's ``dtype``: the convs,
+the BatchNorms and the head compute in bf16 (a conv's products and sums
+in f32 from bf16 operands, rounded once: on the kernel backend K10's bf16
+form), while the parameters and the running statistics stay f32 and the
+sigmoid is taken in f32. A bf16 BatchNorm reduces and normalises in f32,
+as flax's does (its statistics as E[x²] − E[x]², clipped at 0), and
+rounds the result to bf16.
+
 :class:`FlaxBatchNorm` follows ``flax.linen.BatchNorm``'s defaults, not
 ``nn.BatchNorm3d``'s: the running statistics move by 0.01 a step
 (momentum 0.99) and store the **biased** batch variance. The batch
@@ -36,10 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scenenet_tpu_torch.ops.conv3d import conv3d_f32
-from scenenet_tpu_torch.ops.cuda_conv_mc import fused_conv3d_mc
+from scenenet_tpu_torch.ops.cuda_conv_mc import conv3d_mc_same_plain, fused_conv3d_mc
 
 _BACKENDS = ("torch", "cuda")
+_DTYPES = (torch.float32, torch.bfloat16)
 BLOCKS = ("down0", "down1", "down2", "down3", "down4", "up0", "up1", "up2", "up3")
 
 
@@ -75,7 +83,8 @@ def load_flax_views(own: Mapping[str, torch.Tensor], state: Mapping[str, torch.T
 
 class FlaxBatchNorm(nn.Module):
     """Batch normalisation over every axis but the channel (axis 1), with
-    flax's defaults: epsilon 1e-5, momentum 0.99, biased running variance."""
+    flax's defaults: epsilon 1e-5, momentum 0.99, biased running variance.
+    A bf16 input takes flax's reduced-precision path (:meth:`_forward_half`)."""
 
     MOMENTUM = 0.99
     EPS = 1e-5
@@ -88,6 +97,8 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            return self._forward_half(x)
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=self.EPS)
@@ -102,24 +113,46 @@ class FlaxBatchNorm(nn.Module):
             self.var.mul_(self.MOMENTUM).add_(unbiased * ((n - 1) / n), alpha=1 - self.MOMENTUM)
         return out
 
+    def _forward_half(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's BatchNorm under a bf16 ``dtype``, step by step: the batch
+        mean and E[x²] of x widened to f32, the variance E[x²] − E[x]²
+        clipped at 0; ``(x − mean)·(rsqrt(var + ε)·scale) + bias`` in f32;
+        the result rounded to x's dtype. The running statistics move in f32."""
+        xf = x.float()
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            axes = [0] + list(range(2, x.ndim))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.MOMENTUM).add_(mean, alpha=1 - self.MOMENTUM)
+                self.var.mul_(self.MOMENTUM).add_(var, alpha=1 - self.MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.EPS) * self.scale.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
+
 
 class _ConvBlock(nn.Module):
     """conv → BN → relu, twice; the convs are 3³, SAME, without bias."""
 
     def __init__(self, in_features: int, features: int, mid_features: Optional[int],
-                 backend: str):
+                 backend: str, dtype: torch.dtype = torch.float32):
         super().__init__()
         mid = mid_features or features
         self.backend = backend
+        self.dtype = dtype
         self.conv0 = nn.Parameter(torch.zeros((mid, in_features, 3, 3, 3)))
         self.bn0 = FlaxBatchNorm(mid)
         self.conv1 = nn.Parameter(torch.zeros((features, mid, 3, 3, 3)))
         self.bn1 = FlaxBatchNorm(features)
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        w = w.to(self.dtype)
         if self.backend == "cuda":
             return fused_conv3d_mc(x, w)
-        return conv3d_f32(x, w, padding=1)
+        return conv3d_mc_same_plain(x, w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn0(self._conv(x, self.conv0)))
@@ -150,28 +183,30 @@ class UNet3D(nn.Module):
         super().__init__()
         if backend not in _BACKENDS:
             raise ValueError(f"backend must be one of {_BACKENDS}, got {backend!r}")
-        if dtype != torch.float32:
-            raise NotImplementedError(f"dtype={dtype} (the bf16 forward) is not ported yet: "
-                                      "ROADMAP A13")
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {_DTYPES}, got {dtype}")
         self.n_classes = n_classes
         self.backend = backend
-        self.down0 = _ConvBlock(1, 32, None, backend)
-        self.down1 = _ConvBlock(32, 64, None, backend)
-        self.down2 = _ConvBlock(64, 128, None, backend)
-        self.down3 = _ConvBlock(128, 256, None, backend)
-        self.down4 = _ConvBlock(256, 256, None, backend)  # 512/2 bottleneck
-        self.up0 = _ConvBlock(512, 128, 256, backend)
-        self.up1 = _ConvBlock(256, 64, 128, backend)
-        self.up2 = _ConvBlock(128, 32, 64, backend)
-        self.up3 = _ConvBlock(64, 32, 32, backend)
+        self.dtype = dtype
+        self.down0 = _ConvBlock(1, 32, None, backend, dtype)
+        self.down1 = _ConvBlock(32, 64, None, backend, dtype)
+        self.down2 = _ConvBlock(64, 128, None, backend, dtype)
+        self.down3 = _ConvBlock(128, 256, None, backend, dtype)
+        self.down4 = _ConvBlock(256, 256, None, backend, dtype)  # 512/2 bottleneck
+        self.up0 = _ConvBlock(512, 128, 256, backend, dtype)
+        self.up1 = _ConvBlock(256, 64, 128, backend, dtype)
+        self.up2 = _ConvBlock(128, 32, 64, backend, dtype)
+        self.up3 = _ConvBlock(64, 32, 32, backend, dtype)
         self.out = nn.Conv3d(32, n_classes, 1)
 
     @classmethod
-    def create(cls, n_classes: int = 1, seed: int = 0, backend: str = "torch") -> "UNet3D":
+    def create(cls, n_classes: int = 1, seed: int = 0, backend: str = "torch",
+               dtype: torch.dtype = torch.float32) -> "UNet3D":
         """A model with flax's initial values: lecun-normal conv kernels drawn
         from an explicit generator seeded with ``seed``, zero biases, BN
-        scale 1 and bias 0, running mean 0 and variance 1."""
-        model = cls(n_classes=n_classes, backend=backend)
+        scale 1 and bias 0, running mean 0 and variance 1. The initial
+        values do not depend on ``dtype``, as in flax."""
+        model = cls(n_classes=n_classes, backend=backend, dtype=dtype)
         gen = torch.Generator().manual_seed(seed)
         with torch.no_grad():
             for name in BLOCKS:
@@ -187,7 +222,7 @@ class UNet3D(nn.Module):
         f32. ``train()`` normalises by the batch and moves the running
         statistics; ``eval()`` uses them."""
         pool = F.max_pool3d
-        x1 = self.down0(x.float())
+        x1 = self.down0(x.to(self.dtype))
         x2 = self.down1(pool(x1, 2))
         x3 = self.down2(pool(x2, 2))
         x4 = self.down3(pool(x3, 2))
@@ -197,12 +232,15 @@ class UNet3D(nn.Module):
         return torch.sigmoid(self._head(u).float())
 
     def _head(self, u: torch.Tensor) -> torch.Tensor:
-        """The 1×1×1 output conv as one matrix product over the channels
-        (f32). As a cuDNN conv its weight gradient alone took a fifth of a
-        train step at 64³ (``PERF.md``)."""
-        w = self.out.weight.flatten(1)  # (n_classes, 32)
-        out = torch.matmul(w, u.flatten(2)).view(u.shape[0], -1, *u.shape[2:])
-        return out + self.out.bias.view(1, -1, 1, 1, 1)
+        """The 1×1×1 output conv as one matrix product over the channels,
+        in f32 from the operands in the model's dtype, the product rounded
+        to that dtype before the bias is added (as flax's bf16 conv and its
+        bias add). As a cuDNN conv its weight gradient alone took a fifth of
+        a train step at 64³ (``PERF.md``)."""
+        dt = self.dtype
+        w = self.out.weight.flatten(1).to(dt).float()  # (n_classes, 32)
+        out = torch.matmul(w, u.flatten(2).float()).view(u.shape[0], -1, *u.shape[2:])
+        return out.to(dt) + self.out.bias.to(dt).view(1, -1, 1, 1, 1)
 
     # ---- the flax layout, for checkpoints and the JAX package's variables ----
 

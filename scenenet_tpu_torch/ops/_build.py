@@ -77,6 +77,9 @@ _SIGNATURES = {
     # dx, dy), tile, k_splits, stream
     "snt_conv3d_mc_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                          _I, _I, _P),
+    # the same with x, w and out bf16
+    "snt_conv3d_mc_tc_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                              _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -26,9 +26,22 @@ def conv3d_same(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     """SAME-padded 3D cross-correlation.
 
     x : (B, C_in, Z, X, Y); kernels : (C_out, C_in, k_z, k_x, k_y).
-    Returns (B, C_out, Z, X, Y).
+    Returns (B, C_out, Z, X, Y) in x's dtype. A bf16 x keeps bf16 in and
+    out, as the JAX conv does for bf16 operands: the products and sums are
+    taken in f32 from the bf16 values and the result rounded once.
     """
-    return F.conv3d(F.pad(x, same_pads(kernels.shape[2:])), kernels.to(x.dtype))
+    kernels = kernels.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        return conv3d_same(x.float(), kernels.float()).to(torch.bfloat16)
+    return F.conv3d(F.pad(x, same_pads(kernels.shape[2:])), kernels)
+
+
+def geneo_conv(x: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
+    """Grouped single-input-channel GENEO convolution.
+
+    x : (B, 1, Z, X, Y); kernels : (G, k_z, k_x, k_y) → (B, G, Z, X, Y).
+    """
+    return conv3d_same(x, kernels[:, None])
 
 
 @contextlib.contextmanager

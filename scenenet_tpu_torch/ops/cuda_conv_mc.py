@@ -14,8 +14,14 @@ differentiable composition.
   f32 tolerance. The rest and the channels-last layout run the f32 FMA
   kernel. :func:`conv3d_mc_plan` picks the route, the tile and the K split
   from the shape alone.
+- The bf16 form (``csrc/conv3d_mc.cu``, a template flag of the tensor-core
+  kernel) takes bf16 x and w and returns bf16: a bf16 value is exact in
+  TF32, so it runs the ``hi·hi`` product alone, sums in f32 and rounds
+  each output once; every bf16 layer takes it, the FMA kernel has no bf16
+  form (and channels-last bf16 raises). It is the conv of the bf16 UNet.
 - ``conv3d_mc_same_plain`` is the plain PyTorch version: ``F.conv3d`` with
-  padding 1 and TF32 off. ``conv3d_mc_same_tc_plain`` repeats the
+  padding 1 and TF32 off (for bf16 operands: on their values widened to
+  f32, the result rounded to bf16). ``conv3d_mc_same_tc_plain`` repeats the
   tensor-core kernel's arithmetic (``split_weights`` and ``split_inputs`` by
   bit arithmetic, three f32 convs) for the CPU tests.
 - ``fused_conv3d_mc`` is that conv as a ``torch.autograd.Function``, the
@@ -27,8 +33,9 @@ differentiable composition.
   gradient, and the weight gradient of its models is XLA's conv), so it is
   a library call here too, ``torch.nn.grad.conv3d_weight`` in full f32 with
   cuDNN switched off for the call (its f32 weight gradient of a 3D conv is
-  the slower library path at the UNet's large layers); it is not one of
-  the port's kernels.
+  the slower library path at the UNet's large layers), and for bf16
+  operands :func:`conv3d_mc_weight_grad` says which call; it is not one
+  of the port's kernels.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it
 runs its plain version. Kernel and plain version sum in a different order
@@ -48,6 +55,8 @@ from scenenet_tpu_torch.ops import _build
 from scenenet_tpu_torch.ops.conv3d import conv3d_f32, cudnn_off
 
 MC_LAUNCHES = _build.LaunchCounter("conv3d_mc")
+MC_BF16_LAUNCHES = _build.LaunchCounter("conv3d_mc_bf16")  # the bf16 form
+DTYPES = (torch.float32, torch.bfloat16)
 
 K_STEP = 8          # input channels of one tensor-core K step (one tap of a chunk)
 MAX_K_SPLITS = 32   # most blocks that share one output tile's C_in
@@ -71,8 +80,12 @@ def _check_args(x: torch.Tensor, w: torch.Tensor, channels_last: bool) -> None:
     if c_in != w.shape[1] or min(x.shape) < 1 or w.shape[0] < 1:
         raise ValueError(f"x {tuple(x.shape)} (channels_last={channels_last}) does not "
                          f"match w {tuple(w.shape)}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"x and w must be float32, got {x.dtype} and {w.dtype}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must be both float32 or both bfloat16, got {x.dtype} and "
+                        f"{w.dtype}")
+    if channels_last and x.dtype == torch.bfloat16:
+        raise ValueError("the bf16 form is channels first only (the FMA kernel, which "
+                         "takes channels-last, has no bf16 form)")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
 
@@ -80,7 +93,10 @@ def _check_args(x: torch.Tensor, w: torch.Tensor, channels_last: bool) -> None:
 def conv3d_mc_same_plain(x: torch.Tensor, w: torch.Tensor,
                          channels_last: bool = False) -> torch.Tensor:
     """Plain PyTorch version: one ``F.conv3d`` with padding 1, in full f32
-    (TF32 off)."""
+    (TF32 off); bf16 operands are widened to f32 and the result rounded to
+    bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return conv3d_mc_same_plain(x.float(), w.float(), channels_last).to(torch.bfloat16)
     if channels_last:
         x = x.permute(0, 4, 1, 2, 3)
     out = conv3d_f32(x, w, padding=1)
@@ -88,11 +104,12 @@ def conv3d_mc_same_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv3d_mc_plan(b: int, c_in: int, c_out: int, z: int, x: int, y: int,
-                   channels_last: bool = False) -> Tuple[object, int]:
+                   channels_last: bool = False, bf16: bool = False) -> Tuple[object, int]:
     """(tile, k_splits) for one call, from its shape alone.
 
-    ``tile`` is ``FMA_TILE`` (C_in ≤ ``FMA_MAX_C_IN``, or channels-last: the
-    FMA kernel, never split) or a key of ``TC_TILES``: 32 output channels a
+    ``tile`` is ``FMA_TILE`` (C_in ≤ ``FMA_MAX_C_IN`` in f32, or
+    channels-last: the FMA kernel, never split) or a key of ``TC_TILES``
+    (every ``bf16`` call): 32 output channels a
     block up to C_out = 32 and 64 past it; 16 voxels along y where the
     volume has more than 8, else 8; and where the volume is within 4³, four
     samples of 4×4×4 in one tile, so that none of it lies outside.
@@ -100,7 +117,7 @@ def conv3d_mc_plan(b: int, c_in: int, c_out: int, z: int, x: int, y: int,
     tiles alone give fewer than ``TARGET_BLOCKS``, up to
     :func:`conv3d_mc_split_cap`.
     """
-    if channels_last or c_in <= FMA_MAX_C_IN:
+    if channels_last or (c_in <= FMA_MAX_C_IN and not bf16):
         return FMA_TILE, 1
     if c_out <= 32:
         tile = 0 if y > 8 else 1
@@ -180,25 +197,27 @@ def _transposed(w: torch.Tensor) -> torch.Tensor:
 def _launch_tc(x: torch.Tensor, w: torch.Tensor, tile: int, k_splits: int) -> torch.Tensor:
     """The tensor-core kernel on channels-first x and weights of any strides:
     the weight split, the conv and the K-split reduction are one launch of
-    the wrapper."""
+    the wrapper. bf16 x and w take the bf16 form and return bf16."""
     x = x.contiguous()
     b, c_in, z, xx, yy = x.shape
     c_out = w.shape[0]
     bn = TC_TILES[tile][1]
-    out = torch.empty((b, c_out, z, xx, yy), dtype=torch.float32, device=x.device)
+    half = x.dtype == torch.bfloat16
+    out = torch.empty((b, c_out, z, xx, yy), dtype=x.dtype, device=x.device)
     frag = torch.empty((-(-c_out // bn) * -(-c_in // K_STEP) * 27 * bn * 16,),
                        dtype=torch.float32, device=x.device)
     partial = (torch.empty((k_splits, *out.shape), dtype=torch.float32, device=x.device)
                if k_splits > 1 else None)
     lib = _build.load()
+    entry = lib.snt_conv3d_mc_tc_bf16 if half else lib.snt_conv3d_mc_tc
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.snt_conv3d_mc_tc(x.data_ptr(), w.data_ptr(), frag.data_ptr(), out.data_ptr(),
-                                   partial.data_ptr() if k_splits > 1 else None,
-                                   b, c_in, c_out, z, xx, yy, *w.stride(), tile, k_splits,
-                                   ctypes.c_void_p(stream))
-    _build.check(err, "conv3d_mc")
-    MC_LAUNCHES.add()
+        err = entry(x.data_ptr(), w.data_ptr(), frag.data_ptr(), out.data_ptr(),
+                    partial.data_ptr() if k_splits > 1 else None,
+                    b, c_in, c_out, z, xx, yy, *w.stride(), tile, k_splits,
+                    ctypes.c_void_p(stream))
+    _build.check(err, "conv3d_mc_bf16" if half else "conv3d_mc")
+    (MC_BF16_LAUNCHES if half else MC_LAUNCHES).add()
     return out
 
 
@@ -234,8 +253,8 @@ def conv3d_mc_same(x: torch.Tensor, w: torch.Tensor,
     """SAME 3³ conv3d.
 
     x (B, C_in, Z, X, Y) × w (C_out, C_in, 3, 3, 3) → (B, C_out, Z, X, Y),
-    f32. With ``channels_last=True`` x is (B, Z, X, Y, C_in) and the output
-    matches. Any other kernel size raises a ``ValueError``. Forward only on
+    in x's dtype: f32, or bf16 (K10's bf16 form, channels first). With
+    ``channels_last=True`` x is (B, Z, X, Y, C_in) and the output matches. Any other kernel size raises a ``ValueError``. Forward only on
     the CUDA path: the differentiable form is :func:`fused_conv3d_mc`.
 
     A CPU tensor takes :func:`conv3d_mc_same_plain`; a CUDA tensor launches
@@ -253,19 +272,34 @@ def conv3d_mc_same(x: torch.Tensor, w: torch.Tensor,
         b, z, xx, yy, _ = x.shape
     else:
         b, _, z, xx, yy = x.shape
-    tile, k_splits = conv3d_mc_plan(b, w.shape[1], w.shape[0], z, xx, yy, channels_last)
+    tile, k_splits = conv3d_mc_plan(b, w.shape[1], w.shape[0], z, xx, yy, channels_last,
+                                    bf16=x.dtype == torch.bfloat16)
     if tile == FMA_TILE:
         return _launch(x, _transposed(w), channels_last)
     return _launch_tc(x, w, tile, k_splits)
 
 
-def conv3d_mc_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dw of the SAME 3³ conv, (C_out, C_in, 3, 3, 3): the library's weight
-    gradient in full f32, by PyTorch's own kernels. cuDNN's f32 weight
-    gradient of a 3D conv is several times slower at the UNet's 64³ layers
-    (``PERF.md`` has both times)."""
+def conv3d_mc_weight_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw of the SAME 3³ conv, (C_out, C_in, 3, 3, 3), in full f32 by
+    PyTorch's own kernels (cuDNN off); bf16 operands are widened to f32 and
+    the result rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return conv3d_mc_weight_grad_plain(x.float(), g.float()).to(torch.bfloat16)
     with cudnn_off():
         return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
+
+
+def conv3d_mc_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dw of the SAME 3³ conv: the library's weight gradient. In f32 that is
+    PyTorch's own kernels in full f32 (:func:`conv3d_mc_weight_grad_plain`):
+    cuDNN's f32 weight gradient of a 3D conv is several times slower at the
+    UNet's 64³ layers (``PERF.md`` has both times). For bf16 operands on the
+    card it is cuDNN's bf16 weight gradient: PyTorch's own kernels in bf16
+    sum the batch's samples in bf16, which takes them further from the
+    plain version than cuDNN, and they take longer (``PERF.md``)."""
+    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
+        return conv3d_mc_weight_grad_plain(x, g)
+    return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
 
 
 class _FusedConv3dMc(torch.autograd.Function):
@@ -288,7 +322,7 @@ class _FusedConv3dMc(torch.autograd.Function):
 
 
 def fused_conv3d_mc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """:func:`conv3d_mc_same` (channels first), differentiable in both
-    arguments: the kernel forward, the kernel again for dx (launched only
-    when x requires grad), the library's weight gradient for dw."""
+    """:func:`conv3d_mc_same` (channels first, f32 or bf16), differentiable
+    in both arguments: the kernel forward, the kernel again for dx (launched
+    only when x requires grad), the library's weight gradient for dw."""
     return _FusedConv3dMc.apply(x, w)

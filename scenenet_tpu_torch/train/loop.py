@@ -17,11 +17,22 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   every batch of an epoch without the host loader: on a card, one train
   step captured as a CUDA graph and replayed once a batch
   (:class:`~scenenet_tpu_torch.train.step_graph.StepGraph`), the
-  counterpart of the JAX package's ``lax.scan`` dispatch.
+  counterpart of the JAX package's ``lax.scan`` dispatch;
+- ``precision: bf16`` runs the forward on bf16 copies of the floating
+  parameters and a bf16 input, through ``torch.func.functional_call``, so
+  the gradients land on the f32 masters; the prediction goes back to f32
+  and the loss and the GENEO penalties are taken on the masters, as in the
+  JAX package's ``Trainer._loss``;
+- ``accumulate_grad_batches > 1`` wraps the optimizer in
+  :class:`~scenenet_tpu_torch.train.state.MultiSteps` (``optax.MultiSteps``):
+  the confusion counts and the loss are recorded every call, the update
+  every k-th; on a card the cached routes capture two steps, one that
+  accumulates and one that accumulates and updates, and replay the one the
+  host's count names.
 
 Not ported yet, and raising where asked for: mesh training (ROADMAP A12),
-resumable snapshots (A7), the bf16 forward and gradient accumulation
-(A13), the point-cloud export of a validation sample (A11), wandb (A10).
+resumable snapshots (A7), the point-cloud export of a validation sample
+(A11), wandb (A10).
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from scenenet_tpu_torch.data.device_cache import (
     d4_transform_grids, draw_d4, draw_point_augmentation, gather_augment,
@@ -48,7 +60,7 @@ from scenenet_tpu_torch.train.metrics import (
     init_metric_state, metric_counts, update_metrics,
 )
 from scenenet_tpu_torch.train.preempt import chunk_starts
-from scenenet_tpu_torch.train.state import resolve_optimizer
+from scenenet_tpu_torch.train.state import MultiSteps, cast_half, resolve_optimizer
 from scenenet_tpu_torch.train.step_graph import StepGraph
 from scenenet_tpu_torch.utils.logging import RunLogger
 
@@ -141,12 +153,11 @@ class Trainer:
                  batch_prep: Optional[Callable] = None, mesh: Optional[Any] = None):
         if mesh is not None:
             raise NotImplementedError("mesh training is not ported yet: ROADMAP A12")
-        if config.precision != "f32":
-            raise NotImplementedError(f"precision={config.precision!r} (the bf16 "
-                                      "forward) is not ported yet: ROADMAP A13")
-        if config.accumulate_grad_batches != 1:
-            raise NotImplementedError("accumulate_grad_batches > 1 is not ported yet: "
-                                      "ROADMAP A13")
+        if config.precision not in ("f32", "bf16"):
+            raise ValueError(f"precision must be 'f32' or 'bf16', got {config.precision!r}")
+        if config.accumulate_grad_batches < 1:
+            raise ValueError("accumulate_grad_batches must be >= 1, got "
+                             f"{config.accumulate_grad_batches}")
         if config.checkpoint_every_n_steps > 0:
             raise NotImplementedError("checkpoint_every_n_steps > 0 (resumable "
                                       "snapshots) is not ported yet: ROADMAP A7")
@@ -166,6 +177,7 @@ class Trainer:
         self.batch_prep = batch_prep
         self.device = next(model.parameters()).device
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.multi_steps: Optional[MultiSteps] = None  # accumulate_grad_batches > 1
         self.step = 0
         self.best = BestMetricTracker()
         self._ckpt: Optional[CheckpointManager] = None
@@ -178,8 +190,18 @@ class Trainer:
     def to_device(self, batch) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(b).to(self.device) for b in batch)
 
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's prediction in f32; under ``precision: bf16`` taken
+        from bf16 copies of the floating parameters and a bf16 x (the
+        buffers, BatchNorm's running statistics, stay the model's own f32
+        tensors)."""
+        if self.config.precision == "bf16":
+            half = cast_half(dict(self.model.named_parameters()))
+            return functional_call(self.model, half, (x.to(torch.bfloat16),)).float()
+        return self.model(x).float()
+
     def _loss(self, x: torch.Tensor, y: torch.Tensor):
-        pred = self.model(x).float()
+        pred = self._forward(x)
         m = self.model
         cvx = m.cvx_coefficients() if hasattr(m, "cvx_coefficients") else {}
         geneo = m.geneo_params_flat() if hasattr(m, "geneo_params_flat") else {}
@@ -191,7 +213,18 @@ class Trainer:
         graph can hold its update."""
         self.optimizer = resolve_optimizer(self.config.optimizer, self.model.parameters(),
                                            self.config.learning_rate, capturable=capturable)
+        k = self.config.accumulate_grad_batches
+        self.multi_steps = MultiSteps(self.optimizer, k) if k > 1 else None
         return self.optimizer
+
+    def _update(self, apply: bool) -> None:
+        """The optimizer's part of a step, after the backward: the update,
+        or under accumulation the running mean and the update where
+        ``apply`` says so."""
+        if self.multi_steps is None:
+            self.optimizer.step()
+        else:
+            self.multi_steps.step(apply)
 
     def train_step(self, mstate: MetricState, *batch: torch.Tensor
                    ) -> Tuple[MetricState, torch.Tensor]:
@@ -209,7 +242,7 @@ class Trainer:
                 raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at step "
                                          f"{self.step}")
             loss.backward()
-        self.optimizer.step()
+        self._update(self.multi_steps is not None and self.multi_steps.advance())
         self.step += 1
         return update_metrics(mstate, pred.detach(), y, self.config.tau), loss.detach()
 
@@ -461,6 +494,20 @@ class Trainer:
         self.logger.log_metrics(scores, -1)
         return scores
 
+    @torch.no_grad()
+    def predict(self, loader: Iterable):
+        """A generator of the model's predictions over ``loader`` as numpy
+        arrays: each batch through ``batch_prep`` (where the trainer has one)
+        and the eval-mode forward in f32, as the JAX package's ``predict``."""
+        self.model.eval()
+        for batch in loader:
+            if self.batch_prep is not None:
+                x, _ = self.batch_prep(*self.to_device(batch))
+            else:
+                x = batch[0] if isinstance(batch, (tuple, list)) else batch
+                x = torch.as_tensor(x).to(self.device)
+            yield self.model(x).cpu().numpy()
+
     def restore_best(self, metric: str, template: Optional[nn.Module] = None) -> nn.Module:
         """Load the best checkpoint for ``metric`` into ``template`` (default
         the trained model) and return it; where none was recorded (the
@@ -493,7 +540,11 @@ class CachedEpochs:
     on the device, with no RNG call and no host sync. On a card the step
     runs under :class:`StepGraph` (warm-up steps, then one CUDA graph
     replayed a batch) with a capturable optimizer; on the CPU, eagerly.
-    ``generator`` defaults to one seeded with ``max_epochs``.
+    Under gradient accumulation there are two steps, each under its own
+    :class:`StepGraph`: one that accumulates and one that accumulates and
+    updates; the host's count of calls picks the one a batch runs (a
+    captured graph cannot branch on a device value). ``generator``
+    defaults to one seeded with ``max_epochs``.
     """
 
     def __init__(self, trainer: Trainer, n: int, batch_size: int, draw, load,
@@ -520,7 +571,7 @@ class CachedEpochs:
         self.last_loss = last_loss = torch.zeros((), device=dev)
         draws = self.draws
 
-        def step():
+        def step(apply: bool = True):
             rows = order.index_select(0, cursor * batch_size + offsets)
             x, y = load(rows, draws, cursor)
             trainer.model.train()
@@ -532,7 +583,7 @@ class CachedEpochs:
             with torch.autograd.set_detect_anomaly(anomaly):
                 loss, pred = trainer._loss(x, y)
                 loss.backward()
-            trainer.optimizer.step()
+            trainer._update(apply)
             for buf, v in zip(mstate, update_metrics(mstate, pred.detach(), y, cfg.tau)):
                 buf.copy_(v)
             loss = loss.detach()
@@ -541,6 +592,10 @@ class CachedEpochs:
             cursor.add_(1)
 
         self.runner = StepGraph(step, dev)
+        # under accumulation: the step that only accumulates (runner is the
+        # one that updates)
+        self.accumulate_runner = (StepGraph(lambda: step(False), dev)
+                                  if trainer.multi_steps is not None else None)
 
     def run_epoch(self) -> Tuple[MetricState, torch.Tensor]:
         """One epoch of training: the epoch's confusion counts and loss sum
@@ -559,7 +614,11 @@ class CachedEpochs:
         for start, length in self.chunks:
             self.cursor.fill_(start)
             for _ in range(length):
-                self.runner()
+                ms = trainer.multi_steps
+                if ms is None or ms.advance():
+                    self.runner()
+                else:
+                    self.accumulate_runner()
                 trainer.step += 1
                 if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
                     raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} at "

@@ -315,3 +315,68 @@ def test_tensor_core_emulation_holds_the_scaled_bound_at_many_channels(cin):
     exact = F.conv3d(x.double(), w.double(), padding=1)
     assert float((got.double() - exact).abs().max()) <= 2 * float(
         (want.double() - exact).abs().max()) + 1e-6
+
+
+# ---- K10's bf16 form: its plain version and its plan, on the CPU --------------------
+
+def _bf16_case(cin, cout, shape, b=2, seed=0):
+    x, w = _case(cin, cout, shape, b, seed)
+    return (torch.from_numpy(x).to(torch.bfloat16),
+            torch.from_numpy(w * np.float32(np.sqrt(0.01 * 27 * cin) ** -1)).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(4, 8, (6, 6, 6)), (32, 32, (12, 12, 12)),
+                                            (160, 128, (8, 8, 8)), (1, 32, (9, 7, 5))])
+def test_bf16_plain_matches_xla_bf16_conv(cin, cout, shape):
+    """The bf16 form's plain version (the bf16 values widened, an f32 conv,
+    rounded once) against XLA's bf16 conv, the conv of the JAX package's
+    bf16 UNet: both sum exact products in f32 and round once, so they part
+    only where the two f32 sums round to neighbouring bf16 values — at most
+    a bf16 unit of the largest output, and at few places."""
+    x, w = _bf16_case(cin, cout, shape)
+    got = conv3d_mc_same(x, w)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, conv3d_mc_same_plain(x.float(), w.float()).to(torch.bfloat16))
+    want = lax.conv_general_dilated(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(w.float().numpy(), jnp.bfloat16),
+        (1, 1, 1), "SAME", dimension_numbers=("NCDHW", "OIDHW", "NCDHW"))
+    want = np.asarray(want.astype(jnp.float32))
+    diff = np.abs(got.float().numpy() - want)
+    assert diff.max() <= 2.0 ** -7 * np.abs(want).max() and (diff > 0).mean() <= 1e-2
+
+
+def test_bf16_plan_takes_the_tensor_cores_at_every_layer():
+    """The bf16 form is the tensor-core kernel's: C_in ≤ 4 takes a tile too
+    (zero-filled to 8 channels), with the f32 plan's tiles and splits past it."""
+    for b, cin, cout, n in ((16, 1, 32, 64), (2, 3, 3, 64), (2, 4, 8, 6)):
+        tile, k = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, n, n, n, bf16=True)
+        assert tile in cuda_conv_mc.TC_TILES and k == 1
+    for args in ((16, 256, 128, 8, 8, 8), (1, 256, 256, 4, 4, 4), (3, 100, 64, 8, 8, 8)):
+        assert cuda_conv_mc.conv3d_mc_plan(*args, bf16=True) == cuda_conv_mc.conv3d_mc_plan(*args)
+
+
+def test_bf16_fused_grads_are_the_plain_versions():
+    """On the CPU the bf16 autograd Function runs the plain versions: dx as
+    autograd through the widened conv gives it, dw the widened library call
+    rounded once; the launch counters stay put."""
+    x, w = _bf16_case(16, 8, (6, 5, 4))
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 8, 6, 5, 4))
+                         .astype(np.float32)).to(torch.bfloat16)
+    before = (cuda_conv_mc.MC_LAUNCHES.count, cuda_conv_mc.MC_BF16_LAUNCHES.count)
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    fused_conv3d_mc(xa, wa).backward(g)
+    assert (cuda_conv_mc.MC_LAUNCHES.count, cuda_conv_mc.MC_BF16_LAUNCHES.count) == before
+    want_dx = conv3d_mc_same_plain(g, w.flip((2, 3, 4)).transpose(0, 1))
+    assert xa.grad.dtype == wa.grad.dtype == torch.bfloat16
+    assert torch.equal(xa.grad, want_dx)
+    assert torch.equal(wa.grad, cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g))
+    want_dw = torch.nn.grad.conv3d_weight(x.float(), w.shape, g.float(), padding=1)
+    torch.testing.assert_close(wa.grad.float(), want_dw, rtol=2.0 ** -8, atol=1e-5)
+
+
+def test_bf16_wrapper_refusals():
+    x, w = _bf16_case(8, 8, (4, 4, 4))
+    with pytest.raises(TypeError, match="both"):
+        conv3d_mc_same(x, w.float())
+    with pytest.raises(ValueError, match="channels first"):
+        conv3d_mc_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, channels_last=True)

@@ -1355,6 +1355,82 @@ def test_halo_stencil_conv_grads_match_plain(dev, ks):
                                rtol=0, atol=1e-6)
 
 
+# ---- K10's bf16 form ---------------------------------------------------------------------
+
+def _bf16_close(got, want, cin):
+    """Both sum exact products of bf16 values in f32 and round once, so
+    they part where the two f32 sums round to neighbouring bf16 values:
+    within one bf16 unit of the result (at most 2^-7 of it) plus the f32
+    form's tolerance for the two f32 sums' order."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2e-5 * max(1.0, (cin / 160) ** 0.5))
+
+
+UNET_LAYERS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
+               (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (512, 256, 8),
+               (256, 128, 8), (256, 128, 16), (128, 64, 16), (128, 64, 32), (64, 32, 32),
+               (64, 32, 64)]  # the 16 distinct shapes of UNet3D's 18 convs
+
+
+@pytest.mark.parametrize("b,cin,cout,shape", [
+    *((2, c, o, (n, n, n)) for c, o, n in UNET_LAYERS),
+    (16, 256, 128, (8, 8, 8)), (1, 256, 256, (4, 4, 4)), (3, 40, 30, (6, 10, 7)),
+    (2, 72, 100, (5, 4, 3)), (5, 48, 64, (4, 4, 4)), (2, 3, 5, (7, 6, 5)), (1, 1, 1, (1, 1, 1)),
+])
+def test_conv3d_mc_bf16_form_matches_plain(dev, b, cin, cout, shape):
+    """K10's bf16 form at the UNet's layer shapes (batch 2) and at ragged
+    ones: against the plain version (the bf16 values widened, F.conv3d in
+    f32, rounded once), bit-identical run to run, counted on its own."""
+    x, w = _mc_case(b + cin + cout + sum(shape), b, cin, cout, shape)
+    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+    tile, _ = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape, bf16=True)
+    assert tile != cuda_conv_mc.FMA_TILE
+    before = (cuda_conv_mc.MC_BF16_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count)
+    got = cuda_conv_mc.conv3d_mc_same(x, w)
+    again = cuda_conv_mc.conv3d_mc_same(x, w)
+    assert (cuda_conv_mc.MC_BF16_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count) == (
+        before[0] + 2, before[1])
+    assert got.shape == (b, cout, *shape) and torch.equal(got, again)
+    _bf16_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
+    _bf16_close(got.cpu(), cuda_conv_mc.conv3d_mc_same(x.cpu(), w.cpu()), cin)
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(64, 32, (16, 16, 16)), (256, 128, (8, 8, 8)),
+                                            (1, 32, (12, 12, 12))])
+def test_fused_conv3d_mc_bf16_grads(dev, cin, cout, shape):
+    """The bf16 form's dx (the kernel on the flipped, swapped bf16 weights)
+    against autograd through the plain version, bit-identical run to run;
+    dw (cuDNN's bf16 weight gradient) within 1e-2 of max|dw| of the plain
+    version's (f32 sums of bf16 products, rounded once; the smoke measured
+    up to 5.1e-3 at the UNet's layers, about one bf16 unit of the largest)."""
+    x, w = _mc_case(cin + cout, 2, cin, cout, shape)
+    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+    g = torch.randn((2, cout, *shape), device=dev).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        (cuda_conv_mc.fused_conv3d_mc(xa, wa).float() * g.float()).sum().backward()
+        grads.append((xa.grad, wa.grad))
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (cuda_conv_mc.conv3d_mc_same_plain(xb, wb).float() * g.float()).sum().backward()
+    assert torch.equal(grads[0][0], grads[1][0])
+    _bf16_close(grads[0][0], xb.grad, cout)
+    want_dw = cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g)
+    assert grads[0][1].dtype == torch.bfloat16
+    assert float((grads[0][1].float() - want_dw.float()).abs().max()) <= \
+        1e-2 * float(want_dw.float().abs().max())
+
+
+def test_conv3d_mc_bf16_form_refuses_channels_last(dev):
+    x = torch.zeros((1, 4, 4, 4, 8), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((8, 8, 3, 3, 3), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels first"):
+        cuda_conv_mc.conv3d_mc_same(x, w, channels_last=True)
+    with pytest.raises(TypeError, match="both"):
+        cuda_conv_mc.conv3d_mc_same(x.permute(0, 4, 1, 2, 3).contiguous(), w.float())
+
+
 # ---- the cached train step as a CUDA graph ----------------------------------------
 
 def test_cached_fit_replays_a_graph_as_the_streamed_steps(dev, tmp_path):
@@ -1421,3 +1497,100 @@ def test_cached_fit_replays_a_graph_as_the_streamed_steps(dev, tmp_path):
                                             open(tmp_path / t / "metrics.jsonl"))]
               for t in ("cached", "streamed")]
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+
+
+# ---- quantile and accumulation steps replayed from their graphs --------------------
+
+def _grid_cache(dev, n=8, seed=0):
+    from scenenet_tpu_torch.data.device_cache import DeviceGridCache
+
+    rng = np.random.default_rng(seed)
+    grids = DeviceGridCache.__new__(DeviceGridCache)
+    occ = rng.random((n, 1, 16, 16, 16)) > 0.8
+    grids.x = torch.from_numpy(occ.astype(np.uint8)).to(dev)
+    grids.y = torch.from_numpy((occ & (rng.random(occ.shape) > 0.7)).astype(np.uint8)).to(dev)
+    return grids
+
+
+def _graph_vs_eager(dev, tmp_path, model_fn, criterion, epochs, **cfg):
+    """fit_grid_cached on the card (its steps replayed from CUDA graphs after
+    the warm-up) against the same batches in the same order through
+    train_step with the cached route's capturable optimizer: losses,
+    counts and parameters bit-identical."""
+    from scenenet_tpu_torch.train import TrainConfig, Trainer, metrics
+
+    grids = _grid_cache(dev)
+
+    def trainer(tag):
+        return Trainer(model_fn().to(dev), criterion,
+                       TrainConfig(run_dir=str(tmp_path / tag), max_epochs=epochs,
+                                   checkpoint_dir=str(tmp_path / f"c{tag}"),
+                                   early_stop_metric=None, **cfg))
+
+    graph, eager = trainer("graph"), trainer("eager")
+    graph.fit_grid_cached(grids, 2, augment=False, generator=torch.Generator(dev).manual_seed(5))
+    eager.setup_optimizer(capturable=True)
+    gen = torch.Generator(dev).manual_seed(5)
+    losses, counts = [], []
+    for _ in range(epochs):
+        order = torch.randperm(8, generator=gen, device=dev)
+        ms, loss_sum = metrics.init_metric_state(dev), torch.zeros((), device=dev)
+        for i in range(0, 8, 2):
+            rows = order[i:i + 2]
+            ms, loss = eager.train_step(ms, grids.x[rows].float(), grids.y[rows].float())
+            loss_sum += loss
+        losses.append(float(loss_sum) / 4)
+        counts.append(metrics.metric_counts(ms))
+    got = [r["train_loss"] for r in map(__import__("json").loads,
+                                        open(tmp_path / "graph" / "metrics.jsonl"))]
+    assert got == losses and graph.train_counts == counts
+    for (n, a), b in zip(graph.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(a, b), n
+    return graph
+
+
+def test_quantile_cached_fit_replays_a_graph_bit_identical(dev, tmp_path):
+    """A quantile ensemble's step (K2 forward and K4 for dk once a member)
+    replayed from its graph, 3 epochs of 4 steps, against eager steps."""
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import QuantileSceneNet
+
+    crit = resolve_criterion("quantile_geneo")(convex_weight=5, quantiles=(0.1, 0.5, 0.9))
+    graph = _graph_vs_eager(dev, tmp_path, lambda: QuantileSceneNet.create(
+        kernel_size=(9, 5, 5), seed=3, backend="cuda"), crit, epochs=3)
+    runner = graph.cached_epochs.runner
+    assert runner.captured and runner.replays == 12 - 3
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_accumulation_cached_fit_replays_two_graphs_bit_identical(dev, tmp_path, k):
+    """accumulate_grad_batches=k on the card: the accumulating step and the
+    updating step each captured after their warm-up and replayed as the
+    host's count names them, 4 epochs of 4 steps, against eager steps."""
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+
+    crit = resolve_criterion("geneo_tversky")(convex_weight=5, tversky_alpha=2,
+                                                focal_gamma=4, tversky_smooth=1e-6)
+    graph = _graph_vs_eager(dev, tmp_path, lambda: SceneNet.create(
+        kernel_size=(9, 5, 5), seed=3, backend="cuda"), crit, epochs=4,
+        accumulate_grad_batches=k)
+    epochs = graph.cached_epochs
+    updates = 16 // k
+    assert epochs.runner.captured and epochs.accumulate_runner.captured
+    assert epochs.runner.replays == updates - 3
+    assert epochs.accumulate_runner.replays == 16 - updates - 3
+    assert graph.multi_steps.calls == 16 % k
+
+
+def test_bf16_cached_fit_replays_a_graph_bit_identical(dev, tmp_path):
+    """precision bf16 on the kernel backend (bf16 kernel synthesis, K2 and
+    K4 on the widened kernel) replayed from its graph against eager steps."""
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+
+    crit = resolve_criterion("geneo_tversky")(convex_weight=5, tversky_alpha=2,
+                                                focal_gamma=4, tversky_smooth=1e-6)
+    graph = _graph_vs_eager(dev, tmp_path, lambda: SceneNet.create(
+        kernel_size=(9, 5, 5), seed=3, backend="cuda"), crit, epochs=2, precision="bf16")
+    assert graph.cached_epochs.runner.replays == 8 - 3

@@ -557,6 +557,14 @@ def test_cli_default_device_is_cuda(dataset, tmp_path):
     ({"optimizer": "lbfgs"}, "A7"), ({"criterion": "dice_bce"}, "A9"),
 ])
 def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
+    if item in ("A2", "A9", "A13") or overrides.get("model") == "quantile":
+        # ported since (A8, A9, A13, A2): quantile training, every criterion,
+        # bf16, accumulation and the smart init train end to end
+        scores = tcli.run(_cli_cfg(dataset, tmp_path, max_epochs=1, **overrides),
+                          device="cpu")
+        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+        assert "[device_cache auto] -> 'grids'" in capsys.readouterr().out
+        return
     if "device_cache" in overrides:
         # ported since (A6): the point cache (True is the point cache) and the
         # grid cache train end to end
