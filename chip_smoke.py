@@ -63,9 +63,12 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   kernel, checks three steps of that backend against the plain one, times
   the step on both, trains it with ``precision=bf16`` (every conv in the
   conv kernel's bf16 form, held against the plain bf16 version at every
-  layer shape and timed beside the f32 form over the 18 convs in a CUDA
-  graph) and times that step beside the f32 one, and trains ``model=cnn``
-  with a (3,3,3) kernel.
+  layer shape and at ragged shapes, timed per layer beside cuDNN bf16 and,
+  in CUDA graphs, over the 18 forward convs beside the earlier bf16 form (a
+  bench copy built beside the library), the f32 form and cuDNN bf16, over
+  the 17 dx convs of a step beside cuDNN bf16's input gradient, and on the
+  1->32 layer alone) and times that step beside the f32 one, and trains
+  ``model=cnn`` with a (3,3,3) kernel.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -79,6 +82,7 @@ kernel's and the weight gradient's share of the device time).
 
 from __future__ import annotations
 
+import importlib.util
 import io
 import json
 import math
@@ -164,6 +168,13 @@ MC_EXTRA = [(1, 256, 256, (4, 4, 4)),   # batch 1 in the four-sample tile, the K
             (2, 100, 64, (8, 8, 8)),    # a K split whose C_in is no multiple of the K step
             (3, 40, 30, (6, 10, 7)),    # C_out no multiple of 8, Y no multiple of 4
             (2, 16, 24, (5, 9, 7))]
+# K10's bf16 form at ragged shapes: Y odd, below 8 and no multiple of 8 (the halo rows
+# by plain loads, not cp.async), C_in no multiple of its 16-channel chunk, batches 1-5,
+# and C_in 1-4 on the FMA kernel's bf16 form: (batch, C_in, C_out, (Z, X, Y))
+MC_BF16_RAGGED = [(2, 32, 32, (6, 6, 7)), (3, 32, 64, (5, 5, 5)), (1, 24, 32, (9, 9, 12)),
+                  (4, 100, 40, (6, 7, 6)), (5, 17, 72, (4, 4, 4)), (2, 64, 32, (8, 8, 2)),
+                  (1, 1, 32, (9, 9, 9)), (2, 2, 32, (7, 5, 3)), (3, 3, 40, (6, 6, 8)),
+                  (4, 4, 64, (5, 4, 9))]
 # UNet3D's 18 3x3x3 convs in forward order: (C_in, C_out, cubic extent at a 64^3 grid)
 UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
               (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (256, 256, 4),
@@ -375,6 +386,11 @@ def fmt_times(t: dict) -> str:
     return " | ".join(parts)
 
 
+def fmt_graph(t: dict) -> str:
+    """``{name: (median, min, max)}`` as "name median [min-max], ..."."""
+    return ", ".join(f"{k} {m:.4f} [{lo:.4f}-{hi:.4f}]" for k, (m, lo, hi) in t.items())
+
+
 def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops: float = F32_FLOPS):
     """The least time the card could take: the larger of the bytes (each
     input read once, each output written once) over the memory rate and
@@ -550,8 +566,20 @@ def main(argv=None) -> int:
           f"| devices {torch.cuda.device_count()}", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
+    # the kernel library, and beside it (its own nvcc processes, started
+    # together) the bench copy of K10's earlier bf16 form that the bf16
+    # timings hold the current form against
     t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "conv_mc_bf16_times", ROOT / "scenenet_tpu_torch/csrc/bench/conv_mc_bf16_times.py")
+    bf16_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bf16_bench)
+    widened = ("conv3d_mc_bf16_widened",)
+    bench_build = threading.Thread(target=bf16_bench.load_bench, args=(widened,), daemon=True)
+    bench_build.start()
     _build.load()
+    bench_build.join()
+    bf16_bench.load_bench(widened)  # raises here if the bench build failed
     log = _build.library_path().with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
@@ -1436,7 +1464,8 @@ def main(argv=None) -> int:
         k10b_err = max(k10b_err, err)
         parts.append(f"{cin}->{cout} {n}^3 {err:.3g} ({frac:.2e} of outputs differ)")
     extra_parts = []
-    for b, cin, cout, shape in MC_EXTRA + [(2, 3, 5, (7, 6, 5)), (1, 1, 1, (1, 1, 1))]:
+    for b, cin, cout, shape in MC_EXTRA + MC_BF16_RAGGED + [(2, 3, 5, (7, 6, 5)),
+                                                            (1, 1, 1, (1, 1, 1))]:
         err, _ = bf16_check(f"B={b} {cin}->{cout} {shape}",
                             *bf16_case(b + cin, b, cin, cout, shape))
         k10b_err = max(k10b_err, err)
@@ -1472,8 +1501,7 @@ def main(argv=None) -> int:
           "versions: " + "; ".join(grad_parts), flush=True)
     torch.cuda.empty_cache()
 
-    # per layer (kernel / plain / library = one cuDNN bf16 F.conv3d), then the 18
-    # convs one after the other in one CUDA graph, the f32 form beside the bf16 one
+    # per layer: kernel / plain / library (one cuDNN bf16 F.conv3d)
     mc16_times, mc16_bounds = {}, {}
     with torch.no_grad():
         for cin, cout, n in mc_shapes:
@@ -1489,18 +1517,62 @@ def main(argv=None) -> int:
                                                  2.0 * 27 * cin * cout * vox, BF16_FLOPS)
             del xm, wm
             torch.cuda.empty_cache()
-        graph_sums = {}
-        for form in ("f32", "bf16"):
-            layer_in = {}
-            for cin, cout, n in mc_shapes:
-                xm, wm = mc_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
-                if form == "bf16":
-                    xm, wm = xm.to(torch.bfloat16), wm.to(torch.bfloat16)
-                layer_in[cin, cout, n] = (xm, wm)
-            graph_sums[form] = graph_ms(lambda: [cuda_conv_mc.conv3d_mc_same(*layer_in[c])
-                                                 for c in UNET_CONVS], iters=5)
-            del layer_in
-            torch.cuda.empty_cache()
+        # the 18 forward convs one after the other in one CUDA graph: the bf16
+        # form, the earlier bf16 form (bench copy: bf16 widened into the f32 tile,
+        # one TF32 mma a tap and 8 channels), the f32 form and cuDNN bf16, in turns;
+        # then the 17 dx convs of a bf16 train step (every conv but the first: the
+        # form on the cotangent with the flipped, transposed weights) against cuDNN
+        # bf16's input gradient; then the 1->32 layer alone
+        layer16, layer32, grads16 = {}, {}, {}
+        for cin, cout, n in mc_shapes:
+            layer16[cin, cout, n] = bf16_case(cin + cout + n, TRAIN_BATCH, cin, cout, (n, n, n))
+            layer32[cin, cout, n] = tuple(v.float() for v in layer16[cin, cout, n])
+            gen = torch.Generator(dev).manual_seed(cin * cout)
+            grads16[cin, cout, n] = torch.randn((TRAIN_BATCH, cout, n, n, n), device=dev,
+                                                generator=gen).to(torch.bfloat16)
+        dx_convs = UNET_CONVS[1:]
+
+        def dx_form(c):
+            w = layer16[c][1]
+            return cuda_conv_mc.conv3d_mc_same(grads16[c], w.flip((2, 3, 4)).transpose(0, 1))
+
+        def dx_cudnn(c):
+            x, w = layer16[c]
+            return torch.nn.grad.conv3d_input(x.shape, w, grads16[c], padding=1)
+
+        def in_turns(fns, rounds=3, iters=5):
+            acc = {k: [] for k in fns}
+            for r in range(rounds):
+                for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                    acc[k].append(graph_ms(fns[k], iters=iters))
+            return {k: (float(np.median(v)), min(v), max(v)) for k, v in acc.items()}
+
+        graph_fwd = in_turns({
+            "bf16 form": lambda: [cuda_conv_mc.conv3d_mc_same(*layer16[c]) for c in UNET_CONVS],
+            "earlier bf16 form": lambda: [bf16_bench.widened_conv(*layer16[c])
+                                          for c in UNET_CONVS],
+            "f32 form": lambda: [cuda_conv_mc.conv3d_mc_same(*layer32[c]) for c in UNET_CONVS],
+            "cuDNN bf16": lambda: [F.conv3d(*layer16[c], padding=1) for c in UNET_CONVS]})
+        graph_dx = in_turns({
+            "bf16 form": lambda: [dx_form(c) for c in dx_convs],
+            "earlier bf16 form": lambda: [bf16_bench.widened_conv(
+                grads16[c], layer16[c][1].flip((2, 3, 4)).transpose(0, 1)) for c in dx_convs],
+            "cuDNN bf16": lambda: [dx_cudnn(c) for c in dx_convs]})
+        first = UNET_CONVS[0]
+        graph_first = in_turns({
+            "bf16 FMA form": lambda: cuda_conv_mc.conv3d_mc_same(*layer16[first]),
+            "earlier bf16 form": lambda: bf16_bench.widened_conv(*layer16[first]),
+            "f32 FMA kernel": lambda: cuda_conv_mc.conv3d_mc_same(*layer32[first]),
+            "cuDNN bf16": lambda: F.conv3d(*layer16[first], padding=1)}, rounds=5, iters=20)
+        for c in dx_convs[:3]:  # the dx timed is the dx the step computes
+            want = cuda_conv_mc.conv3d_mc_same_plain(
+                grads16[c], layer16[c][1].flip((2, 3, 4)).transpose(0, 1))
+            d = (dx_form(c).float() - want.float()).abs()
+            check(bool((d <= MC_ATOL * max(1.0, math.sqrt(c[1] / MC_ATOL_CHANNELS))
+                        + BF16_UNIT * want.float().abs()).all()),
+                  f"K10 bf16 dx {c}: max|d| {float(d.max()):.3g} past one bf16 unit")
+        del layer16, layer32, grads16
+        torch.cuda.empty_cache()
     # the library's dw at bf16 as fused_conv3d_mc calls it (cuDNN), with cuDNN off,
     # and the f32 dw; their distance from the plain version (f32 sums, rounded once)
     dw16 = {}
@@ -1537,9 +1609,12 @@ def main(argv=None) -> int:
                        for (c, o, n), t in mc16_times.items())
           + f" | the UNet's 18 forward convs: bf16 form {mc16_sums['ms']:.4f}, plain "
           f"{mc16_sums['plain_ms']:.4f}, cuDNN bf16 {mc16_sums['library_ms']:.4f}, bound "
-          f"{mc16_bound_sum:.4f} ({mc16_bound_sum / mc16_sums['ms']:.1%} of it) | the 18 "
-          f"convs in one CUDA graph: f32 form {graph_sums['f32']:.4f}, bf16 form "
-          f"{graph_sums['bf16']:.4f} | the library's dw, ms bf16 cuDNN (as fused_conv3d_mc "
+          f"{mc16_bound_sum:.4f} ({mc16_bound_sum / mc16_sums['ms']:.1%} of it) | in one "
+          "CUDA graph, median [min-max] of 3 alternating rounds: the 18 forward convs "
+          + fmt_graph(graph_fwd) + f" ({mc16_bound_sum / graph_fwd['bf16 form'][0]:.1%} of "
+          "the bound); the 17 dx convs of a bf16 step " + fmt_graph(graph_dx)
+          + "; the 1->32 layer (5 rounds) " + fmt_graph(graph_first)
+          + " | the library's dw, ms bf16 cuDNN (as fused_conv3d_mc "
           "calls it) / bf16 cuDNN off / f32 cuDNN off (the f32 model's), and the two bf16 "
           "ones' max|d| / max|dw| from the plain version: "
           + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f} / {f:.4f}, {e1:.2e} / {e2:.2e}"
@@ -2378,14 +2453,19 @@ def main(argv=None) -> int:
             n_prof = 3
             wall, busy_us, n_items, largest, by_name = profiled(lambda: [
                 unet16.train_step(ms16, *dbatch) for _ in range(n_prof)])
+            # K10's bf16 form: its tensor-core kernel, weight packing and K-split
+            # reduction, and the FMA kernel's bf16 form (the 1->32 layer)
             k10_us = sum(v for k, v in by_name.items() if "conv3d_mc_" in k)
+            k10_tc_us = sum(v for k, v in by_name.items() if "conv3d_mc_tc_bf16_kernel" in k)
             dw_us = by_name.get("aten::convolution_backward", 0.0)
             print(f"[profile] UNet3D train step bf16, backend cuda, B={TRAIN_BATCH} 64^3 ({smi}): "
                   f"{n_prof} steps in {wall * 1e3:.1f} ms wall, device busy {busy_us / 1e3:.3f} "
                   f"ms = idle share {1 - busy_us / 1e6 / wall:.4f}, {n_items / n_prof:.1f} "
-                  f"device items a step; K10 {k10_us / busy_us:.4f} of the device time, the "
-                  f"weight gradients (aten::convolution_backward) {dw_us / busy_us:.4f}; "
-                  f"largest: {largest}", flush=True)
+                  f"device items a step; K10's bf16 form {k10_us / busy_us:.4f} of the device "
+                  f"time ({k10_us / 1e3 / n_prof:.3f} ms a step; its tensor-core kernel "
+                  f"{k10_tc_us / busy_us:.4f}), the weight gradients "
+                  f"(aten::convolution_backward) {dw_us / busy_us:.4f}; largest: {largest}",
+                  flush=True)
         del unet16, unet32
         if opts.profile:
             n_prof = 3

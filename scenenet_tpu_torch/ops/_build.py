@@ -73,13 +73,18 @@ _SIGNATURES = {
     # x, wt, out, B, C_in, C_out, Z, X, Y, x strides (sample, channel, voxel),
     # out strides (sample, channel, voxel), vec_out, stream
     "snt_conv3d_mc": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P),
+    # the same with x, wt and out bf16
+    "snt_conv3d_mc_bf16": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I,
+                           _P),
     # x, w, frag, out, partial, B, C_in, C_out, Z, X, Y, w strides (C_out, C_in, dz,
     # dx, dy), tile, k_splits, stream
     "snt_conv3d_mc_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
                          _I, _I, _P),
-    # the same with x, w and out bf16
+    # the same with x, w and out bf16 (frag: the packed bf16 fragments)
     "snt_conv3d_mc_tc_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                               _L, _I, _I, _P),
+    # w, frag, C_in, C_out, w strides (C_out, C_in, dz, dx, dy), bn, stream
+    "snt_conv3d_mc_pack_bf16": (_P, _P, _I, _I, _L, _L, _L, _L, _L, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -14,11 +14,16 @@ differentiable composition.
   f32 tolerance. The rest and the channels-last layout run the f32 FMA
   kernel. :func:`conv3d_mc_plan` picks the route, the tile and the K split
   from the shape alone.
-- The bf16 form (``csrc/conv3d_mc.cu``, a template flag of the tensor-core
-  kernel) takes bf16 x and w and returns bf16: a bf16 value is exact in
-  TF32, so it runs the ``hi·hi`` product alone, sums in f32 and rounds
-  each output once; every bf16 layer takes it, the FMA kernel has no bf16
-  form (and channels-last bf16 raises). It is the conv of the bf16 UNet.
+- The bf16 form (``csrc/conv3d_mc.cu``) takes bf16 x and w and returns
+  bf16, with f32 sums and each output rounded once. Past ``FMA_MAX_C_IN``
+  input channels it is a tensor-core kernel of its own: bf16 operands on
+  the bf16 ``m16n8k16`` mma, 16 channels of one tap a K step, the input
+  staged by ``cp.async`` and paired into channel-interleaved words in
+  shared memory, the weights packed once a call in the B fragments' order
+  (:func:`pack_bf16_fragments` is that order in torch). Up to
+  ``FMA_MAX_C_IN`` channels (the UNet's 1→32 layer) it is the FMA kernel's
+  bf16 form. Channels first only (channels-last bf16 raises). It is the
+  conv of the bf16 UNet.
 - ``conv3d_mc_same_plain`` is the plain PyTorch version: ``F.conv3d`` with
   padding 1 and TF32 off (for bf16 operands: on their values widened to
   f32, the result rounded to bf16). ``conv3d_mc_same_tc_plain`` repeats the
@@ -59,10 +64,16 @@ MC_BF16_LAUNCHES = _build.LaunchCounter("conv3d_mc_bf16")  # the bf16 form
 DTYPES = (torch.float32, torch.bfloat16)
 
 K_STEP = 8          # input channels of one tensor-core K step (one tap of a chunk)
+K_STEP_BF16 = 16    # the same in the bf16 form: the K of one bf16 m16n8k16 mma
 MAX_K_SPLITS = 32   # most blocks that share one output tile's C_in
 TARGET_BLOCKS = 264  # two blocks for each of the card's 132 SMs
-FMA_MAX_C_IN = 4    # up to here a layer stays on the FMA kernel: padded to 8
-#                     channels the tensor cores would do twice the work or more
+# the bf16 form's K split stays within one block an SM: its partial sums and
+# their reduction cost more than the idle SMs of a short wave save (on an H100
+# the UNet's 8³ layers ran 1.1-1.4x slower split 2 to 4 ways than unsplit,
+# csrc/bench/conv_mc_bf16_times.py)
+BF16_TARGET_BLOCKS = 132
+FMA_MAX_C_IN = 4    # up to here a layer stays on the FMA kernel: padded to a K
+#                     step the tensor cores would do twice the work or more
 # the tensor-core kernel's tiles, by the id the C entry takes:
 # (samples, z, x, y) voxels of a block and its output channels
 TC_TILES = {0: ((1, 4, 8, 16), 32), 1: ((1, 8, 8, 8), 32), 2: ((1, 4, 8, 8), 64),
@@ -84,8 +95,7 @@ def _check_args(x: torch.Tensor, w: torch.Tensor, channels_last: bool) -> None:
         raise TypeError(f"x and w must be both float32 or both bfloat16, got {x.dtype} and "
                         f"{w.dtype}")
     if channels_last and x.dtype == torch.bfloat16:
-        raise ValueError("the bf16 form is channels first only (the FMA kernel, which "
-                         "takes channels-last, has no bf16 form)")
+        raise ValueError("the bf16 form is channels first only")
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
 
@@ -107,31 +117,37 @@ def conv3d_mc_plan(b: int, c_in: int, c_out: int, z: int, x: int, y: int,
                    channels_last: bool = False, bf16: bool = False) -> Tuple[object, int]:
     """(tile, k_splits) for one call, from its shape alone.
 
-    ``tile`` is ``FMA_TILE`` (C_in ≤ ``FMA_MAX_C_IN`` in f32, or
-    channels-last: the FMA kernel, never split) or a key of ``TC_TILES``
-    (every ``bf16`` call): 32 output channels a
-    block up to C_out = 32 and 64 past it; 16 voxels along y where the
-    volume has more than 8, else 8; and where the volume is within 4³, four
-    samples of 4×4×4 in one tile, so that none of it lies outside.
-    ``k_splits`` divides the C_in/8 chunks among that many blocks where the
-    tiles alone give fewer than ``TARGET_BLOCKS``, up to
-    :func:`conv3d_mc_split_cap`.
+    ``tile`` is ``FMA_TILE`` (C_in ≤ ``FMA_MAX_C_IN``, in either form, or
+    channels-last: the FMA kernel, never split) or a key of ``TC_TILES``:
+    32 output channels a block up to C_out = 32 and 64 past it; 16 voxels
+    along y where the volume has more than 8, else 8; and where the volume
+    is within 4³, four samples of 4×4×4 in one tile, so that none of it lies
+    outside. ``k_splits`` divides the chunks of C_in (8 channels, 16 in the
+    ``bf16`` form) among that many blocks where the tiles alone give fewer
+    than ``TARGET_BLOCKS``, up to :func:`conv3d_mc_split_cap`. The bf16 form
+    takes the f32 form's tiles; its K split is the most that keeps the
+    launch within ``BF16_TARGET_BLOCKS`` (one wave of one block an SM), up
+    to its cap.
     """
-    if channels_last or (c_in <= FMA_MAX_C_IN and not bf16):
+    if channels_last or c_in <= FMA_MAX_C_IN:
         return FMA_TILE, 1
     if c_out <= 32:
         tile = 0 if y > 8 else 1
     else:
         tile = 3 if max(z, x, y) <= 4 else 2
     blocks = conv3d_mc_blocks(tile, 1, b, c_out, z, x, y)
-    k_splits = min(conv3d_mc_split_cap(tile, c_in), -(-TARGET_BLOCKS // blocks))
-    return tile, k_splits
+    if bf16:
+        return tile, max(1, min(conv3d_mc_split_cap(tile, c_in, True),
+                                BF16_TARGET_BLOCKS // blocks))
+    return tile, min(conv3d_mc_split_cap(tile, c_in), -(-TARGET_BLOCKS // blocks))
 
 
-def conv3d_mc_split_cap(tile, c_in: int) -> int:
-    """The most K splits a call may take: one chunk of 8 channels a block at
-    least, ``MAX_K_SPLITS`` at most; 1 on the FMA kernel."""
-    return 1 if tile == FMA_TILE else min(-(-c_in // K_STEP), MAX_K_SPLITS)
+def conv3d_mc_split_cap(tile, c_in: int, bf16: bool = False) -> int:
+    """The most K splits a call may take: one chunk a block at least (8
+    channels, 16 in the bf16 form), ``MAX_K_SPLITS`` at most; 1 on the FMA
+    kernel."""
+    step = K_STEP_BF16 if bf16 else K_STEP
+    return 1 if tile == FMA_TILE else min(-(-c_in // step), MAX_K_SPLITS)
 
 
 def conv3d_mc_blocks(tile, k_splits: int, b: int, c_out: int, z: int, x: int, y: int) -> int:
@@ -139,6 +155,28 @@ def conv3d_mc_blocks(tile, k_splits: int, b: int, c_out: int, z: int, x: int, y:
     (tb, tz, tx, ty), bn = TC_TILES[tile]
     return (-(-b // tb) * -(-z // tz) * -(-x // tx) * -(-y // ty) * -(-c_out // bn)
             * k_splits)
+
+
+def pack_bf16_fragments(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """bf16 weights (C_out, C_in, 3, 3, 3) → the B fragments the bf16 form's
+    kernel packs once a call, as int32 (co_tiles, C_in/16 chunks, 27 taps,
+    bn/16, 32 lanes, 4): for lane ``g·4 + t`` of entry ``jj``, words 0, 1 are
+    the ``m16n8k16`` B registers b0, b1 of n8 tile ``2·jj`` (output channel
+    ``8·(2·jj) + g`` of the tile; b0 holds input channels ``2t`` (low half)
+    and ``2t + 1`` of the chunk, b1 ``2t + 8`` and ``2t + 9``), words 2, 3
+    those of n8 tile ``2·jj + 1``; zero past C_in or C_out."""
+    c_out, c_in = w.shape[:2]
+    co_t, nc = -(-c_out // bn), -(-c_in // K_STEP_BF16)
+    bits = torch.zeros((co_t * bn, nc * K_STEP_BF16, 27), dtype=torch.int32)
+    bits[:c_out, :c_in] = w.detach().cpu().reshape(c_out, c_in, 27).contiguous() \
+        .view(torch.int16).to(torch.int32) & 0xFFFF
+    # (co_tile, n8 pair jj, h = which n8 of the pair, g, chunk, K slot, tap)
+    b = bits.reshape(co_t, bn // 16, 2, 8, nc, K_STEP_BF16, 27)
+    # K slot = 8·half + 2t + e (e: low or high half of a word)
+    b = b.reshape(co_t, bn // 16, 2, 8, nc, 2, 4, 2, 27)
+    words = b[..., 0, :] | (b[..., 1, :] << 16)   # (co_t, jj, h, g, nc, half, t, tap)
+    words = words.permute(0, 4, 7, 1, 3, 6, 2, 5)  # (co_t, nc, tap, jj, g, t, h, half)
+    return words.reshape(co_t, nc, 27, bn // 16, 32, 4).contiguous()
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -196,16 +234,20 @@ def _transposed(w: torch.Tensor) -> torch.Tensor:
 
 def _launch_tc(x: torch.Tensor, w: torch.Tensor, tile: int, k_splits: int) -> torch.Tensor:
     """The tensor-core kernel on channels-first x and weights of any strides:
-    the weight split, the conv and the K-split reduction are one launch of
-    the wrapper. bf16 x and w take the bf16 form and return bf16."""
+    the weight split (or packing), the conv and the K-split reduction are
+    one launch of the wrapper. bf16 x and w take the bf16 form and return
+    bf16."""
     x = x.contiguous()
     b, c_in, z, xx, yy = x.shape
     c_out = w.shape[0]
     bn = TC_TILES[tile][1]
     half = x.dtype == torch.bfloat16
     out = torch.empty((b, c_out, z, xx, yy), dtype=x.dtype, device=x.device)
-    frag = torch.empty((-(-c_out // bn) * -(-c_in // K_STEP) * 27 * bn * 16,),
-                       dtype=torch.float32, device=x.device)
+    # f32: a TF32 pair and two bf16 pairs (16 bytes) a lane, n8 tile, tap and
+    # 8 channels; bf16: two bf16 pairs (8 bytes) a lane, n8 tile, tap and 16
+    frag_words = -(-c_out // bn) * 27 * bn * (-(-c_in // K_STEP_BF16) * 8 if half
+                                              else -(-c_in // K_STEP) * 16)
+    frag = torch.empty((frag_words,), dtype=torch.float32, device=x.device)
     partial = (torch.empty((k_splits, *out.shape), dtype=torch.float32, device=x.device)
                if k_splits > 1 else None)
     lib = _build.load()
@@ -222,29 +264,34 @@ def _launch_tc(x: torch.Tensor, w: torch.Tensor, tile: int, k_splits: int) -> to
 
 
 def _launch(x: torch.Tensor, wt: torch.Tensor, channels_last: bool) -> torch.Tensor:
-    """The FMA kernel on contiguous x and transposed weights ``wt`` (C_in, 27, C_out)."""
+    """The FMA kernel on contiguous x and transposed weights ``wt`` (C_in, 27,
+    C_out); bf16 x and wt take its bf16 form and return bf16."""
     c_in, _, c_out = wt.shape
     x = x.contiguous()
+    half = x.dtype == torch.bfloat16
     if channels_last:
         b, z, xx, yy, _ = x.shape
-        out = torch.empty((b, z, xx, yy, c_out), dtype=torch.float32, device=x.device)
+        out = torch.empty((b, z, xx, yy, c_out), dtype=x.dtype, device=x.device)
     else:
         b, _, z, xx, yy = x.shape
-        out = torch.empty((b, c_out, z, xx, yy), dtype=torch.float32, device=x.device)
+        out = torch.empty((b, c_out, z, xx, yy), dtype=x.dtype, device=x.device)
     vox = z * xx * yy
 
     def strides(c):  # element strides of (sample, channel, voxel)
         return (vox * c, 1, c) if channels_last else (vox * c, vox, 1)
 
-    vec_out = int(not channels_last and yy % 4 == 0 and out.data_ptr() % 16 == 0)
+    # four y outputs a store: 16 bytes of f32, 8 of bf16
+    vec_out = int(not channels_last and yy % 4 == 0
+                  and out.data_ptr() % (4 * out.element_size()) == 0)
     lib = _build.load()
+    entry = lib.snt_conv3d_mc_bf16 if half else lib.snt_conv3d_mc
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.snt_conv3d_mc(x.data_ptr(), wt.data_ptr(), out.data_ptr(),
-                                b, c_in, c_out, z, xx, yy, *strides(c_in), *strides(c_out),
-                                vec_out, ctypes.c_void_p(stream))
-    _build.check(err, "conv3d_mc")
-    MC_LAUNCHES.add()
+        err = entry(x.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                    b, c_in, c_out, z, xx, yy, *strides(c_in), *strides(c_out),
+                    vec_out, ctypes.c_void_p(stream))
+    _build.check(err, "conv3d_mc_bf16" if half else "conv3d_mc")
+    (MC_BF16_LAUNCHES if half else MC_LAUNCHES).add()
     return out
 
 
@@ -254,8 +301,9 @@ def conv3d_mc_same(x: torch.Tensor, w: torch.Tensor,
 
     x (B, C_in, Z, X, Y) × w (C_out, C_in, 3, 3, 3) → (B, C_out, Z, X, Y),
     in x's dtype: f32, or bf16 (K10's bf16 form, channels first). With
-    ``channels_last=True`` x is (B, Z, X, Y, C_in) and the output matches. Any other kernel size raises a ``ValueError``. Forward only on
-    the CUDA path: the differentiable form is :func:`fused_conv3d_mc`.
+    ``channels_last=True`` x is (B, Z, X, Y, C_in) and the output matches.
+    Any other kernel size raises a ``ValueError``. Forward only on the CUDA
+    path: the differentiable form is :func:`fused_conv3d_mc`.
 
     A CPU tensor takes :func:`conv3d_mc_same_plain`; a CUDA tensor launches
     the kernel or raises.

@@ -346,13 +346,114 @@ def test_bf16_plain_matches_xla_bf16_conv(cin, cout, shape):
 
 
 def test_bf16_plan_takes_the_tensor_cores_at_every_layer():
-    """The bf16 form is the tensor-core kernel's: C_in ≤ 4 takes a tile too
-    (zero-filled to 8 channels), with the f32 plan's tiles and splits past it."""
+    """The bf16 form takes the tensor cores at every layer past
+    ``FMA_MAX_C_IN`` input channels, with the f32 plan's tiles and a K split
+    over chunks of 16 channels; C_in ≤ 4 (the UNet's 1→32 layer) takes the
+    FMA kernel's bf16 form, as the f32 plan does."""
     for b, cin, cout, n in ((16, 1, 32, 64), (2, 3, 3, 64), (2, 4, 8, 6)):
+        assert cuda_conv_mc.conv3d_mc_plan(b, cin, cout, n, n, n, bf16=True) == ("fma", 1)
+    for b, cin, cout, n in UNET_CONVS_AT:
         tile, k = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, n, n, n, bf16=True)
-        assert tile in cuda_conv_mc.TC_TILES and k == 1
-    for args in ((16, 256, 128, 8, 8, 8), (1, 256, 256, 4, 4, 4), (3, 100, 64, 8, 8, 8)):
-        assert cuda_conv_mc.conv3d_mc_plan(*args, bf16=True) == cuda_conv_mc.conv3d_mc_plan(*args)
+        assert tile in cuda_conv_mc.TC_TILES and (cin > cuda_conv_mc.FMA_MAX_C_IN)
+        assert tile == cuda_conv_mc.conv3d_mc_plan(b, cin, cout, n, n, n)[0]
+        assert 1 <= k <= cuda_conv_mc.conv3d_mc_split_cap(tile, cin, bf16=True) \
+            <= -(-cin // cuda_conv_mc.K_STEP_BF16)
+    # 64 blocks unsplit: the f32 plan splits to 264 blocks and more, the bf16
+    # one within 132
+    assert cuda_conv_mc.conv3d_mc_plan(16, 256, 128, 8, 8, 8) == (2, 5)
+    assert cuda_conv_mc.conv3d_mc_plan(16, 256, 128, 8, 8, 8, bf16=True) == (2, 2)
+    # where the split reaches its cap, the f32 plan splits in chunks of 8
+    # channels, the bf16 one in chunks of 16
+    assert cuda_conv_mc.conv3d_mc_plan(1, 256, 256, 4, 4, 4, bf16=True) == (3, 16)
+    assert cuda_conv_mc.conv3d_mc_plan(3, 100, 64, 8, 8, 8, bf16=True) == (2, 7)
+
+
+UNET_CONVS_AT = [(b, c, o, n) for b in (16, 1) for c, o, n in
+                 [(32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16), (128, 128, 16),
+                  (128, 256, 8), (256, 256, 8), (256, 256, 4), (512, 256, 8), (256, 128, 8),
+                  (256, 128, 16), (128, 64, 16), (128, 64, 32), (64, 32, 32), (64, 32, 64)]]
+
+
+@pytest.mark.parametrize("batch", [16, 1])
+@pytest.mark.parametrize("layer", range(len(UNET_CONVS)))
+def test_bf16_plan_splits_within_one_wave(layer, batch):
+    """The bf16 plan at every UNet layer, forward and dx: the most K splits
+    that keep the launch within one block an SM (132), up to the cap of its
+    16-channel chunks, and none where the tiles alone fill that; the FMA
+    kernel at C_in ≤ 4."""
+    for cin, cout, n in (UNET_CONVS[layer], UNET_CONVS[layer][1::-1] + (UNET_CONVS[layer][2],)):
+        tile, k_splits = cuda_conv_mc.conv3d_mc_plan(batch, cin, cout, n, n, n, bf16=True)
+        cap = cuda_conv_mc.conv3d_mc_split_cap(tile, cin, bf16=True)
+        assert 1 <= k_splits <= cap <= max(1, -(-cin // cuda_conv_mc.K_STEP_BF16))
+        if cin <= cuda_conv_mc.FMA_MAX_C_IN:
+            assert (tile, k_splits) == (cuda_conv_mc.FMA_TILE, 1)
+            continue
+
+        def blocks(k):
+            return cuda_conv_mc.conv3d_mc_blocks(tile, k, batch, cout, n, n, n)
+
+        assert k_splits == 1 or blocks(k_splits) <= cuda_conv_mc.BF16_TARGET_BLOCKS
+        assert k_splits == cap or blocks(k_splits + 1) > cuda_conv_mc.BF16_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("args,want", [
+    ((2, 16, 24, 5, 9, 7), (1, 1)),            # one chunk of 16: nothing to split
+    ((16, 256, 128, 8, 8, 8), (2, 2)),         # 64 blocks → 2 splits: 128 blocks
+    ((1, 256, 256, 4, 4, 4), (3, 16)),         # batch 1 at 4³: the cap, 16 chunks
+    ((3, 100, 64, 8, 8, 8), (2, 7)),           # C_in no multiple of 16: 7 chunks
+    ((2, 24, 64, 8, 8, 8), (2, 2)),            # 24 channels: a chunk of 16 and one of 8
+    ((2, 4, 8, 6, 6, 6), ("fma", 1)),          # the FMA kernel's bf16 form
+])
+def test_bf16_plan_at_the_shapes_it_separates(args, want):
+    assert cuda_conv_mc.conv3d_mc_plan(*args, bf16=True) == want
+
+
+def _b_fragment_numpy(w16, bn, cot, c, tap, n8):
+    """The m16n8k16 B fragment of n8 tile ``n8`` of output-channel tile
+    ``cot``, input-channel chunk ``c`` and tap ``tap``, as the PTX ISA lays
+    it out (.bf16, col-major B, 16 × 8): lane g·4 + t holds in b0 the
+    elements (k = 2t, n = g) in its low half and (2t + 1, g) in its high
+    half, in b1 the same of k = 2t + 8, 2t + 9. w16: the weights' raw bits
+    (C_out, C_in, 27) as uint16, zero past C_out and C_in."""
+    c_out, c_in = w16.shape[:2]
+    out = np.zeros((32, 2), np.uint32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        co = cot * bn + 8 * n8 + g
+        for reg in range(2):
+            for half in range(2):
+                ci = 16 * c + 2 * t + 8 * reg + half
+                v = int(w16[co, ci, tap]) if co < c_out and ci < c_in else 0
+                out[lane, reg] |= np.uint32(v << (16 * half))
+    return out
+
+
+@pytest.mark.parametrize("cout,cin,bn,strided", [(40, 24, 32, False), (64, 100, 64, False),
+                                                 (8, 5, 32, True), (70, 33, 64, True)])
+def test_bf16_fragments_follow_the_mma_layout(cout, cin, bn, strided):
+    """``pack_bf16_fragments`` (the order the bf16 form's packing kernel
+    writes, two n8 tiles a 16-byte word) against the B fragment re-derived
+    from the PTX layout, at every entry: ragged C_in and C_out, both channel
+    widths, and the flipped, transposed weights of the input gradient."""
+    rng = np.random.default_rng(cout + cin)
+    w = torch.from_numpy(rng.standard_normal((cin, cout, 3, 3, 3) if strided
+                                             else (cout, cin, 3, 3, 3)).astype(np.float32))
+    w = w.to(torch.bfloat16)
+    if strided:
+        w = w.flip((2, 3, 4)).transpose(0, 1)
+        assert not w.is_contiguous()
+    w16 = w.contiguous().view(torch.int16).numpy().view(np.uint16).reshape(cout, cin, 27)
+    frags = cuda_conv_mc.pack_bf16_fragments(w, bn).numpy().view(np.uint32)
+    co_t, nc = -(-cout // bn), -(-cin // 16)
+    assert frags.shape == (co_t, nc, 27, bn // 16, 32, 4)
+    for cot in range(co_t):
+        for c in range(nc):
+            for tap in range(27):
+                for jj in range(bn // 16):
+                    for h in range(2):
+                        want = _b_fragment_numpy(w16, bn, cot, c, tap, 2 * jj + h)
+                        np.testing.assert_array_equal(
+                            frags[cot, c, tap, jj, :, 2 * h:2 * h + 2], want)
 
 
 def test_bf16_fused_grads_are_the_plain_versions():

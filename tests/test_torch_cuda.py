@@ -1373,27 +1373,96 @@ UNET_LAYERS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 
                (64, 32, 64)]  # the 16 distinct shapes of UNet3D's 18 convs
 
 
-@pytest.mark.parametrize("b,cin,cout,shape", [
-    *((2, c, o, (n, n, n)) for c, o, n in UNET_LAYERS),
-    (16, 256, 128, (8, 8, 8)), (1, 256, 256, (4, 4, 4)), (3, 40, 30, (6, 10, 7)),
-    (2, 72, 100, (5, 4, 3)), (5, 48, 64, (4, 4, 4)), (2, 3, 5, (7, 6, 5)), (1, 1, 1, (1, 1, 1)),
-])
-def test_conv3d_mc_bf16_form_matches_plain(dev, b, cin, cout, shape):
-    """K10's bf16 form at the UNet's layer shapes (batch 2) and at ragged
-    ones: against the plain version (the bf16 values widened, F.conv3d in
-    f32, rounded once), bit-identical run to run, counted on its own."""
-    x, w = _mc_case(b + cin + cout + sum(shape), b, cin, cout, shape)
-    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
-    tile, _ = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape, bf16=True)
-    assert tile != cuda_conv_mc.FMA_TILE
+def _bf16_twice(x, w, cin):
+    """K10's bf16 form twice on the same inputs: the same bits, within one
+    bf16 unit of the plain version, counted on the bf16 form's counter."""
     before = (cuda_conv_mc.MC_BF16_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count)
     got = cuda_conv_mc.conv3d_mc_same(x, w)
     again = cuda_conv_mc.conv3d_mc_same(x, w)
     assert (cuda_conv_mc.MC_BF16_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count) == (
         before[0] + 2, before[1])
-    assert got.shape == (b, cout, *shape) and torch.equal(got, again)
+    assert torch.equal(got, again)
     _bf16_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
+    return got
+
+
+@pytest.mark.parametrize("b,cin,cout,shape", [
+    *((2, c, o, (n, n, n)) for c, o, n in UNET_LAYERS),
+    (16, 256, 128, (8, 8, 8)), (1, 256, 256, (4, 4, 4)), (3, 40, 30, (6, 10, 7)),
+    (2, 72, 100, (5, 4, 3)), (5, 48, 64, (4, 4, 4)), (2, 3, 5, (7, 6, 5)), (1, 1, 1, (1, 1, 1)),
+    (2, 32, 32, (6, 6, 7)),      # Y odd: the halo rows by plain loads
+    (3, 32, 64, (5, 5, 5)),      # Y odd and < 8
+    (1, 24, 32, (9, 9, 12)),     # Y no multiple of 8; C_in 24: a chunk of 16 and one of 8
+    (4, 100, 40, (6, 7, 6)),     # C_in 100: 7 chunks, the last of 4 channels
+    (5, 17, 72, (4, 4, 4)),      # the four-sample tile over 5 samples, C_in 17
+    (2, 64, 32, (8, 8, 2)),      # Y = 2
+    (1, 48, 96, (3, 5, 16)),     # the 64-channel tile, Y a multiple of 16
+    (2, 16, 8, (12, 3, 24)),     # Y a multiple of 8, not of 16
+    (1, 1, 32, (9, 9, 9)), (2, 2, 32, (7, 5, 3)), (3, 3, 40, (6, 6, 8)), (4, 4, 64, (5, 4, 9)),
+])
+def test_conv3d_mc_bf16_form_matches_plain(dev, b, cin, cout, shape):
+    """K10's bf16 form at the UNet's layer shapes (batch 2) and at ragged
+    ones (Y odd, below 8 and no multiple of 8: the halo copied by plain
+    loads, not cp.async; C_in no multiple of the 16-channel chunk; batches
+    1-5; C_in 1-4): against the plain version (the bf16 values widened,
+    F.conv3d in f32, rounded once), bit-identical run to run, counted on its
+    own; the tensor cores past 4 input channels, the FMA kernel's bf16 form
+    up to it."""
+    x, w = _mc_case(b + cin + cout + sum(shape), b, cin, cout, shape)
+    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+    tile, _ = cuda_conv_mc.conv3d_mc_plan(b, cin, cout, *shape, bf16=True)
+    assert (tile == cuda_conv_mc.FMA_TILE) == (cin <= cuda_conv_mc.FMA_MAX_C_IN)
+    got = _bf16_twice(x, w, cin)
+    assert got.shape == (b, cout, *shape)
     _bf16_close(got.cpu(), cuda_conv_mc.conv3d_mc_same(x.cpu(), w.cpu()), cin)
+
+
+@pytest.mark.parametrize("tile", sorted(cuda_conv_mc.TC_TILES))
+@pytest.mark.parametrize("k_splits", [1, 2, 3, 7])
+def test_conv3d_mc_bf16_form_every_tile_and_split(dev, tile, k_splits):
+    """Every tile under K splits 1, 2, 3 and 7 (the last: 7 chunks of 16
+    channels, one a block, the last chunk of 4 channels) on one case that
+    hangs over every tile: within a unit of the plain version, the same
+    bits twice."""
+    x, w = _mc_case(tile + k_splits, 3, 100, 70, (6, 9, 16))
+    x, w = x.to(dev, torch.bfloat16), w.to(dev, torch.bfloat16)
+    want = cuda_conv_mc.conv3d_mc_same_plain(x, w)
+    got = cuda_conv_mc._launch_tc(x, w, tile, k_splits)
+    assert torch.equal(got, cuda_conv_mc._launch_tc(x, w, tile, k_splits))
+    _bf16_close(got, want, 100)
+
+
+def test_conv3d_mc_bf16_dx_takes_strided_weights(dev):
+    """The input gradient's weights, flipped and transposed, through their
+    strides: the packing reads the view, no copy; twice, bit-identical."""
+    _, w = _mc_case(11, 2, 48, 40, (6, 6, 6))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2, 40, 6, 7, 8)).astype(np.float32)).to(dev, torch.bfloat16)
+    view = w.to(dev, torch.bfloat16).flip((2, 3, 4)).transpose(0, 1)
+    assert not view.is_contiguous()
+    got = _bf16_twice(g, view, 40)
+    _bf16_close(got, cuda_conv_mc.conv3d_mc_same_plain(g, view.contiguous()), 40)
+
+
+@pytest.mark.parametrize("cout,cin,bn", [(40, 24, 32), (64, 100, 64), (70, 33, 64)])
+def test_conv3d_mc_bf16_packing_matches_its_torch_order(dev, cout, cin, bn):
+    """The packing kernel alone against ``pack_bf16_fragments`` (the B
+    fragments' order, held against the PTX layout on the CPU), bit for bit,
+    on a contiguous and on a flipped, transposed weight view."""
+    import ctypes
+
+    from scenenet_tpu_torch.ops import _build
+
+    _, w = _mc_case(cout, 1, cin, cout, (1, 1, 1))
+    w = w.to(dev, torch.bfloat16)
+    for view in (w, w.transpose(0, 1).contiguous().flip((2, 3, 4)).transpose(0, 1)):
+        want = cuda_conv_mc.pack_bf16_fragments(view, bn)
+        frag = torch.zeros(want.numel(), dtype=torch.int32, device=dev)
+        err = _build.load().snt_conv3d_mc_pack_bf16(
+            view.data_ptr(), frag.data_ptr(), cin, cout, *view.stride(), bn,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert err == 0
+        assert torch.equal(frag.cpu(), want.reshape(-1))
 
 
 @pytest.mark.parametrize("cin,cout,shape", [(64, 32, (16, 16, 16)), (256, 128, (8, 8, 8)),

@@ -436,8 +436,25 @@ def test_adaptive_wait_decision():
     assert not b._should_wait()  # no window to wait
 
 
-def test_adaptive_throughput_probe_decision():
+class _SteppingClock:
+    """``time`` as ``cli.serve`` sees it, with ``monotonic`` a counter that
+    advances ``step`` seconds a call: a phase's throughput is then its
+    requests a call over ``step``, whatever the scheduler does."""
+
+    def __init__(self, step):
+        self.step, self.now = step, 0.0
+
+    def monotonic(self):
+        self.now += self.step
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_adaptive_throughput_probe_decision(monkeypatch):
     """Probe both modes, commit to the measured winner, re-probe later."""
+    monkeypatch.setattr(tserve, "time", _SteppingClock(1e-3))
     MB = tserve._MicroBatcher
     b = _bare_batcher(_mode="multi", _phase_len=MB._PROBE_LEN, _phase_count=0,
                       _phase_reqs=0, _phase_t0=None, _tp={"multi": None, "single": None})
