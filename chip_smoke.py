@@ -21,7 +21,13 @@ defaults (64³ grid, 131072 points, SceneNet (9,5,5)) and the width of
 experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
 
 - it serves a few requests through the HTTP server at batch 1 and
-  compares every reply with the same request through a CPU pipeline;
+  compares every reply with the same request through a CPU pipeline: each
+  request is one replay of the bucket's CUDA graph, whose kernels are
+  counted from a ``torch.profiler`` trace; it holds every bucket's replay
+  against the eager ``run_batch`` bit for bit at f32, ``mxu`` and for the
+  quantile ensemble, and prints a dispatch's host launch calls, device
+  items and idle share and a batch-1 request's time at the client, graph
+  against eager;
 - it runs the batched pipeline at batch 64 with ``inference="mxu"`` and
   the fused τ-mask (occupancy kernel → tensor-core stencil) against the
   f32 stencil route;
@@ -43,6 +49,15 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   the train step by route (streaming, point cache, grid cache, 16 steps
   an epoch); then checks three train steps of the kernel backend against
   the plain one;
+- it writes LAS tiles with towers, turns them into crops by ``python -m
+  scenenet_tpu_torch.cli.build_samples ts40k`` and trains on them through
+  ``cli.train`` at the defaults' width by the native loader (K3, K4),
+  host voxelization (``device_voxelization=false``: K2, K4) and the UNet
+  (K3, K10), each printing its loader route; then a synthetic
+  SemanticKITTI sequence through ``build_samples semantic_kitti`` and
+  ``cli.train --set dataset=semantic_kitti`` at (64, 64, 256); and it times
+  the native loader against the Python one alone (samples/s) and under the
+  streamed train step;
 - it trains through ``cli.train --host-indices`` at the same width (bins
   from the host in float64, counted by the ids kernel), and at a 128³
   grid (batch 4, 131072 points) with and without ``--host-indices`` (both
@@ -149,6 +164,15 @@ DEFAULTS_SET = [
     "auto_scale_batch_size=False",
 ]
 N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
+# the ETL phase: 5 LAS tiles of 8 towers -> 40 radius-15 crops (--test-split 0.1:
+# 36 fit, 33 of them train = 2 steps of 16, 3 validation; 4 test). 800 points a
+# tower: the reference's DBSCAN (eps 10, 300 points) runs in Python, in time
+# about linear in a tower's points times its neighbours
+ETL_TILES, ETL_TOWERS, ETL_TOWER_POINTS, ETL_TEST_SPLIT = 5, 8, 800, 0.1
+# SemanticKITTI: 10 scans of 8 poles -> 80 pole crops, of which the train split
+# (the first 20%) is 16: 4 for validation and 3 steps of 4 an epoch at the
+# reference's (64, 64, 256) grid; the test split (the last 60%) is 48
+KITTI_SCANS, KITTI_POLES, KITTI_BATCH = 10, 8, 4
 # multi-channel conv vs F.conv3d (cuDNN f32, TF32 off): f32 sums of 27*C_in products
 # in another order, on outputs of magnitude ~1. 2e-5 + 1e-5 relative up to 160 input
 # channels (the JAX package's own test bound and range); past that the absolute
@@ -199,6 +223,12 @@ HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"
 RUN_MARKS = {"points_binary": re.compile(r"\bexpand_kernel\b"),
              "stencil_conv": re.compile(r"\bstencil(_fast)?_kernel\b"),
              "stencil_dk": re.compile(r"\breduce_taps_kernel\b")}
+# the same for the serving path, whose buckets replay CUDA graphs: K1 (its
+# expand pass), K2, K5, and K8 (its slab count) at the large grid
+SERVE_MARKS = {"points_occupancy": re.compile(r"\bexpand_kernel\b"),
+               "stencil_conv": re.compile(r"\bstencil(_fast)?_kernel\b"),
+               "stencil_mma": re.compile(r"\bstencil_mma_kernel\b"),
+               "sorted_bin_counts": re.compile(r"\bslab_count_kernel\b")}
 
 
 class tee_stdout:
@@ -318,6 +348,69 @@ def write_dataset(root: Path, seed: int = 7, n_fit: int = N_FIT, n_test: int = N
             xyz = xyz + rng.uniform(0, 1000, 3).round(2)  # world coordinates
             np.save(root / split / f"sample_{i}.npy",
                     np.concatenate([xyz, lab[:, None]], axis=1))
+
+
+def write_las_tiles(las_dir: Path, write_las, seed: int = 11) -> int:
+    """Seeded synthetic LAS tiles for the ETL: each a 40 m wide strip of
+    ground, clutter and a wire with ETL_TOWERS towers 40 m apart (TS40K
+    classes, 1 cm), dense enough that a radius-15 crop around a tower holds
+    40k-60k points, as TS40K's crops do. Returns the points written."""
+    rng = np.random.default_rng(seed)
+    las_dir.mkdir(parents=True)
+    length, width, total = 40.0 * ETL_TOWERS, 40.0, 0
+    for t in range(ETL_TILES):
+        n_ground, n_clutter, n_wire = 700_000, 120_000, 20_000
+        ground = np.column_stack([rng.uniform(0, length, n_ground),
+                                  rng.uniform(0, width, n_ground),
+                                  rng.normal(0.0, 0.15, n_ground)])
+        clutter = rng.uniform([0, 0, 0], [length, width, 12.0], (n_clutter, 3))
+        s = rng.uniform(0, 1, n_wire)
+        wire = np.column_stack([s * length, np.full(n_wire, width / 2 + 2.0),
+                                25.0 - 4.0 * np.sin(np.pi * ((s * ETL_TOWERS) % 1.0))])
+        towers = [np.column_stack([rng.normal(20.0 + 40.0 * i, 1.0, ETL_TOWER_POINTS),
+                                   rng.normal(width / 2, 1.0, ETL_TOWER_POINTS),
+                                   rng.uniform(0, 25.0, ETL_TOWER_POINTS)])
+                  for i in range(ETL_TOWERS)]
+        xyz = np.concatenate([ground, clutter, wire, *towers])
+        cls = np.repeat([GROUND, CLUTTER, WIRE, TOWER],
+                        [n_ground, n_clutter, n_wire, ETL_TOWERS * ETL_TOWER_POINTS])
+        origin = np.array([5.4e5 + 1000.0 * t, 4.6e6, 150.0])  # world coordinates
+        write_las(str(las_dir / f"tile_{t:02d}.las"), np.round(xyz + origin, 2),
+                  cls.astype(np.uint8))
+        total += len(xyz)
+    return total
+
+
+def write_kitti_sequence(root: Path, seed: int = 12) -> None:
+    """A seeded synthetic SemanticKITTI sequence: KITTI_SCANS velodyne scans
+    of about 120k points (ground, buildings, vegetation; KITTI's labels
+    40, 50, 70) with KITTI_POLES poles (label 80) each, as .bin (x, y, z,
+    remission f32) and .label (instance id << 16 | label) files."""
+    rng = np.random.default_rng(seed)
+    vel = root / "sequences" / "00" / "velodyne"
+    lab = root / "sequences" / "00" / "labels"
+    vel.mkdir(parents=True)
+    lab.mkdir(parents=True)
+    for i in range(KITTI_SCANS):
+        n = 120_000
+        r = 40.0 * np.sqrt(rng.uniform(0.02, 1.0, n))  # denser near the sensor
+        phi = rng.uniform(0, 2 * np.pi, n)
+        xyz = np.column_stack([r * np.cos(phi), r * np.sin(phi), rng.normal(-1.7, 0.05, n)])
+        labels = rng.choice([40, 50, 70], n, p=[0.6, 0.25, 0.15]).astype(np.uint32)
+        up = labels != 40
+        xyz[up, 2] = rng.uniform(-1.7, 6.0, int(up.sum()))
+        poles = []
+        for j in range(KITTI_POLES):
+            a = 2 * np.pi * (j + rng.uniform(0, 0.5)) / KITTI_POLES
+            c = 6.0 + 4.0 * j
+            poles.append(np.column_stack([rng.normal(c * np.cos(a), 0.1, 400),
+                                          rng.normal(c * np.sin(a), 0.1, 400),
+                                          rng.uniform(-1.7, 5.0, 400)]))
+        xyz = np.concatenate([xyz, *poles]).astype(np.float32)
+        labels = np.concatenate([labels, np.full(400 * KITTI_POLES, 80, np.uint32)])
+        scan = np.concatenate([xyz, rng.uniform(0, 1, (len(xyz), 1)).astype(np.float32)], 1)
+        scan.tofile(vel / f"{i:06d}.bin")
+        (labels | (np.uint32(i + 1) << 16)).tofile(lab / f"{i:06d}.label")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -478,7 +571,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from scenenet_tpu_torch.cli import train as train_cli
     from scenenet_tpu_torch.cli.serve import _Pipeline, build_server, make_handler
-    from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K
+    from scenenet_tpu_torch import native
+    from scenenet_tpu_torch.data import (
+        NativePointCloudLoader, PointCloudLoader, PointPadding, Subset, TS40K,
+    )
     from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
     from scenenet_tpu_torch.losses import resolve_criterion
     from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
@@ -544,12 +640,12 @@ def main(argv=None) -> int:
             f"{e.key[:40]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
             for e in top), by_name
 
-    def kernel_runs(prof):
-        """The device runs in ``prof``'s trace of each kernel of RUN_MARKS."""
-        runs = dict.fromkeys(RUN_MARKS, 0)
+    def kernel_runs(prof, marks=RUN_MARKS):
+        """The device runs in ``prof``'s trace of each kernel of ``marks``."""
+        runs = dict.fromkeys(marks, 0)
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                for k, mark in RUN_MARKS.items():
+                for k, mark in marks.items():
                     if mark.search(e.key):
                         runs[k] += e.count
         return runs
@@ -577,15 +673,22 @@ def main(argv=None) -> int:
     widened = ("conv3d_mc_bf16_widened",)
     bench_build = threading.Thread(target=bf16_bench.load_bench, args=(widened,), daemon=True)
     bench_build.start()
+    # the native host library (g++) builds beside them
+    native_build = threading.Thread(target=native.available, daemon=True)
+    native_build.start()
     _build.load()
     bench_build.join()
+    native_build.join()
     bf16_bench.load_bench(widened)  # raises here if the bench build failed
+    # the native loader is the route measured here, not a quiet fallback
+    check(native.available(), "the native host library did not build")
     log = _build.library_path().with_suffix(".log").read_text()
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(s) for s in re.findall(r"(\d+) bytes spill stores", log))
     print(f"[build] {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s, "
           f"one process per source) -> {_build.library_path().name}; max registers "
-          f"{max(regs, default=-1)}, spill stores {spills} B", flush=True)
+          f"{max(regs, default=-1)}, spill stores {spills} B; native host library "
+          f"{native.library_path().relative_to(ROOT)}", flush=True)
 
     rng = np.random.default_rng(0)
 
@@ -1621,8 +1724,16 @@ def main(argv=None) -> int:
                       for (c, o, n), (a, b, f, e1, e2) in dw16.items()), flush=True)
 
     # ---- 9. main path: serve ------------------------------------------------
+    # the counts from 0 before the pipeline is built: its warm-up runs and its
+    # capture are what the wrappers launch; the requests replay bucket 1's
+    # graph, whose kernels are counted from a torch.profiler trace
+    from torch.profiler import ProfilerActivity, profile
+
+    reset_counts()
     gpu = _Pipeline(None)  # serving defaults: 64³, 131072 points, (9,5,5), card
     check(gpu.device.type == "cuda" and gpu.backend == "cuda", "pipeline not on the card")
+    check(sorted(gpu._graphs) == [1] and gpu._graphs[1].graph.captured,
+          "the serving pipeline did not capture its bucket")
     cpu = _Pipeline(None, device="cpu")
     srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(gpu))
     requests = [synthetic_cloud(np.random.default_rng(100 + i), n)
@@ -1645,27 +1756,102 @@ def main(argv=None) -> int:
         check(not flips.any(), f"{what}: {int(flips.sum())} mask flips outside the band")
         return err
 
+    refs = [cpu.predict(pts) for pts in requests]
     with running(srv, gpu) as url:
-        reset_counts()
         lat, worst = [], 0.0
-        for pts in requests:
-            status, out, wall_ms, server_ms = post(f"{url}/predict", pts, TAU)
-            check(status == 200, f"/predict returned {status}")
-            worst = max(worst, check_reply(out, pts, cpu.predict(pts), PROB_TOL, "serve"))
-            lat.append((wall_ms, server_ms))
+        with profile(activities=[ProfilerActivity.CUDA]) as serve_prof:
+            replies = [post(f"{url}/predict", pts, TAU) for pts in requests]
+            torch.cuda.synchronize()
         serve_counts = read_counts()
+        serve_runs = kernel_runs(serve_prof, SERVE_MARKS)
         health = healthz(url)
-    for k in ("points_occupancy", "stencil_conv"):
-        check(serve_counts[k] >= len(requests),
-              f"{k} launched {serve_counts[k]} times for {len(requests)} requests")
-    served = {k: serve_counts[k] for k in ("points_occupancy", "sorted_bin_counts",
-                                           "stencil_conv", "stencil_mma")}
+    for (status, out, wall_ms, server_ms), pts, ref in zip(replies, requests, refs):
+        check(status == 200, f"/predict returned {status}")
+        worst = max(worst, check_reply(out, pts, ref, PROB_TOL, "serve"))
+        lat.append((wall_ms, server_ms))
+    n_req = len(requests)
+    check(gpu.graph_replays() == {1: n_req}, f"replays {gpu.graph_replays()}")
+    # launched: the first request's eager run, the warm-up runs and the capture
+    check(serve_counts["points_occupancy"] == serve_counts["stencil_conv"] == GRAPH_WARMUP + 2
+          and serve_counts["stencil_mma"] == serve_counts["sorted_bin_counts"] == 0,
+          f"serve: the wrappers launched {serve_counts}")
+    check(serve_runs["points_occupancy"] == serve_runs["stencil_conv"] == n_req
+          and serve_runs["stencil_mma"] == 0, f"serve: the replays ran {serve_runs}")
+    served = {k: serve_counts[k] + n_req * gpu._graphs[1].launches[k]
+              for k in ("points_occupancy", "sorted_bin_counts", "stencil_conv", "stencil_mma")}
     check(health["kernel_launches"] == served, f"/healthz counts {health['kernel_launches']}")
-    print(f"[serve] {len(requests)} requests match the CPU pipeline (max|d| {worst:.3g}) | "
-          "latency ms wall/server: " + ", ".join(f"{w:.2f}/{s:.2f}" for w, s in lat)
-          + f" | launches {serve_counts} | healthz device {health['device']}", flush=True)
+    print(f"[serve] {n_req} requests match the CPU pipeline (max|d| {worst:.3g}), each one "
+          f"replay of bucket 1's CUDA graph | latency ms wall/server: "
+          + ", ".join(f"{w:.2f}/{s:.2f}" for w, s in lat)
+          + f" | launched (warm-up and capture) {serve_counts} | run by the replays "
+          f"{serve_runs} | healthz {health['kernel_launches']}, device {health['device']}",
+          flush=True)
     del gpu, cpu
     torch.cuda.empty_cache()
+
+    # ---- 9a. the served dispatch: a bucket's CUDA graph against eager run_batch --
+    # bit for bit at every bucket of --max-batch 8, for f32, mxu and the quantile
+    # ensemble; then per dispatch at bucket 8 and per batch-1 request at the client
+    graph_lines, dispatch_prof, graph_counts = [], {}, {}
+    rng_g = np.random.default_rng(90)
+    for kind, kw in (("f32", {}), ("mxu", {"inference": "mxu"}),
+                     ("quantile", {"model": "quantile"})):
+        reset_counts()
+        pipe = _Pipeline(None, max_batch=8, batch_window_ms=0.0, **kw)
+        graph_counts[kind] = read_counts()
+        check(sorted(pipe._graphs) == [1, 2, 4, 8], f"{kind}: buckets {sorted(pipe._graphs)}")
+        for b in (1, 2, 4, 8):
+            hp_, hm_, _ = padded_batch(rng_g, b)
+            pt_, mt_ = torch.from_numpy(hp_).to(dev), torch.from_numpy(hm_).to(dev)
+            with torch.inference_mode():
+                eager = pipe._run(pt_, mt_)
+            got, again = pipe.run_batch(pt_, mt_), pipe.run_batch(pt_, mt_)
+            check(all(torch.equal(g, e) and torch.equal(a, e)
+                      for g, a, e in zip(got, again, eager)),
+                  f"{kind} bucket {b}: the graph's replay differs from eager run_batch")
+        check(pipe.graph_replays() == {1: 2, 2: 2, 4: 2, 8: 2}, f"{kind}: replays")
+        if kind == "f32":
+            # one dispatch at bucket 8: the graph's replay and the eager pipeline
+            hp_, hm_, _ = padded_batch(rng_g, 8)
+            pt_, mt_ = torch.from_numpy(hp_).to(dev), torch.from_numpy(hm_).to(dev)
+            n_disp = 20
+            for route in ("graph", "eager", "eager", "graph"):
+                graphs, pipe._graphs = pipe._graphs, ({} if route == "eager" else pipe._graphs)
+                calls = {}
+                wall, busy_us, n_items, _, _ = profiled(
+                    lambda: [pipe.run_batch(pt_, mt_) for _ in range(n_disp)], calls)
+                pipe._graphs = graphs
+                host = sum(v for k, v in calls.items() if k in HOST_LAUNCH_CALLS)
+                dispatch_prof.setdefault(route, []).append(
+                    (host / n_disp, n_items / n_disp, 1 - busy_us / 1e6 / wall,
+                     wall * 1e3 / n_disp))
+        pipe.close()
+        graph_lines.append(f"{kind}: buckets 1/2/4/8 bit-identical to eager, twice; launched "
+                           f"at build {graph_counts[kind]}")
+        del pipe
+        torch.cuda.empty_cache()
+    # batch-1 requests at the client, through the HTTP server: graph and eager in turns
+    server, one = build_server(["--port", "0"])
+    client_ms = {"graph": [], "eager": []}
+    with running(server, one) as url:
+        graphs = one._graphs
+        for r in range(4):
+            for route in (("graph", "eager") if r % 2 == 0 else ("eager", "graph")):
+                one._graphs = graphs if route == "graph" else {}
+                for pts in requests[:4]:
+                    client_ms[route].append(post(f"{url}/predict", pts, TAU)[2])
+        one._graphs = graphs
+    del one
+    torch.cuda.empty_cache()
+    disp = {k: tuple(float(np.median([r[i] for r in v])) for i in range(4))
+            for k, v in dispatch_prof.items()}
+    print(f"[serve graph] {' | '.join(graph_lines)} | per dispatch at bucket 8 ({smi}), "
+          f"median of 2 profiled runs of 20: " + ", ".join(
+              f"{k}: {h:.1f} host launch calls, {d:.1f} device items, idle share {i:.4f}, "
+              f"{w:.3f} ms wall" for k, (h, d, i, w) in disp.items())
+          + f" | batch-1 request at the client, median of 16 in alternating rounds [min-max] "
+          f"ms: " + ", ".join(f"{k} {np.median(v):.3f} [{min(v):.3f}-{max(v):.3f}]"
+                              for k, v in client_ms.items()), flush=True)
 
     # ---- 9b. main path: the batched pipeline, inference="mxu", fused tau-mask ----
     HEAD_B = 64
@@ -1714,29 +1900,36 @@ def main(argv=None) -> int:
     cpu_mxu = _Pipeline(None, inference="mxu", device="cpu")
     refs = [cpu_mxu.predict(c) for c in clouds]
     del cpu_mxu
+    reset_counts()
     server, batched = build_server(["--inference", "mxu", "--max-batch", "8", "--port", "0"])
-    check(batched.device.type == "cuda" and batched._batcher.max_batch == 8,
-          "batched server not on the card at max batch 8")
+    check(batched.device.type == "cuda" and batched._batcher.max_batch == 8
+          and sorted(batched._graphs) == [1, 2, 4, 8],
+          "batched server not on the card at max batch 8 with a graph a bucket")
     with running(server, batched) as url:
-        reset_counts()
+        before = batched.kernel_launches()
         replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
-        batched_counts = read_counts()
         health = healthz(url)
+        batched_counts = read_counts()  # the warm-up runs and the four captures
         worst = max(check_reply(out, c, ref, MXU_TOL, "batched serve")
                     for (_, out, _, _), c, ref in zip(replies, clouds, refs))
         stats = health["batching"]
         check(stats["requests"] == 16 and stats["failed_dispatches"] == 0, f"batching {stats}")
         check(stats["dispatches"] < stats["requests"] and stats["max_batch_seen"] > 1,
               f"requests did not coalesce: {stats}")
-        check(batched_counts["stencil_mma"] == batched_counts["points_occupancy"]
-              == stats["dispatches"] and batched_counts["stencil_conv"] == 0,
-              f"batched serving launched {batched_counts} in {stats['dispatches']} dispatches")
-        check(health["kernel_launches"]["stencil_mma"] >= batched_counts["stencil_mma"],
-              f"/healthz counts {health['kernel_launches']}")
+        replays = batched.graph_replays()
+        check(sum(replays.values()) == stats["dispatches"],
+              f"{stats['dispatches']} dispatches but graph replays {replays}")
+        served = {k: health["kernel_launches"][k] - before[k] for k in before}
+        check(served["stencil_mma"] == served["points_occupancy"] == stats["dispatches"]
+              and served["stencil_conv"] == 0,
+              f"batched serving ran {served} in {stats['dispatches']} dispatches")
+        check(batched_counts["stencil_mma"] >= 4 and batched_counts["stencil_conv"] == 0,
+              f"batched serving launched {batched_counts}")
         line = (f"[serve batched] --inference mxu --max-batch 8: 16 concurrent requests match "
                 f"the CPU pipeline with inference='mxu' (max|d| {worst:.3g}) in "
-                f"{wall * 1e3:.1f} ms | batching {stats} | launches {batched_counts} | "
-                "server ms: " + ", ".join(f"{r[3]:.1f}" for r in replies))
+                f"{wall * 1e3:.1f} ms | batching {stats} | graph replays by bucket {replays} "
+                f"| launched (warm-up and capture) {batched_counts} | run by the replays "
+                f"{served} | server ms: " + ", ".join(f"{r[3]:.1f}" for r in replies))
         if opts.profile:
             before = healthz(url)["batching"]["dispatches"]
             prof_wall, busy_us, n_items, largest, _ = profiled(
@@ -1751,6 +1944,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 9d. --max-batch auto, and --model quantile -----------------------------
+    reset_counts()
     server, auto = build_server(["--inference", "mxu", "--max-batch", "auto", "--port", "0"])
     with running(server, auto) as url:
         replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
@@ -1759,17 +1953,28 @@ def main(argv=None) -> int:
         stats = healthz(url)["batching"]
         check(stats["requests"] == 16 and stats["failed_dispatches"] == 0
               and stats["mode"] == "adaptive" and stats["max_batch"] == 32, f"batching {stats}")
+        auto_counts = read_counts()
+        replays = auto.graph_replays()
+        check(sorted(replays) == [1, 2, 4, 8, 16, 32] and sum(replays.values())
+              == stats["dispatches"] + stats.get("direct_requests", 0),
+              f"adaptive: {stats} but graph replays {replays}")
     print(f"[serve auto] --inference mxu --max-batch auto: 16 concurrent requests match the "
-          f"CPU pipeline (max|d| {worst:.3g}) in {wall * 1e3:.1f} ms | batching {stats}",
+          f"CPU pipeline (max|d| {worst:.3g}) in {wall * 1e3:.1f} ms | batching {stats} | graph "
+          f"replays by bucket {replays} | launched (warm-up and capture) {auto_counts}",
           flush=True)
     del auto
     torch.cuda.empty_cache()
 
+    reset_counts()
     server, quant = build_server(["--model", "quantile", "--port", "0"])
     cpu_q = _Pipeline(None, model="quantile", device="cpu")
     with running(server, quant) as url:
         status, out, wall_ms, _ = post(f"{url}/predict", clouds[0], TAU)
         info = healthz(url)
+    quant_counts = read_counts()
+    check(quant.graph_replays() == {1: 1}
+          and quant_counts["stencil_conv"] == 3 * (GRAPH_WARMUP + 2),
+          f"quantile: replays {quant.graph_replays()}, launched {quant_counts}")
     n = len(clouds[0])
     ref_vox, ref_probs = cpu_q.predict(clouds[0])
     check(status == 200 and info["model"] == "quantile" and info["quantiles"] == [0.1, 0.5, 0.9],
@@ -1785,7 +1990,8 @@ def main(argv=None) -> int:
           "quantile reply: uncertainty or median member wrong")
     print(f"[serve quantile] --model quantile: point_quantiles {out['point_quantiles'].shape}, "
           f"uncertainty max {float(out['uncertainty'].max()):.4f}, matches the CPU pipeline "
-          f"(max|d| {q_err:.3g}), {wall_ms:.1f} ms", flush=True)
+          f"(max|d| {q_err:.3g}), {wall_ms:.1f} ms, one replay of bucket 1's graph | launched "
+          f"(warm-up and capture) {quant_counts}", flush=True)
     del quant, cpu_q
     torch.cuda.empty_cache()
 
@@ -1883,11 +2089,14 @@ def main(argv=None) -> int:
             cached_fits.clear()
             reset_counts()
             t0 = time.perf_counter()
-            run_scores = train_cli.main(["--set", *DEFAULTS_SET, "--set",
-                                         f"data_path={tmp / 'ts40k'}", "max_epochs=1",
-                                         "num_workers=4", f"output_dir={tmp / tag}",
-                                         f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
-            torch.cuda.synchronize()
+            with tee_stdout() as said:
+                run_scores = train_cli.main(["--set", *DEFAULTS_SET, "--set",
+                                             f"data_path={tmp / 'ts40k'}", "max_epochs=1",
+                                             "num_workers=4", f"output_dir={tmp / tag}",
+                                             f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
+                torch.cuda.synchronize()
+            check("[loader] -> NativePointCloudLoader" in said.text,
+                  f"{tag}: the train loader is not the native one")
             run_counts = read_counts()
             run_steps = n_train // TRAIN_BATCH
             check(all(math.isfinite(v) for k, v in run_scores.items() if k.endswith("loss")),
@@ -1903,10 +2112,11 @@ def main(argv=None) -> int:
             for tag, (s, loss, c) in route_runs.items()), flush=True)
 
         # ---- 10c. a cached step replayed from the graph vs the same step streamed -
-        ds = TS40K(str(tmp / "ts40k"), "fit", transform=PointPadding(max_points=TRAIN_POINTS))
+        ds = TS40K(str(tmp / "ts40k"), "fit", transform=PointPadding(max_points=TRAIN_POINTS,
+                                                                            compute_indices=False))
         crit = resolve_criterion("geneo_tversky")(**load_config(
             None, train_cli.parse_overrides(DEFAULTS_SET)).criterion_params())
-        prep = make_device_voxelize_prep(GRID, (TOWER,))
+        prep = make_device_voxelize_prep(GRID, (TOWER,), use_indices=False)
         point_cache = DevicePointCache(ds, dev)
         grid_cache = DeviceGridCache(point_cache, prep)
         # 3 batches an epoch: fit_grid_cached (the warm-up steps, then the captured
@@ -2074,17 +2284,40 @@ def main(argv=None) -> int:
         stream_loader = PointCloudLoader(stream_ds, TRAIN_BATCH, shuffle=True, num_workers=4,
                                          seed=0, drop_last=True)
 
-        def streamed_epoch():
+        # the native loader over the same samples: the C++ loader's batches, K3 in the step
+        native_loader = NativePointCloudLoader(stream_ds, TRAIN_BATCH, shuffle=True,
+                                               max_points=TRAIN_POINTS, threads=4, seed=0,
+                                               drop_last=True)
+
+        def streamed_epoch(loader=stream_loader):
             t = route_trainers["streaming"]
             ms = metrics.init_metric_state(dev)
-            for batch in stream_loader:
+            for batch in loader:
                 ms, _ = t.train_step(ms, *t.to_device(batch))
             metrics.metric_counts(ms)
 
-        epoch_fns = {"streaming": streamed_epoch}
+        # host samples a second of each loader alone, in turns (4 workers / threads)
+        loader_sps = {"python": [], "native": []}
+        for r in range(4):
+            for tag, ld in ((("python", stream_loader), ("native", native_loader)) if r % 2 == 0
+                            else (("native", native_loader), ("python", stream_loader))):
+                t0 = time.perf_counter()
+                n_seen = sum(len(b[0]) for b in ld)
+                loader_sps[tag].append(n_seen / (time.perf_counter() - t0))
+        print(f"[timing] host loader alone, {ROUTE_SAMPLES} samples of 40k-70k points padded to "
+              f"{TRAIN_POINTS}, batch {TRAIN_BATCH}, 4 workers/threads, "
+              f"{os.cpu_count()} host cores: samples/s median of 4 alternating epochs [min-max]: "
+              + ", ".join(f"{k} {np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]"
+                          for k, v in loader_sps.items())
+              + " (python: PointCloudLoader + PointPadding(compute_indices=False); native: "
+              "NativePointCloudLoader)", flush=True)
+
+        epoch_fns = {"streaming": streamed_epoch,
+                     "streaming native": lambda: streamed_epoch(native_loader)}
         epoch_fns.update((tag, t.cached_epochs.run_epoch) for tag, t in route_trainers.items()
                          if tag != "streaming")
-        epoch_fns["streaming"]()  # the loader's first epoch
+        epoch_fns["streaming"]()  # the loaders' first epochs
+        epoch_fns["streaming native"]()
         route_ms = {k: [] for k in epoch_fns}
         for r in range(4):
             for tag, fn in (epoch_fns.items() if r % 2 == 0 else list(epoch_fns.items())[::-1]):
@@ -2100,7 +2333,8 @@ def main(argv=None) -> int:
               f"alternating order [min-max]: " + ", ".join(
                   f"{k} {route_step_ms[k]:.3f} [{min(v):.3f}-{max(v):.3f}]"
                   for k, v in route_ms.items())
-              + " (streaming: the host loader, 4 workers; points: augment=True, K3 in the "
+              + " (streaming: the Python loader, 4 workers; streaming native: the native "
+              "loader, 4 threads; both K3 in the step; points: augment=True, K3 in the "
               "step; grids: augment=False, the defaults; quantile: model=quantile, 3 members, "
               "quantile_geneo; bf16: precision=bf16)", flush=True)
         if opts.profile:
@@ -2213,6 +2447,110 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(host_losses.items()))
               + f" | launches {host_counts}", flush=True)
 
+        # ---- 13b. the host data layer: LAS tiles -> cli.build_samples -> cli.train -----
+        # the ETL as its users run it, then the train CLI on its crops at the defaults'
+        # width through the three routes of the reference's CLI; then SemanticKITTI
+        from scenenet_tpu_torch.data.las import write_las
+
+        t0 = time.perf_counter()
+        n_las = write_las_tiles(tmp / "las", write_las)
+        las_s = time.perf_counter() - t0
+        etl_cmd = [sys.executable, "-m", "scenenet_tpu_torch.cli.build_samples", "ts40k",
+                   "--las-dir", str(tmp / "las"), "--out", str(tmp / "etl"),
+                   "--test-split", str(ETL_TEST_SPLIT)]
+        t0 = time.perf_counter()
+        etl = subprocess.run(etl_cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        etl_s = time.perf_counter() - t0
+        check(etl.returncode == 0, f"build_samples ts40k failed:\n{etl.stderr[-3000:]}")
+        n_crops = ETL_TILES * ETL_TOWERS
+        etl_fit = sorted((tmp / "etl" / "fit").glob("sample_*.npy"))
+        etl_test = sorted((tmp / "etl" / "test").glob("sample_*.npy"))
+        check(f"wrote {n_crops} ts40k samples" in etl.stdout
+              and len(etl_fit) + len(etl_test) == n_crops,
+              f"build_samples: {etl.stdout.strip()} ({len(etl_fit)} fit, {len(etl_test)} test)")
+        crop_sizes = [len(np.load(f, mmap_mode="r")) for f in etl_fit]
+        towers_in = [int((np.load(f)[:, 3] == TOWER).sum()) for f in etl_fit[:4]]
+        check(min(towers_in) >= ETL_TOWER_POINTS // 2, f"crops hold {towers_in} tower points")
+        print(f"[etl] {ETL_TILES} LAS tiles of {ETL_TOWERS} towers ({n_las} points, written in "
+              f"{las_s:.1f} s) -> python -m scenenet_tpu_torch.cli.build_samples ts40k "
+              f"--test-split {ETL_TEST_SPLIT}: {len(etl_fit)} fit + {len(etl_test)} test crops "
+              f"of {min(crop_sizes)}-{max(crop_sizes)} points in {etl_s:.2f} s = "
+              f"{etl_s / ETL_TILES:.3f} s a tile (the interpreter's start included) | "
+              f"{etl.stdout.strip()}", flush=True)
+
+        etl_train = len(etl_fit) - int(len(etl_fit) * 0.1)
+        etl_steps = etl_train // TRAIN_BATCH
+        etl_evals = -(-(len(etl_fit) - etl_train) // TRAIN_BATCH) + -(-len(etl_test)
+                                                                        // TRAIN_BATCH)
+        etl_runs = {}
+        for tag, extra, line in (
+                ("etl_native", [], "[loader] -> NativePointCloudLoader"),
+                ("etl_host_grids", ["device_voxelization=False"],
+                 "[loader] -> VoxelLoader (device_voxelization=false"),
+                ("etl_unet", ["model=unet", "device_cache=auto"],
+                 "[loader] -> NativePointCloudLoader")):
+            with tee_stdout() as said:
+                _, losses_e, secs_e, counts_e = train_run(
+                    tag, [f"data_path={tmp / 'etl'}", *extra], False)
+            check(line in said.text, f"{tag}: the route line {line!r} was not printed")
+            if tag == "etl_native":  # raw points from the C++ loader, K3, K2 and K4
+                only(counts_e, "points_binary", etl_steps, tag)
+            elif tag == "etl_host_grids":  # host grids: no voxelization on the card
+                check(counts_e["stencil_dk"] == etl_steps
+                      and counts_e["stencil_conv"] == etl_steps + etl_evals
+                      and all(counts_e[k] == 0 for k in (
+                          "points_occupancy", "points_binary", "bin_counts",
+                          "sorted_bin_counts", "points_bin_counts", "flat_ids")),
+                      f"{tag}: launches {counts_e}")
+            else:  # the UNet streams through the native loader: K3 and K10
+                check(counts_e["conv3d_mc"] == UNET_TRAIN_LAUNCHES * etl_steps
+                      + UNET_EVAL_LAUNCHES * etl_evals
+                      and counts_e["points_binary"] == etl_steps + etl_evals
+                      and counts_e["stencil_conv"] == counts_e["stencil_dk"] == 0,
+                      f"{tag}: launches {counts_e}")
+            etl_runs[tag] = counts_e
+            print(f"[train etl] cli.train on the ETL's crops, defaults width (B={TRAIN_BATCH}, "
+                  f"64^3, {TRAIN_POINTS} points), {tag} ({' '.join(extra) or 'device_cache=False'}"
+                  f"): {line}...; 1 epoch = {etl_steps} steps + {etl_evals} evaluation batches "
+                  f"in {secs_e:.1f} s | losses "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in sorted(losses_e.items()))
+                  + f" | launches {counts_e}", flush=True)
+
+        write_kitti_sequence(tmp / "kitti")
+        t0 = time.perf_counter()
+        kt = subprocess.run([sys.executable, "-m", "scenenet_tpu_torch.cli.build_samples",
+                             "semantic_kitti", "--dataset", str(tmp / "kitti"), "--out",
+                             str(tmp / "kitti_crops")], cwd=ROOT, capture_output=True,
+                            text=True, timeout=600)
+        kitti_etl_s = time.perf_counter() - t0
+        check(kt.returncode == 0, f"build_samples semantic_kitti failed:\n{kt.stderr[-3000:]}")
+        n_poles = len(list((tmp / "kitti_crops" / "samples").glob("*.npy")))
+        check(n_poles == KITTI_SCANS * KITTI_POLES, f"{n_poles} pole crops: {kt.stdout}")
+        kitti_fit = n_poles // 5  # SemanticKITTICrops' train split: the first 20%
+        kitti_val = int(kitti_fit * 0.25)
+        kitti_steps = (kitti_fit - kitti_val) // KITTI_BATCH
+        kitti_evals = (-(-kitti_val // KITTI_BATCH)
+                       + -(-(n_poles - int(0.4 * n_poles)) // KITTI_BATCH))
+        with tee_stdout() as said:
+            _, kitti_losses, kitti_s, kitti_counts = train_run(
+                "kitti", [f"data_path={tmp / 'kitti_crops'}", "dataset=semantic_kitti",
+                          f"voxel_grid_size={KITTI_GRID}", f"max_points={KITTI_POINTS}",
+                          f"batch_size={KITTI_BATCH}", "keep_labels=(80,)", "val_split=0.25"],
+                False)
+        check("[loader] -> NativePointCloudLoader" in said.text, "kitti: not the native loader")
+        only(kitti_counts, "points_binary", kitti_steps, "kitti")
+        check(kitti_counts["points_binary"] == kitti_steps + kitti_evals,
+              f"kitti: launches {kitti_counts}")
+        print(f"[train kitti] a synthetic SemanticKITTI sequence ({KITTI_SCANS} scans of "
+              f"~120k points, {KITTI_POLES} poles each) -> python -m "
+              f"scenenet_tpu_torch.cli.build_samples semantic_kitti: {n_poles} pole crops in "
+              f"{kitti_etl_s:.2f} s -> cli.train --set dataset=semantic_kitti voxel_grid_size="
+              f"{KITTI_GRID} keep_labels=(80,) batch_size={KITTI_BATCH} max_points="
+              f"{KITTI_POINTS}: 1 epoch = {kitti_steps} steps + {kitti_evals} evaluation "
+              f"batches in {kitti_s:.1f} s through the native loader | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(kitti_losses.items()))
+              + f" | launches {kitti_counts}", flush=True)
+
         # ---- 14. main path: the 128^3 grid, both train routes and one request --
         write_dataset(tmp / "ts40k_big", seed=9, n_fit=BIG_FIT, n_test=BIG_TEST)
         big_steps = (BIG_FIT - int(BIG_FIT * 0.1)) // BIG_BATCH
@@ -2268,26 +2606,34 @@ def main(argv=None) -> int:
               "median of 4 alternating rounds [min-max] ms/step; 'kernel' = from host-exact "
               "indices, 'plain' = bins on the card: " + fmt_times(route_t), flush=True)
 
+        reset_counts()
         server, big = build_server(["--grid", "128", "--port", "0"])
         cpu_big = _Pipeline(None, grid=BIG_GRID, device="cpu")
         with running(server, big) as url:
-            reset_counts()
-            status, out, wall_ms, server_ms = post(f"{url}/predict", clouds[0], TAU)
+            with profile(activities=[ProfilerActivity.CUDA]) as big_prof:
+                status, out, wall_ms, server_ms = post(f"{url}/predict", clouds[0], TAU)
+                torch.cuda.synchronize()
             big_serve_counts = read_counts()
+        big_runs = kernel_runs(big_prof, SERVE_MARKS)
         check(status == 200, f"/predict at --grid 128 returned {status}")
         err = check_reply(out, clouds[0], cpu_big.predict(clouds[0]), PROB_TOL,
                           "serve --grid 128", grid=BIG_GRID)
+        check(big.graph_replays() == {1: 1} and big_runs["sorted_bin_counts"] >= 1
+              and big_runs["stencil_conv"] == 1 and big_runs["points_occupancy"] == 0,
+              f"the 128^3 request: replays {big.graph_replays()}, ran {big_runs}")
         check(big_serve_counts["sorted_bin_counts"] >= 1 and big_serve_counts["stencil_conv"] >= 1
               and big_serve_counts["points_occupancy"] == 0,
-              f"the 128^3 request launched {big_serve_counts}")
+              f"the 128^3 server launched {big_serve_counts}")
         print(f"[serve 128^3] --grid 128: the reply matches the CPU pipeline (max|d| {err:.3g}), "
-              f"{wall_ms:.1f}/{server_ms:.1f} ms wall/server | launches {big_serve_counts}",
+              f"{wall_ms:.1f}/{server_ms:.1f} ms wall/server, one replay of bucket 1's graph "
+              f"(ran {big_runs}) | launched (warm-up and capture) {big_serve_counts}",
               flush=True)
         del big, cpu_big
         torch.cuda.empty_cache()
 
         # ---- 15. main path: the counts kernel under the Trainer, and the ids ---
-        frac_prep = make_device_voxelize_prep(GRID, (TOWER,), binarize=(True, False))
+        frac_prep = make_device_voxelize_prep(GRID, (TOWER,), binarize=(True, False),
+                                              use_indices=False)
         net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
         frac = Trainer(net, crit, TrainConfig(run_dir=str(tmp / "frac"),
                                               checkpoint_dir=str(tmp / "frac_ckpt")),
@@ -2493,7 +2839,8 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(cnn_losses.items()))
               + f" | launches {cnn_counts}", flush=True)
 
-    main_runs = [serve_counts, headline_counts, batched_counts, train_counts,
+    main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
+                 *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
                  *(c for _, _, c in route_runs.values()),
                  *(r[5] for r in option_runs.values()), host_counts,
                  *big_counts.values(), big_serve_counts, counts_path, unet_counts,

@@ -24,7 +24,17 @@ uploads, compute and downloads of consecutive batches overlap (see
 whether and how long to coalesce. The batched path produces the same
 results as the batch-1 path.
 
+On a card every bucket the server warms (batch 1 always; with
+``--max-batch`` every power of two up to it) is captured at start-up as one
+CUDA graph of :meth:`_Pipeline.run_batch` (:class:`_BucketGraph`), the
+counterpart of the JAX server's executable per bucket: a dispatch copies
+the rows into the bucket's static inputs, replays the graph, and copies
+its static outputs on the device, so that the next replay cannot overwrite
+what the fetch thread still has to download. On the CPU
+``run_batch`` runs eagerly.
+
 GET /healthz returns the model, grid, device, the kernels' launch counts
+(the wrappers' own counts plus the launches that the graph replays ran)
 and, when batching, its live stats.
 
 Usage:
@@ -50,6 +60,11 @@ from scenenet_tpu_torch.ops.voxelize import (
     batch_flat_ids, gather_point_values, voxelize_batch_occupancy,
 )
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
+from scenenet_tpu_torch.train.step_graph import WARMUP, StepGraph
+
+# the wrappers on the serving path, by kernel
+SERVE_COUNTERS = (cuda_hist.LAUNCHES, cuda_hist.SORTED_COUNTS_LAUNCHES, cuda_conv.LAUNCHES,
+                  cuda_conv.MXU_LAUNCHES)
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -59,6 +74,66 @@ def resolve_device(device: "str | torch.device | None") -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
     return device
+
+
+def wrapper_launches() -> dict:
+    """The serving path's wrappers' own launch counts, by kernel."""
+    return {c.name: c.count for c in SERVE_COUNTERS}
+
+
+def _warm_inputs(b: int, max_points: int, device: torch.device):
+    """A batch of ``b`` padded clouds of one point each, for warming."""
+    pts = torch.zeros((b, max_points, 3), device=device)
+    mask = torch.zeros((b, max_points), dtype=torch.bool, device=device)
+    mask[:, 0] = True
+    return pts, mask
+
+
+class _BucketGraph:
+    """``run_batch`` of one bucket captured as a CUDA graph, with its static
+    inputs and outputs: the counterpart of one executable of the JAX
+    server's ``jax.jit`` per bucket.
+
+    :class:`~scenenet_tpu_torch.train.step_graph.StepGraph` makes it:
+    ``WARMUP`` eager runs on a side stream, then the capture (a failed
+    capture raises), in its own memory pool. Kernel synthesis from the
+    parameters is inside the graph, so a restored checkpoint (copied into
+    the parameters in place) takes effect at the next replay.
+
+    A call holds the bucket's lock around copy-in, replay and copy-out: the
+    static buffers are shared by every thread that dispatches this bucket
+    (the dispatch thread, and handler threads in the adaptive "single"
+    phase). All three are enqueued on the one stream, so the lock orders
+    only the enqueueing. The copies out are made on the stream right after
+    the replay, so that the next replay cannot overwrite what the fetch
+    thread still has to download. ``launches`` are the wrappers' launches
+    that the capture recorded, which every replay runs again without
+    calling a wrapper.
+    """
+
+    def __init__(self, run, bucket: int, max_points: int, device: torch.device):
+        self.pts, self.mask = _warm_inputs(bucket, max_points, device)
+        self.out = None
+        self.lock = threading.Lock()
+        self.replays = 0
+
+        def step():
+            self.out = run(self.pts, self.mask)
+
+        self.graph = StepGraph(step, device)
+        for _ in range(WARMUP):
+            self.graph()
+        before = wrapper_launches()
+        self.graph()  # the capture, then one replay
+        self.launches = {k: v - before[k] for k, v in wrapper_launches().items()}
+
+    def __call__(self, pts: torch.Tensor, mask: torch.Tensor):
+        with self.lock:
+            self.pts.copy_(pts)
+            self.mask.copy_(mask)
+            self.graph()
+            self.replays += 1
+            return tuple(t.clone() for t in self.out)
 
 
 class _Pipeline:
@@ -91,29 +166,42 @@ class _Pipeline:
         # "mxu" / "mxu_fast": the tensor-core stencil (near f32 / single bf16)
         self.inference = inference if inference in ("mxu", "mxu_fast") else bool(inference)
         self._batcher = None
-        # the first call builds the kernels (cuda) and warms the allocator,
-        # each bucket's shapes included, before any worker thread exists
+        self._graphs = {}  # bucket -> _BucketGraph (on a card)
+        # the first call builds the kernels (cuda) and warms the allocator; then
+        # every bucket is warmed (on a card: captured), all before any worker
+        # thread exists
         self.predict(np.zeros((16, 3), np.float32))
-        if max_batch > 1:
-            batcher = _MicroBatcher(self, max_batch, batch_window_ms, adaptive=adaptive)
-            if warm_buckets:
-                b = 1
-                while b <= batcher.max_batch:
-                    pts = torch.zeros((b, self.max_points, 3), device=self.device)
-                    msk = torch.zeros((b, self.max_points), dtype=torch.bool,
-                                      device=self.device)
-                    msk[:, 0] = True
-                    self.run_batch(pts, msk)
-                    b *= 2
+        batcher = (_MicroBatcher(self, max_batch, batch_window_ms, adaptive=adaptive)
+                   if max_batch > 1 else None)
+        buckets = [1]
+        while batcher is not None and warm_buckets and buckets[-1] * 2 <= batcher.max_batch:
+            buckets.append(buckets[-1] * 2)
+        with torch.inference_mode():
+            for b in buckets:
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    self._graphs[b] = _BucketGraph(self._run, b, max_points, self.device)
+                elif batcher is not None and warm_buckets:
+                    self.run_batch(*_warm_inputs(b, max_points, self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if batcher is not None:
             batcher.start()
             self._batcher = batcher
 
     @torch.inference_mode()
     def run_batch(self, pts: torch.Tensor, mask: torch.Tensor):
         """(B, N, 3) f32 / (B, N) bool on the pipeline's device →
-        (pred (B[, Q], Z, X, Y), probs (B[, Q], N))."""
+        (pred (B[, Q], Z, X, Y), probs (B[, Q], N)), tensors that the caller
+        owns. A bucket captured at start-up replays its graph and returns
+        copies of its static outputs; any other batch runs eagerly."""
+        graph = self._graphs.get(pts.shape[0])
+        if graph is not None:
+            return graph(pts, mask)
+        return self._run(pts, mask)
+
+    def _run(self, pts: torch.Tensor, mask: torch.Tensor):
+        """The pipeline on a batch: occupancy, SceneNet (kernel synthesis
+        included), the ids and the voxel→point gather."""
         x = voxelize_batch_occupancy(pts, mask, self.grid)[:, None]
         pred = self.net(x, inference=self.inference)
         flat = batch_flat_ids(pts, mask, self.grid)
@@ -151,6 +239,20 @@ class _Pipeline:
         if batcher is not None:
             batcher.note_direct_completion()
         return pred, probs
+
+    def kernel_launches(self) -> dict:
+        """The serving path's launches by kernel: the wrappers' own counts
+        plus, for every captured bucket, its recorded launches once a
+        replay."""
+        out = wrapper_launches()
+        for g in self._graphs.values():
+            for k, v in g.launches.items():
+                out[k] += v * g.replays
+        return out
+
+    def graph_replays(self) -> dict:
+        """Replays so far of each captured bucket's graph."""
+        return {b: g.replays for b, g in sorted(self._graphs.items())}
 
     def close(self) -> None:
         """Stop the batcher's threads, if any."""
@@ -398,10 +500,12 @@ class _MicroBatcher:
                 # padding rows cost no upload
                 rows_p = [b[0] for b in batch] + [batch[0][0]] * (bucket - n)
                 rows_m = [b[1] for b in batch] + [batch[0][1]] * (bucket - n)
+                # the outputs are the caller's own (a graph's static outputs,
+                # which the next replay overwrites, are copied on the device);
+                # slice the padding rows off there so that only live results
+                # are downloaded at fetch time
                 pred, probs = self._pipeline.run_batch(torch.stack(rows_p),
                                                        torch.stack(rows_m))
-                # slice the padding rows off ON THE DEVICE so only live
-                # results are downloaded at fetch time
                 pred, probs = pred[:n], probs[:n]
                 # stats AFTER the dispatch call succeeds: a batch that
                 # fails must not count as served work
@@ -454,11 +558,6 @@ class _MicroBatcher:
             return out
 
 
-def kernel_launches() -> dict:
-    return {c.name: c.count for c in (cuda_hist.LAUNCHES, cuda_hist.SORTED_COUNTS_LAUNCHES,
-                                      cuda_conv.LAUNCHES, cuda_conv.MXU_LAUNCHES)}
-
-
 def make_handler(pipeline: _Pipeline):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
@@ -483,7 +582,8 @@ def make_handler(pipeline: _Pipeline):
                 "max_points": pipeline.max_points,
                 "backend": pipeline.backend,
                 "device": str(pipeline.device),
-                "kernel_launches": kernel_launches(),
+                "kernel_launches": pipeline.kernel_launches(),
+                "graph_replays": pipeline.graph_replays(),
             }
             if pipeline.model == "quantile":
                 info["quantiles"] = list(pipeline.quantiles)

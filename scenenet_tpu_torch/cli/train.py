@@ -1,8 +1,18 @@
 """Train + test entry point.
 
-PyTorch twin of ``scenenet_tpu.cli.train`` on TS40K: builds criterion →
-model → data → trainer from a config, fits with per-metric checkpoints and
-early stopping, then tests with the best checkpoint. ``device_cache``
+PyTorch twin of ``scenenet_tpu.cli.train``: builds criterion → model →
+data → trainer from a config, fits with per-metric checkpoints and early
+stopping, then tests with the best checkpoint. ``dataset`` is ``ts40k``
+(the ``fit``/``test`` folders that ``cli.build_samples ts40k`` writes) or
+``semantic_kitti`` (the pole crops of ``cli.build_samples semantic_kitti``,
+split as ``SemanticKITTICrops`` splits them). ``device_voxelization: false``
+voxelizes every sample on the host (``Voxelization`` + ``ToFullDense``) and
+trains on the grids the loader stacks, with no batch prep. The streaming
+train loader follows the JAX CLI's rule: the native C++ loader
+(``NativePointCloudLoader``, bins computed on the card from the raw
+points) where ``device_voxelization`` holds and the native library builds,
+else the Python loader over ``PointPadding``, whose host-exact bin indices
+the card counts; the route is printed. ``device_cache``
 picks the training route as the JAX CLI does: ``auto`` (the default)
 takes the grid cache (:class:`DeviceGridCache` + ``fit_grid_cached``,
 voxelization paid once) when it fits 35% of the card's memory, the point
@@ -23,12 +33,12 @@ Usage:
     python -m scenenet_tpu_torch.cli.train --config experiments/defaults.yaml \\
         [--set key=value ...] [--device cuda|cpu] [--host-indices]
 
-``--host-indices`` takes the host-exact route: the loader computes each
-point's bin in float64 (pyntcloud parity) and the device only counts. The
-JAX CLI takes that route whenever its native loader is absent; the port has
-no native loader yet, so a flag selects it; its bins come from the host
-workers, so it streams. ``--device`` defaults to ``cuda`` and raises
-without a card; ``cpu`` runs the kernels' plain versions. A run
+``--host-indices`` forces the Python loader: the route the JAX CLI takes
+where its native library is absent, in which the loader computes each
+point's bin in float64 (pyntcloud parity) and the device only counts; its
+bins come from the host workers, so it streams. ``--device`` defaults to
+``cuda`` and raises without a card; ``cpu`` runs the kernels' plain
+versions. A run
 configured by ``--set`` alone needs no PyYAML. What the config asks for
 and the port does not have yet raises, naming its ROADMAP item.
 """
@@ -43,8 +53,12 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
+from scenenet_tpu_torch import native
 from scenenet_tpu_torch.cli.serve import resolve_device
-from scenenet_tpu_torch.data import PointCloudLoader, PointPadding, Subset, TS40K, random_split
+from scenenet_tpu_torch.data import (
+    TS40K, Compose, NativePointCloudLoader, PointPadding, SemanticKITTICrops, Subset,
+    ToFullDense, Voxelization, VoxelLoader, random_split,
+)
 from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
 from scenenet_tpu_torch.losses import resolve_criterion
 from scenenet_tpu_torch.models import CnnBaseline, QuantileSceneNet, SceneNet, UNet3D
@@ -61,8 +75,6 @@ _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Raise, naming the ROADMAP item, on every value that asks for
     something the port does not have yet."""
-    if cfg.dataset != "ts40k":
-        raise NotImplementedError(f"dataset {cfg.dataset!r} is not ported yet: ROADMAP A0")
     meshes = {k: getattr(cfg, k) for k in ("mesh_data", "mesh_space", "mesh_dcn_data",
                                            "mesh_ensemble", "mesh_channel")}
     if any(int(v) > 1 for v in meshes.values()):
@@ -76,9 +88,6 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError("model_backend='autotune' is not ported yet: ROADMAP A7")
     if cfg.fast_dev_run:
         raise NotImplementedError("fast_dev_run is not ported yet: ROADMAP A10")
-    if not cfg.device_voxelization:
-        raise NotImplementedError("device_voxelization=False (host voxelization) is "
-                                  "not ported yet: ROADMAP A0")
     if cfg.export_stablehlo:
         raise NotImplementedError("export_stablehlo is not ported yet: ROADMAP A11")
     if cfg.use_wandb:
@@ -137,6 +146,9 @@ def resolve_device_cache(cfg: ExperimentConfig, n_samples: int, device: torch.de
     if value not in (True, "points", "grids"):
         raise ValueError(f"device_cache must be auto, false, true, points or grids, "
                          f"got {cfg.device_cache!r}")
+    if not cfg.device_voxelization:
+        raise ValueError(f"device_cache={cfg.device_cache!r} caches padded points; "
+                         "device_voxelization=false streams host grids")
     if host_indices:
         raise ValueError(f"device_cache={cfg.device_cache!r} bins on the card; "
                          "--host-indices needs the streaming loader (device_cache=false)")
@@ -190,6 +202,54 @@ def build_model(cfg: ExperimentConfig, device):
     return model.to(device)
 
 
+def build_datasets(cfg: ExperimentConfig):
+    """(train, val, test) datasets of the config, as the JAX CLI builds
+    them: padded points (``PointPadding`` at its defaults, host-exact bin
+    indices included) for device voxelization, else host grids
+    (``Voxelization`` + ``ToFullDense``); ``random_split`` of the fit split
+    into train and validation."""
+    if cfg.device_voxelization:
+        transform = PointPadding(max_points=cfg.max_points, vxg_size=cfg.voxel_grid_size,
+                                 vox_size=cfg.voxel_size)
+    else:
+        transform = Compose([
+            Voxelization(list(cfg.keep_labels), vox_size=cfg.voxel_size,
+                         vxg_size=cfg.voxel_grid_size),
+            ToFullDense((True, True)),
+        ])
+    if cfg.dataset == "ts40k":
+        fit = TS40K(cfg.data_path, split="fit", transform=transform)
+        test = TS40K(cfg.data_path, split="test", transform=transform)
+    elif cfg.dataset == "semantic_kitti":
+        fit = SemanticKITTICrops(cfg.data_path, split="train", transform=transform)
+        test = SemanticKITTICrops(cfg.data_path, split="test", transform=transform)
+    else:
+        raise NotImplementedError(f"dataset {cfg.dataset!r}")
+    train_idx, val_idx = random_split(len(fit), cfg.val_split, seed=cfg.seed)
+    return Subset(fit, train_idx), Subset(fit, val_idx), test
+
+
+def resolve_loader(cfg: ExperimentConfig, host_indices: bool = False) -> bool:
+    """Whether the train loader is the native one, by the JAX CLI's rule
+    (``device_voxelization`` and the native library available), unless
+    ``--host-indices`` forces the Python loader. Prints the route."""
+    if not cfg.device_voxelization:
+        print("[loader] -> VoxelLoader (device_voxelization=false: host grids, "
+              "no batch prep)")
+        return False
+    if host_indices:
+        print("[loader] -> VoxelLoader + PointPadding (--host-indices: host-exact bin "
+              "indices, use_indices=True)")
+        return False
+    if native.available():
+        print(f"[loader] -> NativePointCloudLoader (threads={cfg.num_workers}; bins on "
+              "the device, use_indices=False)")
+        return True
+    print("[loader] -> VoxelLoader + PointPadding (native library unavailable: host-exact "
+          "bin indices, use_indices=True)")
+    return False
+
+
 def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         host_indices: bool = False) -> Dict[str, float]:
     device = resolve_device(device)
@@ -206,18 +266,11 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
             raise FileNotFoundError(f"Checkpoint {ckpt_path} does not exist.")
         restore_checkpoint(ckpt_path, model)
 
-    # raw padded points; the bins are computed on the device (the route of
-    # the JAX package's native loader) unless host_indices asks for the
-    # host-exact float64 bin index of every point
-    transform = PointPadding(max_points=cfg.max_points, vxg_size=cfg.voxel_grid_size,
-                             vox_size=cfg.voxel_size, compute_indices=host_indices)
-    fit = TS40K(cfg.data_path, split="fit", transform=transform)
-    test_ds = TS40K(cfg.data_path, split="test", transform=transform)
-    train_idx, val_idx = random_split(len(fit), cfg.val_split, seed=cfg.seed)
-    train_ds, val_ds = Subset(fit, train_idx), Subset(fit, val_idx)
+    train_ds, val_ds, test_ds = build_datasets(cfg)
+    native_loader = resolve_loader(cfg, host_indices)
     device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
-    val_loader = PointCloudLoader(val_ds, cfg.batch_size, num_workers=cfg.num_workers)
-    test_loader = PointCloudLoader(test_ds, cfg.batch_size, num_workers=cfg.num_workers)
+    val_loader = VoxelLoader(val_ds, cfg.batch_size, num_workers=cfg.num_workers)
+    test_loader = VoxelLoader(test_ds, cfg.batch_size, num_workers=cfg.num_workers)
 
     tcfg = TrainConfig(
         max_epochs=cfg.max_epochs, optimizer=cfg.optimizer,
@@ -229,8 +282,10 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         use_wandb=cfg.use_wandb, precision=cfg.precision,
         compiler_options=cfg.compiler_options, epoch_chunks=cfg.epoch_chunks,
         checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
-    prep = make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
-                                     use_indices=host_indices)
+    # the native loader makes no bin index: the device bins the raw points
+    prep = (make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
+                                      use_indices=not native_loader)
+            if cfg.device_voxelization else None)
     trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
     val = val_loader if len(val_ds) else None
     if device_cache:
@@ -247,9 +302,15 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
             _, best = trainer.fit_cached(cache, cfg.batch_size, augment=cfg.augment,
                                          generator=gen, val_loader=val)
     else:
-        train_loader = PointCloudLoader(train_ds, cfg.batch_size, shuffle=True,
-                                        num_workers=cfg.num_workers, seed=cfg.seed,
-                                        drop_last=len(train_ds) >= cfg.batch_size)
+        drop_last = len(train_ds) >= cfg.batch_size
+        if native_loader:
+            train_loader = NativePointCloudLoader(
+                train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                max_points=cfg.max_points, threads=cfg.num_workers, drop_last=drop_last)
+        else:
+            train_loader = VoxelLoader(train_ds, cfg.batch_size, shuffle=True,
+                                       num_workers=cfg.num_workers, seed=cfg.seed,
+                                       drop_last=drop_last)
         _, best = trainer.fit(train_loader, val)
 
     print(f"{'=' * 20} best scores {'=' * 20}")
@@ -292,8 +353,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu runs the kernels' plain versions")
     parser.add_argument("--host-indices", action="store_true",
-                        help="bin on the host in float64 (pyntcloud parity); the device "
-                             "counts the given indices")
+                        help="force the Python loader: bins on the host in float64 "
+                             "(pyntcloud parity), which the device counts; streams")
     parser.add_argument("--sweep", type=str, default=None, help="not ported yet")
     parser.add_argument("--sweep-runs", type=int, default=4, help="not ported yet")
     args = parser.parse_args(argv)

@@ -1,26 +1,33 @@
 """Batched data loading with a bounded background prefetch.
 
-Twin of :mod:`scenenet_tpu.data.loader`'s ``PointCloudLoader``,
-``random_split`` and ``Subset``: fixed-size padded point batches (points,
-labels, mask, flat_idx) as numpy arrays, collated by a thread pool that
-keeps at most ``num_workers + 1`` batches in flight. The shuffle is
+Twin of :mod:`scenenet_tpu.data.loader`: batches stay numpy arrays, which
+the trainer uploads; no loader thread touches the card. The shuffle is
 ``random.Random(seed + epoch)``, so both packages see the same batches.
+
+- :class:`VoxelLoader` — samples voxelized on the host (``Voxelization``
+  + ``ToFullDense``), stacked into (B, 1, Z, X, Y) grids;
+- :class:`PointCloudLoader` — fixed-size padded point batches (points,
+  labels, mask, flat_idx) of ``PointPadding``, collated by a thread pool
+  that keeps at most ``num_workers + 1`` batches in flight;
+- :class:`NativePointCloudLoader` — the same point batches (with a zero
+  ``flat_idx``) made by the native C++ loader in real threads, one batch
+  prefetched.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 import random
 from collections import deque
 from typing import Any, Iterator, Sequence
 
 import numpy as np
 
+from scenenet_tpu_torch import native
 
-class PointCloudLoader:
-    """Dataset must yield (points, labels, mask, flat_idx) fixed-size arrays
-    (see :class:`scenenet_tpu_torch.data.transforms.PointPadding`)."""
 
+class _BaseLoader:
     def __init__(self, dataset: Any, batch_size: int = 4, shuffle: bool = False,
                  num_workers: int = 4, drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
@@ -72,6 +79,15 @@ class PointCloudLoader:
                 yield out
 
 
+class VoxelLoader(_BaseLoader):
+    """Dataset must yield (input_grid (1,Z,X,Y), gt_grid (1,Z,X,Y))."""
+
+
+class PointCloudLoader(_BaseLoader):
+    """Dataset must yield (points, labels, mask, flat_idx) fixed-size arrays
+    (see :class:`scenenet_tpu_torch.data.transforms.PointPadding`)."""
+
+
 def random_split(n: int, val_fraction: float, seed: int = 0):
     """Shuffled index split into (train, val)."""
     idx = list(range(n))
@@ -90,3 +106,59 @@ class Subset:
 
     def __getitem__(self, i):
         return self.dataset[self.indices[i]]
+
+
+class NativePointCloudLoader(_BaseLoader):
+    """Point batches prepared by the native loader
+    (:func:`scenenet_tpu_torch.native.load_batch_native`).
+
+    The per-sample hot path (npy parse, read, f64→f32, min-centring,
+    subsample, pad) runs in C++ threads with the GIL released, so host prep
+    scales with cores. Emits the (points, labels, mask, flat_idx) tuples of
+    ``PointCloudLoader`` + ``PointPadding(compute_indices=False)`` (a cloud
+    longer than ``max_points`` is subsampled by another draw); pair it with
+    bins computed on the device.
+
+    The dataset must expose ``.dataset_path`` and ``.npy_files`` (TS40K and
+    SemanticKITTICrops do) or be a ``Subset`` of one.
+    """
+
+    def __init__(self, dataset: Any, batch_size: int = 4, shuffle: bool = False,
+                 max_points: int = 65536, threads: int = 0,
+                 drop_last: bool = False, seed: int = 0):
+        super().__init__(dataset, batch_size, shuffle, num_workers=1,
+                         drop_last=drop_last, seed=seed)
+        self.max_points = max_points
+        self.threads = threads
+        self._paths = self._resolve_paths(dataset)
+
+    @staticmethod
+    def _resolve_paths(dataset) -> Sequence[str]:
+        if isinstance(dataset, Subset):
+            base = NativePointCloudLoader._resolve_paths(dataset.dataset)
+            return [base[i] for i in dataset.indices]
+        return [os.path.join(dataset.dataset_path, f) for f in dataset.npy_files]
+
+    def __iter__(self) -> Iterator:
+        idx = self._indices()
+        self._epoch += 1
+        batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+
+        def load(b):
+            pts, labels, mask = native.load_batch_native(
+                [self._paths[i] for i in b], self.max_points, self.threads)
+            return pts, labels, mask, np.zeros((len(b), self.max_points), np.int32)
+
+        # one prefetch thread: the C++ call releases the GIL, so it overlaps
+        # the next batch's prep with the consumer's step
+        with cf.ThreadPoolExecutor(1) as pool:
+            pending = None
+            for b in batches:
+                fut = pool.submit(load, b)
+                if pending is not None:
+                    yield pending.result()
+                pending = fut
+            if pending is not None:
+                yield pending.result()

@@ -61,7 +61,11 @@ def voxel_indices(points: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     pyntcloud's searchsorted-left rule: interior-edge points fall in the
     lower bin; ``v == lo`` falls in bin 0.
     """
-    shape = torch.tensor(grid_shape, dtype=points.dtype, device=points.device)
+    # the bin counts filled on the device (a fill, not a copy from the host,
+    # which a CUDA graph could not capture: the served dispatch is one)
+    shape = torch.empty(3, dtype=points.dtype, device=points.device)
+    for axis, n in enumerate(grid_shape):
+        shape[axis].fill_(n)
     step = (hi - lo) / shape
     return edge_bins((points - lo) / step, shape)
 

@@ -105,7 +105,7 @@ def _monitor_modes() -> Dict[str, str]:
 
 
 def make_device_voxelize_prep(grid_shape=(64, 64, 64), keep_labels=(15,),
-                              binarize=(True, True), use_indices=False):
+                              binarize=(True, True), use_indices=True):
     """A ``batch_prep`` for :class:`Trainer`: a raw padded point batch
     (points, labels, mask[, flat_idx]) on the device → (x, y) voxel grids
     (B, 1, Z, X, Y) f32.
@@ -116,8 +116,9 @@ def make_device_voxelize_prep(grid_shape=(64, 64, 64), keep_labels=(15,),
     on the device from the raw coordinates, by :func:`voxelize_batch_binary`
     when both grids are binarized and by :func:`voxelize_batch` when not.
     ``binarize`` says for x (density) and y (tower fraction) whether the
-    grid becomes ``> 0`` as {0, 1}. ``use_indices`` defaults to False here
-    (True in the JAX package), as ``PointPadding.compute_indices`` does.
+    grid becomes ``> 0`` as {0, 1}. ``use_indices`` defaults to True, as in
+    the JAX package and as ``PointPadding.compute_indices`` does; the train
+    CLI sets it False for the native loader, which makes no index.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     keep_labels = tuple(int(k) for k in keep_labels)

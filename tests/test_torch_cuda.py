@@ -534,7 +534,9 @@ def test_batched_pipeline_on_card_matches_cpu(dev, model, inference):
     clouds = [np.round(rng.uniform(0, 20 + i, (330 + 20 * i, 3)), 2).astype(np.float32)
               for i in range(6)]
     out = [None] * 6
-    before = (cuda_conv.MXU_LAUNCHES.count, cuda_conv.LAUNCHES.count)
+    # the pipeline's count: the wrappers' own plus each captured bucket's
+    # launches once a replay (every bucket 1, 2, 4 is a graph on the card)
+    before = gpu.kernel_launches()
     threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, gpu.predict(clouds[i])),
                                 daemon=True) for i in range(6)]
     try:
@@ -548,14 +550,125 @@ def test_batched_pipeline_on_card_matches_cpu(dev, model, inference):
     stats = gpu._batcher.stats_snapshot()
     assert stats["requests"] == 6 and stats["dispatches"] < 6 and stats["max_batch_seen"] > 1
     convs = (3 if model == "quantile" else 1) * stats["dispatches"]
-    launched = (cuda_conv.MXU_LAUNCHES.count - before[0], cuda_conv.LAUNCHES.count - before[1])
+    after = gpu.kernel_launches()
+    launched = (after["stencil_mma"] - before["stencil_mma"],
+                after["stencil_conv"] - before["stencil_conv"])
     assert launched == ((convs, 0) if inference == "mxu" else (0, convs))
+    assert sum(gpu.graph_replays().values()) == stats["dispatches"]
     for cloud, (pred, probs) in zip(clouds, out):
         ref_pred, ref_probs = cpu.predict(cloud)
         assert probs.shape == ref_probs.shape
         np.testing.assert_allclose(pred, ref_pred, rtol=0, atol=1e-5)
         np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-5)
 
+
+
+@pytest.mark.parametrize("model,inference", [("scenenet", True), ("scenenet", "mxu"),
+                                             ("scenenet", "mxu_fast"), ("quantile", True),
+                                             ("quantile", "mxu")])
+def test_served_graph_replay_equals_eager_run_batch(dev, model, inference, tmp_path):
+    """Every warmed bucket is one CUDA graph; its replay gives the eager
+    run_batch's bits, twice, and a restored checkpoint takes effect at the
+    next replay (the kernels are synthesized inside the graph)."""
+    from scenenet_tpu_torch.cli.serve import _Pipeline
+    from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
+    from scenenet_tpu_torch.train.checkpoint import save_checkpoint
+
+    p = _Pipeline(None, grid=(16, 16, 16), max_points=4096, inference=inference, model=model,
+                  device="cuda", max_batch=4, batch_window_ms=0.0)
+    try:
+        assert sorted(p._graphs) == [1, 2, 4] and all(g.graph.captured
+                                                      for g in p._graphs.values())
+        for b in (1, 2, 4):
+            pts, mask = _cloud(30 + b, b, 4096)
+            pt, mt = torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)
+            with torch.inference_mode():
+                eager = p._run(pt, mt)
+            got, again = p.run_batch(pt, mt), p.run_batch(pt, mt)
+            for g, a, e in zip(got, again, eager):
+                assert torch.equal(g, e) and torch.equal(a, e)
+            assert p._graphs[b].replays == 2
+        other = (QuantileSceneNet.create(kernel_size=(9, 5, 5), seed=3)
+                 if model == "quantile" else SceneNet.create(kernel_size=(9, 5, 5), seed=3))
+        save_checkpoint(str(tmp_path / "other.npz"), other)
+        from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
+
+        restore_checkpoint(str(tmp_path / "other.npz"), p.net)
+        with torch.inference_mode():
+            eager_new = p._run(pt, mt)
+        got_new = p.run_batch(pt, mt)
+        assert torch.equal(got_new[1], eager_new[1]) and not torch.equal(got_new[1], got[1])
+    finally:
+        p.close()
+
+
+def test_concurrent_direct_requests_through_one_graph(dev):
+    """The adaptive "single" phase: handler threads replay bucket 1's graph
+    at once; the lock keeps every reply its own request's."""
+    import threading
+
+    from scenenet_tpu_torch.cli.serve import _Pipeline
+
+    kw = dict(grid=(16, 16, 16), max_points=4096, device="cuda")
+    ref = _Pipeline(None, **kw)
+    p = _Pipeline(None, max_batch=4, batch_window_ms=0.0, adaptive=True, **kw)
+    rng = np.random.default_rng(12)
+    clouds = [np.round(rng.uniform(0, 15 + i, (300 + 40 * i, 3)), 2).astype(np.float32)
+              for i in range(12)]
+    out = [None] * len(clouds)
+    try:
+        p._batcher._mode = "single"
+        p._batcher._phase_len = 10 ** 6  # stay in the direct phase
+        threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, p.predict(clouds[i])),
+                                    daemon=True) for i in range(len(clouds))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        p.close()
+    assert p._batcher.stats_snapshot().get("direct_requests") == len(clouds)
+    assert p.graph_replays()[1] == len(clouds)
+    for cloud, (pred, probs) in zip(clouds, out):
+        want_pred, want_probs = ref.predict(cloud)
+        np.testing.assert_array_equal(pred, want_pred)
+        np.testing.assert_array_equal(probs, want_probs)
+
+
+def test_healthz_launch_counts_grow_per_replay(dev):
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from scenenet_tpu_torch.cli.serve import build_server
+
+    server, p = build_server(["--grid", "16", "--max-points", "4096", "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    seen = []
+    try:
+        for i in range(3):
+            buf = io.BytesIO()
+            np.savez(buf, points=np.random.default_rng(i).uniform(0, 9, (500, 3)))
+            req = urllib.request.Request(f"{url}/predict", data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                assert r.status == 200
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                seen.append(json.loads(r.read()))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        p.close()
+    assert p._graphs[1].launches["points_occupancy"] == p._graphs[1].launches[
+        "stencil_conv"] == 1
+    for k in ("points_occupancy", "stencil_conv"):
+        counts = [h["kernel_launches"][k] for h in seen]
+        assert counts[1] - counts[0] == counts[2] - counts[1] == 1, (k, counts)
+    assert [h["graph_replays"]["1"] for h in seen] == [1, 2, 3]
 
 # ---- the histogram family: counts, ids given, ids sorted, ids out ---------------------
 

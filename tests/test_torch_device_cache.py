@@ -87,7 +87,8 @@ def dataset(tmp_path_factory):
 
 
 def _port_ds(root, idx=None):
-    ds = TS40K(root, "fit", transform=PointPadding(max_points=MAX_POINTS))
+    ds = TS40K(root, "fit", transform=PointPadding(max_points=MAX_POINTS,
+                                                        compute_indices=False))
     return ds if idx is None else Subset(ds, idx)
 
 
@@ -103,7 +104,7 @@ def _port_trainer(tmp_path, tag="a", batch_prep=True, **cfg):
     config = TrainConfig(run_dir=str(tmp_path / f"run_{tag}"),
                          checkpoint_dir=str(tmp_path / f"ckpt_{tag}"),
                          learning_rate=LR, early_stop_metric=None, **cfg)
-    prep = make_device_voxelize_prep(GRID, (15,)) if batch_prep else None
+    prep = make_device_voxelize_prep(GRID, (15,), use_indices=False) if batch_prep else None
     return Trainer(net, resolve_criterion("geneo_tversky")(**DEFAULTS), config,
                    batch_prep=prep)
 
@@ -201,7 +202,7 @@ def test_grid_cache_equals_jax_and_refuses_lossy_storage(dataset):
     float32."""
     cache = DevicePointCache(_port_ds(dataset), "cpu")
     _check_recipes(cache)
-    prep = make_device_voxelize_prep(GRID, (15,))
+    prep = make_device_voxelize_prep(GRID, (15,), use_indices=False)
     grids = DeviceGridCache(cache, prep, load_batch=3)
     assert grids.x.dtype == grids.y.dtype == torch.uint8 and len(grids) == 8
     jcache = JaxPointCache(JaxTS40K(dataset, "fit", transform=JaxPointPadding(
@@ -211,7 +212,7 @@ def test_grid_cache_equals_jax_and_refuses_lossy_storage(dataset):
     np.testing.assert_array_equal(grids.y.numpy(), np.asarray(jgrids.y))
     x, y = prep(cache.points, cache.labels, cache.mask)
     assert torch.equal(grids.x.float(), x) and torch.equal(grids.y.float(), y)
-    frac = make_device_voxelize_prep(GRID, (15,), binarize=(True, False))
+    frac = make_device_voxelize_prep(GRID, (15,), binarize=(True, False), use_indices=False)
     with pytest.raises(ValueError, match="store_dtype=torch.float32"):
         DeviceGridCache(cache, frac)
     exact = DeviceGridCache(cache, frac, store_dtype=torch.float32)
@@ -366,7 +367,7 @@ def test_evaluate_cached_equals_evaluate_and_jax(dataset, cache8, tmp_path):
     and the JAX package's evaluate_cached."""
     trainer = _port_trainer(tmp_path, batch_prep=False)
     grids = DeviceGridCache(DevicePointCache(_port_ds(dataset, [0, 2, 3, 6, 7]), "cpu"),
-                            make_device_voxelize_prep(GRID, (15,)))
+                            make_device_voxelize_prep(GRID, (15,), use_indices=False))
     got = trainer.evaluate_cached(grids, batch_size=2, prefix="t")
     batches = [(grids.x[i:i + 2].float(), grids.y[i:i + 2].float()) for i in (0, 2, 4)]
     want = trainer.evaluate(batches, prefix="t")

@@ -207,6 +207,14 @@ def test_port_never_imports_jax():
         "from scenenet_tpu_torch.models import CnnBaseline, SceneNetClassifier, UNet3D\n"
         "from scenenet_tpu_torch.ops.cuda_conv_mc import conv3d_mc_same, fused_conv3d_mc\n"
         "import scenenet_tpu_torch.cli.train\n"
+        "import scenenet_tpu_torch.cli.build_samples\n"
+        "from scenenet_tpu_torch import native\n"
+        "from scenenet_tpu_torch.data import (NativePointCloudLoader, SemanticKITTICrops,\n"
+        "    VoxelLoader, Voxelization, build_data_samples, build_pole_radius_samples)\n"
+        "from scenenet_tpu_torch.data import cache, las, pcd, semantic_kitti, transforms\n"
+        "from scenenet_tpu_torch.ops.dbscan import dbscan, extract_clusters\n"
+        "assert native.available()\n"
+        "native.load_batch_native([], 16)\n"
         "from scenenet_tpu_torch.ops.cuda_conv import geneo_stencil_conv_mxu, "
         "fused_geneo_conv_mxu\n"
         "import scenenet_tpu_torch as pkg\n"
@@ -638,3 +646,113 @@ def test_batcher_stress_counts_every_request():
     stats = p._batcher.stats_snapshot()
     assert stats["requests"] == n and stats["failed_dispatches"] == 0
     assert stats["dispatches"] < n and stats["max_batch_seen"] <= 8
+
+
+# ---- the served dispatch as one CUDA graph a bucket -------------------------------
+# On the CPU run_batch stays eager and no graph is made; a _BucketGraph is
+# built here over a stand-in for the graph's static outputs (a run that
+# writes into the same tensors every call, as a replay does), so that what
+# the copy-out protects against shows on the CPU.
+
+def _static_run(pipeline):
+    """pipeline._run writing into one pair of tensors, as a replay writes
+    into a graph's static outputs."""
+    bufs = []
+
+    def run(pts, mask):
+        out = pipeline._run(pts, mask)
+        if not bufs:
+            bufs.extend(t.clone() for t in out)
+        for buf, t in zip(bufs, out):
+            buf.copy_(t)
+        return tuple(bufs)
+
+    return run
+
+
+def test_cpu_pipeline_makes_no_graph():
+    p = tserve._Pipeline(None, max_batch=4, batch_window_ms=0.0, **BKW)
+    try:
+        assert p._graphs == {} and p.graph_replays() == {}
+        assert p.kernel_launches() == tserve.wrapper_launches()
+        pts, mask = tserve._warm_inputs(2, 2048, torch.device("cpu"))
+        pred, probs = p.run_batch(pts, mask)
+        want = p._run(pts, mask)
+        assert torch.equal(pred, want[0]) and torch.equal(probs, want[1])
+    finally:
+        p.close()
+
+
+def test_bucket_graph_outputs_survive_the_next_replay():
+    """Each call returns copies: a result is the same after later replays
+    have overwritten the static outputs, and the replays are counted."""
+    p = tserve._Pipeline(None, **BKW)
+    graph = tserve._BucketGraph(_static_run(p), 2, 2048, torch.device("cpu"))
+    assert graph.replays == 0 and set(graph.launches) == set(tserve.wrapper_launches())
+    rng = np.random.default_rng(0)
+    batches, results = [], []
+    for _ in range(3):
+        pts = torch.from_numpy(rng.uniform(0, 20, (2, 2048, 3)).astype(np.float32))
+        mask = torch.from_numpy(rng.random((2, 2048)) < 0.7)
+        batches.append((pts, mask))
+        results.append(graph(pts, mask))
+    assert graph.replays == 3
+    for (pts, mask), (pred, probs) in zip(batches, results):
+        want = p._run(pts, mask)
+        assert torch.equal(pred, want[0]) and torch.equal(probs, want[1])
+    assert results[0][0].data_ptr() != graph.out[0].data_ptr()
+    assert not torch.equal(results[0][1], graph.out[1])
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_batcher_copes_with_outputs_the_next_dispatch_overwrites(adaptive):
+    """Requests through the batcher (and, adaptive, its direct phase) over
+    buckets whose outputs are overwritten by every dispatch: each reply is
+    its own request's, checked after every request has been served (on
+    the CPU a download does not copy, so an aliased reply would show the
+    last dispatch's values)."""
+    direct = tserve._Pipeline(None, **BKW)
+    p = tserve._Pipeline(None, max_batch=4, batch_window_ms=100.0, adaptive=adaptive, **BKW)
+    try:
+        p._graphs = {b: tserve._BucketGraph(_static_run(p), b, 2048, torch.device("cpu"))
+                     for b in (1, 2, 4)}
+        rng = np.random.default_rng(8)
+        clouds = [rng.uniform(0, 25, (500 + 90 * i, 3)).astype(np.float32) for i in range(8)]
+        got = _concurrently(lambda i: p.predict(clouds[i]), 8)
+        got += [p.predict(c) for c in clouds[:3]]
+        for c, (pred, probs) in zip(clouds + clouds[:3], got):
+            want_pred, want_probs = direct.predict(c)
+            np.testing.assert_array_equal(pred, want_pred)
+            np.testing.assert_array_equal(probs, want_probs)
+        assert sum(p.graph_replays().values()) >= 4
+    finally:
+        p.close()
+
+
+def test_healthz_counts_replayed_launches():
+    """/healthz adds each bucket's recorded launches once a replay to the
+    wrappers' own counts."""
+    p = tserve._Pipeline(None, **BKW)
+    graph = tserve._BucketGraph(_static_run(p), 1, 2048, torch.device("cpu"))
+    graph.launches = dict(dict.fromkeys(graph.launches, 0), points_occupancy=1,
+                          stencil_conv=1)
+    p._graphs = {1: graph}
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), tserve.make_handler(p))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        seen = []
+        for _ in range(3):
+            _post(url, _npz(points=np.random.default_rng(1).uniform(0, 9, (300, 3))))
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                seen.append(json.loads(r.read()))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    base = tserve.wrapper_launches()
+    assert [h["graph_replays"] for h in seen] == [{"1": 1}, {"1": 2}, {"1": 3}]
+    assert [h["kernel_launches"]["stencil_conv"] - base["stencil_conv"]
+            for h in seen] == [1, 2, 3]
+    assert seen[-1]["kernel_launches"]["stencil_mma"] == base["stencil_mma"]

@@ -83,7 +83,8 @@ def dataset(tmp_path_factory):
 
 
 def _loader(root, seed=0):
-    ds = TS40K(root, "fit", transform=PointPadding(max_points=MAX_POINTS))
+    ds = TS40K(root, "fit", transform=PointPadding(max_points=MAX_POINTS,
+                                                   compute_indices=False))
     return PointCloudLoader(ds, 2, shuffle=True, num_workers=1, seed=seed, drop_last=True)
 
 
@@ -108,7 +109,7 @@ def _port_trainer(tmp_path, backend, **cfg):
                          checkpoint_dir=str(tmp_path / f"ckpt_{backend}"),
                          learning_rate=LR, early_stop_metric=None, **cfg)
     return Trainer(net, resolve_criterion("geneo_tversky")(**DEFAULTS), config,
-                   batch_prep=make_device_voxelize_prep(GRID, (15,)))
+                   batch_prep=make_device_voxelize_prep(GRID, (15,), use_indices=False))
 
 
 def _jax_trainer(tmp_path):
@@ -565,6 +566,25 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
         assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
         assert "[device_cache auto] -> 'grids'" in capsys.readouterr().out
         return
+    if item == "A0":
+        # ported since (A0): the SemanticKITTI pole crops and host voxelization
+        # (device_voxelization: false, host grids through VoxelLoader) train end to end
+        root = dataset
+        if overrides.get("dataset") == "semantic_kitti":
+            root = str(tmp_path / "kitti")  # 10 crops: 2 in the train split
+            shutil.copytree(os.path.join(dataset, "fit"), os.path.join(root, "samples"))
+            for name in os.listdir(os.path.join(dataset, "test")):
+                shutil.copy(os.path.join(dataset, "test", name),
+                            os.path.join(root, "samples", "test_" + name))
+        scores = tcli.run(_cli_cfg(root, tmp_path, max_epochs=1, **overrides), device="cpu")
+        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+        out = capsys.readouterr().out
+        if "device_voxelization" in overrides:
+            assert "[loader] -> VoxelLoader (device_voxelization=false" in out
+            assert "[device_cache auto] -> false (needs device_voxelization)" in out
+        else:
+            assert "[device_cache auto] -> 'grids'" in out
+        return
     if "device_cache" in overrides:
         # ported since (A6): the point cache (True is the point cache) and the
         # grid cache train end to end
@@ -608,7 +628,8 @@ def test_unported_entry_points_raise(case, item, tmp_path):
     calls = {
         "sweep": lambda: tcli.main(["--device", "cpu", "--sweep", "sweep.yaml"]),
         "use_indices": lambda: make_device_voxelize_prep(GRID, use_indices=True),
-        "unbinarized": lambda: make_device_voxelize_prep(GRID, binarize=(True, False)),
+        "unbinarized": lambda: make_device_voxelize_prep(GRID, binarize=(True, False),
+                                                         use_indices=False),
         "mesh": lambda: Trainer(net, resolve_criterion("mse")(), cfg, mesh=object()),
         "resume_from": lambda: Trainer(net, resolve_criterion("mse")(), cfg).fit(
             [], resume_from="snapshot.npz"),
@@ -754,8 +775,12 @@ def test_point_padding_host_indices_equal_jax(vxg_size, vox_size):
             np.testing.assert_array_equal(a, b)
         n = min(len(sample[0]), MAX_POINTS)
         assert got[3][:n].max() > 0 and not got[3][n:].any() and got[2].sum() == n
-    # the default stays the device-binned route: no index is made
-    assert not PointPadding(max_points=MAX_POINTS)(_crops()[0])[3].any()
+    # the default is the JAX package's: the host-exact index is made
+    sample = _crops()[0]
+    default, jax_default = PointPadding(max_points=MAX_POINTS)(sample), JaxPointPadding(
+        max_points=MAX_POINTS, use_native=False)(sample)
+    assert default[3].any() and all(np.array_equal(a, b) for a, b in zip(default, jax_default))
+    assert not PointPadding(max_points=MAX_POINTS, compute_indices=False)(sample)[3].any()
 
 
 def _index_loader(root, seed=0):
@@ -795,7 +820,7 @@ def test_device_voxelize_prep_matches_jax(index_batches, use_indices, binarize):
     # without a flat_idx in the batch, use_indices falls to the device bins
     no_idx = make_device_voxelize_prep(GRID, (15,), binarize=binarize, use_indices=True)(
         *(torch.from_numpy(a) for a in batch[:3]))
-    dev = make_device_voxelize_prep(GRID, (15,), binarize=binarize)(
+    dev = make_device_voxelize_prep(GRID, (15,), binarize=binarize, use_indices=False)(
         *(torch.from_numpy(a) for a in batch))
     assert all(torch.equal(a, b) for a, b in zip(no_idx, dev))
 
@@ -844,7 +869,8 @@ def test_tower_fraction_target_trains(index_batches, tmp_path):
     tower fraction; three finite, falling-or-equal-scale steps that move
     the parameters."""
     trainer = _port_trainer(tmp_path, "cuda")
-    trainer.batch_prep = make_device_voxelize_prep(GRID, (15,), binarize=(True, False))
+    trainer.batch_prep = make_device_voxelize_prep(GRID, (15,), binarize=(True, False),
+                                                   use_indices=False)
     trainer.setup_optimizer()
     before = {n: float(p.detach()) for n, p in trainer.model.named_parameters()}
     for b in index_batches:

@@ -85,7 +85,8 @@ def dataset(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def batches(dataset):
-    ds = TS40K(dataset, "fit", transform=PointPadding(max_points=MAX_POINTS))
+    ds = TS40K(dataset, "fit", transform=PointPadding(max_points=MAX_POINTS,
+                                                      compute_indices=False))
     return list(PointCloudLoader(ds, 2, shuffle=True, num_workers=1, seed=0, drop_last=True))
 
 
@@ -123,7 +124,7 @@ def _port_trainer(tmp_path, kind, tag="port", backend="torch", **cfg):
                          checkpoint_dir=str(tmp_path / f"ckpt_{tag}"), learning_rate=LR,
                          early_stop_metric=None, **cfg)
     return Trainer(_model(kind, backend), resolve_criterion(_criterion_name(kind))(**QKW),
-                   config, batch_prep=make_device_voxelize_prep(GRID, (15,)))
+                   config, batch_prep=make_device_voxelize_prep(GRID, (15,), use_indices=False))
 
 
 def _jax_trainer(tmp_path, kind, backend="xla", **cfg):
@@ -173,7 +174,7 @@ def test_quantile_seed_gradients_are_away_from_zero(batches):
     """The seed's premise: every nonzero first gradient of every member is
     at least 1e-6, so Adam's first step takes the same sign in both."""
     net = _model("quantile")
-    x, y = make_device_voxelize_prep(GRID, (15,))(*(torch.as_tensor(a) for a in batches[0]))
+    x, y = make_device_voxelize_prep(GRID, (15,), use_indices=False)(*(torch.as_tensor(a) for a in batches[0]))
     crit = resolve_criterion("quantile_geneo")(**QKW)
     crit(net(x), y, net.cvx_coefficients(), net.geneo_params_flat(),
          net.last_lambda).backward()
@@ -248,7 +249,7 @@ def _port_grid_fit(dataset, tmp_path, kind, samples, **cfg):
     cfg.setdefault("max_epochs", 3)
     trainer = _port_trainer(tmp_path, kind, **cfg)
     cache = DevicePointCache(Subset(TS40K(dataset, "fit", transform=PointPadding(
-        max_points=MAX_POINTS)), samples), "cpu")
+        max_points=MAX_POINTS, compute_indices=False)), samples), "cpu")
     trainer.fit_grid_cached(DeviceGridCache(cache, trainer.batch_prep), batch_size=2,
                             augment=False, generator=torch.Generator().manual_seed(0))
     return trainer
@@ -349,7 +350,7 @@ def test_bf16_loss_and_pred_match_jax_bf16(backend, jax_backend, batches, tmp_pa
     jt, jnet, jparams = _jax_trainer(tmp_path, "scenenet", jax_backend, precision="bf16")
     j32, _, _ = _jax_trainer(tmp_path, "scenenet", jax_backend)
     trainer = _port_trainer(tmp_path, "scenenet", backend=backend, precision="bf16")
-    prep = make_device_voxelize_prep(GRID, (15,))
+    prep = make_device_voxelize_prep(GRID, (15,), use_indices=False)
     patch = _interpret_pallas()
     try:
         for b in batches[:2]:
@@ -432,7 +433,7 @@ def test_predict_matches_jax(kind, batches, tmp_path):
     for g, w in zip(got, want):
         assert isinstance(g, np.ndarray) and g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=0, atol=bound)
-    grids = [make_device_voxelize_prep(GRID, (15,))(*(torch.as_tensor(a) for a in b))
+    grids = [make_device_voxelize_prep(GRID, (15,), use_indices=False)(*(torch.as_tensor(a) for a in b))
              for b in batches[:1]]
     bare = Trainer(trainer.model, trainer.criterion, trainer.config)
     np.testing.assert_array_equal(next(bare.predict([(grids[0][0], grids[0][1])])), got[0])
