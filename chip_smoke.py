@@ -83,7 +83,27 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   bench copy built beside the library), the f32 form and cuDNN bf16, over
   the 17 dx convs of a step beside cuDNN bf16's input gradient, and on the
   1->32 layer alone) and times that step beside the f32 one, and trains
-  ``model=cnn`` with a (3,3,3) kernel.
+  ``model=cnn`` with a (3,3,3) kernel;
+- it trains ``experiments/admm.yaml``'s keys (``constrained=admm
+  admm_rho=5.0 optimizer=lbfgs learning_rate=0.8 criterion=focal_tversky``,
+  by ``--set``) through the train CLI at the defaults' width on the native
+  streaming loader, every step eager (K3 a step, K2 and K4 an evaluation
+  of the loss: the step's own and each linesearch trial), and times the
+  ADMM + L-BFGS step with its evaluations and host syncs;
+- it trains the defaults with ``optimizer=lbfgs`` through the grid cache
+  (eager steps: the linesearch reads values on the host) and times that
+  step beside the Adam graph replay;
+- it sends a real SIGTERM to a ``cli.train`` process of the defaults
+  (grid cache, ``epoch_chunks=4``) mid-training, relaunches it, which
+  resumes from the snapshot, and holds its ``last.npz`` against an
+  unkilled run's bit for bit; preempts and resumes a point-cache fit in
+  process (its graph captured on the restored buffers), bit-identical, and
+  times the snapshot's write and the resume;
+- it runs the tuners through the train CLI: ``auto_lr_find``,
+  ``model_backend=autotune`` (``cuda`` against ``cuda_mxu``, both timed)
+  and ``auto_scale_batch_size``, and the CLI's batch probe at 128³ until
+  the card truly runs out of memory (the rest of the card held, so that it
+  does so below the 2³¹ voxels the kernels take).
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -164,6 +184,12 @@ DEFAULTS_SET = [
     "auto_scale_batch_size=False",
 ]
 N_FIT, N_TEST, TRAIN_EPOCHS = 56, 16, 2
+# experiments/admm.yaml's keys, by --set; and the epochs of the preempted run: enough
+# that a SIGTERM after 10 logged epochs lands mid-training
+ADMM_SET = ["constrained=admm", "admm_rho=5.0", "optimizer=lbfgs", "learning_rate=0.8",
+            "criterion=focal_tversky"]
+PREEMPT_EPOCHS = 200
+PROBE_FREE_GB = 12  # the card's memory left to the out-of-memory probe at 128^3
 # the ETL phase: 5 LAS tiles of 8 towers -> 40 radius-15 crops (--test-split 0.1:
 # 36 fit, 33 of them train = 2 steps of 16, 3 validation; 4 test). 800 points a
 # tower: the reference's DBSCAN (eps 10, 300 points) runs in Python, in time
@@ -2839,12 +2865,355 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.6f}" for k, v in sorted(cnn_losses.items()))
               + f" | launches {cnn_counts}", flush=True)
 
+        # ---- 19. A7: experiments/admm.yaml's keys through the train CLI ----------
+        # ADMM with L-BFGS on the streaming loader (the native one), every step eager:
+        # K3 a step, K2 and K4 an evaluation (the step's own and each linesearch trial)
+        from scenenet_tpu_torch.train import loop as loop_mod
+        from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer
+        from scenenet_tpu_torch.train.lbfgs import LBFGS
+        from scenenet_tpu_torch.train.preempt import request_preemption
+        from scenenet_tpu_torch.train.tune import find_max_batch_size
+
+        admm_runs = []
+        admm_fit = ADMMTrainer.fit
+
+        def admm_spy(self, *a, **kw):
+            admm_runs.append(self)
+            return admm_fit(self, *a, **kw)
+
+        ADMMTrainer.fit = admm_spy
+        reset_counts()
+        t0 = time.perf_counter()
+        with tee_stdout() as said:
+            admm_scores = train_cli.main([
+                "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}", *ADMM_SET,
+                f"max_epochs={TRAIN_EPOCHS}", "num_workers=4", f"output_dir={tmp / 'admm'}",
+                f"checkpoint_dir={tmp / 'admm' / 'ckpt'}"])
+            torch.cuda.synchronize()
+        admm_s = time.perf_counter() - t0
+        ADMMTrainer.fit = admm_fit
+        admm_counts = read_counts()
+        check("[admm] augmented-Lagrangian training (rho=5.0, optimizer=lbfgs)" in said.text
+              and "[loader] -> NativePointCloudLoader" in said.text, "admm: not the ADMM route")
+        check(len(admm_runs) == 1 and isinstance(admm_runs[0].optimizer, LBFGS),
+              "admm: the CLI did not train an ADMMTrainer with L-BFGS")
+        admm = admm_runs[0]
+        admm_steps = TRAIN_EPOCHS * (n_train // TRAIN_BATCH)
+        admm_evals = admm_steps + admm.optimizer.evaluations
+        admm_evb = TRAIN_EPOCHS * -(-n_val // TRAIN_BATCH) + -(-N_TEST // TRAIN_BATCH)
+        check(admm.step == admm_steps, f"admm: {admm.step} steps, {admm_steps} expected")
+        check(admm_counts["points_binary"] == admm_steps + admm_evb
+              and admm_counts["stencil_conv"] == admm_evals + admm_evb
+              and admm_counts["stencil_dk"] == admm_evals,
+              f"admm launched {admm_counts}: {admm_steps} steps, {admm_evals} evaluations, "
+              f"{admm_evb} evaluation batches")
+        violations = [h["max_violation"] for h in admm.history]
+        check(len(violations) == TRAIN_EPOCHS and all(math.isfinite(v) for v in violations)
+              and all(math.isfinite(v) for k, v in admm_scores.items() if k.endswith("loss")),
+              f"admm: history {admm.history}, scores {admm_scores}")
+        # the step's time on the same width: 3 batches of the crops on the card, 2 epochs
+        # after a warm epoch, the dual update and the epoch's checkpoints included
+        fcrit = resolve_criterion("focal_tversky")(**load_config(None, train_cli.parse_overrides(
+            DEFAULTS_SET + ADMM_SET)).criterion_params())
+        raw = [tuple(torch.from_numpy(np.stack(col)).to(dev) for col in
+                     zip(*(ds[i][:3] for i in range(b * TRAIN_BATCH, (b + 1) * TRAIN_BATCH))))
+               for b in range(3)]
+        timed_admm = None
+        for epochs in (1, 2):
+            timed_admm = ADMMTrainer(
+                SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev), fcrit,
+                ADMMConfig(max_epochs=epochs, admm_rho=5.0, optimizer="lbfgs",
+                           learning_rate=0.8, run_dir=str(tmp / f"admm_t{epochs}"),
+                           checkpoint_dir=str(tmp / f"admm_tc{epochs}"),
+                           early_stop_metric=None, log_gradients=False), batch_prep=prep)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed_admm.fit(raw)
+            torch.cuda.synchronize()
+            admm_step_ms = (time.perf_counter() - t0) / (3 * epochs) * 1e3
+        opt = timed_admm.optimizer
+        print(f"[admm] cli.train --set constrained=admm admm_rho=5.0 optimizer=lbfgs "
+              f"learning_rate=0.8 criterion=focal_tversky (B={TRAIN_BATCH}, 64^3, "
+              f"{TRAIN_POINTS} points, (9,5,5)): {TRAIN_EPOCHS} epochs = {admm_steps} steps in "
+              f"{admm_s:.1f} s | launches {admm_counts} (K3 a step, K2 and K4 an evaluation) | "
+              f"evaluations a step {admm_evals / admm_steps:.2f}, host syncs a step "
+              f"{admm.optimizer.host_syncs / admm_steps:.2f} | admm_max_violation by epoch "
+              f"{violations}, admm_mu_norm {admm_scores['admm_mu_norm']:.6f} | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(admm_scores.items())
+                          if k.endswith("loss"))
+              + f" | [timing] ADMM + L-BFGS step {admm_step_ms:.3f} ms (6 steps on 3 batches: "
+              f"{(6 + opt.evaluations) / 6:.2f} evaluations, {opt.host_syncs / 6:.2f} host "
+              f"syncs a step)", flush=True)
+
+        # ---- 20. A7: the defaults with optimizer=lbfgs through the grid cache -----
+        cached_fits.clear()
+        Trainer._run_cached_epochs = spy
+        reset_counts()
+        with tee_stdout() as said:
+            lb_scores = train_cli.main([
+                "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}", "optimizer=lbfgs",
+                f"max_epochs={TRAIN_EPOCHS}", "num_workers=4", f"output_dir={tmp / 'lbfgs'}",
+                f"checkpoint_dir={tmp / 'lbfgs' / 'ckpt'}"])
+            torch.cuda.synchronize()
+        Trainer._run_cached_epochs = run_cached
+        lb_counts = read_counts()
+        check("[device_cache auto] -> 'grids'" in said.text
+              and "[lbfgs] the linesearch reads its values on the host" in said.text,
+              "lbfgs: not the grid cache with eager steps")
+        lb = cached_fits[0]
+        check(not lb.cached_epochs.runner.captured and lb.cached_epochs.runner.replays == 0
+              and lb.step == steps, f"lbfgs: {lb.step} steps, a graph captured")
+        lb_evals = steps + lb.optimizer.evaluations
+        check(lb_counts["stencil_dk"] == lb_evals
+              and lb_counts["stencil_conv"] == lb_evals + eval_batches
+              and all(math.isfinite(v) for k, v in lb_scores.items() if k.endswith("loss")),
+              f"lbfgs launched {lb_counts} in {steps} steps ({lb_evals} evaluations), "
+              f"scores {lb_scores}")
+        # the step by time, beside the Adam graph replay, each a fit over the same
+        # grid cache (the crops repeated to 256 samples: epochs of 16 steps), its
+        # epochs timed in alternating order after a warm fit of 2 epochs
+        lb_grids = DeviceGridCache(DevicePointCache(ds, dev), prep)
+        reps = torch.arange(ROUTE_SAMPLES, device=dev) % len(lb_grids)
+        lb_grids.x, lb_grids.y = (a.index_select(0, reps) for a in (lb_grids.x, lb_grids.y))
+        timing_fits = {}
+        for opt_name in ("lbfgs", "adam"):
+            t = Trainer(SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev),
+                        crit, TrainConfig(run_dir=str(tmp / f"lbt_{opt_name}"), max_epochs=2,
+                                          checkpoint_dir=str(tmp / f"lbt_c_{opt_name}"),
+                                          early_stop_metric=None, optimizer=opt_name))
+            t.fit_grid_cached(lb_grids, TRAIN_BATCH, augment=False,
+                              generator=torch.Generator(dev).manual_seed(0))
+            timing_fits[opt_name] = t
+        lb_t = timing_fits["lbfgs"]
+        ev0, sy0 = lb_t.optimizer.evaluations, lb_t.optimizer.host_syncs
+        lb_ms, adam_ms = [], []
+        for _ in range(2):
+            for t, out in ((lb_t, lb_ms), (timing_fits["adam"], adam_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.cached_epochs.run_epoch()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) / t.cached_epochs.n_batches * 1e3)
+        check(timing_fits["adam"].cached_epochs.runner.captured
+              and not lb_t.cached_epochs.runner.captured, "lbfgs timing: the graphs")
+        lb_timed = 2 * lb_t.cached_epochs.n_batches
+        lb_evals_step = 1 + (lb_t.optimizer.evaluations - ev0) / lb_timed
+        lb_syncs_step = (lb_t.optimizer.host_syncs - sy0) / lb_timed
+        del timing_fits, lb_t, lb_grids
+        print(f"[lbfgs] cli.train with the defaults and optimizer=lbfgs (device_cache auto -> "
+              f"'grids', every step eager): {steps} steps | launches {lb_counts} | evaluations "
+              f"a step {lb_evals / steps:.2f} | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(lb_scores.items())
+                          if k.endswith("loss"))
+              + f" | [timing] L-BFGS step on the grid cache {min(lb_ms):.3f} ms "
+              f"({', '.join(f'{v:.3f}' for v in lb_ms)}; "
+              f"{lb_evals_step:.2f} evaluations, {lb_syncs_step:.2f} host syncs a step) against the "
+              f"Adam graph replay {min(adam_ms):.3f} ms ({', '.join(f'{v:.3f}' for v in adam_ms)})",
+              flush=True)
+
+        # ---- 21. A7: preemption, a real SIGTERM and the relaunch that resumes -----
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+
+        def launch(out):
+            return subprocess.Popen(
+                [sys.executable, "-m", "scenenet_tpu_torch.cli.train", "--set", *DEFAULTS_SET,
+                 "--set", f"data_path={tmp / 'ts40k'}", "epoch_chunks=4",
+                 f"max_epochs={PREEMPT_EPOCHS}", "early_stop_metric=None", "num_workers=4",
+                 f"output_dir={out}", f"checkpoint_dir={out / 'ckpt'}"],
+                env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+
+        procs = []
+        try:
+            t0 = time.perf_counter()
+            procs.append(launch(tmp / "pre_straight"))
+            straight_out, _ = procs[-1].communicate(timeout=400)
+            straight_s = time.perf_counter() - t0
+            check(procs[-1].returncode == 0, f"preempt: the straight run failed\n"
+                                             f"{straight_out[-3000:]}")
+            procs.append(launch(tmp / "pre_killed"))
+            killed = procs[-1]
+            metrics_file = tmp / "pre_killed" / "scenenet_ts40k" / "metrics.jsonl"
+            deadline = time.time() + 300
+            while time.time() < deadline and killed.poll() is None:
+                if metrics_file.exists() and sum(1 for _ in open(metrics_file)) >= 10:
+                    break
+                time.sleep(0.02)
+            check(killed.poll() is None, "preempt: the run ended before the SIGTERM")
+            logged = sum(1 for _ in open(metrics_file))
+            killed.send_signal(__import__("signal").SIGTERM)
+            killed_out, _ = killed.communicate(timeout=300)
+            snap = tmp / "pre_killed" / "ckpt" / "preempt.npz"
+            check(killed.returncode == 0 and "[preempt] SIGTERM: snapshot flushed" in killed_out
+                  and snap.exists(), f"preempt: rc {killed.returncode}\n{killed_out[-3000:]}")
+            snap_bytes = snap.stat().st_size + snap.with_suffix(".json").stat().st_size
+            cursor = json.loads(snap.with_suffix(".json").read_text())["cursor"]
+            t0 = time.perf_counter()
+            procs.append(launch(tmp / "pre_killed"))
+            relaunch_out, _ = procs[-1].communicate(timeout=400)
+            relaunch_s = time.perf_counter() - t0
+            check(procs[-1].returncode == 0 and "[preempt] resuming from snapshot" in relaunch_out
+                  and not snap.exists(), f"preempt: the relaunch\n{relaunch_out[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        with np.load(tmp / "pre_straight" / "ckpt" / "last.npz") as a, \
+                np.load(tmp / "pre_killed" / "ckpt" / "last.npz") as b:
+            check(sorted(a.files) == sorted(b.files)
+                  and all(np.array_equal(a[k], b[k]) for k in a.files),
+                  "preempt: the resumed last.npz differs from the unkilled run's")
+        # in process: the point cache with augmentation at the same width, preempted
+        # after the first chunk of epoch 0 and resumed (its graph captured on the
+        # restored buffers), with the snapshot's write and the resume timed
+        pc = DevicePointCache(ds, dev)
+        timings = {"write": [], "resume": []}
+        originals = {}
+
+        def timed(kind, fn):
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timings[kind].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return wrapper
+
+        for owner, attr, kind in ((loop_mod, "save_train_snapshot", "write"),
+                                  (loop_mod, "load_train_snapshot_if_compatible", "resume"),
+                                  (Trainer, "load_train_state", "resume"),
+                                  (loop_mod.CachedEpochs, "load", "resume")):
+            originals[(owner, attr)] = getattr(owner, attr)
+            setattr(owner, attr, timed(kind, getattr(owner, attr)))
+        reset_counts()
+        try:
+            pre_fits = {}
+            for tag in ("straight", "killed", "resumed"):
+                t = Trainer(SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev),
+                            crit, TrainConfig(run_dir=str(tmp / f"pc_{tag}"), max_epochs=2,
+                                              checkpoint_dir=str(tmp / f"pc_c_{tag}"),
+                                              early_stop_metric=None, epoch_chunks=3),
+                            batch_prep=prep)
+                if tag == "killed":
+                    request_preemption()
+                t.fit_cached(pc, TRAIN_BATCH, augment=True,
+                             generator=torch.Generator(dev).manual_seed(11),
+                             resume_from=(str(tmp / "pc_c_killed" / "preempt.npz")
+                                          if tag == "resumed" else None))
+                torch.cuda.synchronize()
+                pre_fits[tag] = t
+        finally:
+            for (owner, attr), fn in originals.items():
+                setattr(owner, attr, fn)
+        pc_counts = read_counts()
+        resumed = pre_fits["resumed"]
+        check(pre_fits["killed"].preempted and resumed.cached_epochs.runner.captured
+              and all(torch.equal(a, b) for a, b in zip(pre_fits["straight"].model.parameters(),
+                                                        resumed.model.parameters()))
+              and pre_fits["straight"].train_counts[-1] == resumed.train_counts[-1],
+              "preempt: the point-cache fit did not resume bit-identically")
+        pc_snap = tmp / "pc_c_killed" / "preempt.npz"
+        print(f"[preempt] cli.train with the defaults (grid cache, epoch_chunks=4, "
+              f"max_epochs={PREEMPT_EPOCHS}): SIGTERM after {logged} epochs logged -> snapshot "
+              f"flushed at {cursor} ({snap_bytes} bytes with its sidecar); the relaunch resumed "
+              f"({relaunch_s:.1f} s, the straight run {straight_s:.1f} s) and its last.npz equals "
+              f"the unkilled run's bit for bit | in process, the point cache with augmentation "
+              f"(3 chunks an epoch, 2 epochs): preempted at chunk 1, resumed through a graph "
+              f"captured on the restored buffers, parameters and counts bit-identical | snapshot "
+              f"write {min(timings['write']):.3f} ms, resume {sum(timings['resume']):.3f} ms, "
+              f"{pc_snap.stat().st_size if pc_snap.exists() else 0} bytes | launches "
+              f"{pc_counts}", flush=True)
+
+        # ---- 22. A7: the tuners through the train CLI --------------------------------
+        tune_runs = {}
+        home = os.environ.get("HOME")
+        os.environ["HOME"] = str(tmp / "home")  # the autotune cache lives in the run's tree
+        try:
+            for tag, extra in (("lr", ["auto_lr_find=True"]),
+                               ("autotune", ["model_backend=autotune"]),
+                               ("scale", ["auto_scale_batch_size=True"])):
+                reset_counts()
+                t0 = time.perf_counter()
+                with tee_stdout() as said:
+                    tune_scores = train_cli.main([
+                        "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}",
+                        "max_epochs=1", "num_workers=4", f"output_dir={tmp / tag}",
+                        f"checkpoint_dir={tmp / tag / 'ckpt'}", *extra])
+                    torch.cuda.synchronize()
+                check(all(math.isfinite(v) for k, v in tune_scores.items() if k.endswith("loss")),
+                      f"{tag}: scores {tune_scores}")
+                tune_runs[tag] = (time.perf_counter() - t0, said.text, read_counts())
+        finally:
+            if home is None:
+                os.environ.pop("HOME")
+            else:
+                os.environ["HOME"] = home
+        lr_line = re.search(r"\[auto_lr_find\] suggested learning_rate=(\S+)", tune_runs["lr"][1])
+        at_line = re.search(r"\[autotune\] backend -> (\S+) at .*\((.*)\)", tune_runs["autotune"][1])
+        sc_line = re.search(r"largest batch whose step runs: (\d+)", tune_runs["scale"][1])
+        check(lr_line is not None and at_line is not None and sc_line is not None,
+              "tune: a tuner's line is missing")
+        at_times = dict((k, float(v.split()[0])) for k, v in
+                        (kv.split(": ") for kv in at_line.group(2).split(", ")))
+        check(set(at_times) == {"cuda", "cuda_mxu"} and tune_runs["autotune"][2]["stencil_mma"] > 0,
+              f"autotune: {at_times}, launches {tune_runs['autotune'][2]}")
+        # the CLI's probe at 128^3 until the card truly runs out of memory
+        big_cfg = load_config(None, train_cli.parse_overrides(
+            DEFAULTS_SET + ["voxel_grid_size=(128, 128, 128)"]))
+        probe_net = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+        probe = train_cli.make_batch_probe(
+            big_cfg, probe_net, crit, make_device_voxelize_prep(BIG_GRID, (TOWER,),
+                                                                use_indices=False), dev)
+        probed, ooms = [], []
+
+        def recording_probe(b):
+            probed.append(b)
+            try:
+                probe(b)
+            except Exception as e:
+                ooms.append(type(e).__name__)
+                raise
+
+        # the card's memory held but for PROBE_FREE_GB, so that the probe runs out below
+        # B=1024, where a 128^3 batch reaches 2^31 voxels and the kernels refuse it
+        torch.cuda.empty_cache()
+        ballast = torch.empty(max(torch.cuda.mem_get_info(dev)[0] - (PROBE_FREE_GB << 30), 0),
+                              dtype=torch.uint8, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            found_big = find_max_batch_size(recording_probe, start=TRAIN_BATCH,
+                                            max_batch=1 << 14)
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        probe_s = time.perf_counter() - t0
+        probe_counts = read_counts()
+        check(ooms == ["OutOfMemoryError"] and found_big == probed[-2],
+              f"probe at 128^3: {probed}, errors {ooms}")
+        probe(TRAIN_BATCH)  # the card trains on after the out-of-memory
+        torch.cuda.synchronize()
+        del probe_net
+        torch.cuda.empty_cache()
+        print(f"[tune] cli.train --set auto_lr_find=True: suggested learning_rate "
+              f"{lr_line.group(1)} | model_backend=autotune -> {at_line.group(1)} ({at_line.group(2)}) "
+              f"| auto_scale_batch_size=True at 64^3: {sc_line.group(1)} (probes up to the "
+              f"{n_train} training crops) | the CLI's probe at 128^3 with {PROBE_FREE_GB} GB of "
+              f"the card free: batches {probed}, found "
+              f"{found_big}, {ooms[0]} at {probed[-1]}, {probe_s:.1f} s, launches "
+              f"{probe_counts} | launches " + ", ".join(
+                  f"{tag} {c}" for tag, (_, _, c) in tune_runs.items()), flush=True)
+
     main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
                  *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
                  *(c for _, _, c in route_runs.values()),
                  *(r[5] for r in option_runs.values()), host_counts,
                  *big_counts.values(), big_serve_counts, counts_path, unet_counts,
-                 unet16_counts, cnn_counts]
+                 unet16_counts, cnn_counts, admm_counts, lb_counts, pc_counts,
+                 *(c for _, _, c in tune_runs.values()), probe_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
     # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch

@@ -27,7 +27,17 @@ quantiles) or one of the black-box baselines, ``cnn``
 (:class:`UNet3D`, whose BatchNorm statistics ride along in every
 checkpoint; ``precision: bf16`` computes it in bf16).
 ``precision: bf16``, ``accumulate_grad_batches`` and ``geneo_init: smart``
-train as in the JAX CLI.
+train as in the JAX CLI. So does the rest of its wiring, in its order:
+``model_backend: autotune`` times a train step of ``cuda`` and
+``cuda_mxu`` on the card (``auto`` under ``--device cpu``);
+``resume_preempted`` continues from ``<checkpoint_dir>/preempt.npz``, the
+snapshot a SIGTERM'd run leaves, on whichever fit runs;
+``auto_scale_batch_size`` probes a grads step on zero batches, doubling up
+to the training set; ``fast_dev_run`` trains one epoch over one batch a
+split through the streaming loader; ``auto_lr_find`` runs the learning-rate
+range test over up to 8 training batches (L-BFGS keeps its rate);
+``constrained: admm`` trains an :class:`ADMMTrainer` on the streaming
+loader; ``optimizer: lbfgs`` is L-BFGS with optax's zoom linesearch.
 
 Usage:
     python -m scenenet_tpu_torch.cli.train --config experiments/defaults.yaml \\
@@ -40,13 +50,15 @@ bins come from the host workers, so it streams. ``--device`` defaults to
 ``cuda`` and raises without a card; ``cpu`` runs the kernels' plain
 versions. A run
 configured by ``--set`` alone needs no PyYAML. What the config asks for
-and the port does not have yet raises, naming its ROADMAP item.
+and the port does not have yet (meshes, wandb, the StableHLO export)
+raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 import math
 import os
 from typing import Dict, List, Optional, Union
@@ -63,7 +75,10 @@ from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCac
 from scenenet_tpu_torch.losses import resolve_criterion
 from scenenet_tpu_torch.models import CnnBaseline, QuantileSceneNet, SceneNet, UNet3D
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
+from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
+from scenenet_tpu_torch.train.preempt import SNAPSHOT_NAME
+from scenenet_tpu_torch.train.tune import autotune_backend, find_max_batch_size, lr_range_test
 from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config
 from scenenet_tpu_torch.utils.seeding import fix_randomness
 
@@ -79,15 +94,6 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
                                            "mesh_ensemble", "mesh_channel")}
     if any(int(v) > 1 for v in meshes.values()):
         raise NotImplementedError(f"mesh training {meshes} is not ported yet: ROADMAP A12")
-    if cfg.constrained == "admm":
-        raise NotImplementedError("constrained='admm' is not ported yet: ROADMAP A7")
-    for tuner in ("auto_lr_find", "auto_scale_batch_size"):
-        if getattr(cfg, tuner):
-            raise NotImplementedError(f"{tuner} is not ported yet: ROADMAP A7")
-    if cfg.model_backend == "autotune":
-        raise NotImplementedError("model_backend='autotune' is not ported yet: ROADMAP A7")
-    if cfg.fast_dev_run:
-        raise NotImplementedError("fast_dev_run is not ported yet: ROADMAP A10")
     if cfg.export_stablehlo:
         raise NotImplementedError("export_stablehlo is not ported yet: ROADMAP A11")
     if cfg.use_wandb:
@@ -250,6 +256,73 @@ def resolve_loader(cfg: ExperimentConfig, host_indices: bool = False) -> bool:
     return False
 
 
+class _OneBatch:
+    """``fast_dev_run``'s loader: the first batch of ``loader`` alone."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield batch
+            return
+
+    def __len__(self):
+        return min(1, len(self.loader))
+
+
+def _autotune(cfg: ExperimentConfig, criterion, device: torch.device) -> None:
+    """``model_backend: autotune``: time a train step of each kernel backend
+    on the card at the run's shapes and keep the fastest; without a card,
+    the ``auto`` rule (the JAX CLI's non-TPU fallback)."""
+    if cfg.model not in ("scenenet", "quantile"):
+        raise ValueError("model_backend=autotune supports the scenenet family "
+                         f"(got model={cfg.model!r})")
+    if device.type != "cuda":
+        print("[autotune] no CUDA device (--device cpu); using model_backend=auto")
+        cfg.model_backend = "auto"
+        return
+    grid = cfg.grid_zxy()
+    winner, times = autotune_backend(
+        lambda b: SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
+                                  backend=b).to(device),
+        criterion, cfg.batch_size, grid, optimizer=cfg.optimizer,
+        cache_key_extra=f"ks={cfg.kernel_size},geneo={cfg.geneo_num()}")
+    print(f"[autotune] backend -> {winner} at (batch {cfg.batch_size}, grid {grid})  ("
+          + ", ".join(f"{k}: {v:.2f} ms" for k, v in times.items()) + ")")
+    cfg.model_backend = winner
+
+
+def batch_probe_limit(cfg: ExperimentConfig, n_train: int) -> int:
+    """The largest batch ``auto_scale_batch_size`` probes: the JAX
+    package's 4096, the training set (a larger batch trains on no more
+    data, and the cached routes need one full batch), and the largest batch
+    whose grids the kernels take (B·Z·X·Y < 2³¹: past it they refuse the
+    shape, which is no out-of-memory and would end the probe)."""
+    return max(cfg.batch_size,
+               min(4096, n_train, (2**31 - 1) // math.prod(cfg.grid_zxy())))
+
+
+def make_batch_probe(cfg: ExperimentConfig, model, criterion, prep, device: torch.device):
+    """``auto_scale_batch_size``'s probe: ``probe(b)`` runs one real grads
+    step (the batch prep, the forward, the loss and the backward; no
+    update) on a zero batch of ``b`` padded clouds on ``device``."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def probe(b: int) -> None:
+        pts = torch.zeros((b, cfg.max_points, 3), dtype=torch.float32, device=device)
+        labels = torch.zeros((b, cfg.max_points), dtype=torch.int32, device=device)
+        mask = torch.ones((b, cfg.max_points), dtype=torch.bool, device=device)
+        x, y = prep(pts, labels, mask)
+        loss = criterion(model(x), y, model.cvx_coefficients(), model.geneo_params_flat(),
+                         model.last_lambda)
+        torch.autograd.grad(loss, params)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    return probe
+
+
 def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         host_indices: bool = False) -> Dict[str, float]:
     device = resolve_device(device)
@@ -259,6 +332,8 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
 
     criterion = build_criterion(cfg)
+    if cfg.model_backend == "autotune":
+        _autotune(cfg, criterion, device)
     model = build_model(cfg, device)
     if cfg.resume_from_checkpoint:
         ckpt_path = os.path.join(ckpt_dir, cfg.resume_checkpoint_name + ".npz")
@@ -268,10 +343,21 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
 
     train_ds, val_ds, test_ds = build_datasets(cfg)
     native_loader = resolve_loader(cfg, host_indices)
-    device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
-    val_loader = VoxelLoader(val_ds, cfg.batch_size, num_workers=cfg.num_workers)
-    test_loader = VoxelLoader(test_ds, cfg.batch_size, num_workers=cfg.num_workers)
 
+    def make_loaders(batch_size: int):
+        drop_last = len(train_ds) >= batch_size
+        if native_loader:
+            train = NativePointCloudLoader(
+                train_ds, batch_size, shuffle=True, seed=cfg.seed, max_points=cfg.max_points,
+                threads=cfg.num_workers, drop_last=drop_last)
+        else:
+            train = VoxelLoader(train_ds, batch_size, shuffle=True,
+                                num_workers=cfg.num_workers, seed=cfg.seed,
+                                drop_last=drop_last)
+        return (train, VoxelLoader(val_ds, batch_size, num_workers=cfg.num_workers),
+                VoxelLoader(test_ds, batch_size, num_workers=cfg.num_workers))
+
+    train_loader, val_loader, test_loader = make_loaders(cfg.batch_size)
     tcfg = TrainConfig(
         max_epochs=cfg.max_epochs, optimizer=cfg.optimizer,
         learning_rate=cfg.learning_rate, tau=cfg.tau,
@@ -282,36 +368,88 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         use_wandb=cfg.use_wandb, precision=cfg.precision,
         compiler_options=cfg.compiler_options, epoch_chunks=cfg.epoch_chunks,
         checkpoint_every_n_steps=cfg.checkpoint_every_n_steps)
+    # a SIGTERM'd run leaves a snapshot; the next launch of the experiment
+    # continues from it
+    preempt_snap = None
+    if cfg.resume_preempted:
+        candidate = os.path.join(ckpt_dir, SNAPSHOT_NAME)
+        if os.path.exists(candidate):
+            preempt_snap = candidate
+            print(f"[preempt] resuming from snapshot {candidate}")
     # the native loader makes no bin index: the device bins the raw points
     prep = (make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
                                       use_indices=not native_loader)
             if cfg.device_voxelization else None)
-    trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
+    device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
+
+    if cfg.auto_scale_batch_size and cfg.device_voxelization and \
+            cfg.model in ("scenenet", "quantile"):
+        found = find_max_batch_size(make_batch_probe(cfg, model, criterion, prep, device),
+                                    start=cfg.batch_size,
+                                    max_batch=batch_probe_limit(cfg, len(train_ds)))
+        print(f"[auto_scale_batch_size] largest batch whose step runs: {found}")
+        if found != cfg.batch_size:
+            print(f"[auto_scale_batch_size] batch_size {cfg.batch_size} → {found}")
+            cfg.batch_size = found
+            train_loader, val_loader, test_loader = make_loaders(found)
+
+    if cfg.fast_dev_run:
+        # Lightning's fast_dev_run: one epoch over one batch a split
+        tcfg.max_epochs = 1
+        tcfg.early_stop_metric = None
+        train_loader, val_loader, test_loader = (
+            _OneBatch(train_loader), _OneBatch(val_loader), _OneBatch(test_loader))
+        print("[fast_dev_run] one epoch, one batch a split, the streaming loader")
+
+    if cfg.auto_lr_find and cfg.model in ("scenenet", "quantile"):
+        probe_batches = []
+        for batch in train_loader:
+            probe_batches.append(batch)
+            if len(probe_batches) >= 8:
+                break
+        if probe_batches:
+            try:
+                suggested, _ = lr_range_test(model, criterion, probe_batches,
+                                             optimizer=cfg.optimizer, batch_prep=prep)
+            except NotImplementedError as e:
+                # an optional convenience: an optimizer it does not take
+                # (lbfgs) keeps the configured rate
+                print(f"[auto_lr_find] skipped ({e}); keeping "
+                      f"learning_rate={tcfg.learning_rate}")
+            else:
+                print(f"[auto_lr_find] suggested learning_rate={suggested:.3e} "
+                      f"(was {tcfg.learning_rate})")
+                tcfg.learning_rate = suggested
+
     val = val_loader if len(val_ds) else None
-    if device_cache:
+    if cfg.constrained == "admm":
+        acfg = ADMMConfig(**{**dataclasses.asdict(tcfg), "admm_rho": cfg.admm_rho})
+        print(f"[admm] augmented-Lagrangian training (rho={cfg.admm_rho}, "
+              f"optimizer={cfg.optimizer}) on the streaming loader")
+        trainer = ADMMTrainer(model, criterion, acfg, batch_prep=prep)
+        _, best = trainer.fit(train_loader, val)
+    elif device_cache and not cfg.fast_dev_run:
         # the dataset resident on the card, the epochs without the host loader:
         # "points" voxelizes every step (point-space augmentation), "grids" once
+        trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
         gen = torch.Generator(device).manual_seed(cfg.seed)
         cache = DevicePointCache(train_ds, device)
         if device_cache == "grids":
             grids = DeviceGridCache(cache, prep)
             del cache  # free the resident points
             _, best = trainer.fit_grid_cached(grids, cfg.batch_size, augment=cfg.augment,
-                                              generator=gen, val_loader=val)
+                                              generator=gen, val_loader=val,
+                                              resume_from=preempt_snap)
         else:
             _, best = trainer.fit_cached(cache, cfg.batch_size, augment=cfg.augment,
-                                         generator=gen, val_loader=val)
+                                         generator=gen, val_loader=val,
+                                         resume_from=preempt_snap)
     else:
-        drop_last = len(train_ds) >= cfg.batch_size
-        if native_loader:
-            train_loader = NativePointCloudLoader(
-                train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                max_points=cfg.max_points, threads=cfg.num_workers, drop_last=drop_last)
-        else:
-            train_loader = VoxelLoader(train_ds, cfg.batch_size, shuffle=True,
-                                       num_workers=cfg.num_workers, seed=cfg.seed,
-                                       drop_last=drop_last)
-        _, best = trainer.fit(train_loader, val)
+        trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
+        _, best = trainer.fit(train_loader, val, resume_from=preempt_snap)
+    if getattr(trainer, "preempted", False):
+        print("[preempt] stopped early: the next launch of this experiment resumes from "
+              "the snapshot")
 
     print(f"{'=' * 20} best scores {'=' * 20}")
     for k, v in sorted(best.items()):

@@ -30,9 +30,21 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   accumulates and one that accumulates and updates, and replay the one the
   host's count names.
 
+- ``optimizer: lbfgs`` is :class:`~scenenet_tpu_torch.train.lbfgs.LBFGS`
+  (``optax.lbfgs`` with its zoom linesearch): the step hands it a closure
+  that re-evaluates the loss on the step's batch. Its linesearch reads
+  values on the host, so on every route its step runs eagerly; the cached
+  routes capture no graph for it;
+- every fit is preemption-safe, as in the JAX package: a SIGTERM (or
+  :func:`~scenenet_tpu_torch.train.preempt.request_preemption`) flushes a
+  resumable snapshot at the next batch or chunk boundary and the fit
+  returns with ``self.preempted``; ``checkpoint_every_n_steps`` also
+  snapshots periodically; ``resume_from`` continues from a snapshot, bit
+  for bit on the cached routes and on the streamed route where the loader
+  gives the epoch's batches in the same order.
+
 Not ported yet, and raising where asked for: mesh training (ROADMAP A12),
-resumable snapshots (A7), the point-cloud export of a validation sample
-(A11), wandb (A10).
+the point-cloud export of a validation sample (A11), wandb (A10).
 """
 
 from __future__ import annotations
@@ -59,8 +71,14 @@ from scenenet_tpu_torch.train.metrics import (
     DEFAULT_BETA, DEFAULT_TAU, METRIC_NAMES, MetricState, compute_metrics,
     init_metric_state, metric_counts, update_metrics,
 )
-from scenenet_tpu_torch.train.preempt import chunk_starts
-from scenenet_tpu_torch.train.state import MultiSteps, cast_half, resolve_optimizer
+from scenenet_tpu_torch.train.lbfgs import LBFGS
+from scenenet_tpu_torch.train.preempt import (
+    SNAPSHOT_NAME, PreemptionGuard, chunk_starts, discard_snapshot,
+    load_train_snapshot_if_compatible, save_train_snapshot,
+)
+from scenenet_tpu_torch.train.state import (
+    MultiSteps, cast_half, load_optimizer_state, optimizer_state, resolve_optimizer,
+)
 from scenenet_tpu_torch.train.step_graph import StepGraph
 from scenenet_tpu_torch.utils.logging import RunLogger
 
@@ -85,11 +103,11 @@ class TrainConfig:
     profile_dir: Optional[str] = None  # write a torch.profiler trace of epoch 0 there
     precision: str = "f32"
     compiler_options: Optional[dict] = None  # XLA's per-jit options: none apply here
-    # chunks of a device-resident epoch; in the port a chunk boundary changes
-    # nothing yet (every step is one graph replay either way): it becomes a
-    # snapshot point with the preemption guard (ROADMAP A7)
+    # chunks of a device-resident epoch: a chunk boundary is where a
+    # preempted cached fit flushes its snapshot, so a SIGTERM loses at most
+    # 1/K of the epoch (every step is one graph replay either way)
     epoch_chunks: int = 1
-    checkpoint_every_n_steps: int = 0
+    checkpoint_every_n_steps: int = 0  # also snapshot every N steps (0: on SIGTERM only)
 
 
 def _monitor_modes() -> Dict[str, str]:
@@ -159,9 +177,6 @@ class Trainer:
         if config.accumulate_grad_batches < 1:
             raise ValueError("accumulate_grad_batches must be >= 1, got "
                              f"{config.accumulate_grad_batches}")
-        if config.checkpoint_every_n_steps > 0:
-            raise NotImplementedError("checkpoint_every_n_steps > 0 (resumable "
-                                      "snapshots) is not ported yet: ROADMAP A7")
         if config.log_pointclouds_every > 0:
             raise NotImplementedError("log_pointclouds_every > 0 (the PLY export of a "
                                       "validation sample, utils/viz.py) is not ported "
@@ -185,6 +200,7 @@ class Trainer:
         # (tp, fp, fn, tn) of every training epoch, in order
         self.train_counts: List[Tuple[int, int, int, int]] = []
         self.cached_epochs: Optional["CachedEpochs"] = None  # the last cached fit's epochs
+        self.preempted = False  # the last fit flushed a snapshot and returned early
 
     # ---- steps ---------------------------------------------------------------
 
@@ -218,14 +234,73 @@ class Trainer:
         self.multi_steps = MultiSteps(self.optimizer, k) if k > 1 else None
         return self.optimizer
 
-    def _update(self, apply: bool) -> None:
+    def _closure(self, x: torch.Tensor, y: torch.Tensor):
+        """L-BFGS's objective on the batch (x, y): the loss at the
+        parameters as they stand, its gradients in ``.grad``. The model's
+        buffers (BatchNorm's running statistics) are put back after each
+        evaluation, as the JAX package's ``value_fn`` drops the model state
+        it computes."""
+        saved = [b.detach().clone() for b in self.model.buffers()]
+
+        def closure() -> torch.Tensor:
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, _ = self._loss(x, y)
+            loss.backward()
+            with torch.no_grad():
+                for b, v in zip(self.model.buffers(), saved):
+                    b.copy_(v)
+            return loss.detach()
+
+        return closure
+
+    def _update(self, apply: bool, x: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None, loss: Optional[torch.Tensor] = None) -> None:
         """The optimizer's part of a step, after the backward: the update,
         or under accumulation the running mean and the update where
-        ``apply`` says so."""
+        ``apply`` says so. L-BFGS also takes the step's batch (x, y) and
+        its loss."""
+        lbfgs = isinstance(self.optimizer, LBFGS)
         if self.multi_steps is None:
-            self.optimizer.step()
+            if lbfgs:
+                self.optimizer.step(self._closure(x, y), loss)
+            else:
+                self.optimizer.step()
+        elif lbfgs and apply:
+            self.multi_steps.step(apply, self._closure(x, y), loss)
         else:
             self.multi_steps.step(apply)
+
+    def train_state(self) -> Dict[str, torch.Tensor]:
+        """The whole training state as flat name → tensor, for a snapshot:
+        every parameter and buffer, the optimizer's state (made as a first
+        step would make it where no step has run), the accumulation's, and
+        the step."""
+        out = {f"params/{n}": p for n, p in self.model.named_parameters()}
+        out.update((f"buffers/{n}", b) for n, b in self.model.named_buffers())
+        out.update((f"optimizer/{k}", v) for k, v in optimizer_state(self.optimizer).items())
+        if self.multi_steps is not None:
+            out.update((f"multi_steps/{k}", v)
+                       for k, v in self.multi_steps.state_tensors().items())
+        out["step"] = torch.tensor(self.step, dtype=torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_train_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load :meth:`train_state`'s ``state``: copied into the tensors the
+        model and the optimizer hold, never rebinding them (a captured CUDA
+        graph reads them); an optimizer that has taken no step gets its
+        state through ``load_state_dict``."""
+        for n, p in self.model.named_parameters():
+            p.copy_(state[f"params/{n}"])
+        for n, b in self.model.named_buffers():
+            b.copy_(state[f"buffers/{n}"])
+        load_optimizer_state(self.optimizer, {k[len("optimizer/"):]: v for k, v in state.items()
+                                              if k.startswith("optimizer/")})
+        if self.multi_steps is not None:
+            self.multi_steps.load_state_tensors(
+                {k[len("multi_steps/"):]: v for k, v in state.items()
+                 if k.startswith("multi_steps/")})
+        self.step = int(state["step"])
 
     def train_step(self, mstate: MetricState, *batch: torch.Tensor
                    ) -> Tuple[MetricState, torch.Tensor]:
@@ -243,9 +318,10 @@ class Trainer:
                 raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at step "
                                          f"{self.step}")
             loss.backward()
-        self._update(self.multi_steps is not None and self.multi_steps.advance())
+        loss = loss.detach()
+        self._update(self.multi_steps is not None and self.multi_steps.advance(), x, y, loss)
         self.step += 1
-        return update_metrics(mstate, pred.detach(), y, self.config.tau), loss.detach()
+        return update_metrics(mstate, pred.detach(), y, self.config.tau), loss
 
     @torch.no_grad()
     def eval_step(self, mstate: MetricState, *batch: torch.Tensor
@@ -301,54 +377,100 @@ class Trainer:
             resume_from: Optional[str] = None) -> Tuple[nn.Module, Dict[str, float]]:
         """Per-batch training loop over a host-fed loader; trains
         ``self.model`` in place from a fresh optimizer state. Returns the
-        model and the best value seen of every score."""
-        if resume_from is not None:
-            raise NotImplementedError("resume_from (resumable snapshots) is not "
-                                      "ported yet: ROADMAP A7")
+        model and the best value seen of every score.
+
+        A SIGTERM latched during a step flushes a snapshot at the batch
+        boundary (the training state, the epoch's counts and loss sum, the
+        (epoch, batch) cursor) and returns with ``self.preempted``;
+        ``checkpoint_every_n_steps`` also snapshots every N batches.
+        ``resume_from`` restores one and skips the batches of the resumed
+        epoch it had taken: exact where the loader gives the epoch's
+        batches in the same order again (a list, an unshuffled loader). A
+        fit that completes deletes the snapshot.
+        """
         cfg = self.config
         self.setup_optimizer()
         self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
                                               top_k=cfg.checkpoint_top_k)
         stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
                    if cfg.early_stop_metric else None)
-        epoch = 0
-        while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
-            tracer = self._start_trace() if cfg.profile_dir and epoch == 0 else None
-            t0 = time.time()
-            mstate = init_metric_state(self.device)
-            loss_sum = torch.zeros((), device=self.device)
-            loss_count = 0
-            grad_logged = False
-            for batch in train_loader:
-                mstate, loss = self.train_step(mstate, *self.to_device(batch))
-                loss_sum = loss_sum + loss
-                loss_count += 1
-                if cfg.log_gradients and not grad_logged:
-                    # one gradient snapshot per epoch
-                    self.logger.log_params(self._grad_stats(), self.step)
-                    grad_logged = True
+        snap_path = os.path.join(cfg.checkpoint_dir, SNAPSHOT_NAME)
+        epoch, skip_batches = 0, 0
+        mstate, loss_count = init_metric_state(self.device), 0
+        loss_sum = torch.zeros((), device=self.device)
+        if resume_from is not None:
+            restored = load_train_snapshot_if_compatible(resume_from, self.train_state(), {},
+                                                         kind="batch")
+            if restored is not None:
+                state, mstate, loss_sum, _, cursor = restored
+                self.load_train_state(state)
+                mstate = MetricState(*(v.to(self.device) for v in mstate))
+                loss_sum = loss_sum.to(self.device)
+                epoch, skip_batches = int(cursor["epoch"]), int(cursor["next_batch"])
+                loss_count = int(cursor["loss_count"])
+        self.preempted = False
+        with PreemptionGuard() as guard:
+            while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
+                tracer = self._start_trace() if cfg.profile_dir and epoch == 0 else None
+                t0 = time.time()
+                if not skip_batches:
+                    mstate, loss_count = init_metric_state(self.device), 0
+                    loss_sum = torch.zeros((), device=self.device)
+                since_snap = 0  # a host count: reading the device's step would sync
+                grad_logged = False
+                for bi, batch in enumerate(train_loader):
+                    if bi < skip_batches:
+                        continue  # fast-forward the resumed epoch
+                    mstate, loss = self.train_step(mstate, *self.to_device(batch))
+                    loss_sum = loss_sum + loss
+                    loss_count += 1
+                    since_snap += 1
+                    snap_due = (cfg.checkpoint_every_n_steps > 0
+                                and since_snap >= cfg.checkpoint_every_n_steps)
+                    if guard.triggered or snap_due:
+                        save_train_snapshot(snap_path, self.train_state(), mstate, loss_sum, {},
+                                            {"kind": "batch", "epoch": epoch,
+                                             "next_batch": bi + 1, "loss_count": loss_count,
+                                             "step": self.step})
+                        since_snap = 0
+                        if guard.triggered:
+                            self.preempted = True
+                            print(f"[preempt] SIGTERM: snapshot flushed to {snap_path} "
+                                  f"(epoch {epoch}, batch {bi + 1})", flush=True)
+                            if tracer is not None:
+                                tracer.__exit__(None, None, None)
+                            return self.model, self.best.best
+                    if cfg.log_gradients and not grad_logged:
+                        # one gradient snapshot per epoch
+                        self.logger.log_params(self._grad_stats(), self.step)
+                        grad_logged = True
+                skip_batches = 0
 
-            self.train_counts.append(metric_counts(mstate))
-            scores = {f"train_{k}": v for k, v in
-                      compute_metrics(mstate, cfg.fbeta).items()}
-            scores["train_loss"] = (float(loss_sum) / loss_count if loss_count
-                                    else float("nan"))
-            scores["epoch_time_s"] = time.time() - t0
-            if val_loader is not None:
-                scores.update(self._scores(val_loader, "val"))
+                self.train_counts.append(metric_counts(mstate))
+                scores = {f"train_{k}": v for k, v in
+                          compute_metrics(mstate, cfg.fbeta).items()}
+                scores["train_loss"] = (float(loss_sum) / loss_count if loss_count
+                                        else float("nan"))
+                scores["epoch_time_s"] = time.time() - t0
+                if val_loader is not None:
+                    scores.update(self._scores(val_loader, "val"))
 
-            if hasattr(self.model, "parameters_in_dict"):
-                # the interpretable per-epoch parameter series
-                self.logger.log_params(self.model.parameters_in_dict(), epoch)
-            self.logger.log_metrics(scores, epoch)
-            self.best.update(scores)
-            ckpt.step(self.model, scores, epoch)
-            if tracer is not None:
-                tracer.__exit__(None, None, None)
-                tracer.export_chrome_trace(os.path.join(cfg.profile_dir, "epoch0_trace.json"))
-            if stopper is not None and stopper.update(scores):
-                break
-            epoch += 1
+                if hasattr(self.model, "parameters_in_dict"):
+                    # the interpretable per-epoch parameter series
+                    self.logger.log_params(self.model.parameters_in_dict(), epoch)
+                self.logger.log_metrics(scores, epoch)
+                self.best.update(scores)
+                ckpt.step(self.model, scores, epoch)
+                if tracer is not None:
+                    tracer.__exit__(None, None, None)
+                    tracer.export_chrome_trace(os.path.join(cfg.profile_dir,
+                                                            "epoch0_trace.json"))
+                if stopper is not None and stopper.update(scores):
+                    break
+                epoch += 1
+        # completed: a leftover snapshot (a periodic one, or the resumed one)
+        # must not turn the next launch of the experiment into a resume
+        discard_snapshot(snap_path)
         return self.model, self.best.best
 
     # ---- device-resident epochs ---------------------------------------------------
@@ -366,8 +488,9 @@ class Trainer:
         (:class:`CachedEpochs`). ``generator`` (on the cache's device)
         draws the permutations and augmentations; by default one seeded
         with ``max_epochs``, as the JAX package's key. Stateless models
-        only; needs ``batch_prep``. Checkpoints and early stopping follow
-        ``self.config`` as in :meth:`fit`.
+        only; needs ``batch_prep``. Checkpoints, early stopping, the
+        preemption snapshots and ``resume_from`` follow ``self.config`` as in
+        :meth:`_run_cached_epochs`.
         """
         if self.batch_prep is None:
             raise ValueError("fit_cached needs a batch_prep (the voxelization of a batch)")
@@ -457,36 +580,99 @@ class Trainer:
                            val_loader: Optional[Iterable], resume_from: Optional[str]
                            ) -> Tuple[nn.Module, Dict[str, float]]:
         """The epoch loop the cached fits share: :class:`CachedEpochs` trains
-        each epoch on the device; counts, the loss, logging, checkpoints and
-        early stopping come once an epoch, and the validation loader is
-        streamed, as in the JAX package."""
-        if resume_from is not None:
-            raise NotImplementedError("resume_from (resumable snapshots) is not "
-                                      "ported yet: ROADMAP A7")
+        each epoch on the device in ``epoch_chunks`` chunks; counts, the
+        loss, logging, checkpoints and early stopping come once an epoch,
+        and the validation loader is streamed, as in the JAX package.
+
+        A SIGTERM latched during a chunk flushes a snapshot at the chunk's
+        end (the training state, the epoch's counts and loss sum, the
+        generator's state and the epoch's permutation and draws, the
+        (epoch, chunk) cursor) and returns with ``self.preempted``;
+        ``checkpoint_every_n_steps`` also snapshots at chunk ends and at
+        every epoch's end. ``resume_from`` continues from such a snapshot
+        bit-identically. It is restored before the first warm-up step, so
+        the warm-up steps are the steps at the restored cursor and the
+        graph is captured reading the restored buffers. A snapshot of
+        another chunk partition starts a fresh run; so does one of another
+        structure, printing why.
+        """
         cfg = self.config
         self.cached_epochs = epochs = CachedEpochs(self, n, batch_size, draw, load, generator)
         self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
                                               top_k=cfg.checkpoint_top_k)
         stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
                    if cfg.early_stop_metric else None)
-        epoch = 0
-        while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
-            t0 = time.time()
-            mstate, loss_sum = epochs.run_epoch()
-            self.train_counts.append(metric_counts(mstate))
-            scores = {f"train_{k}": v for k, v in compute_metrics(mstate, cfg.fbeta).items()}
-            scores["train_loss"] = float(loss_sum) / epochs.n_batches
-            scores["epoch_time_s"] = time.time() - t0
-            if val_loader is not None:
-                scores.update(self._scores(val_loader, "val"))
-            if hasattr(self.model, "parameters_in_dict"):
-                self.logger.log_params(self.model.parameters_in_dict(), epoch)
-            self.logger.log_metrics(scores, epoch)
-            self.best.update(scores)
-            ckpt.step(self.model, scores, epoch)
-            if stopper is not None and stopper.update(scores):
-                break
-            epoch += 1
+        self.preempted = False
+        chunks = epochs.chunks
+        snap_path = os.path.join(cfg.checkpoint_dir, SNAPSHOT_NAME)
+        epoch, start_chunk, mid_epoch = 0, 0, False
+        if resume_from is not None:
+            restored = load_train_snapshot_if_compatible(resume_from, self.train_state(),
+                                                         epochs.keys(), kind="chunk")
+            if restored is not None and int(restored[-1].get("n_chunks", len(chunks))) \
+                    != len(chunks):
+                # a next_chunk cursor names a batch only in its own partition
+                print(f"[preempt] snapshot chunk partition ({restored[-1]['n_chunks']}) != "
+                      f"current ({len(chunks)}); starting fresh")
+                restored = None
+            if restored is not None:
+                state, mstate, loss_sum, keys, cursor = restored
+                self.load_train_state(state)
+                epochs.load(mstate, loss_sum, keys)
+                epoch, start_chunk = int(cursor["epoch"]), int(cursor["next_chunk"])
+                mid_epoch = start_chunk < len(chunks)
+                if not mid_epoch:
+                    epoch, start_chunk = epoch + 1, 0
+
+        def flush(next_chunk: int) -> None:
+            save_train_snapshot(snap_path, self.train_state(), epochs.mstate, epochs.loss_sum,
+                                epochs.keys(), {"kind": "chunk", "epoch": epoch,
+                                                "next_chunk": next_chunk,
+                                                "n_chunks": len(chunks), "step": self.step})
+
+        with PreemptionGuard() as guard:
+            while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
+                t0 = time.time()
+                if not mid_epoch:
+                    epochs.begin_epoch()
+                    start_chunk = 0
+                mid_epoch = False
+                last_snap_step = self.step
+                for ci in range(start_chunk, len(chunks)):
+                    epochs.run_chunk(ci)
+                    boundary = ci + 1  # the resume position if the fit stops here
+                    if guard.triggered:
+                        flush(boundary)
+                        self.preempted = True
+                        self.logger.log_metrics({"preempted_at_step": self.step}, epoch)
+                        print(f"[preempt] SIGTERM: snapshot flushed to {snap_path} (epoch "
+                              f"{epoch}, chunk {boundary}/{len(chunks)})", flush=True)
+                        return self.model, self.best.best
+                    if (cfg.checkpoint_every_n_steps > 0
+                            and self.step - last_snap_step >= cfg.checkpoint_every_n_steps
+                            and boundary < len(chunks)):
+                        flush(boundary)
+                        last_snap_step = self.step
+                mstate, loss_sum = epochs.mstate, epochs.loss_sum
+                self.train_counts.append(metric_counts(mstate))
+                scores = {f"train_{k}": v for k, v in
+                          compute_metrics(mstate, cfg.fbeta).items()}
+                scores["train_loss"] = float(loss_sum) / epochs.n_batches
+                scores["epoch_time_s"] = time.time() - t0
+                if val_loader is not None:
+                    scores.update(self._scores(val_loader, "val"))
+                if hasattr(self.model, "parameters_in_dict"):
+                    self.logger.log_params(self.model.parameters_in_dict(), epoch)
+                self.logger.log_metrics(scores, epoch)
+                self.best.update(scores)
+                ckpt.step(self.model, scores, epoch)
+                if cfg.checkpoint_every_n_steps > 0:
+                    flush(len(chunks))  # the epoch's end: a resume starts the next epoch
+                if stopper is not None and stopper.update(scores):
+                    break
+                epoch += 1
+        # completed: the snapshot must not turn the next launch into a resume
+        discard_snapshot(snap_path)
         return self.model, self.best.best
 
     def evaluate(self, loader: Iterable, prefix: str = "test") -> Dict[str, float]:
@@ -531,21 +717,28 @@ class Trainer:
 class CachedEpochs:
     """The device-resident epochs of one cached fit.
 
-    Each :meth:`run_epoch` draws one permutation of the ``n`` samples and,
-    by ``draw(generator, n_batches)``, the augmentation of every batch
-    into static device buffers, then runs the epoch's ``n // batch_size``
-    steps in ``config.epoch_chunks`` chunks (:func:`chunk_starts`). A step
-    reads the cursor's rows of the permutation, ``load(rows, draws,
-    cursor)`` makes the batch's (x, y) grids, and the forward, the loss,
-    the backward, the optimizer update and the confusion counts follow, all
-    on the device, with no RNG call and no host sync. On a card the step
-    runs under :class:`StepGraph` (warm-up steps, then one CUDA graph
-    replayed a batch) with a capturable optimizer; on the CPU, eagerly.
-    Under gradient accumulation there are two steps, each under its own
-    :class:`StepGraph`: one that accumulates and one that accumulates and
-    updates; the host's count of calls picks the one a batch runs (a
-    captured graph cannot branch on a device value). ``generator``
+    Each epoch (:meth:`begin_epoch`) draws one permutation of the ``n``
+    samples and, by ``draw(generator, n_batches)``, the augmentation of
+    every batch into static device buffers; :meth:`run_chunk` runs one
+    chunk of the epoch's ``n // batch_size`` steps (``config.epoch_chunks``
+    chunks, :func:`chunk_starts`). A step reads the cursor's rows of the
+    permutation, ``load(rows, draws, cursor)`` makes the batch's (x, y)
+    grids, and the forward, the loss, the backward, the optimizer update
+    and the confusion counts follow, all on the device, with no RNG call
+    and no host sync. On a card the step runs under :class:`StepGraph`
+    (warm-up steps, then one CUDA graph replayed a batch) with a
+    capturable optimizer; on the CPU, eagerly. Under gradient accumulation
+    there are two steps, each under its own :class:`StepGraph`: one that
+    accumulates and one that accumulates and updates; the host's count of
+    calls picks the one a batch runs (a captured graph cannot branch on a
+    device value). L-BFGS's step reads its linesearch's values on the
+    host, so under it the step runs eagerly on the card too. ``generator``
     defaults to one seeded with ``max_epochs``.
+
+    :meth:`keys` and :meth:`load` give and take what a snapshot keeps of
+    the epochs (the generator's state, the epoch's permutation and draws);
+    :meth:`load` copies into the static buffers, which a captured graph
+    reads.
     """
 
     def __init__(self, trainer: Trainer, n: int, batch_size: int, draw, load,
@@ -561,10 +754,17 @@ class CachedEpochs:
         self.generator = (generator if generator is not None
                           else torch.Generator(dev).manual_seed(cfg.max_epochs))
         trainer.setup_optimizer(capturable=on_card)
+        eager = isinstance(trainer.optimizer, LBFGS)
+        if eager:
+            print("[lbfgs] the linesearch reads its values on the host: the cached steps "
+                  "run eagerly, no CUDA graph", flush=True)
 
-        # the static buffers the step reads and writes
+        # the static buffers the step reads and writes; the draws' shapes from
+        # a throwaway generator, so that the fit's own draws nothing yet
         self.order = order = torch.zeros(n, dtype=torch.int64, device=dev)
-        self.draws: Dict[str, torch.Tensor] = {}
+        self.draws: Dict[str, torch.Tensor] = {
+            k: torch.zeros_like(v) for k, v in
+            draw(torch.Generator(dev).manual_seed(0), self.n_batches).items()}
         self.cursor = cursor = torch.zeros(1, dtype=torch.int64, device=dev)
         offsets = torch.arange(batch_size, device=dev)
         self.mstate = mstate = init_metric_state(dev)
@@ -578,50 +778,76 @@ class CachedEpochs:
             trainer.model.train()
             trainer.optimizer.zero_grad(set_to_none=True)
             # debug_nans: anomaly checks read values on the host, which a
-            # capture cannot hold; run_epoch checks the loss after each step
+            # capture cannot hold; run_chunk checks the loss after each step
             anomaly = cfg.debug_nans and not (on_card
                                               and torch.cuda.is_current_stream_capturing())
             with torch.autograd.set_detect_anomaly(anomaly):
                 loss, pred = trainer._loss(x, y)
                 loss.backward()
-            trainer._update(apply)
+            loss = loss.detach()
+            trainer._update(apply, x, y, loss)
             for buf, v in zip(mstate, update_metrics(mstate, pred.detach(), y, cfg.tau)):
                 buf.copy_(v)
-            loss = loss.detach()
             loss_sum.add_(loss)
             last_loss.copy_(loss)
             cursor.add_(1)
 
-        self.runner = StepGraph(step, dev)
+        self.runner = StepGraph(step, dev, eager=eager)
         # under accumulation: the step that only accumulates (runner is the
         # one that updates)
-        self.accumulate_runner = (StepGraph(lambda: step(False), dev)
+        self.accumulate_runner = (StepGraph(lambda: step(False), dev, eager=eager)
                                   if trainer.multi_steps is not None else None)
+
+    def keys(self) -> Dict[str, torch.Tensor]:
+        """What a snapshot keeps of the epochs, in place of the JAX
+        package's PRNG keys: the generator's state after the epoch's
+        draws, and the epoch's permutation and draws."""
+        out = {"generator": self.generator.get_state(), "order": self.order}
+        out.update((f"draws/{k}", v) for k, v in self.draws.items())
+        return out
+
+    @torch.no_grad()
+    def load(self, mstate: MetricState, loss_sum: torch.Tensor,
+             keys: Dict[str, torch.Tensor]) -> None:
+        """Restore a snapshot's epoch position into the static buffers."""
+        self.generator.set_state(keys["generator"])
+        self.order.copy_(keys["order"])
+        for k, v in self.draws.items():
+            v.copy_(keys[f"draws/{k}"])
+        for buf, v in zip(self.mstate, mstate):
+            buf.copy_(v)
+        self.loss_sum.copy_(loss_sum)
+
+    def begin_epoch(self) -> None:
+        """Draw the epoch's permutation and augmentation, zero its counts."""
+        dev = self.trainer.device
+        self.order.copy_(torch.randperm(self.n, generator=self.generator, device=dev))
+        for k, v in self.draw(self.generator, self.n_batches).items():
+            self.draws[k].copy_(v)
+        for buf in self.mstate:
+            buf.zero_()
+        self.loss_sum.zero_()
+
+    def run_chunk(self, index: int) -> None:
+        """The steps of chunk ``index`` of the epoch."""
+        trainer = self.trainer
+        start, length = self.chunks[index]
+        self.cursor.fill_(start)
+        for _ in range(length):
+            ms = trainer.multi_steps
+            if ms is None or ms.advance():
+                self.runner()
+            else:
+                self.accumulate_runner()
+            trainer.step += 1
+            if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
+                raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} at "
+                                         f"step {trainer.step - 1}")
 
     def run_epoch(self) -> Tuple[MetricState, torch.Tensor]:
         """One epoch of training: the epoch's confusion counts and loss sum
         (device tensors, overwritten by the next epoch)."""
-        trainer = self.trainer
-        dev = trainer.device
-        self.order.copy_(torch.randperm(self.n, generator=self.generator, device=dev))
-        for k, v in self.draw(self.generator, self.n_batches).items():
-            if k in self.draws:
-                self.draws[k].copy_(v)
-            else:
-                self.draws[k] = v
-        for buf in self.mstate:
-            buf.zero_()
-        self.loss_sum.zero_()
-        for start, length in self.chunks:
-            self.cursor.fill_(start)
-            for _ in range(length):
-                ms = trainer.multi_steps
-                if ms is None or ms.advance():
-                    self.runner()
-                else:
-                    self.accumulate_runner()
-                trainer.step += 1
-                if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
-                    raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} at "
-                                             f"step {trainer.step - 1}")
+        self.begin_epoch()
+        for index in range(len(self.chunks)):
+            self.run_chunk(index)
         return self.mstate, self.loss_sum

@@ -37,11 +37,16 @@ class StepGraph:
     steps, and once each the launches the capture records. A replay runs
     the recorded launches without calling a wrapper, so it adds to no
     count; what a replay runs on the card is read with ``torch.profiler``.
+
+    ``eager`` runs every call eagerly on a card too: for a step whose
+    launches depend on values it reads on the host (L-BFGS's linesearch),
+    which a graph cannot hold.
     """
 
-    def __init__(self, step: Callable[[], None], device: torch.device):
+    def __init__(self, step: Callable[[], None], device: torch.device, eager: bool = False):
         self.step = step
         self.device = torch.device(device)
+        self.eager = eager
         self.eager_calls = 0
         self.replays = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -52,7 +57,7 @@ class StepGraph:
         return self.graph is not None
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             self.step()
             self.eager_calls += 1
             return

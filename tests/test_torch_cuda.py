@@ -1776,3 +1776,133 @@ def test_bf16_cached_fit_replays_a_graph_bit_identical(dev, tmp_path):
     graph = _graph_vs_eager(dev, tmp_path, lambda: SceneNet.create(
         kernel_size=(9, 5, 5), seed=3, backend="cuda"), crit, epochs=2, precision="bf16")
     assert graph.cached_epochs.runner.replays == 8 - 3
+
+
+# ---- preemption through the CUDA graphs, L-BFGS, the tuners on the card ------------
+
+def _resume_twins(dev, tmp_path, route, **cfg):
+    """A straight cached fit on the card and one preempted after the first
+    chunk of epoch 0 then resumed in a new Trainer (warm-up steps at the
+    restored cursor, then a graph captured on the restored buffers)."""
+    from scenenet_tpu_torch.data.device_cache import DevicePointCache
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
+    from scenenet_tpu_torch.train.preempt import request_preemption
+
+    crit = resolve_criterion("geneo_tversky")(convex_weight=5, tversky_alpha=2,
+                                                focal_gamma=4, tversky_smooth=1e-6)
+    if route == "grids":
+        data, prep = _grid_cache(dev, n=24, seed=4), None
+    else:
+        rng = np.random.default_rng(6)
+        data = DevicePointCache([(rng.random((512, 3)).astype(np.float32) * 10.0,
+                                  rng.integers(0, 20, 512).astype(np.int32),
+                                  np.ones(512, bool)) for _ in range(24)], dev)
+        prep = make_device_voxelize_prep((16, 16, 16), (15,), use_indices=False)
+
+    def fit(tag, resume=None, preempt=False):
+        net = SceneNet.create(kernel_size=(9, 5, 5), seed=3, backend="cuda").to(dev)
+        t = Trainer(net, crit, TrainConfig(run_dir=str(tmp_path / tag), max_epochs=3,
+                                           checkpoint_dir=str(tmp_path / f"c{tag}"),
+                                           early_stop_metric=None, epoch_chunks=3, **cfg),
+                    batch_prep=prep)
+        if preempt:
+            request_preemption()
+        run = t.fit_grid_cached if route == "grids" else t.fit_cached
+        run(data, 4, augment=True, generator=torch.Generator(dev).manual_seed(7),
+            resume_from=resume)
+        torch.cuda.synchronize()
+        return t
+
+    straight = fit("s")
+    killed = fit("k", preempt=True)
+    assert killed.preempted
+    resumed = fit("r", resume=str(tmp_path / "ck" / "preempt.npz"))
+    return straight, resumed
+
+
+@pytest.mark.parametrize("route,cfg", [("grids", {}), ("grids", {"accumulate_grad_batches": 2}),
+                                       ("points", {}), ("points", {"accumulate_grad_batches": 2})])
+def test_cached_fit_resumes_bit_identically_through_graphs(dev, tmp_path, route, cfg):
+    straight, resumed = _resume_twins(dev, tmp_path, route, **cfg)
+    runners = [r for r in (resumed.cached_epochs.runner, resumed.cached_epochs.accumulate_runner)
+               if r is not None]
+    assert all(r.captured and r.replays > 0 for r in runners)
+    assert straight.train_counts[-1] == resumed.train_counts[-1]
+    for (n, a), b in zip(straight.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(a, b), n
+
+
+def test_lbfgs_steps_on_the_card_match_the_plain_versions(dev, tmp_path):
+    """Three L-BFGS steps with the kernels (K2, K4) against the same steps
+    through the plain versions on the card: the same trial counts,
+    parameters rtol 1e-4."""
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train import TrainConfig, Trainer
+    from scenenet_tpu_torch.train import metrics as tmetrics
+
+    grids = _grid_cache(dev, n=6, seed=2)
+    crit = resolve_criterion("focal_tversky")(tversky_alpha=2, tversky_beta=1,
+                                                tversky_smooth=1e-6, focal_gamma=4)
+    out = {}
+    for backend in ("cuda", "torch"):
+        net = SceneNet.create(kernel_size=(9, 5, 5), seed=3, backend=backend).to(dev)
+        t = Trainer(net, crit, TrainConfig(run_dir=str(tmp_path / backend), optimizer="lbfgs",
+                                           learning_rate=0.8, early_stop_metric=None,
+                                           checkpoint_dir=str(tmp_path / f"c{backend}")))
+        t.setup_optimizer()
+        before = cuda_conv.DK_LAUNCHES.count
+        trials = []
+        for i in range(3):
+            t.train_step(tmetrics.init_metric_state(dev), grids.x[2 * i:2 * i + 2].float(),
+                         grids.y[2 * i:2 * i + 2].float())
+            trials.append(t.optimizer.trials)
+        launched = cuda_conv.DK_LAUNCHES.count - before
+        out[backend] = (trials, [p.detach().clone() for p in net.parameters()], launched)
+    assert out["cuda"][0] == out["torch"][0]
+    assert out["cuda"][2] == 3 + sum(out["cuda"][0]) and out["torch"][2] == 0
+    for a, b in zip(out["cuda"][1], out["torch"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_is_oom_on_a_real_out_of_memory(dev):
+    """A real torch.OutOfMemoryError is OOM-shaped, find_max_batch_size
+    stops at it and frees the cache, and the next step runs."""
+    from scenenet_tpu_torch.train.tune import _is_oom, find_max_batch_size
+
+    free = torch.cuda.mem_get_info(dev)[1]
+    try:
+        torch.empty(2 * free, dtype=torch.uint8, device=dev)
+    except Exception as e:
+        assert isinstance(e, torch.OutOfMemoryError) and _is_oom(e)
+    else:
+        raise AssertionError("twice the card's memory was allocated")
+
+    def probe(b):
+        torch.empty(b * (1 << 30), dtype=torch.uint8, device=dev).fill_(1)
+
+    found = find_max_batch_size(probe, start=1, max_batch=1 << 12)
+    assert 1 <= found < free / (1 << 30)
+    x = torch.ones(1 << 20, device=dev)
+    assert float((x * 2).sum()) == 2 * (1 << 20)
+
+
+def test_autotune_over_cuda_and_cuda_mxu_at_64(dev, tmp_path):
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train.tune import autotune_backend
+
+    crit = resolve_criterion("focal_tversky")(tversky_alpha=2, tversky_beta=1,
+                                                tversky_smooth=1e-6, focal_gamma=4)
+    before = (cuda_conv.LAUNCHES.count, cuda_conv.MXU_LAUNCHES.count)
+    winner, times = autotune_backend(
+        lambda b: SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=b).to(dev), crit, 4,
+        (64, 64, 64), cache_path=str(tmp_path / "autotune.json"), iters=3)
+    assert winner in ("cuda", "cuda_mxu") and set(times) == {"cuda", "cuda_mxu"}
+    assert all(0 < v < float("inf") for v in times.values())
+    assert cuda_conv.LAUNCHES.count > before[0] and cuda_conv.MXU_LAUNCHES.count > before[1]
+    assert autotune_backend(
+        lambda b: SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=b).to(dev), crit, 4,
+        (64, 64, 64), cache_path=str(tmp_path / "autotune.json")) == (winner, times)

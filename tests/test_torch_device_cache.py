@@ -390,7 +390,7 @@ def test_evaluate_cached_equals_evaluate_and_jax(dataset, cache8, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["stateful", "small", "device", "resume"])
-def test_cached_fits_refuse(case, cache8, tmp_path):
+def test_cached_fits_refuse(case, cache8, tmp_path, capsys):
     from scenenet_tpu_torch.models import UNet3D
 
     trainer = _port_trainer(tmp_path)
@@ -406,8 +406,12 @@ def test_cached_fits_refuse(case, cache8, tmp_path):
         with pytest.raises(ValueError, match="meta"):
             trainer.fit_grid_cached(cache8_meta, 2)
     else:
-        with pytest.raises(NotImplementedError, match="A7"):
-            trainer.fit_cached(cache8, 2, resume_from="snapshot.npz")
+        # resuming is ported since (A7): a snapshot that is not there is refused
+        # with a printed line, and the fit starts fresh
+        trainer.config.max_epochs = 1
+        trainer.fit_cached(cache8, 2, resume_from=str(tmp_path / "snapshot.npz"))
+        assert "unusable" in capsys.readouterr().out
+        assert trainer.step == 4 and not trainer.preempted
 
 
 def test_debug_nans_stops_a_cached_fit(cache8, tmp_path):

@@ -213,6 +213,10 @@ def test_port_never_imports_jax():
         "    VoxelLoader, Voxelization, build_data_samples, build_pole_radius_samples)\n"
         "from scenenet_tpu_torch.data import cache, las, pcd, semantic_kitti, transforms\n"
         "from scenenet_tpu_torch.ops.dbscan import dbscan, extract_clusters\n"
+        "from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer, augmented_loss\n"
+        "from scenenet_tpu_torch.train.lbfgs import LBFGS, ZoomLinesearch\n"
+        "from scenenet_tpu_torch.train.preempt import PreemptionGuard, save_train_snapshot\n"
+        "from scenenet_tpu_torch.train.tune import autotune_backend, lr_range_test\n"
         "assert native.available()\n"
         "native.load_batch_native([], 16)\n"
         "from scenenet_tpu_torch.ops.cuda_conv import geneo_stencil_conv_mxu, "

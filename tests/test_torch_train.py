@@ -585,6 +585,35 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
         else:
             assert "[device_cache auto] -> 'grids'" in out
         return
+    if item == "A7" or overrides.get("fast_dev_run"):
+        # ported since (A7; fast_dev_run with A7's tuners): ADMM, the tuners, the
+        # measured backend, periodic snapshots, L-BFGS and the dev run train end to
+        # end, each printing its route
+        cfg = _cli_cfg(dataset, tmp_path, max_epochs=1, **overrides)
+        if "constrained" in overrides:
+            # experiments/admm.yaml's keys
+            cfg = _cli_cfg(dataset, tmp_path, max_epochs=1, admm_rho=5.0, optimizer="lbfgs",
+                           learning_rate=0.8, criterion="focal_tversky", **overrides)
+        scores = tcli.run(cfg, device="cpu")
+        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+        out = capsys.readouterr().out
+        want = {"constrained": "[admm] augmented-Lagrangian training (rho=5.0, "
+                               "optimizer=lbfgs)",
+                "auto_lr_find": "[auto_lr_find] suggested learning_rate",
+                "auto_scale_batch_size": "[auto_scale_batch_size] largest batch whose step "
+                                         "runs: 4",
+                "model_backend": "[autotune] no CUDA device (--device cpu); using "
+                                 "model_backend=auto",
+                "checkpoint_every_n_steps": "[device_cache auto] -> 'grids'",
+                "optimizer": "[lbfgs] the linesearch reads its values on the host: the "
+                             "cached steps run eagerly",
+                "fast_dev_run": "[fast_dev_run] one epoch, one batch a split"}
+        assert want[next(iter(overrides))] in out, out
+        if "constrained" in overrides:
+            assert math.isfinite(scores["admm_max_violation"])
+        ckpt = tmp_path / "scenenet_ts40k" / "checkpoints"
+        assert (ckpt / "last.npz").exists() and not (ckpt / "preempt.npz").exists()
+        return
     if "device_cache" in overrides:
         # ported since (A6): the point cache (True is the point cache) and the
         # grid cache train end to end
@@ -613,7 +642,8 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
         tcli.run(_cli_cfg(dataset, tmp_path, **overrides), device="cpu")
 
 
-PORTED_SINCE = {"use_indices", "unbinarized", "host_indices"}  # B8, B7, B8: they raised once
+PORTED_SINCE = {"use_indices", "unbinarized", "host_indices",  # B8, B7, B8: they raised once
+                "resume_from"}  # A7
 
 
 @pytest.mark.parametrize("case,item", [
@@ -639,6 +669,23 @@ def test_unported_entry_points_raise(case, item, tmp_path):
     if case not in PORTED_SINCE:
         with pytest.raises(NotImplementedError, match=item):
             calls[case]()
+        return
+    if case == "resume_from":
+        # a missing snapshot starts fresh, with a printed line; a real one resumes
+        trainer = Trainer(net, resolve_criterion("mse")(), dataclasses.replace(
+            cfg, max_epochs=1, early_stop_metric=None))
+        grids = [(torch.rand(2, 1, 8, 8, 8).round(), torch.rand(2, 1, 8, 8, 8).round())
+                 for _ in range(2)]
+        trainer.fit(grids, resume_from=str(tmp_path / "snapshot.npz"))
+        assert trainer.step == 2 and not trainer.preempted
+        from scenenet_tpu_torch.train.preempt import save_train_snapshot
+
+        save_train_snapshot(str(tmp_path / "s.npz"), trainer.train_state(),
+                            tmetrics.init_metric_state(), torch.zeros(()), {},
+                            {"kind": "batch", "epoch": 0, "next_batch": 1, "loss_count": 1,
+                             "step": 2})
+        trainer.fit(grids, resume_from=str(tmp_path / "s.npz"))
+        assert trainer.step == 3  # the snapshot's 2 steps, then the epoch's second batch
         return
     rng = np.random.default_rng(0)
     xyz, labels = rng.uniform(0, 9, (40, 3)) + 100.0, rng.choice([2, 15], 40)
