@@ -103,7 +103,18 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   ``model_backend=autotune`` (``cuda`` against ``cuda_mxu``, both timed)
   and ``auto_scale_batch_size``, and the CLI's batch probe at 128³ until
   the card truly runs out of memory (the rest of the card held, so that it
-  does so below the 2³¹ voxels the kernels take).
+  does so below the 2³¹ voxels the kernels take); the autotune times graph
+  replays on the grid cache, and both candidates are also timed eagerly;
+- it runs ``cli.visualize`` over the synthetic test split at 64³ with the
+  defaults' fit (K2 once a sample; the PLYs, the tower proposals and each
+  stage's milliseconds), ``cli.inspect`` on that checkpoint and on
+  reference-layout ``.ckpt`` files (one of the (9, 6, 6) default), the
+  ONNX and ``torch.export`` exports run on the card against K2's forward,
+  a sweep of two literal draws through ``run_sweep`` on the grid cache,
+  a streamed fit that writes the first validation sample's PLYs
+  (``log_pointclouds_every``), and, in a process of its own, a native
+  library that cannot be built, which leaves ``available()`` False with its
+  reason.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -190,6 +201,16 @@ ADMM_SET = ["constrained=admm", "admm_rho=5.0", "optimizer=lbfgs", "learning_rat
             "criterion=focal_tversky"]
 PREEMPT_EPOCHS = 200
 PROBE_FREE_GB = 12  # the card's memory left to the out-of-memory probe at 128^3
+VIZ_SAMPLES = 4  # cli.visualize --n over the synthetic test split
+# two draws of experiments/sweep.yaml's parameters, written out: the card machine
+# may lack PyYAML, and run_sweep takes the draws themselves
+SWEEP_DRAWS = [
+    {"learning_rate": 0.005, "optimizer": "adam", "convex_weight": 3.0, "tversky_alpha": 1.5,
+     "focal_gamma": 2, "cylinder_geneo": 1, "arrow_geneo": 1, "neg_sphere_geneo": 1},
+    {"learning_rate": 0.01, "optimizer": "rmsprop", "convex_weight": 7.5,
+     "tversky_alpha": 3.0, "focal_gamma": 4, "cylinder_geneo": 2, "arrow_geneo": 1,
+     "neg_sphere_geneo": 1},
+]
 # the ETL phase: 5 LAS tiles of 8 towers -> 40 radius-15 crops (--test-split 0.1:
 # 36 fit, 33 of them train = 2 steps of 16, 3 validation; 4 test). 800 points a
 # tower: the reference's DBSCAN (eps 10, 300 points) runs in Python, in time
@@ -2872,7 +2893,7 @@ def main(argv=None) -> int:
         from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer
         from scenenet_tpu_torch.train.lbfgs import LBFGS
         from scenenet_tpu_torch.train.preempt import request_preemption
-        from scenenet_tpu_torch.train.tune import find_max_batch_size
+        from scenenet_tpu_torch.train.tune import autotune_backend, find_max_batch_size
 
         admm_runs = []
         admm_fit = ADMMTrainer.fit
@@ -3207,13 +3228,215 @@ def main(argv=None) -> int:
               f"{probe_counts} | launches " + ", ".join(
                   f"{tag} {c}" for tag, (_, _, c) in tune_runs.items()), flush=True)
 
+        # C6: the CLI's autotune above timed graph replays (the grid cache); the same
+        # two candidates timed eagerly, as the streamed route and L-BFGS train
+        check("; graph replays)" in tune_runs["autotune"][1], "autotune did not time replays")
+        _, eager_times = autotune_backend(
+            lambda b: SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=b).to(dev), crit,
+            TRAIN_BATCH, GRID, optimizer="adam", cache_path=str(tmp / "eager.json"))
+        print(f"[tune] C6, model_backend=autotune at (B={TRAIN_BATCH}, 64^3, adam; {smi}): "
+              f"graph replays {at_times} -> {at_line.group(1)} | eager steps "
+              + ", ".join(f"{k}: {v:.2f} ms" for k, v in eager_times.items())
+              + f" -> {min(eager_times, key=eager_times.get)}", flush=True)
+
+        # ---- 23. A10 + A11: visualize, inspect, the exports, a sweep, the PLYs -------
+        from scenenet_tpu_torch.cli import inspect as inspect_cli
+        from scenenet_tpu_torch.cli import visualize as visualize_cli
+        from scenenet_tpu_torch.compat import export_torch_state_dict
+        from scenenet_tpu_torch.utils.export import export_forward, load_exported
+        from scenenet_tpu_torch.utils.onnx_export import export_scenenet_onnx, load_onnx
+
+        # cli.visualize over the synthetic test split at 64^3 with the defaults' fit of
+        # phase 10: host grids, the forward on the card (K2 once a sample)
+        phase_ckpt = str(ckpt_dir / "last.npz")
+        data_set = ["--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}"]
+        viz_out = tmp / "viz"
+        reset_counts()
+        t0 = time.perf_counter()
+        with tee_stdout() as said:
+            viz_summary = visualize_cli.main([*data_set, "--checkpoint", phase_ckpt,
+                                              "--out", str(viz_out), "--n", str(VIZ_SAMPLES)])
+        viz_s = time.perf_counter() - t0
+        viz_counts = read_counts()
+        stages = np.array([[float(v) for v in m.groups()] for m in re.finditer(
+            r"ms: forward (\S+), ply (\S+), proposals (\S+)\)", said.text)])
+        viz_files = sorted(p.name for p in viz_out.iterdir())
+        check(len(viz_summary) == VIZ_SAMPLES and stages.shape == (VIZ_SAMPLES, 3)
+              and len(viz_files) == 4 * VIZ_SAMPLES + 1,
+              f"visualize: {len(viz_summary)} samples, files {viz_files}")
+        check(viz_counts["stencil_conv"] == VIZ_SAMPLES
+              and sum(viz_counts.values()) == VIZ_SAMPLES,
+              f"visualize launched {viz_counts}: K2 once a sample")
+        # sample 0's forward: K2 against its plain version, on the same grid
+        viz_cfg = load_config(None, train_cli.parse_overrides(
+            DEFAULTS_SET + [f"data_path={tmp / 'ts40k'}", "device_voxelization=False"]))
+        vx = torch.from_numpy(np.asarray(train_cli.build_datasets(viz_cfg)[2][0][0],
+                                         np.float32))[None].to(dev)
+        viz_net = restore_checkpoint(phase_ckpt, SceneNet.create(
+            kernel_size=(9, 5, 5), seed=0, backend="cuda")).to(dev).eval()
+        with torch.no_grad():
+            viz_k2 = viz_net(vx)
+            viz_net.backend = "torch"
+            viz_err = float((viz_k2 - viz_net(vx)).abs().max())
+        check(viz_err <= PROB_TOL, f"visualize: K2 vs plain max|d| {viz_err:.3g}")
+        med = np.median(stages, axis=0)
+        # the PLYs' and DBSCAN's work grows with the voxels the model marks: read it
+        # beside the positive shares, predicted and true, and a thousand voxels at a time
+        pred_vox = np.array([e["pred_voxels"] for e in viz_summary], np.float64)
+        gt_vox = np.array([e["gt_voxels"] for e in viz_summary], np.float64)
+        per_k = np.median(stages[:, 1:] / (pred_vox[:, None] / 1e3), axis=0)
+        print(f"[visualize] cli.visualize --n {VIZ_SAMPLES} at 64^3 ((9,5,5), the defaults' "
+              f"fit, backend cuda; {smi}): {len(viz_files)} files ({', '.join(viz_files[:4])}, "
+              f"... summary.json) in {viz_s:.2f} s | proposals "
+              + "; ".join(f"sample {e['sample']}: {e['pred_voxels']} pred voxels, "
+                          f"{e['gt_voxels']} gt, {e['proposals']}" for e in viz_summary)
+              + f" | median ms a sample: forward {med[0]:.3f} (host grid to the card, K2, "
+              f"back), PLYs {med[1]:.3f}, proposals {med[2]:.3f} | positive share of the "
+              f"{vx.numel()} voxels: predicted {pred_vox.min() / vx.numel():.4f}-"
+              f"{pred_vox.max() / vx.numel():.4f}, true {gt_vox.min() / vx.numel():.4f}-"
+              f"{gt_vox.max() / vx.numel():.4f} | median ms a 1k predicted voxels: PLYs "
+              f"{per_k[0]:.3f}, proposals {per_k[1]:.3f} | K2 vs plain on sample 0 "
+              f"max|d| {viz_err:.3g} | launches {viz_counts}", flush=True)
+
+        # cli.inspect on that checkpoint, and on reference-layout .ckpt files written by
+        # export_torch_state_dict: the fit's, and a (9,6,6) one without kernel_size
+        ref_ckpt, even_ckpt = tmp / "fit.ckpt", tmp / "even.ckpt"
+        export_torch_state_dict(trained, str(ref_ckpt))
+        even_net = SceneNet.create(kernel_size=(9, 6, 6), seed=3)
+        export_torch_state_dict(even_net, str(even_ckpt))
+        blob = torch.load(str(even_ckpt), weights_only=False)
+        del blob["hyper_parameters"]["kernel_size"]  # the reference's default, (9, 6, 6)
+        torch.save(blob, str(even_ckpt))
+        inspect_parts = []
+        for tag, args, want in (
+                ("npz", ["--checkpoint", phase_ckpt, *data_set], trained),
+                ("ckpt", ["--reference-ckpt", str(ref_ckpt)], trained),
+                ("ckpt (9,6,6)", ["--reference-ckpt", str(even_ckpt)], even_net)):
+            out = tmp / f"inspect_{len(inspect_parts)}"
+            t0 = time.perf_counter()
+            with tee_stdout():
+                table = inspect_cli.main([*args, "--out", str(out)])
+            ms = (time.perf_counter() - t0) * 1e3
+            want_table = want.parameters_in_dict()
+            plys = sorted(p.name for p in out.glob("*.ply"))
+            # the .ckpt holds the effective λs, re-summed on import: within 1e-6
+            worst = max(abs(table[k] - v) for k, v in want_table.items())
+            check(table.keys() == want_table.keys() and worst <= 1e-6
+                  and all(table[k] == v for k, v in want_table.items() if "." in k)
+                  and plys == sorted([f"kernel_{n}.ply" for n, _ in want.observers]
+                                     + ["kernel_combined.ply"]),
+                  f"inspect {tag}: max|d| {worst:.3g}, files {plys}")
+            inspect_parts.append(f"{tag}: {len(table)} parameters equal to the checkpoint's "
+                                 f"(max|d| {worst:.3g}), {len(plys)} kernel PLYs, {ms:.1f} ms")
+        print("[inspect] cli.inspect, kernels synthesized on the card | "
+              + " | ".join(inspect_parts), flush=True)
+
+        # the exports of the fit, run on the card against K2's forward of the model
+        ex_net = restore_checkpoint(phase_ckpt, SceneNet.create(
+            kernel_size=(9, 5, 5), seed=0, backend="cuda")).to(dev)
+        ex_x = (torch.rand(2, 1, *GRID, device=dev,
+                           generator=torch.Generator(dev).manual_seed(5)) > 0.95).float()
+        with torch.no_grad():
+            ex_want = ex_net(ex_x)
+        t0 = time.perf_counter()
+        onnx_blob = export_scenenet_onnx(ex_net, GRID, str(tmp / "fit.onnx"))
+        onnx_ms = (time.perf_counter() - t0) * 1e3
+        onnx_run = load_onnx(str(tmp / "fit.onnx"))
+        onnx_err = float((onnx_run(ex_x) - ex_want).abs().max())
+        t0 = time.perf_counter()
+        export_forward(ex_net, (2, 1, *GRID), str(tmp / "fit.pt2"))
+        pt2_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            pt2_out = load_exported(str(tmp / "fit.pt2"))(ex_x)
+        pt2_err = float((pt2_out - ex_want).abs().max())
+        check(pt2_out.device == ex_want.device and onnx_err <= PROB_TOL and pt2_err <= PROB_TOL,
+              f"exports vs K2: onnx {onnx_err:.3g}, torch.export {pt2_err:.3g}")
+        print(f"[export] the defaults' fit: ONNX {len(onnx_blob)} bytes written in "
+              f"{onnx_ms:.1f} ms, parsed back and run by load_onnx on the card (F.conv3d): "
+              f"max|d| {onnx_err:.3g} vs K2's forward | torch.export program "
+              f"{(tmp / 'fit.pt2').stat().st_size} bytes in {pt2_ms:.1f} ms (the torch-backend "
+              f"forward), loaded and run on the card: max|d| {pt2_err:.3g} vs K2 (B=2, 64^3)",
+              flush=True)
+
+        # a sweep of two literal draws through run_sweep, the defaults' width, 1 epoch
+        # each, through the grid cache (the draws' keys left out of the overrides)
+        drawn = {k for d in SWEEP_DRAWS for k in d}
+        sweep_over = train_cli.parse_overrides(
+            [kv for kv in DEFAULTS_SET if kv.split("=")[0] not in drawn]
+            + [f"data_path={tmp / 'ts40k'}", "max_epochs=1", "num_workers=4",
+               f"output_dir={tmp / 'sweep'}"])
+        reset_counts()
+        t0 = time.perf_counter()
+        with tee_stdout() as said:
+            best = train_cli.run_sweep(SWEEP_DRAWS, None, sweep_over, device="cuda")
+        sweep_s = time.perf_counter() - t0
+        sweep_counts = read_counts()
+        scores_seen = re.findall(r"\[sweep (\d)\] val_FBetaScore=(\S+)", said.text)
+        check(len(scores_seen) == 2 and said.text.count("[device_cache auto] -> 'grids'") == 2
+              and best["best_draw"] in SWEEP_DRAWS and sweep_counts["stencil_dk"] > 0,
+              f"sweep: {scores_seen}, best {best}, launches {sweep_counts}")
+        print(f"[sweep] run_sweep over 2 literal draws, 1 epoch each through the grid cache: "
+              + ", ".join(f"draw {i} val_FBetaScore {v}" for i, v in scores_seen)
+              + f" | best {best['best_score']:.4f} with {best['best_draw']} | {sweep_s:.1f} s "
+              f"| launches {sweep_counts}", flush=True)
+
+        # log_pointclouds_every (a TrainConfig field: neither package's config file
+        # carries it) on the streamed fit, through the CLI's builders and the native
+        # loader at the defaults' width: the first validation sample's PLYs
+        pc_cfg = load_config(None, train_cli.parse_overrides(
+            DEFAULTS_SET + [f"data_path={tmp / 'ts40k'}"]))
+        pc_train, pc_val, _ = train_cli.build_datasets(pc_cfg)
+        clouds_trainer = Trainer(
+            train_cli.build_model(pc_cfg, dev), train_cli.build_criterion(pc_cfg),
+            TrainConfig(max_epochs=1, log_pointclouds_every=1, early_stop_metric=None,
+                        run_dir=str(tmp / "clouds"), checkpoint_dir=str(tmp / "clouds_ckpt")),
+            batch_prep=make_device_voxelize_prep(GRID, (TOWER,), use_indices=False))
+        reset_counts()
+        t0 = time.perf_counter()
+        clouds_trainer.fit(
+            NativePointCloudLoader(pc_train, TRAIN_BATCH, shuffle=True, seed=0,
+                                   max_points=TRAIN_POINTS, threads=4, drop_last=True),
+            PointCloudLoader(pc_val, TRAIN_BATCH, num_workers=4))
+        torch.cuda.synchronize()
+        clouds_s = time.perf_counter() - t0
+        clouds_counts = read_counts()
+        cloud_dir = tmp / "clouds" / "pointclouds"
+        clouds = sorted(p.name for p in cloud_dir.glob("*.ply")) if cloud_dir.is_dir() else []
+        check(clouds == ["epoch0_gt.ply", "epoch0_input.ply", "epoch0_pred.ply"]
+              and clouds_counts["points_binary"] > 0, f"pointclouds: {clouds}")
+        print(f"[pointclouds] Trainer.fit with log_pointclouds_every=1, 1 epoch streamed "
+              f"(native loader, the defaults' width) in {clouds_s:.1f} s: {clouds} ("
+              + ", ".join(f"{(cloud_dir / c).stat().st_size} B" for c in clouds)
+              + f") | launches {clouds_counts}", flush=True)
+
+        # C5: a native source that does not compile, and sources that are absent,
+        # leave available() False with its reason (a process of its own, so that
+        # this one's library is not disturbed)
+        native_code = (
+            "import sys\nfrom pathlib import Path\nsys.path.insert(0, sys.argv[1])\n"
+            "from scenenet_tpu_torch import native\n"
+            "tmp = Path(sys.argv[2])\nbad = tmp / 'voxel_native.cpp'\n"
+            "bad.write_text('this is not C++\\n')\n"
+            "native.BUILD_DIR = tmp / 'out'\n"
+            "for src in (bad, tmp / 'absent.cpp'):\n"
+            "    native.SOURCES, native._lib, native._failed = (src,), None, {}\n"
+            "    assert native.available() is False\n")
+        proc = subprocess.run([sys.executable, "-c", native_code, str(ROOT), str(tmp)],
+                              capture_output=True, text=True, timeout=120)
+        reasons = [ln for ln in proc.stdout.splitlines() if ln.startswith("[native]")]
+        check(proc.returncode == 0 and len(reasons) == 2 and "build failed" in reasons[0]
+              and "sources missing" in reasons[1], f"native fallback: {proc.stdout}{proc.stderr}")
+        print("[native] C5: available() is False with its reason | "
+              + " | ".join(r[:140] for r in reasons), flush=True)
+
     main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
                  *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
                  *(c for _, _, c in route_runs.values()),
                  *(r[5] for r in option_runs.values()), host_counts,
                  *big_counts.values(), big_serve_counts, counts_path, unet_counts,
                  unet16_counts, cnn_counts, admm_counts, lb_counts, pc_counts,
-                 *(c for _, _, c in tune_runs.values()), probe_counts]
+                 *(c for _, _, c in tune_runs.values()), probe_counts, viz_counts,
+                 sweep_counts, clouds_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}
     # bounds at the shapes the times below were taken at: 64^3, kernel (9,5,5);
     # K1, K2, K5 at batch 64 (the batched pipeline), K3, K4 at the train batch

@@ -49,9 +49,10 @@ point's bin in float64 (pyntcloud parity) and the device only counts; its
 bins come from the host workers, so it streams. ``--device`` defaults to
 ``cuda`` and raises without a card; ``cpu`` runs the kernels' plain
 versions. A run
-configured by ``--set`` alone needs no PyYAML. What the config asks for
-and the port does not have yet (meshes, wandb, the StableHLO export)
-raises, naming its ROADMAP item.
+configured by ``--set`` alone needs no PyYAML. ``--sweep spec.yaml``
+trains ``--sweep-runs`` draws of a random sweep (:func:`run_sweep`) and
+prints the best. Meshes (ROADMAP A12) raise; so does ``export_stablehlo``,
+XLA's format.
 """
 
 from __future__ import annotations
@@ -77,9 +78,10 @@ from scenenet_tpu_torch.models import CnnBaseline, QuantileSceneNet, SceneNet, U
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
 from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
+from scenenet_tpu_torch.train.loop import trains_by_replay
 from scenenet_tpu_torch.train.preempt import SNAPSHOT_NAME
 from scenenet_tpu_torch.train.tune import autotune_backend, find_max_batch_size, lr_range_test
-from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config
+from scenenet_tpu_torch.utils.config import ExperimentConfig, load_config, sample_sweep
 from scenenet_tpu_torch.utils.seeding import fix_randomness
 
 # the JAX package's backend names, mapped onto the port's
@@ -95,9 +97,9 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     if any(int(v) > 1 for v in meshes.values()):
         raise NotImplementedError(f"mesh training {meshes} is not ported yet: ROADMAP A12")
     if cfg.export_stablehlo:
-        raise NotImplementedError("export_stablehlo is not ported yet: ROADMAP A11")
-    if cfg.use_wandb:
-        raise NotImplementedError("use_wandb is not ported yet: ROADMAP A10")
+        raise NotImplementedError("export_stablehlo asks for XLA's StableHLO format, which "
+                                  "the port does not write: it exports through "
+                                  "utils/export.py (torch.export) and utils/onnx_export.py")
 
 
 def _resolve_device_cache_auto(cfg: ExperimentConfig, n_samples: int,
@@ -271,13 +273,12 @@ class _OneBatch:
         return min(1, len(self.loader))
 
 
-def _autotune(cfg: ExperimentConfig, criterion, device: torch.device) -> None:
+def _autotune(cfg: ExperimentConfig, criterion, device: torch.device,
+              graph: bool = False) -> None:
     """``model_backend: autotune``: time a train step of each kernel backend
-    on the card at the run's shapes and keep the fastest; without a card,
-    the ``auto`` rule (the JAX CLI's non-TPU fallback)."""
-    if cfg.model not in ("scenenet", "quantile"):
-        raise ValueError("model_backend=autotune supports the scenenet family "
-                         f"(got model={cfg.model!r})")
+    on the card at the run's shapes and keep the fastest, by CUDA graph
+    replays where ``graph`` says the run trains so (L-BFGS always eagerly);
+    without a card, the ``auto`` rule (the JAX CLI's non-TPU fallback)."""
     if device.type != "cuda":
         print("[autotune] no CUDA device (--device cpu); using model_backend=auto")
         cfg.model_backend = "auto"
@@ -287,8 +288,10 @@ def _autotune(cfg: ExperimentConfig, criterion, device: torch.device) -> None:
         lambda b: SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
                                   backend=b).to(device),
         criterion, cfg.batch_size, grid, optimizer=cfg.optimizer,
-        cache_key_extra=f"ks={cfg.kernel_size},geneo={cfg.geneo_num()}")
-    print(f"[autotune] backend -> {winner} at (batch {cfg.batch_size}, grid {grid})  ("
+        cache_key_extra=f"ks={cfg.kernel_size},geneo={cfg.geneo_num()}", graph=graph)
+    route = "graph replays" if graph else "eager steps"
+    print(f"[autotune] backend -> {winner} at (batch {cfg.batch_size}, grid {grid}; "
+          f"{route})  ("
           + ", ".join(f"{k}: {v:.2f} ms" for k, v in times.items()) + ")")
     cfg.model_backend = winner
 
@@ -331,18 +334,25 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     run_dir = os.path.join(cfg.output_dir, cfg.project)
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
 
+    if cfg.model_backend == "autotune" and cfg.model not in ("scenenet", "quantile"):
+        raise ValueError("model_backend=autotune supports the scenenet family "
+                         f"(got model={cfg.model!r})")
     criterion = build_criterion(cfg)
+    train_ds, val_ds, test_ds = build_datasets(cfg)
+    native_loader = resolve_loader(cfg, host_indices)
+    device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
+    # the fit the run takes: a cached one (replayed on a card), else ADMM's or the streamed one
+    cached_fit = bool(device_cache) and not cfg.fast_dev_run and cfg.constrained != "admm"
     if cfg.model_backend == "autotune":
-        _autotune(cfg, criterion, device)
+        # time the step as the run will take it
+        _autotune(cfg, criterion, device,
+                  graph=cached_fit and trains_by_replay(device, cfg.optimizer))
     model = build_model(cfg, device)
     if cfg.resume_from_checkpoint:
         ckpt_path = os.path.join(ckpt_dir, cfg.resume_checkpoint_name + ".npz")
         if not os.path.exists(ckpt_path):
             raise FileNotFoundError(f"Checkpoint {ckpt_path} does not exist.")
         restore_checkpoint(ckpt_path, model)
-
-    train_ds, val_ds, test_ds = build_datasets(cfg)
-    native_loader = resolve_loader(cfg, host_indices)
 
     def make_loaders(batch_size: int):
         drop_last = len(train_ds) >= batch_size
@@ -380,7 +390,6 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
     prep = (make_device_voxelize_prep(cfg.voxel_grid_size, tuple(cfg.keep_labels),
                                       use_indices=not native_loader)
             if cfg.device_voxelization else None)
-    device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
 
     if cfg.auto_scale_batch_size and cfg.device_voxelization and \
             cfg.model in ("scenenet", "quantile"):
@@ -428,7 +437,7 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
               f"optimizer={cfg.optimizer}) on the streaming loader")
         trainer = ADMMTrainer(model, criterion, acfg, batch_prep=prep)
         _, best = trainer.fit(train_loader, val)
-    elif device_cache and not cfg.fast_dev_run:
+    elif cached_fit:
         # the dataset resident on the card, the epochs without the host loader:
         # "points" voxelizes every step (point-space augmentation), "grids" once
         trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
@@ -483,7 +492,27 @@ def parse_overrides(pairs: List[str]) -> Dict[str, object]:
     return overrides
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+def run_sweep(draws: List[Dict[str, object]], config_path: Optional[str],
+              overrides: Dict[str, object], device: "str | None" = "cuda",
+              host_indices: bool = False) -> Dict[str, object]:
+    """Train one run a draw (the draw under the config file and the
+    ``--set`` overrides, as the JAX CLI merges them; the project named
+    ``<project>_sweep<i>``) and score each by ``val_FBetaScore``, else
+    ``train_FBetaScore``. Returns the best score and its draw."""
+    best_score, best_cfg = -1.0, None
+    for i, draw in enumerate(draws):
+        cfg = load_config(config_path, {**draw, **overrides})
+        cfg.project = f"{cfg.project}_sweep{i}"
+        scores = run(cfg, device=device, host_indices=host_indices)
+        score = scores.get("val_FBetaScore", scores.get("train_FBetaScore", 0.0))
+        print(f"[sweep {i}] val_FBetaScore={score:.4f} draw={draw}")
+        if score > best_score:
+            best_score, best_cfg = score, draw
+    print(f"[sweep] best val_FBetaScore={best_score:.4f} with {best_cfg}")
+    return {"best_score": best_score, "best_draw": best_cfg}
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     parser = argparse.ArgumentParser(description="Train SCENE-Net or a baseline (PyTorch)")
     parser.add_argument("--config", type=str, default=None)
     parser.add_argument("--set", action="extend", nargs="*", default=[],
@@ -493,13 +522,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     parser.add_argument("--host-indices", action="store_true",
                         help="force the Python loader: bins on the host in float64 "
                              "(pyntcloud parity), which the device counts; streams")
-    parser.add_argument("--sweep", type=str, default=None, help="not ported yet")
-    parser.add_argument("--sweep-runs", type=int, default=4, help="not ported yet")
+    parser.add_argument("--sweep", type=str, default=None,
+                        help="wandb-style sweep spec (random search)")
+    parser.add_argument("--sweep-runs", type=int, default=4)
     args = parser.parse_args(argv)
+    overrides = parse_overrides(args.set)
     if args.sweep:
-        raise NotImplementedError("--sweep (random-search sweeps) is not ported yet: "
-                                  "ROADMAP A10")
-    return run(load_config(args.config, parse_overrides(args.set)), device=args.device,
+        return run_sweep(sample_sweep(args.sweep, args.sweep_runs), args.config, overrides,
+                         device=args.device, host_indices=args.host_indices)
+    return run(load_config(args.config, overrides), device=args.device,
                host_indices=args.host_indices)
 
 

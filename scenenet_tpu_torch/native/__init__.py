@@ -11,9 +11,11 @@ builder writes a file of its own and moves it into place with
 collide.
 
 As in the JAX package, the native layer is optional: :func:`available` is
-False where no C++ compiler exists, and every caller then takes its numpy
-route. A compiler that is present but fails raises, with its output. No
-loader thread touches the card: these are host kernels, not device ones.
+False where the sources are missing, no C++ compiler exists, the compile
+fails or the library does not load, with the reason printed once, and
+every caller then takes its numpy route. :func:`build` itself raises on a
+failed compile, with the compiler's output. No loader thread touches the
+card: these are host kernels, not device ones.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,6 +56,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_failed: Dict[str, str] = {}  # what could not be built or loaded -> why
 
 
 def _compiler() -> Optional[str]:
@@ -86,24 +89,51 @@ def build(cxx: str) -> Path:
     return lib
 
 
+def _unavailable(key: str, reason: str) -> None:
+    """Record why the library is unavailable, printing it the first time."""
+    if key not in _failed:
+        _failed[key] = reason
+        print(f"[native] library unavailable ({reason}); the numpy routes run instead",
+              flush=True)
+
+
 def load_native() -> Optional[ctypes.CDLL]:
     """The native library, built on first use and loaded once per process;
-    None where no C++ compiler exists."""
+    None, with the reason printed once, where the sources are missing, no
+    C++ compiler exists, the compile fails or the library does not load
+    (the JAX package's ``load_native`` returns None in the same cases)."""
     global _lib
     with _lock:
-        if _lib is None:
+        if _lib is not None:
+            return _lib
+        try:
             path = library_path()
-            if not path.exists():
-                cxx = _compiler()
-                if cxx is None:
-                    return None
+        except OSError as exc:
+            _unavailable("sources", f"sources missing: {exc}")
+            return None
+        key = str(path)
+        if key in _failed:
+            return None
+        if not path.exists():
+            cxx = _compiler()
+            if cxx is None:
+                _unavailable(key, "no C++ compiler (g++) to build it")
+                return None
+            try:
                 path = build(cxx)
+            except RuntimeError as exc:
+                _unavailable(key, f"build failed: {str(exc).splitlines()[0]}")
+                return None
+        try:
             lib = ctypes.CDLL(str(path))
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _lib = lib
+        except (OSError, AttributeError) as exc:
+            _unavailable(key, f"{path.name} does not load: {exc}")
+            return None
+        _lib = lib
         return _lib
 
 
@@ -114,8 +144,8 @@ def available() -> bool:
 def _require() -> ctypes.CDLL:
     lib = load_native()
     if lib is None:
-        raise RuntimeError("native library unavailable: no C++ compiler (g++) to "
-                           "build it")
+        reason = list(_failed.values())[-1] if _failed else "not loaded"
+        raise RuntimeError(f"native library unavailable: {reason}")
     return lib
 
 

@@ -41,10 +41,13 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   returns with ``self.preempted``; ``checkpoint_every_n_steps`` also
   snapshots periodically; ``resume_from`` continues from a snapshot, bit
   for bit on the cached routes and on the streamed route where the loader
-  gives the epoch's batches in the same order.
+  gives the epoch's batches in the same order;
+- ``log_pointclouds_every`` writes PLYs of the first validation sample's
+  input, target and prediction every N epochs of the streamed ``fit``
+  (the JAX cached fits write none either); ``use_wandb`` mirrors the logs
+  to wandb where it starts (:class:`RunLogger`).
 
-Not ported yet, and raising where asked for: mesh training (ROADMAP A12),
-the point-cloud export of a validation sample (A11), wandb (A10).
+Not ported yet, and raising where asked for: mesh training (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ from scenenet_tpu_torch.train.preempt import (
     load_train_snapshot_if_compatible, save_train_snapshot,
 )
 from scenenet_tpu_torch.train.state import (
-    MultiSteps, cast_half, load_optimizer_state, optimizer_state, resolve_optimizer,
+    MultiSteps, cast_half, load_optimizer_state, optimizer_needs_value_fn, optimizer_state,
+    resolve_optimizer,
 )
 from scenenet_tpu_torch.train.step_graph import StepGraph
 from scenenet_tpu_torch.utils.logging import RunLogger
@@ -177,12 +181,6 @@ class Trainer:
         if config.accumulate_grad_batches < 1:
             raise ValueError("accumulate_grad_batches must be >= 1, got "
                              f"{config.accumulate_grad_batches}")
-        if config.log_pointclouds_every > 0:
-            raise NotImplementedError("log_pointclouds_every > 0 (the PLY export of a "
-                                      "validation sample, utils/viz.py) is not ported "
-                                      "yet: ROADMAP A11")
-        if config.use_wandb:
-            raise NotImplementedError("use_wandb is not ported yet: ROADMAP A10")
         if config.compiler_options:
             raise ValueError(f"compiler_options {config.compiler_options!r} are XLA "
                              "compiler flags; the port compiles with nvcc and takes none")
@@ -346,17 +344,39 @@ class Trainer:
                 flat[f"gradstd/{key}"] = float(g.std(unbiased=False))
         return flat
 
-    def _scores(self, loader: Iterable, prefix: str) -> Dict[str, float]:
+    def _scores(self, loader: Iterable, prefix: str,
+                cloud_epoch: Optional[int] = None) -> Dict[str, float]:
+        """The loader's scores under ``prefix``; with ``cloud_epoch``, the
+        first batch's first sample is also written as PLYs."""
         mstate = init_metric_state(self.device)
         losses = []
         for batch in loader:
-            mstate, loss, _ = self.eval_step(mstate, *self.to_device(batch))
+            batch = self.to_device(batch)
+            mstate, loss, pred = self.eval_step(mstate, *batch)
             losses.append(loss)
+            if cloud_epoch is not None:
+                self._export_pointclouds(batch, pred, cloud_epoch)
+                cloud_epoch = None
         scores = {f"{prefix}_{k}": v for k, v in
                   compute_metrics(mstate, self.config.fbeta).items()}
         if losses:
             scores[f"{prefix}_loss"] = float(torch.stack(losses).mean())
         return scores
+
+    def _export_pointclouds(self, batch: Tuple[torch.Tensor, ...], pred: torch.Tensor,
+                            epoch: int) -> None:
+        """``epoch{e}_{input,gt,pred}.ply`` of the batch's first sample under
+        ``run_dir/pointclouds``, colored by ranges (the reference logs
+        ``wandb.Object3D`` of a validation sample every 10 epochs,
+        ``lit_model_wrappers.py:222-233``)."""
+        from scenenet_tpu_torch.utils.viz import voxelgrid_to_points, write_ply
+
+        x, y = self.batch_prep(*batch) if self.batch_prep else batch[:2]
+        out_dir = os.path.join(self.config.run_dir, "pointclouds")
+        os.makedirs(out_dir, exist_ok=True)
+        for name, grid in (("input", x), ("gt", y), ("pred", pred)):
+            pts = voxelgrid_to_points(grid[0, 0].float().cpu().numpy(), "ranges")
+            write_ply(os.path.join(out_dir, f"epoch{epoch}_{name}.ply"), pts)
 
     def _start_trace(self):
         """A running ``torch.profiler`` over the host and, on a card, the
@@ -453,7 +473,9 @@ class Trainer:
                                         else float("nan"))
                 scores["epoch_time_s"] = time.time() - t0
                 if val_loader is not None:
-                    scores.update(self._scores(val_loader, "val"))
+                    every = cfg.log_pointclouds_every
+                    cloud = epoch if every > 0 and epoch % every == 0 else None
+                    scores.update(self._scores(val_loader, "val", cloud_epoch=cloud))
 
                 if hasattr(self.model, "parameters_in_dict"):
                     # the interpretable per-epoch parameter series
@@ -714,6 +736,14 @@ class Trainer:
         return restore_checkpoint(path, template)
 
 
+def trains_by_replay(device: torch.device, optimizer) -> bool:
+    """Whether a cached fit runs its step as a replayed CUDA graph: on a
+    card, under any optimizer but L-BFGS (by name or instance), whose
+    linesearch reads its values on the host. The streamed fit always steps
+    eagerly. ``model_backend: autotune`` times its candidates by this rule."""
+    return torch.device(device).type == "cuda" and not optimizer_needs_value_fn(optimizer)
+
+
 class CachedEpochs:
     """The device-resident epochs of one cached fit.
 
@@ -754,8 +784,8 @@ class CachedEpochs:
         self.generator = (generator if generator is not None
                           else torch.Generator(dev).manual_seed(cfg.max_epochs))
         trainer.setup_optimizer(capturable=on_card)
-        eager = isinstance(trainer.optimizer, LBFGS)
-        if eager:
+        eager = not trains_by_replay(dev, trainer.optimizer)
+        if optimizer_needs_value_fn(trainer.optimizer):
             print("[lbfgs] the linesearch reads its values on the host: the cached steps "
                   "run eagerly, no CUDA graph", flush=True)
 

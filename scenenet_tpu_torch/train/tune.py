@@ -14,7 +14,10 @@ PyTorch twin of :mod:`scenenet_tpu.train.tune`:
 - :func:`measure_train_step_ms` and :func:`autotune_backend`: time one
   real train step a candidate backend on the card at the run's shapes and
   take the fastest (``model_backend: autotune``), cached by card, shapes,
-  optimizer and candidates.
+  optimizer, candidates and route. Where the run trains by CUDA graph
+  replays (the device caches, any optimizer but L-BFGS), a candidate is
+  timed by replays of its captured step, as the JAX package times its
+  jitted step: one dispatch a step.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import torch
 from torch import nn
 
 from scenenet_tpu_torch.train.lbfgs import LBFGS
+from scenenet_tpu_torch.train.loop import trains_by_replay
 from scenenet_tpu_torch.train.state import resolve_optimizer
+from scenenet_tpu_torch.train.step_graph import WARMUP, StepGraph
 
 
 def _loss_fn(model: nn.Module, criterion: Callable):
@@ -149,18 +154,25 @@ def find_max_batch_size(probe: Callable[[int], None], start: int = 2,
 
 
 def measure_train_step_ms(model: nn.Module, criterion: Callable, x: torch.Tensor,
-                          y: torch.Tensor, optimizer: str = "sgd", iters: int = 6) -> float:
+                          y: torch.Tensor, optimizer: str = "sgd", iters: int = 6,
+                          graph: bool = False) -> float:
     """Milliseconds of one train step (the forward, the loss, the backward
     and the update, L-BFGS's linesearch included) of a copy of ``model``
-    on (x, y): a warm step, then ``iters`` steps in a chain closed by
+    on (x, y). Eager: a warm step, then ``iters`` steps in a chain closed by
     reading the last loss on the host, so every step has run when the
-    clock stops. No graph is captured."""
+    clock stops. ``graph`` (a card, any optimizer but L-BFGS) times the
+    step as the graph-replay routes run it: the warm-up steps and the
+    capture of a :class:`StepGraph`, then ``iters`` replays closed by one
+    host read."""
     probe = copy.deepcopy(model)
-    opt = resolve_optimizer(optimizer, probe.parameters(), 1e-3)
+    dev = next(probe.parameters()).device
+    graph = graph and trains_by_replay(dev, optimizer)
+    opt = resolve_optimizer(optimizer, probe.parameters(), 1e-3, capturable=graph)
     loss_fn = _loss_fn(probe, criterion)
     probe.train()
+    last = torch.zeros((), device=dev)
 
-    def step() -> torch.Tensor:
+    def step() -> None:
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(x, y)
         loss.backward()
@@ -175,14 +187,28 @@ def measure_train_step_ms(model: nn.Module, criterion: Callable, x: torch.Tensor
             opt.step(closure, loss)
         else:
             opt.step()
-        return loss
+        last.copy_(loss)
 
-    float(step())  # warm: builds the kernels and the optimizer's state
+    runner = StepGraph(step, dev, eager=not graph)
+    for _ in range(WARMUP + 1 if graph else 1):  # warm: the kernels, the state, the capture
+        runner()
+    float(last)
     t0 = time.perf_counter()
     for _ in range(iters):
-        loss = step()
-    float(loss)
+        runner()
+    float(last)
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def autotune_cache_key(device_kind: str, batch_size: int, grid_zxy: Tuple[int, int, int],
+                       optimizer: str, candidates: Tuple[str, ...], extra: str,
+                       graph: bool) -> str:
+    """The autotune cache's key: a replayed timing is never reused for an
+    eager run, nor the other way round."""
+    return json.dumps({"device": device_kind, "batch": int(batch_size),
+                       "grid": [int(g) for g in grid_zxy], "optimizer": optimizer,
+                       "candidates": list(candidates), "extra": extra,
+                       "route": "graph" if graph else "eager"}, sort_keys=True)
 
 
 def autotune_backend(make_model: Callable[[str], nn.Module], criterion: Callable,
@@ -190,23 +216,24 @@ def autotune_backend(make_model: Callable[[str], nn.Module], criterion: Callable
                      candidates: Tuple[str, ...] = ("cuda", "cuda_mxu"),
                      optimizer: str = "sgd", iters: int = 6,
                      cache_path: Optional[str] = None, cache_key_extra: str = "",
-                     refresh: bool = False) -> Tuple[str, dict]:
+                     refresh: bool = False, graph: bool = False) -> Tuple[str, dict]:
     """Measured backend choice (``model_backend: autotune``): one real
     train step a candidate (``make_model(backend)``, on the device it
-    trains on) at the run's exact (batch, grid), the fastest wins. A
-    candidate that runs out of memory is skipped (time inf); every other
-    error is raised. Results are cached in a JSON file, by default
-    ``~/.cache/scenenet_tpu_torch/autotune.json``, keyed by the card's
-    name, the shapes, the optimizer and the candidates, and written by
+    trains on) at the run's exact (batch, grid), the fastest wins; timed
+    by graph replays where ``graph`` says the run trains so (see
+    :func:`measure_train_step_ms`). A candidate that runs out of memory is
+    skipped (time inf); every other error is raised. Results are cached in
+    a JSON file, by default ``~/.cache/scenenet_tpu_torch/autotune.json``,
+    keyed by the card's name, the shapes, the optimizer, the candidates and
+    the route the timing took (``graph`` or ``eager``), and written by
     atomic replace. Returns ``(winner, {backend: ms})``, the cached times
     on a hit."""
     first = make_model(candidates[0])
     dev = next(first.parameters()).device
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    key = json.dumps({"device": kind, "batch": int(batch_size),
-                      "grid": [int(g) for g in grid_zxy], "optimizer": optimizer,
-                      "candidates": list(candidates), "extra": cache_key_extra},
-                     sort_keys=True)
+    graph = graph and trains_by_replay(dev, optimizer)
+    key = autotune_cache_key(kind, batch_size, grid_zxy, optimizer, candidates,
+                             cache_key_extra, graph)
     if cache_path is None:
         cache_path = os.path.expanduser("~/.cache/scenenet_tpu_torch/autotune.json")
     cache = {}
@@ -231,7 +258,7 @@ def autotune_backend(make_model: Callable[[str], nn.Module], criterion: Callable
         oom = False
         try:
             times[cand] = measure_train_step_ms(model, criterion, x, y, optimizer=optimizer,
-                                                iters=iters)
+                                                iters=iters, graph=graph)
         except Exception as e:  # one infeasible candidate must not end the run
             if not _is_oom(e):
                 raise

@@ -8,14 +8,17 @@ written as YAML lists or as stringified tuples (``"(9, 5, 5)"``, parsed
 with ``ast.literal_eval``).
 
 ``yaml`` is imported only when a file is given: a run configured by
-overrides alone needs no PyYAML. Sweeps are not ported yet (ROADMAP A10).
+overrides alone needs no PyYAML. Sweeps: :func:`sample_sweep` draws override
+dicts from a wandb-style random sweep spec, the same draws as the JAX
+function for the same seed.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import random
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -178,3 +181,32 @@ def load_config(path: Optional[str] = None, overrides: Optional[Dict] = None) ->
     if unknown:
         print(f"[config] ignoring unknown keys: {sorted(unknown)}")
     return ExperimentConfig(**known)
+
+
+def sample_sweep(sweep_path: str, n: int, seed: int = 0) -> List[Dict[str, Any]]:
+    """Draw ``n`` override dicts from a wandb-style random sweep spec: its
+    ``parameters`` in file order, each a choice of ``values``, a uniform
+    draw between ``min`` and ``max`` (an integer one where both are
+    integers) or a fixed ``value``, from ``random.Random(seed)``."""
+    import yaml
+
+    with open(sweep_path) as f:
+        spec = yaml.safe_load(f)
+    params = spec.get("parameters", {})
+    rng = random.Random(seed)
+    draws = []
+    for _ in range(n):
+        cfg = {}
+        for key, dist in params.items():
+            if "values" in dist:
+                cfg[key] = rng.choice(dist["values"])
+            elif "min" in dist and "max" in dist:
+                lo, hi = dist["min"], dist["max"]
+                if isinstance(lo, int) and isinstance(hi, int):
+                    cfg[key] = rng.randint(lo, hi)
+                else:
+                    cfg[key] = rng.uniform(lo, hi)
+            elif "value" in dist:
+                cfg[key] = dist["value"]
+        draws.append(cfg)
+    return draws

@@ -1906,3 +1906,115 @@ def test_autotune_over_cuda_and_cuda_mxu_at_64(dev, tmp_path):
     assert autotune_backend(
         lambda b: SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=b).to(dev), crit, 4,
         (64, 64, 64), cache_path=str(tmp_path / "autotune.json")) == (winner, times)
+
+
+# ---- A10 + A11 on the card: visualize, the imports, the exports, C6 ---------------
+
+def _viz_dataset(root, n_test=2):
+    rng = np.random.default_rng(0)
+    for split, n in (("fit", 2), ("test", n_test)):
+        (root / split).mkdir(parents=True)
+        for i in range(n):
+            m = 6000
+            xyz = rng.uniform([0, 0, 0], [30, 30, 60], (m, 3))
+            xyz[: m // 5, :2] = rng.normal(15, 0.6, (m // 5, 2))  # a tower's column
+            labels = np.where(np.arange(m) < m // 5, 15, rng.choice([1, 2], m))
+            np.save(root / split / f"sample_{i}.npy", np.column_stack([xyz, labels]))
+    return str(root)
+
+
+def test_visualize_on_the_card_matches_the_cpu(dev, tmp_path):
+    """cli.visualize --device cuda (K2) at 64³ against --device cpu on the
+    same checkpoint: the same summary (voxel counts, proposals), and the
+    forward's probabilities within 1e-5."""
+    from scenenet_tpu_torch.cli import visualize
+    from scenenet_tpu_torch.cli.train import build_datasets, build_model
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from scenenet_tpu_torch.utils.config import load_config
+
+    data = _viz_dataset(tmp_path / "ds")
+    ckpt = str(tmp_path / "ckpt.npz")
+    save_checkpoint(ckpt, SceneNet.create(kernel_size=(9, 5, 5), seed=6))
+    sets = [f"data_path={data}", "kernel_size=(9, 5, 5)"]
+    before = cuda_conv.LAUNCHES.count
+    got = visualize.main(["--set", *sets, "--checkpoint", ckpt, "--n", "2", "--out",
+                          str(tmp_path / "gpu"), "--device", "cuda"])
+    assert cuda_conv.LAUNCHES.count >= before + 2  # K2, a sample each
+    want = visualize.main(["--set", *sets, "--checkpoint", ckpt, "--n", "2", "--out",
+                           str(tmp_path / "cpu"), "--device", "cpu"])
+    assert got == want
+    cfg = load_config(None, {"data_path": data, "kernel_size": (9, 5, 5),
+                             "device_voxelization": False})
+    x = torch.from_numpy(np.asarray(build_datasets(cfg)[2][0][0], np.float32))[None]
+    with torch.no_grad():
+        probs = [restore_checkpoint(ckpt, build_model(cfg, d)).eval()(x.to(d)).cpu()
+                 for d in (dev, torch.device("cpu"))]
+    torch.testing.assert_close(probs[0], probs[1], rtol=0, atol=1e-5)
+
+
+def test_imported_even_kernel_checkpoint_runs_k2_generic(dev, tmp_path):
+    """A .ckpt without kernel_size imports at (9, 6, 6): on the card its
+    forward takes K2's generic kernel, within 1e-5 of the plain version."""
+    from scenenet_tpu_torch.compat import export_torch_state_dict, import_scenenet_params
+    from scenenet_tpu_torch.models import SceneNet
+
+    export_torch_state_dict(SceneNet.create(kernel_size=(9, 6, 6), seed=3),
+                            str(tmp_path / "r.ckpt"))
+    ck = torch.load(str(tmp_path / "r.ckpt"), weights_only=False)
+    del ck["hyper_parameters"]["kernel_size"]
+    torch.save(ck, str(tmp_path / "r.ckpt"))
+    model = import_scenenet_params(str(tmp_path / "r.ckpt"), backend="cuda").to(dev)
+    assert model.kernel_size == (9, 6, 6) and cuda_conv.stencil_route((9, 6, 6)) == "generic"
+    x = (torch.rand(2, 1, 64, 64, 64, device=dev) > 0.95).float()
+    before = cuda_conv.LAUNCHES.count
+    with torch.no_grad():
+        got = model(x)
+        model.backend = "torch"
+        want = model(x)
+    assert cuda_conv.LAUNCHES.count == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_exports_run_on_the_card_against_k2(dev, tmp_path):
+    """The torch.export program and the ONNX file, loaded back and run on
+    the card, within 1e-5 of the K2 forward."""
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.utils.export import export_forward, load_exported
+    from scenenet_tpu_torch.utils.onnx_export import export_scenenet_onnx, load_onnx
+
+    model = SceneNet.create(kernel_size=(9, 5, 5), seed=1, backend="cuda").to(dev)
+    x = (torch.rand(2, 1, 64, 64, 64, device=dev) > 0.95).float()
+    with torch.no_grad():
+        want = model(x)
+        export_forward(model, (2, 1, 64, 64, 64), str(tmp_path / "f.pt2"))
+        prog = load_exported(str(tmp_path / "f.pt2"))(x)
+    export_scenenet_onnx(model, (64, 64, 64), str(tmp_path / "f.onnx"))
+    onnx = load_onnx(str(tmp_path / "f.onnx"))(x)
+    assert prog.device.type == onnx.device.type == "cuda"
+    torch.testing.assert_close(prog, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(onnx, want, rtol=0, atol=1e-5)
+
+
+def test_autotune_times_graph_replays(dev, tmp_path):
+    """C6: on a replay route each candidate is timed by replays of its
+    captured step (finite ms), filed under a key that differs from the eager
+    one."""
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models import SceneNet
+    from scenenet_tpu_torch.train import tune
+
+    crit = resolve_criterion("geneo_tversky")()
+    make = lambda b: SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend=b).to(dev)  # noqa: E731
+    cache = tmp_path / "autotune.json"
+    winner, times = tune.autotune_backend(make, crit, 4, (64, 64, 64), optimizer="adam",
+                                          cache_path=str(cache), iters=3, graph=True)
+    assert winner in ("cuda", "cuda_mxu")
+    assert all(0 < v < float("inf") for v in times.values())
+    import json
+
+    keys = list(json.loads(cache.read_text()))
+    assert len(keys) == 1 and json.loads(keys[0])["route"] == "graph"
+    eager = tune.autotune_cache_key(torch.cuda.get_device_name(dev), 4, (64, 64, 64), "adam",
+                                    ("cuda", "cuda_mxu"), "", False)
+    assert eager != keys[0]

@@ -20,6 +20,7 @@ inside a batch, and every loss and gradient is a sum over the batch.
 import dataclasses
 import json
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -484,21 +485,35 @@ def test_train_config_fields_equal_jax():
 
 
 @pytest.mark.parametrize("field,value,error,match", [
-    ("use_wandb", True, NotImplementedError, "A10"),
+    ("use_wandb", True, None, "[RunLogger] wandb disabled ("),
     ("compiler_options", {"xla_tpu_run_space_to_batch": "false"}, ValueError, "XLA"),
 ])
 def test_train_config_refuses_what_the_port_does_not_take(field, value, error, match,
-                                                          tmp_path):
-    with pytest.raises(error, match=match):
-        _port_trainer(tmp_path, **{field: value})
+                                                          tmp_path, monkeypatch, capsys):
+    if error is None:
+        # ported since (A10): the reference's behaviour, a wandb that does not
+        # import is reported and the trainer is made
+        monkeypatch.setitem(sys.modules, "wandb", None)
+        assert _port_trainer(tmp_path, **{field: value}).config.use_wandb
+        assert match in capsys.readouterr().out
+    else:
+        with pytest.raises(error, match=match):
+            _port_trainer(tmp_path, **{field: value})
     _port_trainer(tmp_path, compiler_options={})  # empty: nothing asked for
 
 
-def test_run_logger_signature_and_sweep_runs(tmp_path):
+def test_run_logger_signature_and_sweep_runs(tmp_path, monkeypatch, capsys):
+    """RunLogger takes the JAX signature and, as there, reports a wandb that
+    does not import; --sweep draws --sweep-runs configs (ported since, A10)
+    and reads its spec as the JAX CLI does."""
     from scenenet_tpu_torch.utils.logging import RunLogger
 
     RunLogger(str(tmp_path / "r"), use_wandb=False, wandb_kwargs=None).close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        RunLogger(str(tmp_path / "w"), use_wandb=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcli.main(["--device", "cpu", "--sweep", str(tmp_path / "s.yaml"), "--sweep-runs", "2"])
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    RunLogger(str(tmp_path / "w"), use_wandb=True).close()
+    assert "[RunLogger] wandb disabled (" in capsys.readouterr().out
+    seen = []
+    monkeypatch.setattr(tcli, "run_sweep", lambda draws, *a, **kw: seen.append(draws))
+    (tmp_path / "s.yaml").write_text("parameters:\n  learning_rate: {values: [0.1, 0.2]}\n")
+    tcli.main(["--device", "cpu", "--sweep", str(tmp_path / "s.yaml"), "--sweep-runs", "2"])
+    assert len(seen[0]) == 2 and all(d["learning_rate"] in (0.1, 0.2) for d in seen[0])

@@ -278,6 +278,60 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "out").iterdir())
 
 
+@pytest.mark.parametrize("case", ["broken", "missing"])
+def test_unbuildable_library_is_unavailable_with_a_reason(case, tmp_path, monkeypatch, capsys):
+    """A source that does not compile, or sources that are absent (an
+    install without them), make ``available()`` False with the reason
+    printed once, as the JAX package's ``load_native`` returns None; the
+    transforms then take their numpy routes and a direct call raises."""
+    src = tmp_path / "voxel_native.cpp"
+    if case == "broken":
+        src.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(native, "SOURCES", (src,))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", {})
+    assert native.available() is False
+    want = "build failed" if case == "broken" else "sources missing"
+    out = capsys.readouterr().out
+    assert out.count("[native] library unavailable") == 1 and want in out, out
+    assert native.available() is False  # remembered: neither rebuilt nor printed again
+    assert capsys.readouterr().out == ""
+    assert Voxelization([15]).use_native is False
+    with pytest.raises(RuntimeError, match=want):
+        native.dbscan_native(np.zeros((4, 3)), 1.0, 2)
+
+
+def test_cli_trains_through_the_python_loader_without_the_library(tmp_path, monkeypatch,
+                                                                   capsys):
+    """With the library unbuildable, ``cli.train`` streams through the
+    Python loader, as the JAX CLI does without its library."""
+    from scenenet_tpu_torch.cli import train as tcli
+
+    broken = tmp_path / "voxel_native.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(native, "SOURCES", (broken,))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", {})
+    rng = np.random.default_rng(5)
+    for split, n in (("fit", 6), ("test", 2)):
+        os.makedirs(tmp_path / "data" / split)
+        for i in range(n):
+            xyz = rng.uniform(0, 8, (300, 3))
+            lab = np.where(rng.random(300) < 0.2, 15.0, 2.0)
+            np.save(tmp_path / "data" / split / f"sample_{i}.npy",
+                    np.column_stack([xyz, lab]).astype(np.float32))
+    scores = tcli.main(["--device", "cpu", "--set", f"data_path={tmp_path / 'data'}",
+                        "batch_size=2", "voxel_grid_size=(8, 8, 8)", "max_points=512",
+                        "max_epochs=1", "num_workers=1", "device_cache=false",
+                        "kernel_size=(3, 3, 3)", f"output_dir={tmp_path / 'out_runs'}"])
+    out = capsys.readouterr().out
+    assert "[native] library unavailable (build failed" in out
+    assert "[loader] -> VoxelLoader + PointPadding (native library unavailable" in out
+    assert np.isfinite(scores["train_loss"]) and np.isfinite(scores["test_loss"])
+
+
 def test_port_never_loads_the_jax_library():
     """A fresh interpreter that builds and uses the port's native library
     maps its own ``build/native`` library and never the JAX package's

@@ -217,6 +217,13 @@ def test_port_never_imports_jax():
         "from scenenet_tpu_torch.train.lbfgs import LBFGS, ZoomLinesearch\n"
         "from scenenet_tpu_torch.train.preempt import PreemptionGuard, save_train_snapshot\n"
         "from scenenet_tpu_torch.train.tune import autotune_backend, lr_range_test\n"
+        "import scenenet_tpu_torch.cli.inspect, scenenet_tpu_torch.cli.visualize\n"
+        "from scenenet_tpu_torch.cli.train import run_sweep\n"
+        "from scenenet_tpu_torch.compat import import_scenenet_params, onnx_pb2, scan_model_zoo\n"
+        "from scenenet_tpu_torch.compat.reference_oracle import load_reference\n"
+        "from scenenet_tpu_torch.utils import export, onnx_export, plots, profiling\n"
+        "from scenenet_tpu_torch.utils import proposals, viz\n"
+        "from scenenet_tpu_torch.utils.config import sample_sweep\n"
         "assert native.available()\n"
         "native.load_batch_native([], 16)\n"
         "from scenenet_tpu_torch.ops.cuda_conv import geneo_stencil_conv_mxu, "

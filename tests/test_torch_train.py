@@ -112,11 +112,11 @@ def _port_trainer(tmp_path, backend, **cfg):
                    batch_prep=make_device_voxelize_prep(GRID, (15,), use_indices=False))
 
 
-def _jax_trainer(tmp_path):
+def _jax_trainer(tmp_path, **cfg):
     jnet, jparams = JaxSceneNet.create(kernel_size=KS, seed=SEED, backend="xla")
     config = JaxTrainConfig(run_dir=str(tmp_path / "run_jax"),
                             checkpoint_dir=str(tmp_path / "ckpt_jax"),
-                            learning_rate=LR, early_stop_metric=None, max_epochs=1)
+                            learning_rate=LR, early_stop_metric=None, max_epochs=1, **cfg)
     trainer = JaxTrainer(jnet, jax_criterion("geneo_tversky")(**DEFAULTS), config,
                          batch_prep=jax_prep(GRID, (15,), use_indices=False))
     return trainer, jnet, jparams
@@ -165,10 +165,11 @@ def test_three_train_steps_match_jax(backend, batches, jax_steps, tmp_path):
 @pytest.fixture(scope="module")
 def jax_fit(batches, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("jax_fit")
-    trainer, _, jparams = _jax_trainer(tmp)
+    # the PLYs of the first validation sample too (test_fit_writes_pointclouds_like_jax)
+    trainer, _, jparams = _jax_trainer(tmp, log_pointclouds_every=1)
     params, best = trainer.fit(jparams, batches, val_loader=batches[:1])
     test = trainer.evaluate(params, batches[1:], prefix="test")
-    return _jflat(params), best, test
+    return _jflat(params), best, test, tmp / "run_jax" / "pointclouds"
 
 
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
@@ -176,7 +177,7 @@ def test_fit_matches_jax(backend, batches, jax_fit, tmp_path):
     """A 3-step Trainer.fit with validation, then evaluate: the final
     parameters, the epoch's loss and scores, and the logs and checkpoints
     on disk."""
-    want_params, want_best, want_test = jax_fit
+    want_params, want_best, want_test, _ = jax_fit
     trainer = _port_trainer(tmp_path, backend, max_epochs=1)
     model, best = trainer.fit(batches, val_loader=batches[:1])
     assert model is trainer.model
@@ -225,6 +226,33 @@ def test_restore_best_falls_back_to_last(batches, tmp_path):
         trainer.restore_best("val_FBetaScore")
     with pytest.raises(FileNotFoundError):
         _port_trainer(tmp_path, "torch").restore_best("train_loss")
+
+
+def _read_ply(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    body = lines[lines.index("end_header") + 1:]
+    return np.array([[float(v) for v in ln.split()] for ln in body]).reshape(len(body), -1)
+
+
+def test_fit_writes_pointclouds_like_jax(batches, jax_fit, tmp_path):
+    """log_pointclouds_every=1 on the streamed fit: epoch0_{input,gt,pred}.ply
+    of the first validation sample, as the JAX trainer writes them; input
+    and gt byte for byte, the prediction's points and colors the same (its
+    values agree within the f32 forward's 1e-5; none of these sits within
+    that of a color range's edge)."""
+    want_dir = jax_fit[3]
+    trainer = _port_trainer(tmp_path, "torch", max_epochs=1, log_pointclouds_every=1)
+    trainer.fit(batches, val_loader=batches[:1])
+    got_dir = tmp_path / "run_torch" / "pointclouds"
+    assert sorted(os.listdir(got_dir)) == sorted(os.listdir(want_dir)) == [
+        "epoch0_gt.ply", "epoch0_input.ply", "epoch0_pred.ply"]
+    for name in ("input", "gt"):
+        assert (got_dir / f"epoch0_{name}.ply").read_bytes() == \
+            (want_dir / f"epoch0_{name}.ply").read_bytes(), name
+    got, want = (_read_ply(d / "epoch0_pred.ply") for d in (got_dir, want_dir))
+    assert got.shape == want.shape and len(got) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_early_stopping_ends_fit(batches, tmp_path):
@@ -551,13 +579,13 @@ def test_cli_default_device_is_cuda(dataset, tmp_path):
     ({"auto_scale_batch_size": True}, "A7"), ({"model_backend": "autotune"}, "A7"),
     ({"fast_dev_run": True}, "A10"),
     ({"device_voxelization": False}, "A0"), ({"geneo_init": "smart"}, "A2"),
-    ({"export_stablehlo": True}, "A11"), ({"use_wandb": True}, "A10"),
+    ({"export_stablehlo": True}, "StableHLO"), ({"use_wandb": True}, "A10"),
     ({"device_cache": "points"}, "A6"), ({"device_cache": "grids"}, "A6"),
     ({"device_cache": True}, "A6"), ({"precision": "bf16"}, "A13"),
     ({"accumulate_grad_batches": 2}, "A13"), ({"checkpoint_every_n_steps": 5}, "A7"),
     ({"optimizer": "lbfgs"}, "A7"), ({"criterion": "dice_bce"}, "A9"),
 ])
-def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
+def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys, monkeypatch):
     if item in ("A2", "A9", "A13") or overrides.get("model") == "quantile":
         # ported since (A8, A9, A13, A2): quantile training, every criterion,
         # bf16, accumulation and the smart init train end to end
@@ -584,6 +612,15 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
             assert "[device_cache auto] -> false (needs device_voxelization)" in out
         else:
             assert "[device_cache auto] -> 'grids'" in out
+        return
+    if overrides.get("use_wandb"):
+        # ported since (A10): as in the JAX package, a wandb that does not import
+        # is reported and the run trains on
+        monkeypatch.setitem(sys.modules, "wandb", None)
+        scores = tcli.run(_cli_cfg(dataset, tmp_path, max_epochs=1, **overrides),
+                          device="cpu")
+        assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
+        assert "[RunLogger] wandb disabled (" in capsys.readouterr().out
         return
     if item == "A7" or overrides.get("fast_dev_run"):
         # ported since (A7; fast_dev_run with A7's tuners): ADMM, the tuners, the
@@ -643,14 +680,14 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys):
 
 
 PORTED_SINCE = {"use_indices", "unbinarized", "host_indices",  # B8, B7, B8: they raised once
-                "resume_from"}  # A7
+                "resume_from", "sweep"}  # A7, A10
 
 
 @pytest.mark.parametrize("case,item", [
     ("sweep", "A10"), ("use_indices", "B8"), ("unbinarized", "B7"), ("mesh", "A12"),
     ("resume_from", "A7"), ("host_indices", "B8"),
 ])
-def test_unported_entry_points_raise(case, item, tmp_path):
+def test_unported_entry_points_raise(case, item, tmp_path, dataset, capsys):
     """What is not ported raises, naming its ROADMAP item; the entry points
     ported since (``PORTED_SINCE``) must now work instead."""
     cfg = TrainConfig(run_dir=str(tmp_path / "r"), checkpoint_dir=str(tmp_path / "c"))
@@ -669,6 +706,18 @@ def test_unported_entry_points_raise(case, item, tmp_path):
     if case not in PORTED_SINCE:
         with pytest.raises(NotImplementedError, match=item):
             calls[case]()
+        return
+    if case == "sweep":
+        # a one-draw sweep over experiments/sweep.yaml trains and names its best
+        best = tcli.main(["--device", "cpu", "--sweep", os.path.join(ROOT, "experiments",
+                                                                      "sweep.yaml"),
+                          "--sweep-runs", "1", "--set", f"data_path={dataset}",
+                          f"output_dir={tmp_path / 'sweep'}", "batch_size=2",
+                          "voxel_grid_size=(8, 8, 8)", "kernel_size=(3, 3, 3)",
+                          "max_points=1024", "max_epochs=1", "num_workers=1"])
+        out = capsys.readouterr().out
+        assert "[sweep 0] val_FBetaScore=" in out and "[sweep] best val_FBetaScore=" in out
+        assert best["best_draw"]["optimizer"] in ("adam", "sgd", "rmsprop")
         return
     if case == "resume_from":
         # a missing snapshot starts fresh, with a printed line; a real one resumes
@@ -726,7 +775,15 @@ def test_train_config_field_defaults_equal_jax(field):
 
 @pytest.mark.parametrize("field,value,item", [("log_pointclouds_every", 1, "A11"),
                                               ("epoch_chunks", 2, "A6")])
-def test_train_config_unported_values_raise(field, value, item, tmp_path):
+def test_train_config_unported_values_raise(field, value, item, tmp_path, batches):
+    if field == "log_pointclouds_every":
+        # ported since (A11): the streamed fit writes the first validation
+        # sample's PLYs every N epochs
+        trainer = _port_trainer(tmp_path, "torch", max_epochs=2, **{field: value})
+        trainer.fit(batches[:1], val_loader=batches[1:2])
+        assert sorted(os.listdir(tmp_path / "run_torch" / "pointclouds")) == [
+            f"epoch{e}_{n}.ply" for e in (0, 1) for n in ("gt", "input", "pred")]
+        return
     if field == "epoch_chunks":
         # ported since (A6): the chunks of a device-resident epoch
         trainer = _port_trainer(tmp_path, "torch", **{field: value})

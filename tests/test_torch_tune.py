@@ -14,6 +14,7 @@
   ``auto_lr_find`` and ``auto_scale_batch_size``.
 """
 
+import json
 import math
 
 import numpy as np
@@ -119,7 +120,8 @@ def _make(backend):
 def test_autotune_measures_picks_and_caches(tmp_path, monkeypatch):
     calls = []
 
-    def fake_measure(model, criterion, x, y, optimizer="sgd", iters=6):
+    def fake_measure(model, criterion, x, y, optimizer="sgd", iters=6, graph=False):
+        assert graph is False  # a graph needs a card: the CPU times eager steps
         calls.append(model.backend)
         return {"cuda": 5.0, "cuda_mxu": 2.0}[model.backend]
 
@@ -142,7 +144,7 @@ def test_autotune_measures_picks_and_caches(tmp_path, monkeypatch):
 
 
 def test_autotune_oom_candidate_is_skipped(tmp_path, monkeypatch, capsys):
-    def fake(model, criterion, x, y, optimizer="sgd", iters=6):
+    def fake(model, criterion, x, y, optimizer="sgd", iters=6, graph=False):
         if model.backend == "cuda_mxu":
             raise torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 1.00 TiB")
         return 3.0
@@ -263,3 +265,33 @@ def test_cli_autotune_falls_back_on_the_cpu(tmp_path, small_cloud, capsys):
     assert math.isfinite(scores["test_loss"])
     assert "[autotune] no CUDA device (--device cpu); using model_backend=auto" in \
         capsys.readouterr().out
+
+
+def test_autotune_key_carries_the_route(tmp_path):
+    """The cache key names the route the timing took, so an eager entry is
+    never reused for a replayed run; on the CPU ``graph`` times eager
+    steps and files them under the eager key."""
+    args = ("cpu", 2, (8, 8, 8), "adam", ("torch",), "")
+    assert tune.autotune_cache_key(*args, True) != tune.autotune_cache_key(*args, False)
+    assert json.loads(tune.autotune_cache_key(*args, True))["route"] == "graph"
+    cache = tmp_path / "c.json"
+    tune.autotune_backend(
+        lambda b: SceneNet.create(kernel_size=(3, 3, 3), seed=0, backend=b), _crit(), 2,
+        (8, 8, 8), candidates=("torch",), optimizer="adam", iters=1, cache_path=str(cache),
+        graph=True)
+    assert list(json.loads(cache.read_text())) == [tune.autotune_cache_key(*args, False)]
+
+
+@pytest.mark.parametrize("device,optimizer,replays", [
+    ("cpu", "adam", False), ("cuda", "adam", True), ("cuda", "sgd", True),
+    ("cuda", "lbfgs", False), ("cuda", "lbfgs_instance", False)])
+def test_trains_by_replay_is_the_cached_fits_rule(device, optimizer, replays):
+    """One rule says whether a cached fit replays its step and so how
+    autotune times it: on a card, any optimizer but L-BFGS, by name or by
+    instance (the instance is the one a cached fit sees)."""
+    from scenenet_tpu_torch.train.lbfgs import LBFGS
+    from scenenet_tpu_torch.train.loop import trains_by_replay
+
+    if optimizer == "lbfgs_instance":
+        optimizer = LBFGS([torch.zeros(2, requires_grad=True)], lr=1.0)
+    assert trains_by_replay(torch.device(device), optimizer) is replays
