@@ -114,7 +114,21 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   a streamed fit that writes the first validation sample's PLYs
   (``log_pointclouds_every``), and, in a process of its own, a native
   library that cannot be built, which leaves ``available()`` False with its
-  reason.
+  reason;
+- ``[mesh]`` (A12's data and space axes): it launches gloo ranks that share
+  the card, every rank on cuda:0 (NCCL refuses two ranks on one GPU), and
+  holds each leg's 3 SGD steps against the same fit on one rank: data 2 at
+  64³ batch 16 through the grid cache; data 2 × space 2 and the hybrid mesh
+  dcn 2 × (data 1 × space 2) at 128³ batch 4, streamed, z slabs through the
+  halo exchange and B10 (counts exact, K2's and K4's halo forms launched on
+  every rank); the UNet at its full ladder with sync BatchNorm (K10, the
+  running statistics); L-BFGS (equal trial counts); 2 steps, a snapshot and
+  a fresh launch's last step, bit-identical to an unkilled fit; then a
+  1-rank NCCL group's all-reduce on the card, eager and inside a CUDA
+  graph capture, and ``cli.train --set mesh_data=2 --dist-backend gloo``
+  under ``python -m torch.distributed.run --nproc-per-node 2``. Its step
+  times say that the ranks compute on the card; they do not measure
+  scaling.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -128,6 +142,7 @@ kernel's and the weight gradient's share of the device time).
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import io
 import json
@@ -595,6 +610,364 @@ class running:
 def healthz(url: str) -> dict:
     with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
         return json.loads(r.read())
+
+
+# ---- the [mesh] phase's rank legs ----------------------------------------------------
+# Each runs on every rank of a gloo launch (scenenet_tpu_torch.parallel.launch.run_ranks,
+# a fresh interpreter a rank, every rank on cuda:0 of the one card: NCCL refuses two ranks
+# on one GPU) and returns to main(), which holds it against its single-rank twin on the
+# card. SGD at lr 1e-2, as the CPU mesh tests: Adam turns a gradient entry near 0 into a
+# step of +-lr whichever way rounding tips it.
+MESH_STEPS = 3
+MESH_LR = 1e-2
+MESH_CRITERION = dict(weight_alpha=1, weight_epsilon=0.1, mse_weight=1, convex_weight=5,
+                      tversky_alpha=2, tversky_beta=1, tversky_smooth=1e-6, focal_gamma=4)
+MESH_COUNTERS = ("stencil_conv", "stencil_dk", "points_binary", "conv3d_mc")
+
+
+def mesh_grids(n: int, grid, seed: int):
+    """(x, y) occupancy grids (n, 1, Z, X, Y) as uint8, made from a seed."""
+    rng = np.random.default_rng(seed)
+    return ((rng.random((n, 1) + tuple(grid)) > 0.9).astype(np.uint8),
+            (rng.random((n, 1) + tuple(grid)) > 0.97).astype(np.uint8))
+
+
+def mesh_batches(n_batches: int, batch: int, grid, seed: int):
+    x, y = mesh_grids(n_batches * batch, grid, seed)
+    return [(x[i * batch:(i + 1) * batch].astype(np.float32),
+             y[i * batch:(i + 1) * batch].astype(np.float32)) for i in range(n_batches)]
+
+
+class MeshGridCache:
+    """A grid cache's tensors (uint8 x and y on the card), as ``DeviceGridCache``
+    holds them: 3 batches of the train batch at 64³."""
+
+    def __init__(self, dev):
+        import torch
+
+        x, y = mesh_grids(MESH_STEPS * TRAIN_BATCH, GRID, 34)
+        self.x, self.y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        self.device = self.x.device
+
+    def __len__(self):
+        return int(self.x.shape[0])
+
+
+class MeshLog:
+    """A logger that keeps every epoch's scores."""
+
+    def __init__(self):
+        self.scores = []
+
+    def log_metrics(self, scores, step):
+        self.scores.append(dict(scores))
+
+    def log_params(self, params, step):
+        pass
+
+
+def mesh_counters():
+    from scenenet_tpu_torch.ops import cuda_conv, cuda_conv_mc, cuda_hist
+
+    return {"stencil_conv": cuda_conv.LAUNCHES, "stencil_dk": cuda_conv.DK_LAUNCHES,
+            "points_binary": cuda_hist.BINARY_LAUNCHES, "conv3d_mc": cuda_conv_mc.MC_LAUNCHES}
+
+
+def mesh_fit(kind: str, dev, tmp: str, mesh=None, tag: str = "", **cfg) -> dict:
+    """One leg's fit on ``dev``: over ``mesh``, or with ``mesh=None`` its
+    single-rank twin. Returns the counts, losses, parameters (or running
+    statistics), the linesearch's trials, the launches of each kernel and
+    the ms a step."""
+    import torch
+
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models.scenenet import SceneNet
+    from scenenet_tpu_torch.models.unet3d import UNet3D
+    from scenenet_tpu_torch.train import TrainConfig, Trainer
+    from scenenet_tpu_torch.train import preempt as pre
+    from scenenet_tpu_torch.train.checkpoint import _module_state
+
+    tag = tag or kind
+    config = TrainConfig(max_epochs=1, optimizer="sgd", learning_rate=MESH_LR,
+                         early_stop_metric=None, log_gradients=False,
+                         checkpoint_dir=os.path.join(tmp, f"ckpt_{tag}"),
+                         run_dir=os.path.join(tmp, f"run_{tag}"))
+    for k, v in cfg.items():
+        setattr(config, k, v)
+    log = MeshLog()
+    crit = resolve_criterion("geneo_tversky")(**MESH_CRITERION)
+    if kind == "unet":
+        model = UNet3D.create(seed=0, backend="cuda").to(dev)
+        batches = mesh_batches(MESH_STEPS, 4, GRID, 31)
+    else:
+        model = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
+        batches = (mesh_batches(MESH_STEPS, BIG_BATCH, BIG_GRID, 32) if kind == "big"
+                   else mesh_batches(MESH_STEPS, TRAIN_BATCH, GRID, 33))
+    trainer = Trainer(model, crit, config, logger=log, mesh=mesh)
+    counters = mesh_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    trials = []
+    if kind == "grids":
+        trainer.fit_grid_cached(MeshGridCache(dev), TRAIN_BATCH, augment=True,
+                                generator=torch.Generator(dev).manual_seed(5))
+    elif kind == "lbfgs":
+        from scenenet_tpu_torch.train.metrics import init_metric_state
+
+        trainer.setup_optimizer()
+        trainer._replicate()
+        with (mesh.active() if mesh is not None else contextlib.nullcontext()):
+            for batch in batches:
+                trainer.train_step(init_metric_state(dev), *trainer.shard(batch))
+                trials.append(trainer.optimizer.trials)
+    elif kind == "killed":
+        class PreemptAfter:
+            def __iter__(self):
+                for i, b in enumerate(batches):
+                    if i == MESH_STEPS - 2:  # latched during the step of batch i
+                        pre.request_preemption()
+                    yield b
+
+        trainer.fit(PreemptAfter())
+    elif kind == "resumed":
+        trainer.fit(batches, resume_from=os.path.join(config.checkpoint_dir, pre.SNAPSHOT_NAME))
+    else:
+        trainer.fit(batches)
+    torch.cuda.synchronize(dev)
+    steps = max(trainer.step, len(trials), 1)
+    # a fit's epoch time is its steps up to the counts' read (a sync), before the
+    # epoch's checkpoints (the UNet's are 52 MB a file); L-BFGS here steps alone
+    train_s = (log.scores[-1]["epoch_time_s"] if log.scores
+               else time.perf_counter() - t0)
+    out = {"counts": list(trainer.train_counts), "scores": log.scores,
+           "ms": train_s * 1e3 / steps, "trials": trials,
+           "launches": {k: c.count for k, c in counters.items()},
+           "preempted": trainer.preempted, "step": trainer.step}
+    state = _module_state(model)
+    out["params"] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()
+                     if not k.startswith("batch_stats")}
+    out["stats"] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()
+                    if k.startswith("batch_stats")}
+    return out
+
+
+def mesh_ranks_2(tmp: str) -> dict:
+    """2 ranks, mesh data 2: the grid-cache fit at the defaults' width (64³,
+    batch 16), the UNet at its full ladder (64³, batch 4), L-BFGS, and the
+    first half of preempt/resume (an unkilled fit, and one stopped after 2
+    steps with its snapshot)."""
+    from scenenet_tpu_torch.parallel import launch, make_mesh
+
+    dev = launch.init_from_env("gloo", "cuda")
+    mesh = make_mesh((2, 1), device=dev)
+    out = {"coords": mesh.coords, "device": str(dev)}
+    # an untimed fit first: the process's first steps load the kernels and cuDNN's
+    # plans and open the groups' connections
+    mesh_fit("grids", dev, tmp, mesh, tag="warm_up")
+    out["dp"] = mesh_fit("grids", dev, tmp, mesh, tag="dp")
+    out["unet_dp"] = mesh_fit("unet", dev, tmp, mesh)
+    out["lbfgs_dp"] = mesh_fit("lbfgs", dev, tmp, mesh, optimizer="lbfgs", learning_rate=0.1)
+    out["unkilled"] = mesh_fit("plain", dev, tmp, mesh, tag="unkilled")
+    out["killed"] = mesh_fit("killed", dev, tmp, mesh, tag="preempt")
+    return out
+
+
+def mesh_ranks_resume(tmp: str) -> dict:
+    """2 ranks in a fresh launch: the last step, resumed from the snapshot."""
+    from scenenet_tpu_torch.parallel import launch, make_mesh
+
+    dev = launch.init_from_env("gloo", "cuda")
+    mesh = make_mesh((2, 1), device=dev)
+    return {"resumed": mesh_fit("resumed", dev, tmp, mesh, tag="preempt")}
+
+
+def mesh_ranks_4(tmp: str) -> dict:
+    """4 ranks at 128³, batch 4, streamed: data 2 × space 2 (z slabs of 64
+    through the halo exchange and B10), and the hybrid mesh dcn 2 × (data 1
+    × space 2)."""
+    from scenenet_tpu_torch.parallel import launch, make_hybrid_mesh, make_mesh
+
+    dev = launch.init_from_env("gloo", "cuda")
+    out = {}
+    mesh = make_mesh((2, 2), device=dev)
+    out["coords"] = mesh.coords
+    mesh_fit("big", dev, tmp, mesh, tag="warm_up")  # untimed, as in mesh_ranks_2
+    out["dp_sp"] = mesh_fit("big", dev, tmp, mesh, tag="dp_sp")
+    hybrid = make_hybrid_mesh((2, 1), (1, 2), device=dev)
+    out["hybrid_shape"] = hybrid.shape
+    out["hybrid"] = mesh_fit("big", dev, tmp, hybrid, tag="hybrid")
+    return out
+
+
+def mesh_nccl_rank() -> dict:
+    """1 rank under NCCL: the collective layer on device tensors, eagerly
+    and inside a CUDA graph capture (the all-reduce that a cached step under
+    NCCL holds in its graph), and the shift's zero fill."""
+    import torch
+    import torch.distributed as dist
+
+    from scenenet_tpu_torch.parallel import launch, make_mesh
+    from scenenet_tpu_torch.parallel.mesh import all_reduce, shift
+
+    dev = launch.init_from_env("nccl", "cuda")
+    mesh = make_mesh((1, 1), device=dev)
+    x = torch.arange(4096, dtype=torch.float32, device=dev)
+    want = x.clone()
+    eager = all_reduce(x, dist.group.WORLD)
+    halo = shift(x.view(1, 1, 4, 32, 32), "space", +1, mesh)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            all_reduce(x, dist.group.WORLD)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = all_reduce(x, dist.group.WORLD)
+    x.mul_(3.0)
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    return {"backend": dist.get_backend(), "eager": bool(torch.equal(eager, want)),
+            "replay": bool(torch.equal(out, want * 3.0)),
+            "shift_zero": bool(torch.count_nonzero(halo) == 0)}
+
+
+def mesh_phase(dev, tmp: Path, smi: str) -> dict:
+    """The [mesh] phase: the legs on gloo ranks that share the card (every rank
+    on cuda:0, the collectives staged through the host by gloo: NCCL refuses two
+    ranks on one GPU), each 3 steps against its single-rank twin on the card; the
+    1-rank NCCL check; and ``cli.train`` under ``torch.distributed.run``. Any
+    difference raises. Returns the halo forms' launches on the z-sharded fits,
+    every rank's. The times show that the ranks compute on the card, not how a
+    mesh scales."""
+    from scenenet_tpu_torch.parallel import launch as rank_launch
+
+    t_mesh = time.perf_counter()
+    mesh_dir, twin_dir = str(tmp / "mesh"), str(tmp / "mesh_twins")
+    r2 = rank_launch.run_ranks("chip_smoke:mesh_ranks_2", 2, {"tmp": mesh_dir},
+                               timeout=400, path=str(ROOT))
+    r4 = rank_launch.run_ranks("chip_smoke:mesh_ranks_4", 4, {"tmp": mesh_dir},
+                               timeout=400, path=str(ROOT))
+    r_resume = rank_launch.run_ranks("chip_smoke:mesh_ranks_resume", 2, {"tmp": mesh_dir},
+                                     timeout=300, path=str(ROOT))
+    twins = {"dp": mesh_fit("grids", dev, twin_dir, tag="dp"),
+             "unet_dp": mesh_fit("unet", dev, twin_dir),
+             "lbfgs_dp": mesh_fit("lbfgs", dev, twin_dir, optimizer="lbfgs",
+                                  learning_rate=0.1),
+             "big": mesh_fit("big", dev, twin_dir)}
+    twins["dp_sp"] = twins["hybrid"] = twins["big"]
+
+    def mesh_losses(res):
+        return [sc["train_loss"] for sc in res["scores"]]
+
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                            / np.maximum(np.abs(np.asarray(b)), 1e-30)))
+
+    def max_abs(got, want):
+        return max((float(np.max(np.abs(got[k] - v))) for k, v in want.items()),
+                   default=0.0)
+
+    MESH_LOSS_RTOL, MESH_PARAM_ATOL = 1e-5, 1e-6
+    # the UNet: K10's plan tiles a batch of 2 a rank otherwise than a batch of 4, so
+    # its f32 sums run in another order; 3 SGD steps on statistics of ~1e0
+    MESH_UNET_RTOL, MESH_UNET_ATOL = 1e-4, 1e-5
+    legs_desc = {"dp": "data 2, SceneNet (9,5,5) 64^3 B=16, grid cache",
+                 "dp_sp": "data 2 x space 2, SceneNet 128^3 B=4, streamed, z slabs of 64",
+                 "hybrid": "dcn 2 x (data 1 x space 2), SceneNet 128^3 B=4, streamed",
+                 "unet_dp": "data 2, UNet3D full ladder 64^3 B=4, streamed, sync BatchNorm"}
+    mesh_halo = {"stencil_conv": 0, "stencil_dk": 0}
+    for leg, desc in legs_desc.items():
+        ranks = [r[leg] for r in (r4 if leg in ("dp_sp", "hybrid") else r2)]
+        want = twins[leg]
+        got = ranks[0]
+        loss_err = rel(mesh_losses(got), mesh_losses(want))
+        same_ranks = all(all(np.array_equal(r["params"][k], got["params"][k])
+                             for k in got["params"]) and r["counts"] == got["counts"]
+                         for r in ranks)
+        if leg == "unet_dp":
+            stats_err = max(float(np.max(np.abs(got["stats"][k] - v)
+                                         - MESH_UNET_RTOL * np.abs(v)))
+                            for k, v in want["stats"].items())
+            # the counts may differ where a probability sits within the sums'
+            # rounding of tau: the sync BatchNorm takes E[x^2] - E[x]^2 (flax's form),
+            # the single-rank one F.batch_norm's variance
+            equal = (loss_err <= MESH_UNET_RTOL and stats_err <= MESH_UNET_ATOL and same_ranks
+                     and all(r["launches"]["conv3d_mc"] > 0 for r in ranks))
+            detail = (f"running statistics max(|d| - {MESH_UNET_RTOL:g}|ref|) "
+                      f"{stats_err:.3g} (bound {MESH_UNET_ATOL:g})")
+        else:
+            param_err = max_abs(got["params"], want["params"])
+            equal = (got["counts"] == want["counts"] and loss_err <= MESH_LOSS_RTOL
+                     and param_err <= MESH_PARAM_ATOL and same_ranks)
+            detail = f"params max|d| {param_err:.3g} (bound {MESH_PARAM_ATOL:g})"
+        if leg in ("dp_sp", "hybrid"):
+            # Z is sharded: every K2 and K4 launch of these fits is B10's halo form
+            halo_ok = all(r["launches"]["stencil_conv"] > 0
+                          and r["launches"]["stencil_dk"] > 0 for r in ranks)
+            equal = equal and halo_ok
+            for r in ranks:
+                for k in mesh_halo:
+                    mesh_halo[k] += r["launches"][k]
+        print(f"[mesh] {leg}: {desc}, {MESH_STEPS} SGD steps | loss {mesh_losses(got)} "
+              f"vs twin {mesh_losses(want)} (rel {loss_err:.3g}) | counts {got['counts']} "
+              f"vs twin {want['counts']} | {detail} | ranks agree {same_ranks} | "
+              f"equal={equal} | step ms by rank "
+              + ", ".join(f"{r['ms']:.1f}" for r in ranks)
+              + f" vs twin {want['ms']:.1f} (ranks share the card over gloo) | launches "
+              + " ; ".join(str(r["launches"]) for r in ranks) + f" | {smi}", flush=True)
+        check(equal, f"[mesh] {leg} differs from its twin")
+    lb = [r["lbfgs_dp"] for r in r2]
+    lb_equal = all(r["trials"] == twins["lbfgs_dp"]["trials"] for r in lb) and all(
+        np.array_equal(r["params"][k], lb[0]["params"][k]) for r in lb for k in r["params"])
+    print(f"[mesh] lbfgs_dp: data 2, SceneNet 64^3 B=16, L-BFGS lr 0.1 | trials by rank "
+          f"{[r['trials'] for r in lb]} vs twin {twins['lbfgs_dp']['trials']} | params max|d| "
+          f"vs twin {max_abs(lb[0]['params'], twins['lbfgs_dp']['params']):.3g} | "
+          f"equal={lb_equal} | step ms by rank "
+          + ", ".join(f"{r['ms']:.1f}" for r in lb)
+          + f" vs twin {twins['lbfgs_dp']['ms']:.1f} | {smi}", flush=True)
+    check(lb_equal, "[mesh] lbfgs_dp: the ranks' linesearch trials differ")
+    killed = [r["killed"] for r in r2]
+    resumed = [r["resumed"] for r in r_resume]
+    pre_equal = (all(k["preempted"] and k["step"] == MESH_STEPS - 1 for k in killed)
+                 and all(r["step"] == MESH_STEPS for r in resumed)
+                 and all(np.array_equal(r["params"][k], r2[0]["unkilled"]["params"][k])
+                         for r in resumed for k in r["params"]))
+    print(f"[mesh] preempt_resume: data 2, SceneNet 64^3 B=16 streamed: "
+          f"{MESH_STEPS - 1} steps, snapshot, a fresh launch, 1 step | bit-identical to the "
+          f"unkilled fit: equal={pre_equal} | loss {mesh_losses(r2[0]['unkilled'])} | {smi}",
+          flush=True)
+    check(pre_equal, "[mesh] preempt_resume is not bit-identical")
+    nccl = rank_launch.run_ranks("chip_smoke:mesh_nccl_rank", 1, timeout=180,
+                                 path=str(ROOT),
+                                 env={"TORCH_NCCL_ASYNC_ERROR_HANDLING": "0"})[0]
+    print(f"[mesh] 1-rank {nccl['backend']} group: all_reduce on the card eager "
+          f"{nccl['eager']}, captured in a CUDA graph and replayed {nccl['replay']}; "
+          f"shift zero-fills {nccl['shift_zero']} | multi-card NCCL not measured (one "
+          f"card) | {smi}", flush=True)
+    check(nccl["backend"] == "nccl" and nccl["eager"] and nccl["replay"]
+          and nccl["shift_zero"], f"[mesh] the NCCL collective check failed: {nccl}")
+    cli_cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+               "--master-addr", "localhost", "--master-port", str(rank_launch.free_port()),
+               "-m", "scenenet_tpu_torch.cli.train", "--dist-backend", "gloo",
+               "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}", "mesh_data=2",
+               "max_epochs=1", "num_workers=4", f"output_dir={tmp / 'mesh_cli'}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cli_cmd, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=400, env=dict(os.environ, OMP_NUM_THREADS="4"))
+    cli_s = time.perf_counter() - t0
+    mesh_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[mesh]")]
+    check(proc.returncode == 0 and any("[mesh] training over {'data': 2, 'space': 1}" in ln
+                                       for ln in mesh_line),
+          f"[mesh] torch.distributed.run cli.train: rc {proc.returncode}\n"
+          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    print(f"[mesh] python -m torch.distributed.run --nproc-per-node 2 -m "
+          f"scenenet_tpu_torch.cli.train --dist-backend gloo --set <defaults> mesh_data=2 "
+          f"max_epochs=1: rc 0 in {cli_s:.1f} s | {mesh_line[0]} | {smi}", flush=True)
+    print(f"[mesh] phase {time.perf_counter() - t_mesh:.1f} s | {smi}", flush=True)
+    return mesh_halo
 
 
 def main(argv=None) -> int:
@@ -3429,6 +3802,9 @@ def main(argv=None) -> int:
         print("[native] C5: available() is False with its reason | "
               + " | ".join(r[:140] for r in reasons), flush=True)
 
+        # ---- 24. A12: the [mesh] phase, the data and space axes over gloo ranks --------
+        mesh_halo = mesh_phase(dev, tmp, smi)
+
     main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
                  *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
                  *(c for _, _, c in route_runs.values()),
@@ -3487,10 +3863,11 @@ def main(argv=None) -> int:
         >= sum(mc16_bounds[c][0] for c in UNET_CONVS if mc16_bounds[c][1] == "bytes")
         else "bytes")
 
-    # B10's halo forms: their launches are those of their own entry point's run
     bounds.update(halo_bounds)
-    total["stencil_conv_halo"] = halo_counts["stencil_conv"]
-    total["stencil_dk_halo"] = halo_counts["stencil_dk"]
+    # B10's halo forms: their own entry point's run and their caller's, the [mesh]
+    # phase's z-sharded fits (every rank)
+    total["stencil_conv_halo"] = halo_counts["stencil_conv"] + mesh_halo["stencil_conv"]
+    total["stencil_dk_halo"] = halo_counts["stencil_dk"] + mesh_halo["stencil_dk"]
 
     def entry(name, source, replaces, err, t, shape):
         b_ms, by = bounds[name]

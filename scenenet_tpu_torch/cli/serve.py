@@ -671,7 +671,7 @@ def build_server(argv=None):
 
     if args.mesh_ensemble != 1:
         raise NotImplementedError("--mesh-ensemble (ensemble-parallel serving) is "
-                                  "not ported yet: ROADMAP A12")
+                                  "not ported yet: ROADMAP A12b")
     inference = True if args.inference == "bf16" else args.inference
     quantiles = tuple(float(q) for q in args.quantiles.split(","))
     adaptive = args.max_batch.strip().lower() == "auto"

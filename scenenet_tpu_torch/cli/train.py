@@ -51,8 +51,20 @@ bins come from the host workers, so it streams. ``--device`` defaults to
 versions. A run
 configured by ``--set`` alone needs no PyYAML. ``--sweep spec.yaml``
 trains ``--sweep-runs`` draws of a random sweep (:func:`run_sweep`) and
-prints the best. Meshes (ROADMAP A12) raise; so does ``export_stablehlo``,
-XLA's format.
+prints the best. ``export_stablehlo``, XLA's format, raises.
+
+Mesh training (``mesh_data``, ``mesh_space``, ``mesh_dcn_data``; the
+reference's DDP) runs one process a rank, launched by
+``torch.distributed.run``; the product of the mesh axes must be its
+``WORLD_SIZE``, and rank r computes on ``cuda:{LOCAL_RANK % cards}``::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m scenenet_tpu_torch.cli.train \
+        --set mesh_data=2 [--dist-backend nccl|gloo]
+
+``--dist-backend`` (port-only, like ``--device``) defaults to nccl on
+``cuda`` and gloo on ``cpu``; ranks that share a card need gloo, since NCCL
+refuses two ranks on one GPU. ``mesh_ensemble`` and ``mesh_channel`` (the
+``model`` axis) raise: ROADMAP A12b.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from scenenet_tpu_torch import native
+from scenenet_tpu_torch.parallel import launch
 from scenenet_tpu_torch.cli.serve import resolve_device
 from scenenet_tpu_torch.data import (
     TS40K, Compose, NativePointCloudLoader, PointPadding, SemanticKITTICrops, Subset,
@@ -92,14 +105,64 @@ _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Raise, naming the ROADMAP item, on every value that asks for
     something the port does not have yet."""
-    meshes = {k: getattr(cfg, k) for k in ("mesh_data", "mesh_space", "mesh_dcn_data",
-                                           "mesh_ensemble", "mesh_channel")}
-    if any(int(v) > 1 for v in meshes.values()):
-        raise NotImplementedError(f"mesh training {meshes} is not ported yet: ROADMAP A12")
+    model_axis = {k: getattr(cfg, k) for k in ("mesh_ensemble", "mesh_channel")}
+    if any(int(v) > 1 for v in model_axis.values()):
+        raise NotImplementedError(f"mesh training over the 'model' axis {model_axis} (ensemble "
+                                  "members, channel TP) is not ported yet: ROADMAP A12b")
     if cfg.export_stablehlo:
         raise NotImplementedError("export_stablehlo asks for XLA's StableHLO format, which "
                                   "the port does not write: it exports through "
                                   "utils/export.py (torch.export) and utils/onnx_export.py")
+
+
+def launch_command(n_ranks: int) -> str:
+    return (f"python -m torch.distributed.run --nproc-per-node {n_ranks} "
+            "-m scenenet_tpu_torch.cli.train [--config ...] --set ...")
+
+
+def build_mesh(cfg: ExperimentConfig, device: str = "cuda",
+               dist_backend: Optional[str] = None):
+    """The mesh the config asks for, or None for one rank: ``mesh_dcn_data``
+    × ``mesh_data`` shard the batch, ``mesh_space`` Z-shards the grid, with
+    the JAX CLI's guards and messages. The product of the axes must be the
+    launch's ``WORLD_SIZE`` (the JAX CLI's devices visible); this process's
+    group is initialised here (nccl on ``cuda``, gloo on ``cpu``, unless
+    ``dist_backend`` says). A multi-rank mesh outside a launch raises and
+    names the command."""
+    md, msp = int(cfg.mesh_data), int(cfg.mesh_space)
+    mdcn = int(getattr(cfg, "mesh_dcn_data", 1))
+    n = md * msp * mdcn
+    if n <= 1:
+        return None
+    if not launch.launched():
+        print(f"[mesh] launch {n} ranks: {launch_command(n)}")
+        raise RuntimeError(f"mesh {mdcn}(dcn)×{md}(data)×{msp}(space) = {n} ranks, but this "
+                           f"process was not launched as one: run {launch_command(n)}")
+    world = int(os.environ["WORLD_SIZE"])
+    if n != world:
+        raise ValueError(f"mesh {mdcn}(dcn)×{md}(data)×{msp}(space) = {n} devices, "
+                         f"but {world} are visible")
+    if msp > 1 and cfg.model != "scenenet":
+        raise ValueError("spatial sharding (mesh_space > 1) is implemented for the scenenet "
+                         f"model (got model={cfg.model!r})")
+    if cfg.batch_size % (md * mdcn):
+        raise ValueError(f"batch_size {cfg.batch_size} must divide by the data shards "
+                         f"({md * mdcn})")
+    if cfg.voxel_grid_size[2] % msp:
+        raise ValueError(f"grid Z extent {cfg.voxel_grid_size[2]} must divide by mesh_space "
+                         f"({msp})")
+    from scenenet_tpu_torch.parallel import make_hybrid_mesh, make_mesh
+
+    if not torch.distributed.is_initialized():
+        launch.init_from_env(dist_backend, device)
+    dev = launch.rank_device(device)
+    mesh = (make_hybrid_mesh((mdcn, 1), (md, msp), device=dev) if mdcn > 1
+            else make_mesh((md, msp), device=dev))
+    if mesh.rank == 0:  # the ranks' outputs share one stream under torch.distributed.run
+        print(f"[mesh] training over {dict(mesh.shape)}"
+              + (f" ({mdcn}-way DP across slices)" if mdcn > 1 else "")
+              + f" ({n} ranks, rank 0 on {dev}, {mesh.backend})", flush=True)
+    return mesh
 
 
 def _resolve_device_cache_auto(cfg: ExperimentConfig, n_samples: int,
@@ -274,24 +337,29 @@ class _OneBatch:
 
 
 def _autotune(cfg: ExperimentConfig, criterion, device: torch.device,
-              graph: bool = False) -> None:
+              graph: bool = False, mesh=None) -> None:
     """``model_backend: autotune``: time a train step of each kernel backend
     on the card at the run's shapes and keep the fastest, by CUDA graph
     replays where ``graph`` says the run trains so (L-BFGS always eagerly);
-    without a card, the ``auto`` rule (the JAX CLI's non-TPU fallback)."""
+    without a card, the ``auto`` rule (the JAX CLI's non-TPU fallback).
+    Under a mesh the shapes are one rank's: its rows and its z slab."""
     if device.type != "cuda":
         print("[autotune] no CUDA device (--device cpu); using model_backend=auto")
         cfg.model_backend = "auto"
         return
-    grid = cfg.grid_zxy()
+    gz, gx, gy = cfg.grid_zxy()
+    batch = cfg.batch_size
+    if mesh is not None:
+        batch, gz = batch // mesh.shape["data"], gz // mesh.shape["space"]
+    grid = (gz, gx, gy)
     winner, times = autotune_backend(
         lambda b: SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
                                   backend=b).to(device),
-        criterion, cfg.batch_size, grid, optimizer=cfg.optimizer,
+        criterion, batch, grid, optimizer=cfg.optimizer,
         cache_key_extra=f"ks={cfg.kernel_size},geneo={cfg.geneo_num()}", graph=graph)
     route = "graph replays" if graph else "eager steps"
-    print(f"[autotune] backend -> {winner} at (batch {cfg.batch_size}, grid {grid}; "
-          f"{route})  ("
+    print(f"[autotune] backend -> {winner} at {'per-shard ' if mesh else ''}(batch {batch}, "
+          f"grid {grid}; {route})  ("
           + ", ".join(f"{k}: {v:.2f} ms" for k, v in times.items()) + ")")
     cfg.model_backend = winner
 
@@ -327,9 +395,11 @@ def make_batch_probe(cfg: ExperimentConfig, model, criterion, prep, device: torc
 
 
 def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
-        host_indices: bool = False) -> Dict[str, float]:
-    device = resolve_device(device)
+        host_indices: bool = False, dist_backend: Optional[str] = None) -> Dict[str, float]:
     _refuse_unported(cfg)
+    # resolved first, so that the tuners below see one rank's shapes
+    mesh = build_mesh(cfg, device or "cuda", dist_backend)
+    device = mesh.device if mesh is not None else resolve_device(device)
     fix_randomness(cfg.seed)
     run_dir = os.path.join(cfg.output_dir, cfg.project)
     ckpt_dir = cfg.checkpoint_dir or os.path.join(run_dir, "checkpoints")
@@ -339,14 +409,25 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
                          f"(got model={cfg.model!r})")
     criterion = build_criterion(cfg)
     train_ds, val_ds, test_ds = build_datasets(cfg)
+    if mesh is not None and len(train_ds) < cfg.batch_size:
+        # the loaders would fall back to drop_last=False and give one ragged
+        # batch that the data shards do not divide
+        raise ValueError(f"mesh training needs at least one full batch: {len(train_ds)} "
+                         f"training samples < batch_size {cfg.batch_size}")
     native_loader = resolve_loader(cfg, host_indices)
+    if mesh is not None and mesh.shape["space"] > 1 and cfg.device_cache:
+        # the cached fits are pure-DP; spatial sharding streams its batches
+        if cfg.device_cache != "auto":
+            print("[mesh] device_cache disabled (cached epochs are pure-DP; spatial "
+                  "sharding streams batches)")
+        cfg.device_cache = False
     device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)
     # the fit the run takes: a cached one (replayed on a card), else ADMM's or the streamed one
     cached_fit = bool(device_cache) and not cfg.fast_dev_run and cfg.constrained != "admm"
     if cfg.model_backend == "autotune":
         # time the step as the run will take it
         _autotune(cfg, criterion, device,
-                  graph=cached_fit and trains_by_replay(device, cfg.optimizer))
+                  graph=cached_fit and trains_by_replay(device, cfg.optimizer, mesh), mesh=mesh)
     model = build_model(cfg, device)
     if cfg.resume_from_checkpoint:
         ckpt_path = os.path.join(ckpt_dir, cfg.resume_checkpoint_name + ".npz")
@@ -391,7 +472,11 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
                                       use_indices=not native_loader)
             if cfg.device_voxelization else None)
 
-    if cfg.auto_scale_batch_size and cfg.device_voxelization and \
+    if cfg.auto_scale_batch_size and mesh is not None:
+        # the single-rank probe would measure one rank's share of the mesh
+        print("[auto_scale_batch_size] skipped: the probe is single-device; size the "
+              "global batch as shards × per-shard capacity")
+    elif cfg.auto_scale_batch_size and cfg.device_voxelization and \
             cfg.model in ("scenenet", "quantile"):
         found = find_max_batch_size(make_batch_probe(cfg, model, criterion, prep, device),
                                     start=cfg.batch_size,
@@ -435,12 +520,14 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         acfg = ADMMConfig(**{**dataclasses.asdict(tcfg), "admm_rho": cfg.admm_rho})
         print(f"[admm] augmented-Lagrangian training (rho={cfg.admm_rho}, "
               f"optimizer={cfg.optimizer}) on the streaming loader")
-        trainer = ADMMTrainer(model, criterion, acfg, batch_prep=prep)
+        trainer = ADMMTrainer(model, criterion, acfg, batch_prep=prep, mesh=mesh)
         _, best = trainer.fit(train_loader, val)
     elif cached_fit:
         # the dataset resident on the card, the epochs without the host loader:
         # "points" voxelizes every step (point-space augmentation), "grids" once
-        trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
+        trainer = Trainer(model, criterion, tcfg, batch_prep=prep, mesh=mesh)
+        # seeded alike on every rank: each draws the same permutation and
+        # augmentation and takes its own rows
         gen = torch.Generator(device).manual_seed(cfg.seed)
         cache = DevicePointCache(train_ds, device)
         if device_cache == "grids":
@@ -454,7 +541,7 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
                                          generator=gen, val_loader=val,
                                          resume_from=preempt_snap)
     else:
-        trainer = Trainer(model, criterion, tcfg, batch_prep=prep)
+        trainer = Trainer(model, criterion, tcfg, batch_prep=prep, mesh=mesh)
         _, best = trainer.fit(train_loader, val, resume_from=preempt_snap)
     if getattr(trainer, "preempted", False):
         print("[preempt] stopped early: the next launch of this experiment resumes from "
@@ -494,7 +581,8 @@ def parse_overrides(pairs: List[str]) -> Dict[str, object]:
 
 def run_sweep(draws: List[Dict[str, object]], config_path: Optional[str],
               overrides: Dict[str, object], device: "str | None" = "cuda",
-              host_indices: bool = False) -> Dict[str, object]:
+              host_indices: bool = False, dist_backend: Optional[str] = None
+              ) -> Dict[str, object]:
     """Train one run a draw (the draw under the config file and the
     ``--set`` overrides, as the JAX CLI merges them; the project named
     ``<project>_sweep<i>``) and score each by ``val_FBetaScore``, else
@@ -503,7 +591,7 @@ def run_sweep(draws: List[Dict[str, object]], config_path: Optional[str],
     for i, draw in enumerate(draws):
         cfg = load_config(config_path, {**draw, **overrides})
         cfg.project = f"{cfg.project}_sweep{i}"
-        scores = run(cfg, device=device, host_indices=host_indices)
+        scores = run(cfg, device=device, host_indices=host_indices, dist_backend=dist_backend)
         score = scores.get("val_FBetaScore", scores.get("train_FBetaScore", 0.0))
         print(f"[sweep {i}] val_FBetaScore={score:.4f} draw={draw}")
         if score > best_score:
@@ -525,13 +613,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     parser.add_argument("--sweep", type=str, default=None,
                         help="wandb-style sweep spec (random search)")
     parser.add_argument("--sweep-runs", type=int, default=4)
+    parser.add_argument("--dist-backend", default=None, choices=list(launch.BACKENDS),
+                        help="the process group's backend under a mesh (default nccl on "
+                             "cuda, gloo on cpu; gloo where ranks share a card)")
     args = parser.parse_args(argv)
     overrides = parse_overrides(args.set)
     if args.sweep:
         return run_sweep(sample_sweep(args.sweep, args.sweep_runs), args.config, overrides,
-                         device=args.device, host_indices=args.host_indices)
+                         device=args.device, host_indices=args.host_indices,
+                         dist_backend=args.dist_backend)
     return run(load_config(args.config, overrides), device=args.device,
-               host_indices=args.host_indices)
+               host_indices=args.host_indices, dist_backend=args.dist_backend)
 
 
 if __name__ == "__main__":

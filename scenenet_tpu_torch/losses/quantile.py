@@ -16,21 +16,17 @@ from typing import Sequence, Tuple
 import torch
 
 from scenenet_tpu_torch.losses.geneo_loss import _weighted_mse, cvx_loss, positive_regularizer
-from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE
+from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE, _pmean
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantileLoss:
     w_mse: WeightedMSE
     quantiles: Sequence[float] = (0.1, 0.5, 0.9)
-    # the mesh axes of a sharded loss in the JAX package: mesh training is
-    # not ported yet, so any axis raises
+    # set by parallel.dp.make_distributed under mesh training: the nested
+    # w_mse then normalizes the weights globally and the final mean is
+    # averaged over the ranks, so the sharded loss equals the unsharded one
     axis_names: Tuple[str, ...] = ()
-
-    def __post_init__(self):
-        if self.axis_names:
-            raise NotImplementedError(f"axis_names {self.axis_names!r} (a loss sharded "
-                                      "over a mesh) is not ported yet: ROADMAP A12")
 
     @classmethod
     def create(cls, targets=None, weighting_scheme_path=None, quantiles=(0.1, 0.5, 0.9),
@@ -52,7 +48,7 @@ class QuantileLoss:
         if gt.ndim == pred.ndim and gt.shape[1] == 1:
             gt = gt[:, 0]
         weights = self.w_mse.weight_target(gt)
-        return torch.mean(weights * self.quantile_loss(pred, gt))
+        return _pmean(torch.mean(weights * self.quantile_loss(pred, gt)), self.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,6 +45,25 @@ def hist_frequency_estimation(y: np.ndarray, hist_len: int = 10
     return freqs, ranges
 
 
+def _psum(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """Σ of ``x`` over the ranks of the mesh axes ``axes`` (differentiable,
+    :func:`scenenet_tpu_torch.parallel.mesh.psum`); ``x`` where there are none."""
+    if not axes:
+        return x
+    from scenenet_tpu_torch.parallel.mesh import psum
+
+    return psum(x, axes)
+
+
+def _pmean(x: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of the mesh axes ``axes``."""
+    if not axes:
+        return x
+    from scenenet_tpu_torch.parallel.mesh import pmean
+
+    return pmean(x, axes)
+
+
 @functools.lru_cache(maxsize=None)
 def _table_on(values: Tuple[float, ...], dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
@@ -55,13 +74,17 @@ def _table_on(values: Tuple[float, ...], dtype: torch.dtype,
 
 @dataclasses.dataclass(frozen=True)
 class WeightedMSE:
-    """``mean(mse_weight · w(gt) · (gt − pred)²)`` with histogram weights."""
+    """``mean(mse_weight · w(gt) · (gt − pred)²)`` with histogram weights.
+    ``axis_names`` (under mesh training, over equal shards) makes the
+    weights' normalization and the final mean global: both are averaged
+    over the ranks of those mesh axes."""
 
     freqs: Tuple[int, ...]
     ranges: Tuple[float, ...]
     weight_alpha: float = 1.0
     weight_epsilon: float = 0.1
     mse_weight: float = 1.0
+    axis_names: Tuple[str, ...] = ()
 
     @classmethod
     def create(cls, targets: Optional[np.ndarray] = None,
@@ -93,9 +116,9 @@ class WeightedMSE:
         """Per-target weights, normalized to mean 1."""
         w = torch.clamp(1.0 - self.weight_alpha * self.dens_target(y),
                         min=self.weight_epsilon)
-        return w / w.mean()
+        return w / _pmean(w.mean(), self.axis_names)
 
     def __call__(self, pred: torch.Tensor, gt: torch.Tensor, *_args, **_kw) -> torch.Tensor:
         pred, gt = torch.broadcast_tensors(pred, gt)
         w = self.weight_target(gt)
-        return torch.mean(self.mse_weight * w * (gt - pred) ** 2)
+        return _pmean(torch.mean(self.mse_weight * w * (gt - pred) ** 2), self.axis_names)

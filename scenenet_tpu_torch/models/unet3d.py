@@ -84,7 +84,13 @@ def load_flax_views(own: Mapping[str, torch.Tensor], state: Mapping[str, torch.T
 class FlaxBatchNorm(nn.Module):
     """Batch normalisation over every axis but the channel (axis 1), with
     flax's defaults: epsilon 1e-5, momentum 0.99, biased running variance.
-    A bf16 input takes flax's reduced-precision path (:meth:`_forward_half`)."""
+    A bf16 input takes flax's reduced-precision path, and so does a train
+    step under a sync axis (:meth:`_forward_flax`).
+
+    ``axis_name`` (set by :meth:`UNet3D.with_bn_sync`) is a mesh axis over
+    which a train step averages the batch mean and mean of squares (sync
+    BatchNorm, flax's ``axis_name``): normalisation and the running
+    statistics then use the global batch, and are the same on every rank."""
 
     MOMENTUM = 0.99
     EPS = 1e-5
@@ -95,10 +101,11 @@ class FlaxBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.axis_name: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype != torch.float32:
-            return self._forward_half(x)
+        if x.dtype != torch.float32 or (self.training and self.axis_name is not None):
+            return self._forward_flax(x)
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=self.EPS)
@@ -113,17 +120,22 @@ class FlaxBatchNorm(nn.Module):
             self.var.mul_(self.MOMENTUM).add_(unbiased * ((n - 1) / n), alpha=1 - self.MOMENTUM)
         return out
 
-    def _forward_half(self, x: torch.Tensor) -> torch.Tensor:
-        """flax's BatchNorm under a bf16 ``dtype``, step by step: the batch
-        mean and E[x²] of x widened to f32, the variance E[x²] − E[x]²
-        clipped at 0; ``(x − mean)·(rsqrt(var + ε)·scale) + bias`` in f32;
-        the result rounded to x's dtype. The running statistics move in f32."""
+    def _forward_flax(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's BatchNorm step by step: the batch mean and E[x²] of x
+        widened to f32 (averaged over the ranks of ``axis_name`` where it is
+        set, equal shards), the variance E[x²] − E[x]² clipped at 0;
+        ``(x − mean)·(rsqrt(var + ε)·scale) + bias`` in f32; the result
+        rounded to x's dtype. The running statistics move in f32."""
         xf = x.float()
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            mean, mean_sq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            if self.axis_name is not None:
+                from scenenet_tpu_torch.parallel.mesh import pmean
+
+                mean, mean_sq = pmean(torch.stack([mean, mean_sq]), self.axis_name).unbind(0)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.MOMENTUM).add_(mean, alpha=1 - self.MOMENTUM)
                 self.var.mul_(self.MOMENTUM).add_(var, alpha=1 - self.MOMENTUM)
@@ -241,6 +253,19 @@ class UNet3D(nn.Module):
         w = self.out.weight.flatten(1).to(dt).float()  # (n_classes, 32)
         out = torch.matmul(w, u.flatten(2).float()).view(u.shape[0], -1, *u.shape[2:])
         return out.to(dt) + self.out.bias.to(dt).view(1, -1, 1, 1, 1)
+
+    def with_bn_sync(self, axis_name: Optional[str]) -> "UNet3D":
+        """Set the mesh axis over which every BatchNorm averages its batch
+        statistics in a train step (sync BatchNorm; None turns it off), in
+        place, and return the model: under data-parallel training the
+        normalisation and the running statistics are those of the global
+        batch, as in a single-device fit. A JAX ``with_bn_sync`` returns a
+        view; a torch module owns its parameters, so a view would share
+        them anyway."""
+        for m in self.modules():
+            if isinstance(m, FlaxBatchNorm):
+                m.axis_name = axis_name
+        return self
 
     # ---- the flax layout, for checkpoints and the JAX package's variables ----
 

@@ -1,6 +1,7 @@
 """Augmented-Lagrangian (ADMM-style) constrained training.
 
-PyTorch twin of :mod:`scenenet_tpu.train.admm`, on one device. The
+PyTorch twin of :mod:`scenenet_tpu.train.admm`, on one device or over a
+mesh of ranks (the ``data`` and ``space`` axes). The
 constrained problem
 
     min_θ L(θ)   s.t.  Σλ = 1 (exact, by the derived last λ),
@@ -14,7 +15,10 @@ takes its inequalities in the augmented-Lagrangian form with multipliers
 with the dual ascent μ ← max(0, μ + ρ·g) after each primal epoch. μ is a
 device tensor the primal step reads, so no step depends on its value on
 the host. Any resolvable optimizer takes the primal steps, L-BFGS with its
-zoom linesearch included (``experiments/admm.yaml``).
+zoom linesearch included (``experiments/admm.yaml``). Over a mesh the
+primal step is the Trainer's mesh step with the augmented term added to
+the distributed data loss; the constraint term and the dual update read
+only the parameters, which every rank holds alike.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ from scenenet_tpu_torch.geneo.kernels import KERNEL_REGISTRY
 from scenenet_tpu_torch.train.callbacks import BestMetricTracker, EarlyStopping
 from scenenet_tpu_torch.train.checkpoint import CheckpointManager
 from scenenet_tpu_torch.train.lbfgs import LBFGS
-from scenenet_tpu_torch.train.loop import TrainConfig, Trainer, _monitor_modes
-from scenenet_tpu_torch.train.metrics import compute_metrics, init_metric_state, update_metrics
+from scenenet_tpu_torch.train.loop import TrainConfig, Trainer, _in_mesh, _monitor_modes
+from scenenet_tpu_torch.train.metrics import compute_metrics, init_metric_state
 from scenenet_tpu_torch.train.state import resolve_optimizer
 
 
@@ -67,35 +71,44 @@ class ADMMTrainer:
     :class:`Trainer` on the data criterion. ``fit`` trains ``self.model``
     in place. ``history`` holds each epoch's largest violation, ‖μ‖ and
     train loss.
+
+    ``mesh`` (the ``data`` and ``space`` axes): the primal step runs over the
+    mesh's ranks as ``Trainer(mesh=...)``'s does: the batch over ``data``, Z
+    over ``space`` (the halo-exchange forward), the gradients and the loss
+    averaged and the confusion counts summed.
     """
 
     def __init__(self, model: nn.Module, criterion: Callable, config: ADMMConfig,
                  logger=None, batch_prep: Optional[Callable] = None, mesh: Optional[Any] = None):
-        if mesh is not None:
-            raise NotImplementedError("ADMM training over a mesh is not ported yet: "
-                                      "ROADMAP A12")
-        from scenenet_tpu_torch.utils.logging import RunLogger
+        from scenenet_tpu_torch.utils.logging import NullLogger, RunLogger
 
         self.model = model
         self.criterion = criterion
         self.config = config
-        self.logger = logger or RunLogger(config.run_dir, use_wandb=config.use_wandb)
         self.batch_prep = batch_prep
         self.device = next(model.parameters()).device
         self.history: list = []
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.best = BestMetricTracker()
-        # validates the config as the trainer does, and evaluates on the data term
-        self._inner = Trainer(model, criterion, config, logger=self.logger,
-                              batch_prep=batch_prep)
+        # validates the config as the trainer does (the mesh's guards too), runs
+        # the mesh's pieces of the step, and evaluates on the data term
+        self._inner = Trainer(model, criterion, config, logger=NullLogger(),
+                              batch_prep=batch_prep, mesh=mesh)
+        self.mesh = self._inner.mesh
+        self.logger = logger or (RunLogger(config.run_dir, use_wandb=config.use_wandb)
+                                 if self._inner._writes else NullLogger())
+        self._inner.logger = self.logger
         self._ckpt: Optional[CheckpointManager] = None
 
     def _augmented(self, x: torch.Tensor, y: torch.Tensor, mu: torch.Tensor, rho: float):
-        pred = self.model(x)
-        data = self.criterion(pred, y, {}, {}, None)
+        inner = self._inner
+        net = inner._spatial if inner._spatial is not None else self.model
+        pred = net(x)
+        data = inner.distributed_criterion()(pred, y, {}, {}, None)
         return augmented_loss(data, _constraint_values(self.model), mu, rho), pred
 
+    @_in_mesh
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None
             ) -> Tuple[nn.Module, Dict[str, float]]:
         cfg = self.config
@@ -105,22 +118,27 @@ class ADMMTrainer:
             mu = torch.zeros(_constraint_values(model).shape[0], device=self.device)
         self.optimizer = opt = resolve_optimizer(cfg.optimizer, model.parameters(),
                                                  cfg.learning_rate)
+        inner = self._inner
+        inner.optimizer, inner.multi_steps = opt, None
+        inner._replicate()
         self.best = BestMetricTracker()
         self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
-                                              top_k=cfg.checkpoint_top_k)
+                                              top_k=cfg.checkpoint_top_k, write=inner._writes)
         stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
                    if cfg.early_stop_metric else None)
         for epoch in range(max(cfg.max_epochs, 1)):
             mstate = init_metric_state(self.device)
             losses = []
             for batch in train_loader:
-                batch = self._inner.to_device(batch)
+                batch = inner.shard(batch)
                 x, y = self.batch_prep(*batch) if self.batch_prep else batch
+                if self.batch_prep is not None:
+                    x, y = inner._slab(x), inner._slab(y)
                 model.train()
                 opt.zero_grad(set_to_none=True)
                 loss, pred = self._augmented(x, y, mu, rho)
                 loss.backward()
-                loss = loss.detach()
+                loss = inner._reduce_step(loss.detach())
                 if isinstance(opt, LBFGS):
                     def closure(x=x, y=y):
                         opt.zero_grad(set_to_none=True)
@@ -128,11 +146,17 @@ class ADMMTrainer:
                         value.backward()
                         return value.detach()
 
+                    if self.mesh is not None:
+                        # every rank's linesearch sees the global value and slope
+                        from scenenet_tpu_torch.parallel.dp import linesearch_value_fn
+
+                        closure = linesearch_value_fn(closure, model.parameters(),
+                                                      inner._axes, self.mesh)
                     opt.step(closure, loss)
                 else:
                     opt.step()
                 self.step += 1
-                mstate = update_metrics(mstate, pred.detach(), y, cfg.tau)
+                mstate = inner._count(mstate, pred.detach(), y)
                 losses.append(loss)
             with torch.no_grad():  # the dual update
                 g = -_constraint_values(model)
@@ -155,6 +179,7 @@ class ADMMTrainer:
             if stopper is not None and stopper.update(scores):
                 break
         self.mu = mu
+        inner._barrier()  # the first rank's checkpoints are written for every rank
         return model, self.best.best
 
     # after the fit: a plain Trainer on the data criterion

@@ -13,10 +13,15 @@ k_x, k_y) against flax's (k_z, k_x, k_y, in, out), BatchNorm statistics in
 a ``batch_stats`` collection beside ``params``) gives and takes the flax
 names and layouts through ``flax_state`` / ``load_flax_state``, running
 statistics included.
+
+:func:`save_checkpoint_sharded` / :func:`restore_checkpoint_sharded` write
+and read a tree whose leaves may be split over a mesh's ranks, one file a
+rank, in the JAX package's multi-process layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -112,15 +117,20 @@ class CheckpointManager:
     """Per-metric top-k checkpoint retention + a ``last`` snapshot, in the
     format above (twin of :class:`scenenet_tpu.train.checkpoint.CheckpointManager`)."""
 
-    def __init__(self, directory: str, monitors: Dict[str, str], top_k: int = 2):
-        """``monitors`` maps metric name → 'max'|'min'."""
+    def __init__(self, directory: str, monitors: Dict[str, str], top_k: int = 2,
+                 write: bool = True):
+        """``monitors`` maps metric name → 'max'|'min'. ``write=False`` keeps
+        the same rankings and paths and writes nothing: a mesh's ranks but
+        the first, which share its scores and read its files."""
         self.directory = directory
         self.monitors = monitors
         self.top_k = top_k
+        self.write = write
         self.best: Dict[str, List[Tuple[float, str]]] = {m: [] for m in monitors}
         self._warned: set = set()
         self._seen: set = set()
-        os.makedirs(directory, exist_ok=True)
+        if write:
+            os.makedirs(directory, exist_ok=True)
 
     def _better(self, metric: str, a: float, b: float) -> bool:
         return a > b if self.monitors[metric] == "max" else a < b
@@ -154,18 +164,20 @@ class CheckpointManager:
             ranked = self.best[metric]
             if len(ranked) < self.top_k or self._better(metric, score, ranked[-1][0]):
                 fname = os.path.join(self.directory, f"{metric}_step{step}.npz")
-                save_checkpoint(fname, tree, {"step": step, metric: score, "mode": mode})
+                if self.write:
+                    save_checkpoint(fname, tree, {"step": step, metric: score, "mode": mode})
                 ranked.append((score, fname))
                 ranked.sort(key=lambda t: t[0], reverse=(mode == "max"))
                 while len(ranked) > self.top_k:
                     _, evicted = ranked.pop()
-                    for suffix in (".npz", ".json"):
+                    for suffix in (".npz", ".json") if self.write else ():
                         p = evicted[:-4] + suffix
                         if os.path.exists(p):
                             os.remove(p)
                 written.append(fname)
         fname = os.path.join(self.directory, "last.npz")
-        save_checkpoint(fname, tree, {"step": step, **scores})
+        if self.write:
+            save_checkpoint(fname, tree, {"step": step, **scores})
         written.append(fname)
         return written
 
@@ -199,3 +211,138 @@ def restore_checkpoint(path: str, template: nn.Module) -> nn.Module:
                     f"{tuple(want.shape)}")
             state[name] = torch.from_numpy(np.array(arr)).to(want.dtype)
     return load_module_state(template, state)
+
+
+# ---- multi-process sharded checkpoints ---------------------------------------------
+
+@dataclasses.dataclass
+class LocalShard:
+    """A rank's part of a tensor split over a mesh: ``data`` is the part,
+    ``index`` the slices of the global tensor it holds, ``global_shape``
+    the global tensor's shape (a leaf of :func:`save_checkpoint_sharded`,
+    the counterpart of a sharded ``jax.Array``'s addressable shard)."""
+
+    data: torch.Tensor
+    index: Tuple[slice, ...]
+    global_shape: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, global_tensor: torch.Tensor, placement) -> "LocalShard":
+        """The rank's part of ``global_tensor`` under a
+        :class:`~scenenet_tpu_torch.parallel.mesh.Placement`."""
+        index = [slice(None)] * global_tensor.ndim
+        for dim, axis in ((0, placement.batch_axis), (2, placement.space_axis)):
+            if axis is None or dim >= global_tensor.ndim or placement.mesh.shape[axis] == 1:
+                continue
+            if dim == 2 and global_tensor.ndim < 5:
+                continue
+            size = global_tensor.shape[dim] // placement.mesh.shape[axis]
+            start = placement.mesh.coords[axis] * size
+            index[dim] = slice(start, start + size)
+        return cls(placement(global_tensor), tuple(index), tuple(global_tensor.shape))
+
+
+def _process() -> Tuple[int, int]:
+    """(this process's rank, the process count) of the process group."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _shard_leaves(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """:func:`_leaves`, a :class:`LocalShard` being a leaf."""
+    if isinstance(tree, LocalShard):
+        yield prefix, tree
+    elif isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from _shard_leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _shard_leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def save_checkpoint_sharded(path_prefix: str, tree: Any,
+                            metadata: Optional[Dict] = None) -> str:
+    """Save a tree whose leaves may be split over a mesh's ranks: each rank
+    writes only its own parts, with no gather. The JAX package's layout:
+    ``{path_prefix}.proc{K}.npz`` a rank, its entries ``<key>@<ordinal>``
+    for a device tensor (a rank has one device, so the ordinal is 0; a
+    :class:`LocalShard` is the rank's part, a plain tensor a replica) and
+    ``<key>@r`` for a host array or scalar, which every file carries;
+    ``{path_prefix}.proc{K}.index.json``, each entry's slices of the global
+    array; and from the first rank ``{path_prefix}.meta.json`` (the process
+    count, the global shapes, ``metadata``). Restore under the same mesh
+    and process count with :func:`restore_checkpoint_sharded`."""
+    pid, count = _process()
+    flat: Dict[str, np.ndarray] = {}
+    index_meta: Dict[str, Any] = {}
+    shapes: Dict[str, Any] = {}
+    for path, leaf in _shard_leaves(tree):
+        key = path_key(path)
+        if isinstance(leaf, LocalShard):
+            shapes[key] = list(leaf.global_shape)
+            flat[f"{key}@0"] = leaf.data.detach().cpu().numpy()
+            index_meta[f"{key}@0"] = [[sl.start, sl.stop] for sl in leaf.index]
+        elif torch.is_tensor(leaf):
+            shapes[key] = list(leaf.shape)
+            flat[f"{key}@0"] = leaf.detach().cpu().numpy()
+            index_meta[f"{key}@0"] = [[None, None] for _ in range(leaf.ndim)]
+        else:
+            shapes[key] = list(np.shape(leaf))
+            flat[f"{key}@r"] = np.asarray(leaf)
+    os.makedirs(os.path.dirname(path_prefix) or ".", exist_ok=True)
+    np.savez(f"{path_prefix}.proc{pid}.npz", **flat)
+    with open(f"{path_prefix}.proc{pid}.index.json", "w") as f:
+        json.dump(index_meta, f)
+    if pid == 0:
+        with open(f"{path_prefix}.meta.json", "w") as f:
+            json.dump({"process_count": count, "shapes": shapes, "metadata": metadata or {}},
+                      f, default=float)
+    return f"{path_prefix}.proc{pid}.npz"
+
+
+def restore_checkpoint_sharded(path_prefix: str, template: Any) -> Any:
+    """Inverse of :func:`save_checkpoint_sharded`: ``template`` gives the
+    structure and each leaf's place (a :class:`LocalShard` the rank's part,
+    a tensor its device and dtype). Each rank reads only its own file; a
+    checkpoint written by another process count raises."""
+    pid, count = _process()
+    with open(f"{path_prefix}.meta.json") as f:
+        meta = json.load(f)
+    if meta["process_count"] != count:
+        raise ValueError(f"checkpoint written by {meta['process_count']} processes, "
+                         f"restoring under {count}")
+    with np.load(f"{path_prefix}.proc{pid}.npz") as data:
+        def restore(path, leaf):
+            key = path_key(path)
+            if f"{key}@r" in data:
+                return np.asarray(data[f"{key}@r"], dtype=np.asarray(leaf).dtype)
+            entry = f"{key}@0"
+            if entry not in data:
+                raise KeyError(f"checkpoint missing shard {entry!r}")
+            if isinstance(leaf, LocalShard):
+                part = torch.from_numpy(np.array(data[entry])).to(leaf.data.device,
+                                                                   leaf.data.dtype)
+                return LocalShard(part, leaf.index, leaf.global_shape)
+            if not torch.is_tensor(leaf):
+                raise KeyError(f"checkpoint has a device entry for {key!r} but the "
+                               "template leaf is no tensor")
+            return torch.from_numpy(np.array(data[entry])).to(leaf.device, leaf.dtype)
+
+        return _rebuild(template, restore)
+
+
+def _rebuild(tree: Any, fn, prefix: Tuple = ()) -> Any:
+    """``tree`` with each leaf (a :class:`LocalShard` being one) replaced by
+    ``fn(path, leaf)``."""
+    if isinstance(tree, LocalShard):
+        return fn(prefix, tree)
+    if isinstance(tree, Mapping):
+        return {k: _rebuild(tree[k], fn, prefix + (k,)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, fn, prefix + (i,)) for i, v in enumerate(tree))
+    return fn(prefix, tree)

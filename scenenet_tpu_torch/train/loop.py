@@ -45,14 +45,24 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
 - ``log_pointclouds_every`` writes PLYs of the first validation sample's
   input, target and prediction every N epochs of the streamed ``fit``
   (the JAX cached fits write none either); ``use_wandb`` mirrors the logs
-  to wandb where it starts (:class:`RunLogger`).
-
-Not ported yet, and raising where asked for: mesh training (ROADMAP A12).
+  to wandb where it starts (:class:`RunLogger`);
+- ``Trainer(mesh=...)`` trains over a mesh of ranks
+  (:mod:`scenenet_tpu_torch.parallel`): every rank takes its rows of each
+  batch (and, with a ``space`` axis, its z slab, through the halo-exchange
+  forward), the criterion's global sums and the gradients are reduced over
+  the ranks, and the confusion counts summed, so every rank holds the
+  single-device fit's state. The streamed ``fit`` and both cached fits
+  assemble each batch replicated and take the rank's rows; evaluation
+  splits a batch by rows where the data axis divides it and replicates a
+  ragged tail; the first rank alone writes checkpoints, snapshots and logs.
+  A mesh of one rank runs the plain path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
 import time
 import warnings
@@ -84,7 +94,7 @@ from scenenet_tpu_torch.train.state import (
     resolve_optimizer,
 )
 from scenenet_tpu_torch.train.step_graph import StepGraph
-from scenenet_tpu_torch.utils.logging import RunLogger
+from scenenet_tpu_torch.utils.logging import NullLogger, RunLogger
 
 
 @dataclasses.dataclass
@@ -165,17 +175,36 @@ def make_device_voxelize_prep(grid_shape=(64, 64, 64), keep_labels=(15,),
     return prep
 
 
+def _in_mesh(method):
+    """Run ``method`` with the trainer's mesh active, so that the criterion's
+    and the BatchNorms' collectives name its axes."""
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with (self.mesh.active() if self.mesh is not None else contextlib.nullcontext()):
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
 class Trainer:
     """Trainer for an ``nn.Module`` ``model(x) -> pred`` (optionally with
     ``cvx_coefficients()``, ``geneo_params_flat()``, ``last_lambda`` and
     ``parameters_in_dict()``, which SceneNet has). It trains on the device
-    that holds the model's parameters and moves each batch there."""
+    that holds the model's parameters and moves each batch there.
+
+    ``mesh`` (:func:`scenenet_tpu_torch.parallel.make_mesh` or
+    ``make_hybrid_mesh``, axes ``data`` and ``space``) trains over its
+    ranks, each process a rank holding the model on ``mesh.device``: the
+    batch over ``data``, the grid's Z over ``space`` (SceneNet's
+    halo-exchange forward; ``overlap`` picks its overlapped form), the
+    gradients and the loss averaged and the confusion counts summed over
+    both. A stateful model (the UNet) trains over ``data`` alone with its
+    BatchNorms synchronised. A mesh of one rank is the plain path."""
 
     def __init__(self, model: nn.Module, criterion: Callable, config: TrainConfig,
                  logger: Optional[RunLogger] = None,
-                 batch_prep: Optional[Callable] = None, mesh: Optional[Any] = None):
-        if mesh is not None:
-            raise NotImplementedError("mesh training is not ported yet: ROADMAP A12")
+                 batch_prep: Optional[Callable] = None, mesh: Optional[Any] = None,
+                 overlap: bool = False):
         if config.precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got {config.precision!r}")
         if config.accumulate_grad_batches < 1:
@@ -187,9 +216,38 @@ class Trainer:
         self.model = model
         self.criterion = criterion
         self.config = config
-        self.logger = logger or RunLogger(config.run_dir, use_wandb=config.use_wandb)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.overlap = overlap
+        self._axes: Tuple[str, ...] = ()
+        self._space = 1
+        if self.mesh is not None:
+            from scenenet_tpu_torch.parallel.dp import mesh_axes
+
+            self._axes = mesh_axes(self.mesh)
+            self._space = self.mesh.shape.get("space", 1)
+            self._check_mesh_supported()
+        # the first rank alone writes checkpoints, snapshots and logs: every
+        # rank holds the same state and scores
+        self._writes = self.mesh is None or self.mesh.rank == int(self.mesh.devices.flat[0])
+        self.logger = logger or (RunLogger(config.run_dir, use_wandb=config.use_wandb)
+                                 if self._writes else NullLogger())
         self.batch_prep = batch_prep
         self.device = next(model.parameters()).device
+        # axes -> (the criterion, it made distributed over them)
+        self._criteria: Dict[Tuple[str, ...], Tuple[Callable, Callable]] = {}
+        self._spatial: Optional[nn.Module] = None
+        if self.mesh is not None:
+            from scenenet_tpu_torch.parallel.dp import SpatialForward
+            from scenenet_tpu_torch.parallel.mesh import Placement
+
+            self._place = Placement(self.mesh, "data", "space")
+            if self.device != self.mesh.device:
+                raise ValueError(f"the model is on {self.device}, the mesh's rank on "
+                                 f"{self.mesh.device}")
+            if getattr(model, "is_stateful", False):
+                model.with_bn_sync("data")
+            if self._space > 1:
+                self._spatial = SpatialForward(model, self.mesh, overlap=overlap)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.multi_steps: Optional[MultiSteps] = None  # accumulate_grad_batches > 1
         self.step = 0
@@ -199,6 +257,108 @@ class Trainer:
         self.train_counts: List[Tuple[int, int, int, int]] = []
         self.cached_epochs: Optional["CachedEpochs"] = None  # the last cached fit's epochs
         self.preempted = False  # the last fit flushed a snapshot and returned early
+
+    # ---- the mesh ------------------------------------------------------------
+
+    def _check_mesh_supported(self, pure_dp: bool = False,
+                              batch_size: Optional[int] = None) -> None:
+        """The loud guards of every mesh fit: what the mesh paths do not
+        train raises here rather than training something else."""
+        shape = self.mesh.shape
+        if set(shape) - {"data", "space"}:
+            raise NotImplementedError(f"mesh axes {tuple(shape)}: the port trains over "
+                                      "'data' and 'space'; the 'model' axis (ensemble "
+                                      "members, channel TP, the pipeline) is ROADMAP A12b")
+        if getattr(self.model, "is_stateful", False):
+            if pure_dp:
+                raise ValueError("cached-epoch mesh training supports stateless models "
+                                 "only; stateful models (unet) stream batches via fit()")
+            if self._space > 1:
+                raise ValueError("stateful models do not support spatial sharding — got "
+                                 f"{dict(shape)}")
+            if not hasattr(self.model, "with_bn_sync"):
+                raise ValueError(f"stateful model {type(self.model).__name__} lacks "
+                                 "with_bn_sync(axis); cross-shard batch-stats sync is "
+                                 "required for DP mesh training")
+        if self._space > 1 and not hasattr(self.model, "synthesize_kernels"):
+            raise ValueError("spatial sharding (mesh space > 1) requires the SceneNet "
+                             "forward protocol (synthesize_kernels/effective_lambdas); "
+                             f"model {type(self.model).__name__} does not provide it — "
+                             "pure-DP (space=1) supports any stateless model")
+        if pure_dp and self._space > 1:
+            raise ValueError("cached-epoch mesh training is pure-DP (mesh space must be 1); "
+                             "spatially-sharded training streams batches via fit()")
+        if batch_size is not None and batch_size % shape["data"]:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis "
+                             f"({shape['data']})")
+
+    def _rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of ``t`` (along ``dim``) under a mesh, else ``t``."""
+        return self._place.part(t, dim, "data") if self.mesh is not None else t
+
+    def _slab(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's z slab of a (B, C, Z, X, Y) grid where Z is sharded."""
+        return self._place.part(t, 2, "space") if self.mesh is not None else t
+
+    def shard(self, batch) -> Tuple[torch.Tensor, ...]:
+        """This rank's part of a global batch, on the device: its rows, and
+        for (x, y) grids (no batch prep) its z slab. Without a mesh, the
+        batch on the device."""
+        if self.mesh is None:
+            return self.to_device(batch)
+        part = [self._rows(torch.as_tensor(b)) for b in batch]
+        if self.batch_prep is None:
+            part = [self._slab(t) if t.ndim >= 5 else t for t in part]
+        return tuple(t.to(self.device) for t in part)
+
+    def _replicate(self) -> None:
+        """Under a mesh, the one-time broadcast of the parameters, the
+        buffers and the optimizer's state from the first rank at fit start."""
+        if self.mesh is None:
+            return
+        from scenenet_tpu_torch.parallel.mesh import ensure_replicated
+
+        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        tensors += [v for st in self.optimizer.state.values() for v in st.values()
+                    if torch.is_tensor(v)]
+        with torch.no_grad():
+            ensure_replicated(tensors, self.mesh)
+
+    def _triggered(self, guard: PreemptionGuard) -> bool:
+        """A SIGTERM on any rank: the ranks stop at the same boundary."""
+        if self.mesh is None:
+            return guard.triggered
+        from scenenet_tpu_torch.parallel.mesh import any_rank
+
+        return any_rank(guard.triggered, self.mesh)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            from scenenet_tpu_torch.parallel.mesh import barrier
+
+            barrier(self.mesh)
+
+    def _reduce_step(self, loss: torch.Tensor) -> torch.Tensor:
+        """After the backward, under a mesh: the gradients averaged over the
+        mesh's axes (one all-reduce) and the loss averaged (an identity for a
+        distributed criterion, which is global already)."""
+        if self.mesh is None:
+            return loss
+        from scenenet_tpu_torch.parallel.dp import reduce_gradients
+        from scenenet_tpu_torch.parallel.mesh import pmean
+
+        reduce_gradients(self.model.parameters(), self._axes, self.mesh)
+        return pmean(loss, self._axes, self.mesh)
+
+    def _count(self, mstate: MetricState, pred: torch.Tensor, y: torch.Tensor,
+               axes: Optional[Tuple[str, ...]] = None) -> MetricState:
+        """The batch's confusion counts added, summed over the mesh's axes."""
+        axes = self._axes if axes is None else axes
+        if not axes:
+            return update_metrics(mstate, pred, y, self.config.tau)
+        from scenenet_tpu_torch.parallel.dp import psum_confusion_delta
+
+        return psum_confusion_delta(mstate, pred, y, self.config.tau, axes, self.mesh)
 
     # ---- steps ---------------------------------------------------------------
 
@@ -210,17 +370,35 @@ class Trainer:
         from bf16 copies of the floating parameters and a bf16 x (the
         buffers, BatchNorm's running statistics, stay the model's own f32
         tensors)."""
+        net = self._spatial if self._spatial is not None else self.model
         if self.config.precision == "bf16":
-            half = cast_half(dict(self.model.named_parameters()))
-            return functional_call(self.model, half, (x.to(torch.bfloat16),)).float()
-        return self.model(x).float()
+            half = cast_half(dict(net.named_parameters()))
+            return functional_call(net, half, (x.to(torch.bfloat16),)).float()
+        return net(x).float()
 
-    def _loss(self, x: torch.Tensor, y: torch.Tensor):
+    def _loss(self, x: torch.Tensor, y: torch.Tensor, axes: Optional[Tuple[str, ...]] = None):
+        """The loss of the batch (x, y) and the prediction; under a mesh by
+        the criterion made distributed over ``axes`` (default the mesh's)."""
         pred = self._forward(x)
         m = self.model
         cvx = m.cvx_coefficients() if hasattr(m, "cvx_coefficients") else {}
         geneo = m.geneo_params_flat() if hasattr(m, "geneo_params_flat") else {}
-        return self.criterion(pred, y, cvx, geneo, getattr(m, "last_lambda", None)), pred
+        return self.distributed_criterion(axes)(pred, y, cvx, geneo,
+                                                getattr(m, "last_lambda", None)), pred
+
+    def distributed_criterion(self, axes: Optional[Tuple[str, ...]] = None) -> Callable:
+        """The criterion made distributed over ``axes`` (default the mesh's;
+        ``()`` the criterion itself), made once."""
+        axes = self._axes if axes is None else axes
+        if not axes:
+            return self.criterion
+        made = self._criteria.get(axes)
+        if made is None or made[0] is not self.criterion:
+            from scenenet_tpu_torch.parallel.dp import make_distributed
+
+            made = self._criteria[axes] = (self.criterion,
+                                           make_distributed(self.criterion, axes))
+        return made[1]
 
     def setup_optimizer(self, capturable: bool = False) -> torch.optim.Optimizer:
         """A fresh optimizer over the model's trainable parameters;
@@ -249,7 +427,12 @@ class Trainer:
                     b.copy_(v)
             return loss.detach()
 
-        return closure
+        if self.mesh is None:
+            return closure
+        # every rank's linesearch must see the global value and slope
+        from scenenet_tpu_torch.parallel.dp import linesearch_value_fn
+
+        return linesearch_value_fn(closure, self.model.parameters(), self._axes, self.mesh)
 
     def _update(self, apply: bool, x: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None, loss: Optional[torch.Tensor] = None) -> None:
@@ -300,12 +483,18 @@ class Trainer:
                  if k.startswith("multi_steps/")})
         self.step = int(state["step"])
 
+    @_in_mesh
     def train_step(self, mstate: MetricState, *batch: torch.Tensor
                    ) -> Tuple[MetricState, torch.Tensor]:
         """One optimizer step on a batch already on the device: prep,
         forward, loss, backward, update, confusion counts (of the
-        prediction before the update). Returns the counts and the loss."""
+        prediction before the update). Returns the counts and the loss.
+        Under a mesh the batch is this rank's part (:meth:`shard`): a raw
+        batch is prepared on the rank and, where Z is sharded, cut to its
+        slab; the loss and the counts returned are the global ones."""
         x, y = self.batch_prep(*batch) if self.batch_prep else batch
+        if self.batch_prep is not None:
+            x, y = self._slab(x), self._slab(y)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         # debug_nans: a NaN made in the forward or the backward raises,
@@ -316,18 +505,46 @@ class Trainer:
                 raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at step "
                                          f"{self.step}")
             loss.backward()
-        loss = loss.detach()
+        loss = self._reduce_step(loss.detach())
         self._update(self.multi_steps is not None and self.multi_steps.advance(), x, y, loss)
         self.step += 1
-        return update_metrics(mstate, pred.detach(), y, self.config.tau), loss
+        return self._count(mstate, pred.detach(), y), loss
 
     @torch.no_grad()
     def eval_step(self, mstate: MetricState, *batch: torch.Tensor
                   ) -> Tuple[MetricState, torch.Tensor, torch.Tensor]:
+        """Forward, loss and confusion counts of a batch on the device, on
+        this process alone (a mesh's evaluation is :meth:`sharded_eval_step`)."""
         x, y = self.batch_prep(*batch) if self.batch_prep else batch
         self.model.eval()
-        loss, pred = self._loss(x, y)
+        loss, pred = self._loss(x, y, ())
         return update_metrics(mstate, pred, y, self.config.tau), loss, pred
+
+    @torch.no_grad()
+    @_in_mesh
+    def sharded_eval_step(self, mstate: MetricState, *batch
+                          ) -> Tuple[MetricState, torch.Tensor, torch.Tensor]:
+        """:meth:`eval_step` of a global batch over the mesh: split by rows
+        where the data axis divides it, else replicated over ``data`` (a
+        ragged tail: every rank takes every row, on its z slab) with the
+        loss and counts reduced over ``space`` alone, so that no sample is
+        counted twice. Returns the global counts and loss and the rank's
+        part of the prediction. Without a mesh, :meth:`eval_step`."""
+        if self.mesh is None:
+            return self.eval_step(mstate, *self.to_device(batch))
+        from scenenet_tpu_torch.parallel.mesh import pmean
+
+        divisible = int(torch.as_tensor(batch[0]).shape[0]) % self.mesh.shape["data"] == 0
+        axes = self._axes if divisible else tuple(a for a in self._axes if a != "data")
+        part = [torch.as_tensor(b) for b in batch]
+        if divisible:
+            part = [self._rows(t) for t in part]
+        part = [t.to(self.device) for t in part]
+        x, y = self.batch_prep(*part) if self.batch_prep else part[:2]
+        x, y = self._slab(x), self._slab(y)
+        self.model.eval()
+        loss, pred = self._loss(x, y, axes)
+        return self._count(mstate, pred, y, axes), pmean(loss, axes, self.mesh), pred
 
     def _grad_stats(self) -> Dict[str, float]:
         """The gradient snapshot of the last step: a frozen parameter's
@@ -351,11 +568,11 @@ class Trainer:
         mstate = init_metric_state(self.device)
         losses = []
         for batch in loader:
-            batch = self.to_device(batch)
-            mstate, loss, pred = self.eval_step(mstate, *batch)
+            mstate, loss, pred = self.sharded_eval_step(mstate, *batch)
             losses.append(loss)
-            if cloud_epoch is not None:
-                self._export_pointclouds(batch, pred, cloud_epoch)
+            if cloud_epoch is not None and self._writes and self._space == 1:
+                # the first rank's rows start with the batch's first sample
+                self._export_pointclouds(self.to_device(batch), pred, cloud_epoch)
                 cloud_epoch = None
         scores = {f"{prefix}_{k}": v for k, v in
                   compute_metrics(mstate, self.config.fbeta).items()}
@@ -393,6 +610,7 @@ class Trainer:
 
     # ---- fit / evaluate ------------------------------------------------------
 
+    @_in_mesh
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             resume_from: Optional[str] = None) -> Tuple[nn.Module, Dict[str, float]]:
         """Per-batch training loop over a host-fed loader; trains
@@ -407,11 +625,14 @@ class Trainer:
         epoch it had taken: exact where the loader gives the epoch's
         batches in the same order again (a list, an unshuffled loader). A
         fit that completes deletes the snapshot.
+
+        Under a mesh every rank iterates the same loader (seeded alike) and
+        takes its part of each batch (:meth:`shard`).
         """
         cfg = self.config
         self.setup_optimizer()
         self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
-                                              top_k=cfg.checkpoint_top_k)
+                                              top_k=cfg.checkpoint_top_k, write=self._writes)
         stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
                    if cfg.early_stop_metric else None)
         snap_path = os.path.join(cfg.checkpoint_dir, SNAPSHOT_NAME)
@@ -428,6 +649,7 @@ class Trainer:
                 loss_sum = loss_sum.to(self.device)
                 epoch, skip_batches = int(cursor["epoch"]), int(cursor["next_batch"])
                 loss_count = int(cursor["loss_count"])
+        self._replicate()
         self.preempted = False
         with PreemptionGuard() as guard:
             while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
@@ -441,26 +663,30 @@ class Trainer:
                 for bi, batch in enumerate(train_loader):
                     if bi < skip_batches:
                         continue  # fast-forward the resumed epoch
-                    mstate, loss = self.train_step(mstate, *self.to_device(batch))
+                    mstate, loss = self.train_step(mstate, *self.shard(batch))
                     loss_sum = loss_sum + loss
                     loss_count += 1
                     since_snap += 1
                     snap_due = (cfg.checkpoint_every_n_steps > 0
                                 and since_snap >= cfg.checkpoint_every_n_steps)
-                    if guard.triggered or snap_due:
-                        save_train_snapshot(snap_path, self.train_state(), mstate, loss_sum, {},
-                                            {"kind": "batch", "epoch": epoch,
-                                             "next_batch": bi + 1, "loss_count": loss_count,
-                                             "step": self.step})
+                    triggered = self._triggered(guard)
+                    if triggered or snap_due:
+                        if self._writes:
+                            save_train_snapshot(snap_path, self.train_state(), mstate, loss_sum,
+                                                {}, {"kind": "batch", "epoch": epoch,
+                                                     "next_batch": bi + 1,
+                                                     "loss_count": loss_count,
+                                                     "step": self.step})
                         since_snap = 0
-                        if guard.triggered:
+                        if triggered:
                             self.preempted = True
                             print(f"[preempt] SIGTERM: snapshot flushed to {snap_path} "
                                   f"(epoch {epoch}, batch {bi + 1})", flush=True)
                             if tracer is not None:
                                 tracer.__exit__(None, None, None)
+                            self._barrier()
                             return self.model, self.best.best
-                    if cfg.log_gradients and not grad_logged:
+                    if cfg.log_gradients and not grad_logged and self._writes:
                         # one gradient snapshot per epoch
                         self.logger.log_params(self._grad_stats(), self.step)
                         grad_logged = True
@@ -492,11 +718,14 @@ class Trainer:
                 epoch += 1
         # completed: a leftover snapshot (a periodic one, or the resumed one)
         # must not turn the next launch of the experiment into a resume
-        discard_snapshot(snap_path)
+        if self._writes:
+            discard_snapshot(snap_path)
+        self._barrier()  # the first rank's checkpoints are written for every rank
         return self.model, self.best.best
 
     # ---- device-resident epochs ---------------------------------------------------
 
+    @_in_mesh
     def fit_cached(self, cache, batch_size: int = 16, augment: bool = True,
                    generator: Optional[torch.Generator] = None,
                    val_loader: Optional[Iterable] = None,
@@ -525,14 +754,17 @@ class Trainer:
             return {"angles": angles, "flips": flips}
 
         def load(rows, draws, cursor):
-            aug = ((draws["angles"].index_select(0, cursor)[0],
-                    draws["flips"].index_select(0, cursor)[0]) if augment else ())
+            # under a mesh the rank's rows and their draws: the prep (K3)
+            # voxelizes the rank's own samples
+            aug = ((self._rows(draws["angles"].index_select(0, cursor)[0]),
+                    self._rows(draws["flips"].index_select(0, cursor)[0])) if augment else ())
             return self.batch_prep(*gather_augment(cache.points, cache.labels, cache.mask,
-                                                   rows, *aug))
+                                                   self._rows(rows), *aug))
 
         return self._run_cached_epochs(len(cache), batch_size, draw, load, generator,
                                        val_loader, resume_from)
 
+    @_in_mesh
     def fit_grid_cached(self, grids, batch_size: int = 16, augment: bool = True,
                         generator: Optional[torch.Generator] = None,
                         val_loader: Optional[Iterable] = None,
@@ -552,9 +784,10 @@ class Trainer:
             return {"d4": draw_d4(n_batches, batch_size, gen, grids.device)} if augment else {}
 
         def load(rows, draws, cursor):
+            rows = self._rows(rows)
             x, y = grids.x.index_select(0, rows), grids.y.index_select(0, rows)
             if augment:
-                bits = draws["d4"].index_select(0, cursor)[0]
+                bits = self._rows(draws["d4"].index_select(0, cursor)[0], dim=1)
                 x, y = d4_transform_grids(x, *bits), d4_transform_grids(y, *bits)
             return x.to(torch.float32), y.to(torch.float32)
 
@@ -562,13 +795,16 @@ class Trainer:
                                        val_loader, resume_from)
 
     @torch.no_grad()
+    @_in_mesh
     def evaluate_cached(self, grids, batch_size: int = 16,
                         prefix: str = "test") -> Dict[str, float]:
         """Scores of ``self.model`` over a
         :class:`~scenenet_tpu_torch.data.device_cache.DeviceGridCache` in
         order, the samples past the last full batch in one tail batch; the
         loss is the sample-weighted mean, so a ragged tail weighs by its
-        samples."""
+        samples. Under a mesh each batch goes through
+        :meth:`sharded_eval_step` (the tail replicated where the data axis
+        does not divide it)."""
         self._check_cached("evaluate_cached", grids, 1)
         cfg = self.config
         n = len(grids)
@@ -578,8 +814,11 @@ class Trainer:
         for start in range(0, n, batch_size):
             x = grids.x[start:start + batch_size].to(torch.float32)
             y = grids.y[start:start + batch_size].to(torch.float32)
-            loss, pred = self._loss(x, y)
-            mstate = update_metrics(mstate, pred, y, cfg.tau)
+            if self.mesh is not None:
+                mstate, loss, _ = self.sharded_eval_step(mstate, x, y)
+            else:
+                loss, pred = self._loss(x, y)
+                mstate = update_metrics(mstate, pred, y, cfg.tau)
             weighted += loss.double() * x.shape[0]
         scores = {f"{prefix}_{k}": v for k, v in compute_metrics(mstate, cfg.fbeta).items()}
         scores[f"{prefix}_loss"] = float(weighted) / max(n, 1)
@@ -587,6 +826,8 @@ class Trainer:
         return scores
 
     def _check_cached(self, name: str, cache, batch_size: int) -> None:
+        if self.mesh is not None and name != "evaluate_cached":
+            self._check_mesh_supported(pure_dp=True, batch_size=batch_size)
         if getattr(self.model, "is_stateful", False):
             raise ValueError(f"{name} supports stateless models; a stateful model "
                              "(BatchNorm statistics) streams batches through fit()")
@@ -621,7 +862,7 @@ class Trainer:
         cfg = self.config
         self.cached_epochs = epochs = CachedEpochs(self, n, batch_size, draw, load, generator)
         self._ckpt = ckpt = CheckpointManager(cfg.checkpoint_dir, _monitor_modes(),
-                                              top_k=cfg.checkpoint_top_k)
+                                              top_k=cfg.checkpoint_top_k, write=self._writes)
         stopper = (EarlyStopping(cfg.early_stop_metric, cfg.early_stop_patience)
                    if cfg.early_stop_metric else None)
         self.preempted = False
@@ -645,8 +886,11 @@ class Trainer:
                 mid_epoch = start_chunk < len(chunks)
                 if not mid_epoch:
                     epoch, start_chunk = epoch + 1, 0
+        self._replicate()
 
         def flush(next_chunk: int) -> None:
+            if not self._writes:
+                return
             save_train_snapshot(snap_path, self.train_state(), epochs.mstate, epochs.loss_sum,
                                 epochs.keys(), {"kind": "chunk", "epoch": epoch,
                                                 "next_chunk": next_chunk,
@@ -663,12 +907,13 @@ class Trainer:
                 for ci in range(start_chunk, len(chunks)):
                     epochs.run_chunk(ci)
                     boundary = ci + 1  # the resume position if the fit stops here
-                    if guard.triggered:
+                    if self._triggered(guard):
                         flush(boundary)
                         self.preempted = True
                         self.logger.log_metrics({"preempted_at_step": self.step}, epoch)
                         print(f"[preempt] SIGTERM: snapshot flushed to {snap_path} (epoch "
                               f"{epoch}, chunk {boundary}/{len(chunks)})", flush=True)
+                        self._barrier()
                         return self.model, self.best.best
                     if (cfg.checkpoint_every_n_steps > 0
                             and self.step - last_snap_step >= cfg.checkpoint_every_n_steps
@@ -694,9 +939,12 @@ class Trainer:
                     break
                 epoch += 1
         # completed: the snapshot must not turn the next launch into a resume
-        discard_snapshot(snap_path)
+        if self._writes:
+            discard_snapshot(snap_path)
+        self._barrier()
         return self.model, self.best.best
 
+    @_in_mesh
     def evaluate(self, loader: Iterable, prefix: str = "test") -> Dict[str, float]:
         """Scores and mean loss of ``self.model`` over ``loader``."""
         scores = self._scores(loader, prefix)
@@ -707,7 +955,8 @@ class Trainer:
     def predict(self, loader: Iterable):
         """A generator of the model's predictions over ``loader`` as numpy
         arrays: each batch through ``batch_prep`` (where the trainer has one)
-        and the eval-mode forward in f32, as the JAX package's ``predict``."""
+        and the eval-mode forward in f32, as the JAX package's ``predict``
+        (under a mesh too: every rank forwards the whole batch)."""
         self.model.eval()
         for batch in loader:
             if self.batch_prep is not None:
@@ -736,11 +985,16 @@ class Trainer:
         return restore_checkpoint(path, template)
 
 
-def trains_by_replay(device: torch.device, optimizer) -> bool:
+def trains_by_replay(device: torch.device, optimizer, mesh: Optional[Any] = None) -> bool:
     """Whether a cached fit runs its step as a replayed CUDA graph: on a
     card, under any optimizer but L-BFGS (by name or instance), whose
-    linesearch reads its values on the host. The streamed fit always steps
-    eagerly. ``model_backend: autotune`` times its candidates by this rule."""
+    linesearch reads its values on the host, and, over a mesh of several
+    ranks, under NCCL alone (its all-reduce may sit inside the graph; a gloo
+    collective goes through the host and cannot be captured). The streamed
+    fit always steps eagerly. ``model_backend: autotune`` times its
+    candidates by this rule."""
+    if mesh is not None and mesh.size > 1 and mesh.backend != "nccl":
+        return False
     return torch.device(device).type == "cuda" and not optimizer_needs_value_fn(optimizer)
 
 
@@ -784,7 +1038,7 @@ class CachedEpochs:
         self.generator = (generator if generator is not None
                           else torch.Generator(dev).manual_seed(cfg.max_epochs))
         trainer.setup_optimizer(capturable=on_card)
-        eager = not trains_by_replay(dev, trainer.optimizer)
+        eager = not trains_by_replay(dev, trainer.optimizer, trainer.mesh)
         if optimizer_needs_value_fn(trainer.optimizer):
             print("[lbfgs] the linesearch reads its values on the host: the cached steps "
                   "run eagerly, no CUDA graph", flush=True)
@@ -814,9 +1068,9 @@ class CachedEpochs:
             with torch.autograd.set_detect_anomaly(anomaly):
                 loss, pred = trainer._loss(x, y)
                 loss.backward()
-            loss = loss.detach()
+            loss = trainer._reduce_step(loss.detach())
             trainer._update(apply, x, y, loss)
-            for buf, v in zip(mstate, update_metrics(mstate, pred.detach(), y, cfg.tau)):
+            for buf, v in zip(mstate, trainer._count(mstate, pred.detach(), y)):
                 buf.copy_(v)
             loss_sum.add_(loss)
             last_loss.copy_(loss)

@@ -53,3 +53,17 @@ class RunLogger:
         self._params.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """A logger that writes nothing: the ranks of a mesh other than the
+    first, whose scores are the first's, and the mesh steps built alone."""
+
+    def log_metrics(self, scores: Dict[str, float], step: int) -> None:
+        pass
+
+    def log_params(self, params: Dict[str, float], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -18,6 +18,7 @@ violation driven down, ``experiments/admm.yaml``'s L-BFGS at learning rate
 
 import math
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -129,7 +130,9 @@ def test_val_scores_checkpoints_early_stop(tmp_path):
 def test_mesh_raises_a12(tmp_path):
     net = SceneNet.create(kernel_size=KS, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ADMMTrainer(net, resolve_criterion("mse")(), _cfg(tmp_path, "m"), mesh=object())
+        # the data and space axes are ported (A12); the 'model' axis raises (A12b)
+        ADMMTrainer(net, resolve_criterion("mse")(), _cfg(tmp_path, "m"),
+                    mesh=SimpleNamespace(size=2, shape={"data": 1, "model": 2}))
 
 
 def test_augmented_loss_matches_jax():

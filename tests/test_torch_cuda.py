@@ -2018,3 +2018,47 @@ def test_autotune_times_graph_replays(dev, tmp_path):
     eager = tune.autotune_cache_key(torch.cuda.get_device_name(dev), 4, (64, 64, 64), "adam",
                                     ("cuda", "cuda_mxu"), "", False)
     assert eager != keys[0]
+
+
+# ---- A12: the mesh on gloo ranks that share the card, and NCCL on one rank ----------
+
+def _mesh_legs():
+    import os
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import torch_mesh_legs
+
+    return torch_mesh_legs, here
+
+
+def test_mesh_fits_on_card_match_the_single_rank_twin(dev, tmp_path):
+    """2 and 4 gloo ranks on cuda:0: the grid fit, the grid cache and the
+    z-sharded fit (B10's halo forms launched) against the same fits on one
+    rank on the card: confusion counts exact, losses rtol 1e-5."""
+    from scenenet_tpu_torch.parallel import launch
+
+    legs, here = _mesh_legs()
+    r2 = launch.run_ranks("torch_mesh_legs:card_ranks_2", 2, {"tmp": str(tmp_path / "m2")},
+                          timeout=300, path=here)
+    r4 = launch.run_ranks("torch_mesh_legs:card_ranks_4", 4, {"tmp": str(tmp_path / "m4")},
+                          timeout=300, path=here)
+    twins = {"dp": legs.fit_leg("dp", str(tmp_path / "t"), device=dev),
+             "cached_grids": legs.cached_leg("grids", str(tmp_path / "t"), device=dev),
+             "space": legs.fit_leg("space", str(tmp_path / "t"), device=dev)}
+    for got, key in ((r2[0], "dp"), (r2[0], "cached_grids"), (r4[0], "space")):
+        want = twins[key]
+        assert got[key]["counts"] == want["counts"], key
+        np.testing.assert_allclose([s["train_loss"] for _, s in got[key]["scores"]],
+                                   [s["train_loss"] for _, s in want["scores"]], rtol=1e-5)
+    assert all(r["launches"][0] > 0 and r["launches"][1] > 0 for r in r4)
+
+
+def test_nccl_all_reduce_is_captured_in_a_graph(dev):
+    from scenenet_tpu_torch.parallel import launch
+
+    _, here = _mesh_legs()
+    got = launch.run_ranks("torch_mesh_legs:card_nccl_rank", 1, timeout=180, path=here,
+                           env={"TORCH_NCCL_ASYNC_ERROR_HANDLING": "0"})[0]
+    assert got == {"eager": True, "replay": True}

@@ -241,8 +241,10 @@ def test_quantile_loss_takes_squeezed_targets_and_refuses_mesh_axes():
     gt = gt[:, 0]  # (B, Z, X, Y)
     got = float(t(torch.from_numpy(pred), torch.from_numpy(gt)))
     np.testing.assert_allclose(got, float(j(jnp.asarray(pred), jnp.asarray(gt))), rtol=TOL)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tq.QuantileLoss(w_mse=t.w_mse, axis_names=("data",))
+    # mesh axes are ported (A12): outside a mesh's ranks they are refused
+    with pytest.raises(RuntimeError, match="no mesh is active"):
+        tq.QuantileLoss(w_mse=t.w_mse, axis_names=("data",))(torch.from_numpy(pred),
+                                                             torch.from_numpy(gt))
 
 
 @pytest.mark.parametrize("seed", [0, 3])
