@@ -128,7 +128,21 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   graph capture, and ``cli.train --set mesh_data=2 --dist-backend gloo``
   under ``python -m torch.distributed.run --nproc-per-node 2``. Its step
   times say that the ranks compute on the card; they do not measure
-  scaling.
+  scaling;
+- the model axis (A12b): K10 and its bf16 form at a channel-TP rank's
+  shapes (C_out/2, C_out/4 and the dx at C_in/m) against their plain
+  versions, timed beside F.conv3d; ``serve --mesh-ensemble 2`` (4 quantile
+  members in 2 groups on cuda:0) against the unsharded pipeline through K1
+  + K2 and K5, a dispatch still one CUDA graph; and in ``[mesh]``, each
+  against its one-rank twin: ep (data 2 × model 2, the quantile ensemble's
+  members, 64³ batch 16 through the grid cache, counts exact, K2 and K4 on
+  every rank), tp (data 2 × model 2, the UNet's channels at its full
+  ladder, 64³ batch 4) and tp_bf16 (data 1 × model 2, bf16: K10's bf16
+  form), counts within 0.05% of the voxels; pp (data 2 × stage 2, the
+  CNN's convs as two stages, 4 microbatches a rank) and unet_pp (stage 2,
+  the UNet's encoder and decoder, eval mode); and ``cli.train --set
+  model=quantile criterion=quantile_geneo mesh_ensemble=3`` under
+  ``torch.distributed.run --nproc-per-node 3``.
 
 It prints one line per phase, the card's name and power limit, a JSON line
 of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
@@ -261,6 +275,13 @@ MC_BF16_RAGGED = [(2, 32, 32, (6, 6, 7)), (3, 32, 64, (5, 5, 5)), (1, 24, 32, (9
                   (4, 100, 40, (6, 7, 6)), (5, 17, 72, (4, 4, 4)), (2, 64, 32, (8, 8, 2)),
                   (1, 1, 32, (9, 9, 9)), (2, 2, 32, (7, 5, 3)), (3, 3, 40, (6, 6, 8)),
                   (4, 4, 64, (5, 4, 9))]
+# K10 at the shapes of channel TP over m = 2, 4, 8: a rank's forward conv at C_out/m ("fwd")
+# and the dx of a column-parallel conv, whose input has the rank's C_out/m channels ("dx");
+# (what, C_in, C_out, cubic extent at a 64^3 grid); at m = 8 the dx of a 32-wide layer has
+# 4 input channels: the FMA kernel
+TP_K10_SHAPES = [("fwd", 1, 16, 64), ("fwd", 32, 16, 64), ("fwd", 32, 8, 64),
+                 ("fwd", 256, 128, 8), ("dx", 16, 32, 64), ("dx", 8, 32, 64),
+                 ("dx", 4, 32, 64), ("dx", 128, 256, 8)]
 # UNet3D's 18 3x3x3 convs in forward order: (C_in, C_out, cubic extent at a 64^3 grid)
 UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 16),
               (128, 128, 16), (128, 256, 8), (256, 256, 8), (256, 256, 4), (256, 256, 4),
@@ -622,7 +643,13 @@ MESH_STEPS = 3
 MESH_LR = 1e-2
 MESH_CRITERION = dict(weight_alpha=1, weight_epsilon=0.1, mse_weight=1, convex_weight=5,
                       tversky_alpha=2, tversky_beta=1, tversky_smooth=1e-6, focal_gamma=4)
-MESH_COUNTERS = ("stencil_conv", "stencil_dk", "points_binary", "conv3d_mc")
+MESH_COUNTERS = ("stencil_conv", "stencil_dk", "points_binary", "conv3d_mc", "conv3d_mc_bf16")
+# the model axis's legs: the quantile ensemble of 4 members (ep, ep_serve), the pipeline's
+# microbatches a rank, and the count allowance of a UNet or CNN leg against its twin: a
+# probability within the sums' rounding of tau may flip (JAX's tp_gspmd allowance)
+EP_QUANTILES = (0.1, 0.3, 0.5, 0.9)
+PP_MICROBATCHES = 4
+COUNT_ALLOWANCE = 5e-4
 
 
 def mesh_grids(n: int, grid, seed: int):
@@ -670,7 +697,18 @@ def mesh_counters():
     from scenenet_tpu_torch.ops import cuda_conv, cuda_conv_mc, cuda_hist
 
     return {"stencil_conv": cuda_conv.LAUNCHES, "stencil_dk": cuda_conv.DK_LAUNCHES,
-            "points_binary": cuda_hist.BINARY_LAUNCHES, "conv3d_mc": cuda_conv_mc.MC_LAUNCHES}
+            "points_binary": cuda_hist.BINARY_LAUNCHES, "conv3d_mc": cuda_conv_mc.MC_LAUNCHES,
+            "conv3d_mc_bf16": cuda_conv_mc.MC_BF16_LAUNCHES}
+
+
+def flax_form_twin(model, dev):
+    """A one-rank twin's UNet with its BatchNorms in flax's form, E[x²] − E[x]²,
+    the form a sharded BatchNorm takes (through a mesh of one rank, over
+    which the statistics' mean is the identity)."""
+    from scenenet_tpu_torch.parallel import make_mesh
+
+    make_mesh((1, 1), axis_names=("data", "model"), device=dev)  # made active
+    return model.with_bn_sync("data")
 
 
 def mesh_fit(kind: str, dev, tmp: str, mesh=None, tag: str = "", **cfg) -> dict:
@@ -699,6 +737,22 @@ def mesh_fit(kind: str, dev, tmp: str, mesh=None, tag: str = "", **cfg) -> dict:
     if kind == "unet":
         model = UNet3D.create(seed=0, backend="cuda").to(dev)
         batches = mesh_batches(MESH_STEPS, 4, GRID, 31)
+    elif kind in ("tp", "tp_bf16"):
+        # channel TP (or its twin): the UNet at its full ladder, streamed
+        dtype = torch.bfloat16 if kind == "tp_bf16" else torch.float32
+        model = UNet3D.create(seed=0, backend="cuda", dtype=dtype).to(dev)
+        config.precision = "bf16" if kind == "tp_bf16" else "f32"
+        if mesh is None:
+            flax_form_twin(model, dev)
+        batches = mesh_batches(MESH_STEPS, 4, GRID, 35)
+    elif kind == "ep":
+        from scenenet_tpu_torch.models.scenenet import QuantileSceneNet
+
+        model = QuantileSceneNet.create(kernel_size=(9, 5, 5), quantiles=EP_QUANTILES, seed=0,
+                                        backend="cuda").to(dev)
+        crit = resolve_criterion("quantile_geneo")(
+            quantiles=EP_QUANTILES, **{k: MESH_CRITERION[k] for k in (
+                "weight_alpha", "weight_epsilon", "mse_weight", "convex_weight")})
     else:
         model = SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev)
         batches = (mesh_batches(MESH_STEPS, BIG_BATCH, BIG_GRID, 32) if kind == "big"
@@ -710,7 +764,7 @@ def mesh_fit(kind: str, dev, tmp: str, mesh=None, tag: str = "", **cfg) -> dict:
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     trials = []
-    if kind == "grids":
+    if kind in ("grids", "ep"):
         trainer.fit_grid_cached(MeshGridCache(dev), TRAIN_BATCH, augment=True,
                                 generator=torch.Generator(dev).manual_seed(5))
     elif kind == "lbfgs":
@@ -746,18 +800,97 @@ def mesh_fit(kind: str, dev, tmp: str, mesh=None, tag: str = "", **cfg) -> dict:
            "launches": {k: c.count for k, c in counters.items()},
            "preempted": trainer.preempted, "step": trainer.step}
     state = _module_state(model)
-    out["params"] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()
+    out["params"] = {k: v.detach().float().cpu().numpy().copy() for k, v in state.items()
                      if not k.startswith("batch_stats")}
     out["stats"] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()
                     if k.startswith("batch_stats")}
     return out
 
 
+def mesh_pp(dev, mesh=None) -> dict:
+    """The CnnBaseline (3 channels, (3,3,3)) at 64³, batch 16, 3 SGD steps:
+    over ``mesh`` (data × stage) through ``make_pipeline_train_step``,
+    ``PP_MICROBATCHES`` microbatches a rank, its stage convs on K10's FMA
+    kernel; with ``mesh=None`` the unpipelined model, its twin."""
+    import torch
+
+    from scenenet_tpu_torch.losses import resolve_criterion
+    from scenenet_tpu_torch.models.cnn_baseline import CnnBaseline
+    from scenenet_tpu_torch.parallel.pp import (
+        cnn_pipeline_params, cnn_unstack_params, make_pipeline_train_step,
+    )
+    from scenenet_tpu_torch.train.metrics import init_metric_state, metric_counts, update_metrics
+
+    crit = resolve_criterion("geneo_tversky")(**MESH_CRITERION)
+    model = CnnBaseline.create(conv_num=3, kernel_size=(3, 3, 3), seed=0,
+                               backend="cuda").to(dev)
+    batches = mesh_batches(MESH_STEPS, TRAIN_BATCH, GRID, 36)
+    counters = mesh_counters()
+    for c in counters.values():
+        c.reset()
+    mstate, losses = init_metric_state(dev), []
+    if mesh is not None:
+        stacked = {k: torch.nn.Parameter(v) for k, v in cnn_pipeline_params(model).items()}
+        opt = torch.optim.SGD(stacked.values(), lr=MESH_LR)
+        step = make_pipeline_train_step(model, crit, opt, mesh, stacked,
+                                        n_microbatches=PP_MICROBATCHES)
+    else:
+        opt = torch.optim.SGD(model.parameters(), lr=MESH_LR)
+
+        def step(m, x, y):
+            x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            opt.zero_grad(set_to_none=True)
+            pred = model(x)
+            loss = crit(pred, y, {}, {}, None)
+            loss.backward()
+            opt.step()
+            return update_metrics(m, pred.detach(), y, 0.65), loss.detach()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for x, y in batches:
+        mstate, loss = step(mstate, x, y)
+        losses.append(float(loss))
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / MESH_STEPS
+    params = (cnn_unstack_params({k: v.detach() for k, v in stacked.items()})
+              if mesh is not None else model.flax_state())
+    return {"losses": losses, "counts": [metric_counts(mstate)], "ms": ms,
+            "params": {k: v.detach().cpu().numpy().copy() for k, v in params.items()},
+            "launches": {k: c.count for k, c in counters.items()}}
+
+
+def mesh_unet_pp(dev, mesh=None) -> dict:
+    """The UNet at its full ladder, eval mode, 64³ batch 4: through
+    ``make_unet_pipeline_inference_fn`` over ``mesh`` (stage 2, 2
+    microbatches), or with ``mesh=None`` ``UNet3D.forward``, its twin."""
+    import torch
+
+    from scenenet_tpu_torch.models.unet3d import UNet3D
+    from scenenet_tpu_torch.parallel.pp import make_unet_pipeline_inference_fn
+
+    model = UNet3D.create(seed=0, backend="cuda").to(dev).eval()
+    x = mesh_batches(1, 4, GRID, 37)[0][0]
+    counters = mesh_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if mesh is not None:
+        pred = make_unet_pipeline_inference_fn(model, mesh, n_microbatches=2)(x)
+    else:
+        with torch.no_grad():
+            pred = model(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize(dev)
+    return {"pred": pred.cpu().numpy(), "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {k: c.count for k, c in counters.items()}}
+
+
 def mesh_ranks_2(tmp: str) -> dict:
     """2 ranks, mesh data 2: the grid-cache fit at the defaults' width (64³,
     batch 16), the UNet at its full ladder (64³, batch 4), L-BFGS, and the
     first half of preempt/resume (an unkilled fit, and one stopped after 2
-    steps with its snapshot)."""
+    steps with its snapshot); then the bf16 UNet's channels over data 1 ×
+    model 2 and the UNet pipeline over stage 2 (64³, batch 4)."""
     from scenenet_tpu_torch.parallel import launch, make_mesh
 
     dev = launch.init_from_env("gloo", "cuda")
@@ -771,6 +904,12 @@ def mesh_ranks_2(tmp: str) -> dict:
     out["lbfgs_dp"] = mesh_fit("lbfgs", dev, tmp, mesh, optimizer="lbfgs", learning_rate=0.1)
     out["unkilled"] = mesh_fit("plain", dev, tmp, mesh, tag="unkilled")
     out["killed"] = mesh_fit("killed", dev, tmp, mesh, tag="preempt")
+    # the model axis on 2 ranks: channel TP of the bf16 UNet over (data 1, model 2), and
+    # the UNet pipeline over (data 1, stage 2)
+    tp = make_mesh((1, 2), axis_names=("data", "model"), device=dev)
+    out["tp_bf16"] = mesh_fit("tp_bf16", dev, tmp, tp, tag="tp_bf16")
+    stage = make_mesh((1, 2), axis_names=("data", "stage"), device=dev)
+    out["unet_pp"] = mesh_unet_pp(dev, stage)
     return out
 
 
@@ -786,7 +925,10 @@ def mesh_ranks_resume(tmp: str) -> dict:
 def mesh_ranks_4(tmp: str) -> dict:
     """4 ranks at 128³, batch 4, streamed: data 2 × space 2 (z slabs of 64
     through the halo exchange and B10), and the hybrid mesh dcn 2 × (data 1
-    × space 2)."""
+    × space 2); then the model axis at 64³: the quantile ensemble (4
+    members, batch 16, the grid cache) and the UNet's channels (batch 4,
+    streamed) over data 2 × model 2, and the CNN's pipeline (batch 16) over
+    data 2 × stage 2."""
     from scenenet_tpu_torch.parallel import launch, make_hybrid_mesh, make_mesh
 
     dev = launch.init_from_env("gloo", "cuda")
@@ -798,6 +940,13 @@ def mesh_ranks_4(tmp: str) -> dict:
     hybrid = make_hybrid_mesh((2, 1), (1, 2), device=dev)
     out["hybrid_shape"] = hybrid.shape
     out["hybrid"] = mesh_fit("big", dev, tmp, hybrid, tag="hybrid")
+    # the model axis on 4 ranks: the ensemble's members and the UNet's channels over
+    # (data 2, model 2), the CNN's two convs over (data 2, stage 2)
+    model = make_mesh((2, 2), axis_names=("data", "model"), device=dev)
+    out["model_coords"] = model.coords
+    out["ep"] = mesh_fit("ep", dev, tmp, model, tag="ep")
+    out["tp"] = mesh_fit("tp", dev, tmp, model, tag="tp")
+    out["pp"] = mesh_pp(dev, make_mesh((2, 2), axis_names=("data", "stage"), device=dev))
     return out
 
 
@@ -840,16 +989,17 @@ def mesh_phase(dev, tmp: Path, smi: str) -> dict:
     ranks on one GPU), each 3 steps against its single-rank twin on the card; the
     1-rank NCCL check; and ``cli.train`` under ``torch.distributed.run``. Any
     difference raises. Returns the halo forms' launches on the z-sharded fits,
-    every rank's. The times show that the ranks compute on the card, not how a
-    mesh scales."""
+    every rank's, and the model axis legs' launches by kernel, every rank's.
+    The times show that the ranks compute on the card, not how a mesh
+    scales."""
     from scenenet_tpu_torch.parallel import launch as rank_launch
 
     t_mesh = time.perf_counter()
     mesh_dir, twin_dir = str(tmp / "mesh"), str(tmp / "mesh_twins")
     r2 = rank_launch.run_ranks("chip_smoke:mesh_ranks_2", 2, {"tmp": mesh_dir},
-                               timeout=400, path=str(ROOT))
+                               timeout=500, path=str(ROOT))
     r4 = rank_launch.run_ranks("chip_smoke:mesh_ranks_4", 4, {"tmp": mesh_dir},
-                               timeout=400, path=str(ROOT))
+                               timeout=600, path=str(ROOT))
     r_resume = rank_launch.run_ranks("chip_smoke:mesh_ranks_resume", 2, {"tmp": mesh_dir},
                                      timeout=300, path=str(ROOT))
     twins = {"dp": mesh_fit("grids", dev, twin_dir, tag="dp"),
@@ -919,6 +1069,7 @@ def mesh_phase(dev, tmp: Path, smi: str) -> dict:
               + f" vs twin {want['ms']:.1f} (ranks share the card over gloo) | launches "
               + " ; ".join(str(r["launches"]) for r in ranks) + f" | {smi}", flush=True)
         check(equal, f"[mesh] {leg} differs from its twin")
+    mesh_legs = model_axis_legs(dev, twin_dir, r2, r4, smi, rel, max_abs, mesh_losses)
     lb = [r["lbfgs_dp"] for r in r2]
     lb_equal = all(r["trials"] == twins["lbfgs_dp"]["trials"] for r in lb) and all(
         np.array_equal(r["params"][k], lb[0]["params"][k]) for r in lb for k in r["params"])
@@ -949,15 +1100,33 @@ def mesh_phase(dev, tmp: Path, smi: str) -> dict:
           f"card) | {smi}", flush=True)
     check(nccl["backend"] == "nccl" and nccl["eager"] and nccl["replay"]
           and nccl["shift_zero"], f"[mesh] the NCCL collective check failed: {nccl}")
+    # the two cli.train launches run together (5 processes on the card over gloo)
+    ep_cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "3",
+              "--master-addr", "localhost", "--master-port", str(rank_launch.free_port()),
+              "-m", "scenenet_tpu_torch.cli.train", "--dist-backend", "gloo",
+              "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}", "model=quantile",
+              "criterion=quantile_geneo", "mesh_ensemble=3", "max_epochs=1", "num_workers=4",
+              f"output_dir={tmp / 'mesh_cli_ep'}"]
     cli_cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
                "--master-addr", "localhost", "--master-port", str(rank_launch.free_port()),
                "-m", "scenenet_tpu_torch.cli.train", "--dist-backend", "gloo",
                "--set", *DEFAULTS_SET, "--set", f"data_path={tmp / 'ts40k'}", "mesh_data=2",
                "max_epochs=1", "num_workers=4", f"output_dir={tmp / 'mesh_cli'}"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cli_cmd, cwd=str(ROOT), capture_output=True, text=True,
-                          timeout=400, env=dict(os.environ, OMP_NUM_THREADS="4"))
-    cli_s = time.perf_counter() - t0
+    ep_log = [open(tmp / f"mesh_cli_ep.{k}", "w+") for k in ("out", "err")]
+    ep_proc = subprocess.Popen(ep_cmd, cwd=str(ROOT), stdout=ep_log[0], stderr=ep_log[1],
+                               text=True, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    try:
+        proc = subprocess.run(cli_cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=400, env=dict(os.environ, OMP_NUM_THREADS="2"))
+        cli_s = time.perf_counter() - t0
+        ep_proc.wait(timeout=400)
+        ep_cli_s = time.perf_counter() - t0
+    finally:
+        if ep_proc.poll() is None:
+            ep_proc.kill()
+            ep_proc.wait()
+        ep_out, ep_err = [(f.seek(0), f.read(), f.close())[1] for f in ep_log]
     mesh_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("[mesh]")]
     check(proc.returncode == 0 and any("[mesh] training over {'data': 2, 'space': 1}" in ln
                                        for ln in mesh_line),
@@ -965,9 +1134,116 @@ def mesh_phase(dev, tmp: Path, smi: str) -> dict:
           f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
     print(f"[mesh] python -m torch.distributed.run --nproc-per-node 2 -m "
           f"scenenet_tpu_torch.cli.train --dist-backend gloo --set <defaults> mesh_data=2 "
-          f"max_epochs=1: rc 0 in {cli_s:.1f} s | {mesh_line[0]} | {smi}", flush=True)
+          f"max_epochs=1: rc 0 in {cli_s:.1f} s (beside ep_cli) | {mesh_line[0]} | {smi}",
+          flush=True)
+    ep_line = [ln for ln in ep_out.splitlines() if ln.startswith("[mesh]")]
+    check(ep_proc.returncode == 0 and any("[mesh] training over {'data': 1, 'model': 3}" in ln
+                                          for ln in ep_line)
+          and ep_out.count("test_loss") == 3,
+          f"[mesh] ep_cli: rc {ep_proc.returncode}\n{ep_out[-3000:]}{ep_err[-3000:]}")
+    routes = sorted({ln for ln in ep_out.splitlines() if ln.startswith("[device_cache")})
+    print(f"[mesh] ep_cli: python -m torch.distributed.run --nproc-per-node 3 -m "
+          f"scenenet_tpu_torch.cli.train --dist-backend gloo --set <defaults> model=quantile "
+          f"criterion=quantile_geneo mesh_ensemble=3 max_epochs=1: rc 0 in {ep_cli_s:.1f} s "
+          f"(beside the mesh_data=2 launch) | {ep_line[0]} | {routes} | {smi}", flush=True)
     print(f"[mesh] phase {time.perf_counter() - t_mesh:.1f} s | {smi}", flush=True)
-    return mesh_halo
+    return {"halo": mesh_halo, "legs": mesh_legs}
+
+
+def model_axis_legs(dev, twin_dir, r2, r4, smi, rel, max_abs, mesh_losses) -> dict:
+    """The [mesh] phase's model axis legs against their twins on one rank:
+    ep, tp, tp_bf16, pp and unet_pp. Any difference raises. Returns the legs'
+    launches by kernel, summed over every rank."""
+    twins = {"ep": mesh_fit("ep", dev, twin_dir, tag="ep"),
+             "tp": mesh_fit("tp", dev, twin_dir, tag="tp"),
+             "tp_bf16": mesh_fit("tp_bf16", dev, twin_dir, tag="tp_bf16"),
+             "pp": mesh_pp(dev), "unet_pp": mesh_unet_pp(dev)}
+    launches = {k: 0 for k in MESH_COUNTERS}
+
+    def counted(ranks):
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    def agree(ranks):
+        return all(all(np.array_equal(r["params"][k], ranks[0]["params"][k])
+                       for k in ranks[0]["params"]) for r in ranks)
+
+    def counts_close(got, want, voxels):
+        return len(got) == len(want) and all(
+            max(abs(i - j) for i, j in zip(a, b)) <= COUNT_ALLOWANCE * voxels
+            for a, b in zip(got, want))
+
+    def line(leg, desc, detail, equal, ranks, want):
+        print(f"[mesh] {leg}: {desc} | {detail} | equal={equal} | step ms by rank "
+              + ", ".join(f"{r['ms']:.1f}" for r in ranks)
+              + f" vs twin {want['ms']:.1f} (ranks share the card over gloo) | launches "
+              + " ; ".join(str(r["launches"]) for r in ranks) + f" | {smi}", flush=True)
+        check(equal, f"[mesh] {leg} differs from its twin")
+
+    # ep: the ensemble's members over model, every count exact
+    ranks, want = [r["ep"] for r in r4], twins["ep"]
+    got = ranks[0]
+    loss_err = rel(mesh_losses(got), mesh_losses(want))
+    param_err = max_abs(got["params"], want["params"])
+    equal = (got["counts"] == want["counts"] and loss_err <= 1e-5 and param_err <= 1e-6
+             and agree(ranks) and all(r["launches"]["stencil_conv"] > 0
+                                      and r["launches"]["stencil_dk"] > 0 for r in ranks))
+    counted(ranks)
+    line("ep", f"data 2 x model 2, QuantileSceneNet (9,5,5) x {len(EP_QUANTILES)} members "
+         f"{EP_QUANTILES}, quantile_geneo, 64^3 B=16, grid cache, {MESH_STEPS} SGD steps",
+         f"loss {mesh_losses(got)} vs twin {mesh_losses(want)} (rel {loss_err:.3g}) | counts "
+         f"{got['counts']} vs twin {want['counts']} | params max|d| {param_err:.3g} (bound 1e-6)",
+         equal, ranks, want)
+
+    # tp and tp_bf16: the UNet's channels over model, held as unet_dp is
+    voxels = MESH_STEPS * 4 * GRID[0] * GRID[1] * GRID[2]
+    for leg, ranks, rtol, atol, stats_rtol, counter, desc in (
+            ("tp", [r["tp"] for r in r4], 1e-4, 1e-5, 1e-4, "conv3d_mc",
+             "data 2 x model 2, UNet3D full ladder f32, 64^3 B=4, streamed, C_out/2 a rank"),
+            ("tp_bf16", [r["tp_bf16"] for r in r2], 5e-3, 2e-3, 2e-2, "conv3d_mc_bf16",
+             "data 1 x model 2, UNet3D full ladder precision=bf16, 64^3 B=4, streamed")):
+        want, got = twins[leg], ranks[0]
+        loss_err = rel(mesh_losses(got), mesh_losses(want))
+        stats_err = max(float(np.max(np.abs(got["stats"][k] - v) - stats_rtol * np.abs(v)))
+                        for k, v in want["stats"].items())
+        param_err = max_abs(got["params"], want["params"])
+        equal = (loss_err <= rtol and stats_err <= atol and agree(ranks)
+                 and counts_close(got["counts"], want["counts"], voxels)
+                 and all(r["launches"][counter] > 0 for r in ranks))
+        counted(ranks)
+        line(leg, desc, f"loss {mesh_losses(got)} vs twin {mesh_losses(want)} (rel "
+             f"{loss_err:.3g}, bound {rtol:g}) | counts {got['counts']} vs twin "
+             f"{want['counts']} (within {COUNT_ALLOWANCE:.2%} of the voxels) | running "
+             f"statistics max(|d| - {stats_rtol:g}|ref|) {stats_err:.3g} (bound {atol:g}) | "
+             f"params max|d| {param_err:.3g} | the twin's BatchNorm in flax's form",
+             equal, ranks, want)
+
+    # pp: the CNN's two convs as two stages, against the unpipelined model
+    ranks, want = [r["pp"] for r in r4], twins["pp"]
+    got = ranks[0]
+    loss_err = rel(got["losses"], want["losses"])
+    param_err = max_abs(got["params"], want["params"])
+    equal = (loss_err <= 1e-5 and param_err <= 1e-5 and agree(ranks)
+             and counts_close(got["counts"], want["counts"],
+                              MESH_STEPS * TRAIN_BATCH * GRID[0] * GRID[1] * GRID[2])
+             and all(r["launches"]["conv3d_mc"] > 0 for r in ranks))
+    counted(ranks)
+    line("pp", f"data 2 x stage 2, CnnBaseline(conv_num=3, (3,3,3)) 64^3 B=16, "
+         f"{PP_MICROBATCHES} microbatches a rank, {MESH_STEPS} SGD steps",
+         f"loss {got['losses']} vs twin {want['losses']} (rel {loss_err:.3g}, bound 1e-5) | "
+         f"counts {got['counts']} vs twin {want['counts']} | params max|d| {param_err:.3g} "
+         f"(bound 1e-5)", equal, ranks, want)
+
+    # unet_pp: the encoder on stage 0, the decoder on stage 1, eval mode
+    ranks, want = [r["unet_pp"] for r in r2], twins["unet_pp"]
+    err = max(float(np.max(np.abs(r["pred"] - want["pred"]))) for r in ranks)
+    equal = err <= 1e-5 and all(r["launches"]["conv3d_mc"] > 0 for r in ranks)
+    counted(ranks)
+    line("unet_pp", "stage 2, make_unet_pipeline_inference_fn, UNet3D full ladder eval, 64^3 "
+         "B=4, 2 microbatches", f"prediction max|d| vs UNet3D.forward {err:.3g} (bound 1e-5)",
+         equal, ranks, want)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3802,8 +4078,90 @@ def main(argv=None) -> int:
         print("[native] C5: available() is False with its reason | "
               + " | ".join(r[:140] for r in reasons), flush=True)
 
-        # ---- 24. A12: the [mesh] phase, the data and space axes over gloo ranks --------
-        mesh_halo = mesh_phase(dev, tmp, smi)
+        # ---- 24. A12b: K10 at the shapes of channel TP, and ensemble-parallel serving --
+        # a rank's conv at C_out/m and its dx at C_in/m (the dx of a column-parallel conv
+        # has only the rank's C_out/m input channels), at the TP leg's batch a rank (2);
+        # C_out <= 32 runs on the 32-wide tile, half or a quarter of it empty
+        tp_k10, tp_k10_err, tp_k10_parts = {}, {"f32": 0.0, "bf16": 0.0}, []
+        for form in ("f32", "bf16"):
+            for what, cin, cout, n in TP_K10_SHAPES:
+                xm, wm = mc_case(cin + cout + n, 2, cin, cout, (n, n, n))
+                if form == "bf16":
+                    xm, wm = xm.to(torch.bfloat16), wm.to(torch.bfloat16)
+                got = cuda_conv_mc.conv3d_mc_same(xm, wm)
+                want = cuda_conv_mc.conv3d_mc_same_plain(xm, wm)
+                torch.cuda.synchronize()
+                d = (got.float() - want.float()).abs()
+                atol = MC_ATOL * max(1.0, math.sqrt(cin / MC_ATOL_CHANNELS))
+                rtol = BF16_UNIT if form == "bf16" else MC_RTOL
+                check(bool((d <= atol + rtol * want.float().abs()).all()),
+                      f"K10 {form} {what} {cin}->{cout} {n}^3: max|d| {float(d.max()):.3g}")
+                tp_k10_err[form] = max(tp_k10_err[form], float(d.max()))
+                with torch.no_grad():
+                    tp_k10[form, what, cin, cout, n] = paired_ms(
+                        lambda: cuda_conv_mc.conv3d_mc_same(xm, wm),
+                        lambda: cuda_conv_mc.conv3d_mc_same_plain(xm, wm), iters=5,
+                        library_fn=lambda: F.conv3d(xm, wm, padding=1), warmup=1)
+                tp_k10_parts.append(
+                    f"{form} {what} {cin}->{cout} {n}^3 [{mc_plan(2, cin, cout, (n, n, n))}] "
+                    f"max|d| {float(d.max()):.3g}, ms kernel / plain / library "
+                    f"{tp_k10[form, what, cin, cout, n]['ms']:.4f} / "
+                    f"{tp_k10[form, what, cin, cout, n]['plain_ms']:.4f} / "
+                    f"{tp_k10[form, what, cin, cout, n]['library_ms']:.4f}")
+                del xm, wm, got, want
+        torch.cuda.empty_cache()
+        print(f"[K10 channel TP] B=2 (the tp leg's batch a rank), against the plain version "
+              f"(f32: {MC_ATOL} + {MC_RTOL} relative; bf16: one bf16 unit), median of 4 "
+              f"alternating rounds ({smi}), library = one F.conv3d (cuDNN, TF32 off) | "
+              + " | ".join(tp_k10_parts), flush=True)
+
+        # serve --mesh-ensemble 2: the members in 2 groups, both on cuda:0 here (one card),
+        # against the unsharded pipeline, through K1 + K2, then --inference mxu (K5)
+        ep_serve_counts = {}
+        qkw = dict(model="quantile", quantiles=EP_QUANTILES)
+        clouds = [synthetic_cloud(np.random.default_rng(140), MAX_POINTS)]
+        for inference in (True, "mxu"):
+            ref = _Pipeline(None, inference=inference, **qkw)
+            reset_counts()
+            ep_pipe = _Pipeline(None, inference=inference, mesh_ensemble=2,
+                                devices=[dev, dev], **qkw)
+            check([m for _, m in ep_pipe._groups] == [[0, 1], [2, 3]]
+                  and sorted(ep_pipe._graphs) == [1] and ep_pipe._graphs[1].graph.captured,
+                  f"ep_serve: groups {ep_pipe._groups}, graphs {sorted(ep_pipe._graphs)}")
+            worst_ep = 0.0
+            for pts in clouds:
+                (pv, pp_), (rv, rp) = ep_pipe.predict(pts), ref.predict(pts)
+                check(pv.shape == (len(EP_QUANTILES),) + GRID and pp_.shape[0] == 4,
+                      f"ep_serve: shapes {pv.shape} {pp_.shape}")
+                worst_ep = max(worst_ep, float(np.abs(pv - rv).max()),
+                               float(np.abs(pp_ - rp).max()))
+            check(worst_ep <= PROB_TOL, f"ep_serve {inference}: max|d| {worst_ep:.3g}")
+            hp_, hm_, _ = padded_batch(np.random.default_rng(141), 1)
+            pt_, mt_ = torch.from_numpy(hp_).to(dev), torch.from_numpy(hm_).to(dev)
+            calls = {}
+            n_disp = 20
+            wall, busy_us, n_items, _, _ = profiled(
+                lambda: [ep_pipe.run_batch(pt_, mt_) for _ in range(n_disp)], calls)
+            host = sum(v for k, v in calls.items() if k in HOST_LAUNCH_CALLS)
+            launched = ep_pipe.kernel_launches()
+            ep_serve_counts[inference] = launched
+            kernel = "stencil_mma" if inference == "mxu" else "stencil_conv"
+            check(launched["points_occupancy"] > 0 and launched[kernel] > 0,
+                  f"ep_serve {inference}: launches {launched}")
+            print(f"[mesh] ep_serve: _Pipeline(model=quantile, {len(EP_QUANTILES)} quantiles, "
+                  f"mesh_ensemble=2, devices=[cuda:0, cuda:0], inference={inference}) at 64^3, "
+                  f"{MAX_POINTS} points: a request against the unsharded pipeline "
+                  f"max|d| {worst_ep:.3g} (bound {PROB_TOL:g}) | a dispatch is one CUDA graph "
+                  f"a bucket (replays {ep_pipe.graph_replays()}): {host / n_disp:.1f} host "
+                  f"launch calls, {n_items / n_disp:.1f} device items, "
+                  f"{wall * 1e3 / n_disp:.3f} ms wall a dispatch at bucket 1 | launches "
+                  f"{launched} | {smi}", flush=True)
+            ep_pipe.close()
+            del ep_pipe, ref
+            torch.cuda.empty_cache()
+
+        # ---- 25. A12 + A12b: the [mesh] phase over gloo ranks ---------------------------
+        mesh_out = mesh_phase(dev, tmp, smi)
 
     main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
                  *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
@@ -3866,8 +4224,15 @@ def main(argv=None) -> int:
     bounds.update(halo_bounds)
     # B10's halo forms: their own entry point's run and their caller's, the [mesh]
     # phase's z-sharded fits (every rank)
-    total["stencil_conv_halo"] = halo_counts["stencil_conv"] + mesh_halo["stencil_conv"]
-    total["stencil_dk_halo"] = halo_counts["stencil_dk"] + mesh_halo["stencil_dk"]
+    total["stencil_conv_halo"] = halo_counts["stencil_conv"] + mesh_out["halo"]["stencil_conv"]
+    total["stencil_dk_halo"] = halo_counts["stencil_dk"] + mesh_out["halo"]["stencil_dk"]
+    # the model axis legs' launches on every rank (ep: K2, K4; tp, pp, unet_pp: K10 and its
+    # bf16 form) and ensemble-parallel serving's (K1, K2, K5)
+    for k, v in mesh_out["legs"].items():
+        total[k] += v
+    for launched in ep_serve_counts.values():
+        for k in ("points_occupancy", "stencil_conv", "stencil_mma"):
+            total[k] += launched[k]
 
     def entry(name, source, replaces, err, t, shape):
         b_ms, by = bounds[name]

@@ -15,6 +15,16 @@ Protocol (POST /predict):
 response additionally carries ``point_quantiles`` (Q, N) and
 ``uncertainty`` (N,), the spread between the extreme quantiles;
 ``point_probs``/``mask`` come from the member closest to the median.
+``--mesh-ensemble m`` splits the ensemble's Q members into m groups, one on
+each of the first m CUDA devices (ensemble parallelism,
+:mod:`~scenenet_tpu_torch.parallel.ep`): each group convolves its members,
+and the (Q, Z, X, Y) prediction is concatenated on the serving device. It
+raises, naming the count, where fewer than m cards are visible. The JAX
+server forms its mesh from the first m devices inside its one process; so
+does this one, with no rank processes. ``_Pipeline(devices=...)`` places
+the groups on given devices (the same card m times, or the CPU). Where
+every group is on the serving device, a dispatch is still one CUDA graph a
+bucket; with groups on other cards it runs eagerly.
 
 ``--max-batch B`` (with ``--batch-window-ms w``) enables dynamic
 micro-batching: concurrent requests queue for up to ``w`` ms and run as
@@ -73,6 +83,13 @@ def resolve_device(device: "str | torch.device | None") -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch finds no CUDA device")
+    return device
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means (the current one)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -143,11 +160,13 @@ class _Pipeline:
                  quantiles=(0.1, 0.5, 0.9), max_batch: int = 1,
                  batch_window_ms: float = 2.0, warm_buckets: bool = True,
                  adaptive: bool = False,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None, mesh_ensemble: int = 1,
+                 devices=None):
         self.device = resolve_device(device)
         self.backend = "cuda" if self.device.type == "cuda" else "torch"
         self.model = model
         self.quantiles = tuple(quantiles)
+        self.mesh_ensemble = int(mesh_ensemble)
         if model == "quantile":
             self.net = QuantileSceneNet.create(kernel_size=kernel_size,
                                                quantiles=self.quantiles, seed=0,
@@ -160,6 +179,8 @@ class _Pipeline:
         if checkpoint:
             restore_checkpoint(checkpoint, self.net)
         self.net.to(self.device).eval()
+        # ensemble parallelism: (device, member indices) of each group
+        self._groups = self._ensemble_groups(devices) if self.mesh_ensemble > 1 else None
         self.grid = tuple(grid)
         self.max_points = max_points
         # True: the f32 stencil forward, exact on {0,1} occupancy input;
@@ -176,17 +197,63 @@ class _Pipeline:
         buckets = [1]
         while batcher is not None and warm_buckets and buckets[-1] * 2 <= batcher.max_batch:
             buckets.append(buckets[-1] * 2)
+        # one graph a bucket where every kernel runs on the serving card
+        capture = self.device.type == "cuda" and all(
+            _canonical(d) == _canonical(self.device) for d, _ in (self._groups or ()))
         with torch.inference_mode():
             for b in buckets:
-                if self.device.type == "cuda":
+                if capture:
                     self._graphs[b] = _BucketGraph(self._run, b, max_points, self.device)
-                elif batcher is not None and warm_buckets:
+                elif (batcher is not None and warm_buckets) or self.device.type == "cuda":
                     self.run_batch(*_warm_inputs(b, max_points, self.device))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         if batcher is not None:
             batcher.start()
             self._batcher = batcher
+
+    def _ensemble_groups(self, devices):
+        """The members split into ``mesh_ensemble`` groups, each moved to its
+        device: the first ``mesh_ensemble`` CUDA devices by default (the CPU
+        m times on a CPU pipeline)."""
+        m = self.mesh_ensemble
+        if self.model != "quantile":
+            raise ValueError(f"--mesh-ensemble {m} shards the quantile ensemble's members; "
+                             f"model {self.model!r} has none")
+        q = len(self.quantiles)
+        if q % m:
+            raise ValueError(f"{q} ensemble members do not divide over the mesh 'model' axis "
+                             f"({m}); choose a divisible quantile count")
+        if devices is None:
+            if self.device.type == "cuda":
+                seen = torch.cuda.device_count()
+                if seen < m:
+                    raise RuntimeError(f"--mesh-ensemble {m} needs {m} CUDA devices; "
+                                       f"{seen} visible")
+                devices = [torch.device("cuda", i) for i in range(m)]
+            else:
+                devices = [self.device] * m
+        devices = [torch.device(d) for d in devices]
+        if len(devices) != m:
+            raise ValueError(f"--mesh-ensemble {m} takes {m} devices, got {len(devices)}")
+        groups = []
+        for g, dev in enumerate(devices):
+            members = list(range(g * q // m, (g + 1) * q // m))
+            for i in members:
+                self.net.members[i].to(dev)
+            groups.append((dev, members))
+        return groups
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model on the occupancy grids; an ensemble split into groups
+        runs each group on its device and concatenates the members here."""
+        if self._groups is None:
+            return self.net(x, inference=self.inference)
+        from scenenet_tpu_torch.parallel.ep import local_ensemble_forward
+
+        return torch.cat([local_ensemble_forward(self.net, x.to(dev), members,
+                                                 inference=self.inference).to(self.device)
+                          for dev, members in self._groups], dim=1)
 
     @torch.inference_mode()
     def run_batch(self, pts: torch.Tensor, mask: torch.Tensor):
@@ -203,7 +270,7 @@ class _Pipeline:
         """The pipeline on a batch: occupancy, SceneNet (kernel synthesis
         included), the ids and the voxel→point gather."""
         x = voxelize_batch_occupancy(pts, mask, self.grid)[:, None]
-        pred = self.net(x, inference=self.inference)
+        pred = self._forward(x)
         flat = batch_flat_ids(pts, mask, self.grid)
         if self.model == "quantile":  # (B, Q, ...): gather per member
             flat_q = flat[:, None].expand(-1, pred.shape[1], -1)
@@ -587,6 +654,7 @@ def make_handler(pipeline: _Pipeline):
             }
             if pipeline.model == "quantile":
                 info["quantiles"] = list(pipeline.quantiles)
+                info["mesh_ensemble"] = pipeline.mesh_ensemble
             if pipeline._batcher is not None:
                 info["batching"] = dict(
                     pipeline._batcher.stats_snapshot(),
@@ -653,7 +721,8 @@ def build_server(argv=None):
     parser.add_argument("--quantiles", default="0.1,0.5,0.9",
                         help="quantile levels for --model quantile")
     parser.add_argument("--mesh-ensemble", type=int, default=1,
-                        help="shard the quantile ensemble over this many devices")
+                        help="shard the quantile ensemble's members over this many CUDA "
+                             "devices")
     parser.add_argument("--inference", default="bf16", choices=["bf16", "mxu", "mxu_fast"],
                         help="conv forward: the f32 stencil kernel (bf16 is the JAX "
                              "package's name for it), the tensor-core stencil with the "
@@ -669,9 +738,6 @@ def build_server(argv=None):
                         help="cpu runs the kernels' plain versions")
     args = parser.parse_args(argv)
 
-    if args.mesh_ensemble != 1:
-        raise NotImplementedError("--mesh-ensemble (ensemble-parallel serving) is "
-                                  "not ported yet: ROADMAP A12b")
     inference = True if args.inference == "bf16" else args.inference
     quantiles = tuple(float(q) for q in args.quantiles.split(","))
     adaptive = args.max_batch.strip().lower() == "auto"
@@ -679,7 +745,8 @@ def build_server(argv=None):
     pipeline = _Pipeline(args.checkpoint, (args.grid,) * 3, args.max_points,
                          inference=inference, model=args.model, quantiles=quantiles,
                          max_batch=max_batch, batch_window_ms=args.batch_window_ms,
-                         adaptive=adaptive, device=args.device)
+                         adaptive=adaptive, device=args.device,
+                         mesh_ensemble=args.mesh_ensemble)
     server = ThreadingHTTPServer(("127.0.0.1", args.port), make_handler(pipeline))
     batching = (f", micro-batching ≤{pipeline._batcher.max_batch} @ "
                 f"{args.batch_window_ms} ms{' (adaptive)' if adaptive else ''}"

@@ -63,8 +63,16 @@ reference's DDP) runs one process a rank, launched by
 
 ``--dist-backend`` (port-only, like ``--device``) defaults to nccl on
 ``cuda`` and gloo on ``cpu``; ranks that share a card need gloo, since NCCL
-refuses two ranks on one GPU. ``mesh_ensemble`` and ``mesh_channel`` (the
-``model`` axis) raise: ROADMAP A12b.
+refuses two ranks on one GPU. ``mesh_ensemble`` (``model=quantile``: the
+ensemble's members over the mesh's ``model`` axis, on every fit route) and
+``mesh_channel`` (``model=unet`` or ``cnn``: channel tensor parallelism,
+streamed) make the inner axis ``model``, with the JAX CLI's guards::
+
+    python -m torch.distributed.run --nproc-per-node 4 -m scenenet_tpu_torch.cli.train \
+        --set model=quantile criterion=quantile_geneo quantiles="(0.1, 0.3, 0.5, 0.9)" \
+        mesh_data=2 mesh_ensemble=2
+    python -m torch.distributed.run --nproc-per-node 2 -m scenenet_tpu_torch.cli.train \
+        --set model=unet criterion=dice_bce mesh_channel=2
 """
 
 from __future__ import annotations
@@ -103,12 +111,8 @@ _BACKENDS = {"torch": "torch", "xla": "torch", "cuda": "cuda", "pallas": "cuda",
 
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    """Raise, naming the ROADMAP item, on every value that asks for
-    something the port does not have yet."""
-    model_axis = {k: getattr(cfg, k) for k in ("mesh_ensemble", "mesh_channel")}
-    if any(int(v) > 1 for v in model_axis.values()):
-        raise NotImplementedError(f"mesh training over the 'model' axis {model_axis} (ensemble "
-                                  "members, channel TP) is not ported yet: ROADMAP A12b")
+    """Raise on every value that asks for something the port does not
+    write."""
     if cfg.export_stablehlo:
         raise NotImplementedError("export_stablehlo asks for XLA's StableHLO format, which "
                                   "the port does not write: it exports through "
@@ -123,7 +127,9 @@ def launch_command(n_ranks: int) -> str:
 def build_mesh(cfg: ExperimentConfig, device: str = "cuda",
                dist_backend: Optional[str] = None):
     """The mesh the config asks for, or None for one rank: ``mesh_dcn_data``
-    × ``mesh_data`` shard the batch, ``mesh_space`` Z-shards the grid, with
+    × ``mesh_data`` shard the batch; the inner axis is ``space`` (Z-sharded
+    grids, ``mesh_space``) or ``model`` (``mesh_ensemble``: the quantile
+    ensemble's members; ``mesh_channel``: the conv stacks' channels), with
     the JAX CLI's guards and messages. The product of the axes must be the
     launch's ``WORLD_SIZE`` (the JAX CLI's devices visible); this process's
     group is initialised here (nccl on ``cuda``, gloo on ``cpu``, unless
@@ -131,20 +137,41 @@ def build_mesh(cfg: ExperimentConfig, device: str = "cuda",
     names the command."""
     md, msp = int(cfg.mesh_data), int(cfg.mesh_space)
     mdcn = int(getattr(cfg, "mesh_dcn_data", 1))
-    n = md * msp * mdcn
+    mens, mchan = int(cfg.mesh_ensemble), int(cfg.mesh_channel)
+    n = md * msp * mdcn * mens * mchan
     if n <= 1:
         return None
+    desc = f"mesh {mdcn}(dcn)×{md}(data)×{msp}(space)×{mens}(ensemble)×{mchan}(channel)"
     if not launch.launched():
         print(f"[mesh] launch {n} ranks: {launch_command(n)}")
-        raise RuntimeError(f"mesh {mdcn}(dcn)×{md}(data)×{msp}(space) = {n} ranks, but this "
-                           f"process was not launched as one: run {launch_command(n)}")
+        raise RuntimeError(f"{desc} = {n} ranks, but this process was not launched as one: "
+                           f"run {launch_command(n)}")
     world = int(os.environ["WORLD_SIZE"])
     if n != world:
-        raise ValueError(f"mesh {mdcn}(dcn)×{md}(data)×{msp}(space) = {n} devices, "
-                         f"but {world} are visible")
+        raise ValueError(f"{desc} = {n} devices, but {world} are visible")
+    if sum(ax > 1 for ax in (msp, mens, mchan)) > 1:
+        raise ValueError("mesh_space / mesh_ensemble / mesh_channel are mutually exclusive "
+                         "(one non-data axis)")
+    if mchan > 1:
+        if cfg.model not in ("unet", "cnn"):
+            raise ValueError("channel tensor parallelism (mesh_channel > 1) shards the "
+                             "black-box conv stacks via GSPMD "
+                             f"(model=unet/cnn; got model={cfg.model!r})")
+        if mdcn > 1:
+            raise ValueError("mesh_channel composes with mesh_data only (no DCN axis)")
     if msp > 1 and cfg.model != "scenenet":
         raise ValueError("spatial sharding (mesh_space > 1) is implemented for the scenenet "
                          f"model (got model={cfg.model!r})")
+    if mens > 1:
+        if cfg.model != "quantile":
+            raise ValueError("ensemble parallelism (mesh_ensemble > 1) shards the quantile "
+                             f"ensemble's members (got model={cfg.model!r})")
+        n_members = len(cfg.quantiles)
+        if n_members % mens:
+            raise ValueError(f"{n_members} quantiles do not divide by mesh_ensemble ({mens})")
+    if cfg.constrained == "admm" and mens * mchan > 1:
+        raise ValueError("constrained=admm shards over data/space only (no ensemble/channel "
+                         "axis)")
     if cfg.batch_size % (md * mdcn):
         raise ValueError(f"batch_size {cfg.batch_size} must divide by the data shards "
                          f"({md * mdcn})")
@@ -156,8 +183,12 @@ def build_mesh(cfg: ExperimentConfig, device: str = "cuda",
     if not torch.distributed.is_initialized():
         launch.init_from_env(dist_backend, device)
     dev = launch.rank_device(device)
-    mesh = (make_hybrid_mesh((mdcn, 1), (md, msp), device=dev) if mdcn > 1
-            else make_mesh((md, msp), device=dev))
+    # the inner axis: the ensemble's members or the channels (both 'model'; the
+    # Trainer routes by the model), or the z slabs
+    inner = ("model", mens * mchan) if mens * mchan > 1 else ("space", msp)
+    names = ("data", inner[0])
+    mesh = (make_hybrid_mesh((mdcn, 1), (md, inner[1]), axis_names=names, device=dev)
+            if mdcn > 1 else make_mesh((md, inner[1]), axis_names=names, device=dev))
     if mesh.rank == 0:  # the ranks' outputs share one stream under torch.distributed.run
         print(f"[mesh] training over {dict(mesh.shape)}"
               + (f" ({mdcn}-way DP across slices)" if mdcn > 1 else "")
@@ -350,7 +381,7 @@ def _autotune(cfg: ExperimentConfig, criterion, device: torch.device,
     gz, gx, gy = cfg.grid_zxy()
     batch = cfg.batch_size
     if mesh is not None:
-        batch, gz = batch // mesh.shape["data"], gz // mesh.shape["space"]
+        batch, gz = batch // mesh.shape["data"], gz // mesh.shape.get("space", 1)
     grid = (gz, gx, gy)
     winner, times = autotune_backend(
         lambda b: SceneNet.create(cfg.geneo_num(), cfg.kernel_size, seed=cfg.seed,
@@ -415,10 +446,12 @@ def run(cfg: ExperimentConfig, device: "str | None" = "cuda",
         raise ValueError(f"mesh training needs at least one full batch: {len(train_ds)} "
                          f"training samples < batch_size {cfg.batch_size}")
     native_loader = resolve_loader(cfg, host_indices)
-    if mesh is not None and mesh.shape["space"] > 1 and cfg.device_cache:
-        # the cached fits are pure-DP; spatial sharding streams its batches
+    if (mesh is not None and cfg.device_cache
+            and (mesh.shape.get("space", 1) > 1 or int(cfg.mesh_channel) > 1)):
+        # the cached fits shard over the data axis (and the ensemble's members);
+        # spatial sharding and channel TP stream their batches
         if cfg.device_cache != "auto":
-            print("[mesh] device_cache disabled (cached epochs are pure-DP; spatial "
+            print("[mesh] device_cache disabled (cached epochs are pure-DP; spatial/channel "
                   "sharding streams batches)")
         cfg.device_cache = False
     device_cache = resolve_device_cache(cfg, len(train_ds), device, host_indices)

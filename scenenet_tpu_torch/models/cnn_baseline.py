@@ -32,6 +32,16 @@ from scenenet_tpu_torch.ops.cuda_conv_mc import fused_conv3d_mc
 _BACKENDS = ("torch", "cuda")
 
 
+def cnn_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             kernel_size: Tuple[int, int, int], backend: str) -> torch.Tensor:
+    """The baseline's SAME conv with bias: on ``backend="cuda"`` at (3, 3, 3)
+    the hand-written multi-channel conv, else the library conv under the
+    asymmetric SAME pads (also the pipeline's stage conv, ``parallel/pp.py``)."""
+    if backend == "cuda" and tuple(kernel_size) == (3, 3, 3):
+        return fused_conv3d_mc(x, w) + bias[None, :, None, None, None]
+    return conv3d_f32(F.pad(x, same_pads(kernel_size)), w, bias)
+
+
 class CnnBaseline(nn.Module):
     """Build with :meth:`create` to draw the weights from a seed."""
 
@@ -50,6 +60,10 @@ class CnnBaseline(nn.Module):
             self.weights.append(nn.Parameter(torch.zeros((self.conv_num, c_in,
                                                           *self.kernel_size))))
             self.biases.append(nn.Parameter(torch.zeros(self.conv_num)))
+        # channel tensor parallelism (parallel/gspmd.py): the gather over the
+        # model axis after each conv, where the convs hold a slice of their
+        # output channels
+        self.gathers = None
 
     @classmethod
     def create(cls, conv_num: int = 3, kernel_size=(9, 9, 9), seed: int = 0,
@@ -64,15 +78,15 @@ class CnnBaseline(nn.Module):
         return model
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        if self.backend == "cuda" and self.kernel_size == (3, 3, 3):
-            return fused_conv3d_mc(x, w) + bias[None, :, None, None, None]
-        return conv3d_f32(F.pad(x, same_pads(self.kernel_size)), w, bias)
+        return cnn_conv(x, w, bias, self.kernel_size, self.backend)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, 1, Z, X, Y) → relu(tanh(Σ channels)) (B, 1, Z, X, Y)."""
         h = x.float()
-        for w, bias in zip(self.weights, self.biases):
+        for i, (w, bias) in enumerate(zip(self.weights, self.biases)):
             h = self._conv(h, w, bias)
+            if self.gathers is not None:
+                h = self.gathers[i](h)
         return torch.relu(torch.tanh(h.sum(dim=1, keepdim=True)))
 
     def flax_state(self) -> Dict[str, torch.Tensor]:

@@ -159,6 +159,10 @@ class _ConvBlock(nn.Module):
         self.bn0 = FlaxBatchNorm(mid)
         self.conv1 = nn.Parameter(torch.zeros((features, mid, 3, 3, 3)))
         self.bn1 = FlaxBatchNorm(features)
+        # channel tensor parallelism (parallel/gspmd.py): the gather over the
+        # model axis after each conv's BN + relu, where the convs hold a slice
+        # of their output channels
+        self.gathers = None
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         w = w.to(self.dtype)
@@ -167,8 +171,11 @@ class _ConvBlock(nn.Module):
         return conv3d_mc_same_plain(x, w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn0(self._conv(x, self.conv0)))
-        return torch.relu(self.bn1(self._conv(x, self.conv1)))
+        x = self._out(0, torch.relu(self.bn0(self._conv(x, self.conv0))))
+        return self._out(1, torch.relu(self.bn1(self._conv(x, self.conv1))))
+
+    def _out(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        return x if self.gathers is None else self.gathers[i](x)
 
 
 def _upsample_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -229,16 +236,30 @@ class UNet3D(nn.Module):
             model.out.bias.zero_()
         return model
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, stage: str = "all"):
         """x (B, 1, Z, X, Y) → sigmoid probabilities (B, n_classes, Z, X, Y),
         f32. ``train()`` normalises by the batch and moves the running
-        statistics; ``eval()`` uses them."""
-        pool = F.max_pool3d
-        x1 = self.down0(x.to(self.dtype))
-        x2 = self.down1(pool(x1, 2))
-        x3 = self.down2(pool(x2, 2))
-        x4 = self.down3(pool(x3, 2))
-        u = self.down4(pool(x4, 2))
+        statistics; ``eval()`` uses them.
+
+        ``stage`` picks a part of the graph, for the pipeline
+        (:func:`~scenenet_tpu_torch.parallel.pp.make_unet_pipeline_inference_fn`):
+        ``"encode"`` runs the down path and returns the skip tuple (x1..x5);
+        ``"decode"`` takes that tuple and runs the up path and the head;
+        ``"all"`` is the whole forward. The parameters are the same in
+        every part."""
+        if stage not in ("all", "encode", "decode"):
+            raise ValueError(f"stage must be 'all', 'encode' or 'decode', got {stage!r}")
+        if stage == "decode":
+            x1, x2, x3, x4, u = x
+        else:
+            pool = F.max_pool3d
+            x1 = self.down0(x.to(self.dtype))
+            x2 = self.down1(pool(x1, 2))
+            x3 = self.down2(pool(x2, 2))
+            x4 = self.down3(pool(x3, 2))
+            u = self.down4(pool(x4, 2))
+            if stage == "encode":
+                return x1, x2, x3, x4, u
         for block, skip in ((self.up0, x4), (self.up1, x3), (self.up2, x2), (self.up3, x1)):
             u = block(torch.cat([skip, _pad_to(_upsample_nearest(u), skip)], dim=1))
         return torch.sigmoid(self._head(u).float())

@@ -66,7 +66,9 @@ def reduce_gradients(params: Iterable[torch.Tensor], axes: Tuple[str, ...],
 
 def linesearch_value_fn(closure: Callable[[], torch.Tensor], params: Iterable[torch.Tensor],
                         axes: Tuple[str, ...], mesh: Optional[Mesh] = None,
-                        reduce_loss: Optional[Callable] = None) -> Callable[[], torch.Tensor]:
+                        reduce_loss: Optional[Callable] = None,
+                        reduce_grads: Optional[Callable[[], None]] = None
+                        ) -> Callable[[], torch.Tensor]:
     """The objective a linesearch optimizer (L-BFGS) re-evaluates, made
     global: ``closure`` computes the rank's loss and its gradients in
     ``.grad``; the returned closure averages both over ``axes`` (the value
@@ -74,7 +76,9 @@ def linesearch_value_fn(closure: Callable[[], torch.Tensor], params: Iterable[to
     value and slope, takes the same linesearch decisions and makes the same
     number of evaluations; with the rank's own slope they would differ and
     the collectives of the trials would deadlock (the JAX package measured
-    it: a rendezvous timeout)."""
+    it: a rendezvous timeout). ``reduce_grads`` replaces the gradients'
+    mean where a mesh assembles them otherwise (the ensemble's sum over its
+    members)."""
     params = list(params)
     if reduce_loss is None:
         def reduce_loss(v):
@@ -82,7 +86,10 @@ def linesearch_value_fn(closure: Callable[[], torch.Tensor], params: Iterable[to
 
     def value_fn() -> torch.Tensor:
         value = closure()
-        reduce_gradients(params, axes, mesh)
+        if reduce_grads is not None:
+            reduce_grads()
+        else:
+            reduce_gradients(params, axes, mesh)
         return reduce_loss(value.detach())
 
     return value_fn

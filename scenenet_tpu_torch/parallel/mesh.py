@@ -9,15 +9,20 @@ the JAX package's:
 - ``data``: the batch is split over it (the reference's DDP);
 - ``space``: the voxel grid's Z axis is split over it, and the SAME conv
   exchanges halo planes with the ±1 neighbours
-  (:mod:`scenenet_tpu_torch.parallel.spatial`).
+  (:mod:`scenenet_tpu_torch.parallel.spatial`);
+- ``model``: the quantile ensemble's members
+  (:mod:`~scenenet_tpu_torch.parallel.ep`) or the conv stacks' output
+  channels (:mod:`~scenenet_tpu_torch.parallel.gspmd`) are split over it;
+- ``stage``: a conv stack's depth, one stage a rank
+  (:mod:`~scenenet_tpu_torch.parallel.pp`).
 
 Every line of ranks along a set of axes gets its own ``dist.new_group``,
 made by every rank in one order, so that a collective names its axes as
 ``lax.psum`` does. The collectives here (:func:`psum`, :func:`pmean`,
-:func:`shift`) are differentiable where JAX's are transposed: the
-backward of a sum over ranks sums the cotangents over the same ranks, and
-the backward of a shift shifts the cotangent back to the rank that sent
-the planes.
+:func:`shift`, :func:`all_gather`) are differentiable where JAX's are
+transposed: the backward of a sum over ranks sums the cotangents over the
+same ranks, the backward of a shift shifts the cotangent back to the rank
+that sent the planes, and the backward of a gather is a reduce-scatter.
 
 The backend is the caller's choice and nothing switches it: NCCL takes
 device tensors as they are; gloo has no point-to-point for CUDA tensors,
@@ -103,6 +108,14 @@ class Mesh:
         None where the line is this rank alone."""
         axes = frozenset(a for a in _axes(axes) if self.shape[a] > 1)
         return self._groups[axes] if axes else None
+
+    def line(self, axis: str) -> list:
+        """The global ranks of the line through this rank along ``axis``, in
+        the order of their coordinate."""
+        where = [self.coords[a] for a in self.axis_names]
+        i = self.axis_names.index(axis)
+        return [int(self.devices[tuple(where[:i] + [c] + where[i + 1:])])
+                for c in range(self.shape[axis])]
 
     def neighbour(self, axis: str, offset: int) -> Optional[int]:
         """The global rank ``offset`` steps along ``axis``, None past an end."""
@@ -249,7 +262,7 @@ class Placement:
 
     def part(self, t: torch.Tensor, dim: int, axis: Optional[str]) -> torch.Tensor:
         """This rank's equal share of ``t`` along ``dim`` over ``axis``."""
-        if axis is None or self.mesh.shape[axis] == 1:
+        if axis is None or self.mesh.shape.get(axis, 1) == 1:
             return t
         n = self.mesh.shape[axis]
         if t.shape[dim] % n:
@@ -334,17 +347,78 @@ def pmean(x: torch.Tensor, axes: Axes, mesh: Optional[Mesh] = None) -> torch.Ten
     return psum(x, axes, mesh) / n if n > 1 else x
 
 
+def _gather(x: torch.Tensor, axis: str, dim: int, mesh: Mesh) -> torch.Tensor:
+    """Every rank's ``x`` on the line along ``axis``, concatenated along
+    ``dim`` in coordinate order. ``dist.all_gather`` fills its list in the
+    group's rank order, which is the sorted global ranks (``new_group``
+    sorts them); a hybrid mesh's lines need not be in that order."""
+    line = mesh.line(axis)
+    staged = _staged(x, mesh.backend)
+    send = x.detach().to("cpu", copy=True) if staged else x.detach().contiguous()
+    parts = [torch.empty_like(send) for _ in line]
+    dist.all_gather(parts, send, group=mesh.group(axis))
+    by_rank = dict(zip(sorted(line), parts))
+    out = torch.cat([by_rank[r] for r in line], dim)
+    return out.to(x.device) if staged else out
+
+
+class _AllGather(torch.autograd.Function):
+    """The gather of :func:`all_gather`; its backward is this rank's slice
+    of the cotangent, summed over the line first where ``reduce`` says (a
+    reduce-scatter, staged as an all-reduce and a slice)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh, reduce):
+        ctx.axis, ctx.dim, ctx.mesh, ctx.reduce = axis, dim, mesh, reduce
+        return _gather(x, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.mesh, ctx.axis, ctx.dim
+        if ctx.reduce:
+            g = all_reduce(g.contiguous(), mesh.group(axis), backend=mesh.backend)
+        size = g.shape[dim] // mesh.shape[axis]
+        return g.narrow(dim, mesh.coords[axis] * size, size).contiguous(), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, axis: str, dim: int = 1, mesh: Optional[Mesh] = None,
+               reduce_backward: bool = True) -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` concatenated along ``dim`` in
+    coordinate order (``lax.all_gather(..., tiled=True)``), differentiable.
+
+    ``reduce_backward`` (the transpose of the gather) sums the cotangents of
+    the whole line and keeps this rank's slice: right where each rank's
+    consumers of the gathered tensor contribute a part of its cotangent (a
+    conv that computes this rank's output channels from every input
+    channel). Where the consumer is computed identically on every rank (a
+    replicated head and loss), every rank already holds the whole
+    cotangent, and a sum would count it once a rank: there
+    ``reduce_backward=False`` keeps the slice alone."""
+    mesh = _resolve(mesh)
+    if mesh.shape[axis] == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, axis, dim, mesh, reduce_backward)
+    return _gather(x, axis, dim, mesh)
+
+
 def all_reduce_mean_(tensors: Iterable[torch.Tensor], axes: Axes,
-                     mesh: Optional[Mesh] = None) -> None:
+                     mesh: Optional[Mesh] = None, mean_over: Optional[Axes] = None) -> None:
     """Replace each tensor by its mean over ``axes``, in place, in one
-    collective over their concatenation: the DDP gradient reduction."""
+    collective over their concatenation: the DDP gradient reduction.
+    ``mean_over`` (a part of ``axes``) divides by those axes' size alone:
+    the sum over the others and the mean over these, ``pmean(psum(t,
+    others), mean_over)``."""
     mesh = _resolve(mesh)
     group = mesh.group(axes)
     tensors = list(tensors)
     if group is None or not tensors:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    flat = all_reduce(flat, group, backend=mesh.backend) / mesh.axis_size(axes)
+    n = mesh.axis_size(axes if mean_over is None else mean_over)
+    flat = all_reduce(flat, group, backend=mesh.backend)
+    if n > 1:
+        flat = flat / n
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))

@@ -75,13 +75,18 @@ class ADMMTrainer:
     ``mesh`` (the ``data`` and ``space`` axes): the primal step runs over the
     mesh's ranks as ``Trainer(mesh=...)``'s does: the batch over ``data``, Z
     over ``space`` (the halo-exchange forward), the gradients and the loss
-    averaged and the confusion counts summed.
+    averaged and the confusion counts summed. A ``model`` axis wider than 1
+    is refused, as the train CLI refuses ``constrained: admm`` with
+    ``mesh_ensemble`` or ``mesh_channel``.
     """
 
     def __init__(self, model: nn.Module, criterion: Callable, config: ADMMConfig,
                  logger=None, batch_prep: Optional[Callable] = None, mesh: Optional[Any] = None):
         from scenenet_tpu_torch.utils.logging import NullLogger, RunLogger
 
+        if mesh is not None and mesh.size > 1 and mesh.shape.get("model", 1) > 1:
+            raise ValueError("constrained=admm shards over data/space only (no "
+                             f"ensemble/channel axis); got mesh {dict(mesh.shape)}")
         self.model = model
         self.criterion = criterion
         self.config = config

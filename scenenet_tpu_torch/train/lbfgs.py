@@ -212,6 +212,10 @@ class LBFGS(torch.optim.Optimizer):
         self.trials = 0
         self.evaluations = 0
         self.host_syncs = 0
+        # the inner product of two flat vectors; under channel tensor
+        # parallelism one over the whole vector, whose split parts lie on
+        # other ranks (parallel/gspmd.py global_dot)
+        self.dot = torch.dot
 
     # ---- state, for the resumable snapshots ----------------------------------
 
@@ -246,22 +250,24 @@ class LBFGS(torch.optim.Optimizer):
         idx, prev = self.count % m, (self.count - 1) % m
         if self.count > 0:
             dw, du = w - self.prev_params, g - self.prev_updates
-            vdot = torch.dot(du, dw)
+            vdot = self.dot(du, dw)
             self.dw[prev].copy_(dw)
             self.du[prev].copy_(du)
             self.rho[prev].copy_(torch.where(vdot == 0, torch.zeros_like(vdot), 1.0 / vdot))
-            den = torch.dot(du, du)
+            den = self.dot(du, du)
             scale = torch.where(den > 0, vdot / den, torch.ones_like(den))
         else:  # a capped reciprocal of the gradient norm
-            scale = torch.clamp(1.0 / torch.linalg.vector_norm(g), max=1.0)
+            norm = (torch.linalg.vector_norm(g) if self.dot is torch.dot
+                    else torch.sqrt(self.dot(g, g)))
+            scale = torch.clamp(1.0 / norm, max=1.0)
         order = [(idx + j) % m for j in range(m)]
         vec, alphas = g, {}
         for i in reversed(order):
-            alphas[i] = self.rho[i] * torch.dot(self.dw[i], vec)
+            alphas[i] = self.rho[i] * self.dot(self.dw[i], vec)
             vec = vec + (-alphas[i]) * self.du[i]
         vec = scale * vec
         for i in order:
-            beta = self.rho[i] * torch.dot(self.du[i], vec)
+            beta = self.rho[i] * self.dot(self.du[i], vec)
             vec = vec + (alphas[i] - beta) * self.dw[i]
         self.prev_params.copy_(w)
         self.prev_updates.copy_(g)
@@ -277,13 +283,13 @@ class LBFGS(torch.optim.Optimizer):
         given = [p.grad.clone() if p.grad is not None else None for p in self.plist]
         g = grad if updates is None else _flat(updates)
         u = -lr * self._direction(w, g)
-        slope_init = torch.dot(u, grad)
+        slope_init = self.dot(u, grad)
 
         def trial(stepsize):
             self._set(w + float(stepsize) * u)
             with torch.enable_grad():
                 v = closure()
-            s = torch.dot(self._grads(), u)
+            s = self.dot(self._grads(), u)
             self.evaluations += 1
             self.host_syncs += 1
             return torch.stack([v.detach().to(s.dtype), s]).tolist()

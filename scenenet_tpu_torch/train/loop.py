@@ -55,7 +55,10 @@ PyTorch twin of the streaming path of :mod:`scenenet_tpu.train.loop`:
   assemble each batch replicated and take the rank's rows; evaluation
   splits a batch by rows where the data axis divides it and replicates a
   ragged tail; the first rank alone writes checkpoints, snapshots and logs.
-  A mesh of one rank runs the plain path.
+  A mesh of one rank runs the plain path. A ``model`` axis splits a quantile
+  ensemble's members (:mod:`~scenenet_tpu_torch.parallel.ep`, every fit
+  route) or a conv stack's channels (:mod:`~scenenet_tpu_torch.parallel.gspmd`,
+  the streamed ``fit``); of size 1 it is data parallelism.
 """
 
 from __future__ import annotations
@@ -193,13 +196,18 @@ class Trainer:
     that holds the model's parameters and moves each batch there.
 
     ``mesh`` (:func:`scenenet_tpu_torch.parallel.make_mesh` or
-    ``make_hybrid_mesh``, axes ``data`` and ``space``) trains over its
-    ranks, each process a rank holding the model on ``mesh.device``: the
-    batch over ``data``, the grid's Z over ``space`` (SceneNet's
-    halo-exchange forward; ``overlap`` picks its overlapped form), the
-    gradients and the loss averaged and the confusion counts summed over
-    both. A stateful model (the UNet) trains over ``data`` alone with its
-    BatchNorms synchronised. A mesh of one rank is the plain path."""
+    ``make_hybrid_mesh``, axes ``data`` and ``space`` or ``data`` and
+    ``model``) trains over its ranks, each process a rank holding the model
+    on ``mesh.device``: the batch over ``data``, the grid's Z over ``space``
+    (SceneNet's halo-exchange forward; ``overlap`` picks its overlapped
+    form), the gradients and the loss averaged and the confusion counts
+    summed over both. A stateful model (the UNet) trains over ``data`` with
+    its BatchNorms synchronised. A ``model`` axis wider than 1 splits a
+    quantile ensemble's members (ensemble parallelism) or, for any other
+    model, the conv stack's output channels (channel tensor parallelism:
+    the ranks train their slices, ``self.model`` gets the full parameters
+    back before every checkpoint and at the end of the fit). A mesh of one
+    rank is the plain path."""
 
     def __init__(self, model: nn.Module, criterion: Callable, config: TrainConfig,
                  logger: Optional[RunLogger] = None,
@@ -220,11 +228,18 @@ class Trainer:
         self.overlap = overlap
         self._axes: Tuple[str, ...] = ()
         self._space = 1
+        # how the mesh splits the work: "dp" (data, and space), "ep" (the
+        # ensemble's members over 'model') or "tp" (channels over 'model')
+        self._mode: Optional[str] = None
+        self._tp: Optional[nn.Module] = None  # the rank's channel-parallel copy
         if self.mesh is not None:
             from scenenet_tpu_torch.parallel.dp import mesh_axes
 
-            self._axes = mesh_axes(self.mesh)
             self._space = self.mesh.shape.get("space", 1)
+            self._mode = ("dp" if self.mesh.shape.get("model", 1) <= 1 else
+                          "ep" if hasattr(model, "quantiles") else "tp")
+            self._axes = {"dp": mesh_axes(self.mesh), "ep": ("data", "model"),
+                          "tp": ("data",)}[self._mode]
             self._check_mesh_supported()
         # the first rank alone writes checkpoints, snapshots and logs: every
         # rank holds the same state and scores
@@ -244,7 +259,17 @@ class Trainer:
             if self.device != self.mesh.device:
                 raise ValueError(f"the model is on {self.device}, the mesh's rank on "
                                  f"{self.mesh.device}")
-            if getattr(model, "is_stateful", False):
+            if self._mode == "ep":
+                from scenenet_tpu_torch.parallel.ep import local_members
+
+                self._members = local_members(model, self.mesh)
+            elif self._mode == "tp":
+                from scenenet_tpu_torch.parallel.gspmd import channel_parallel
+
+                self._tp = channel_parallel(model, self.mesh)
+                if getattr(model, "is_stateful", False):
+                    self._tp.with_bn_sync("data")
+            elif getattr(model, "is_stateful", False):
                 model.with_bn_sync("data")
             if self._space > 1:
                 self._spatial = SpatialForward(model, self.mesh, overlap=overlap)
@@ -260,15 +285,25 @@ class Trainer:
 
     # ---- the mesh ------------------------------------------------------------
 
+    @property
+    def net(self) -> nn.Module:
+        """The module that computes and trains: the model, or under channel
+        tensor parallelism the rank's channel-parallel copy of it."""
+        return self._tp if self._tp is not None else self.model
+
     def _check_mesh_supported(self, pure_dp: bool = False,
                               batch_size: Optional[int] = None) -> None:
         """The loud guards of every mesh fit: what the mesh paths do not
         train raises here rather than training something else."""
         shape = self.mesh.shape
-        if set(shape) - {"data", "space"}:
-            raise NotImplementedError(f"mesh axes {tuple(shape)}: the port trains over "
-                                      "'data' and 'space'; the 'model' axis (ensemble "
-                                      "members, channel TP, the pipeline) is ROADMAP A12b")
+        if "data" not in shape or set(shape) - {"data", "space", "model"}:
+            raise ValueError(f"mesh axes {tuple(shape)}: the Trainer trains over 'data' with "
+                             "'space' or 'model' (the pipeline's 'stage' axis is "
+                             "parallel.pp's own step)")
+        if pure_dp and self._mode == "tp":
+            raise ValueError("GSPMD channel-TP training (mesh 'model' axis on a non-ensemble "
+                             "model) streams batches via fit(); the cached-epoch fits shard "
+                             "over 'data' only")
         if getattr(self.model, "is_stateful", False):
             if pure_dp:
                 raise ValueError("cached-epoch mesh training supports stateless models "
@@ -276,10 +311,26 @@ class Trainer:
             if self._space > 1:
                 raise ValueError("stateful models do not support spatial sharding — got "
                                  f"{dict(shape)}")
-            if not hasattr(self.model, "with_bn_sync"):
+            if self._mode == "dp" and not hasattr(self.model, "with_bn_sync"):
                 raise ValueError(f"stateful model {type(self.model).__name__} lacks "
                                  "with_bn_sync(axis); cross-shard batch-stats sync is "
                                  "required for DP mesh training")
+        if self._space > 1 and self._mode != "dp":
+            raise ValueError(
+                "a mesh cannot combine the channel-TP ('model') and spatial ('space') axes; "
+                "use (data, model)" if self._mode == "tp" else
+                "a mesh cannot combine the ensemble ('model') and spatial ('space') axes yet; "
+                "use (data, model)")
+        if self._mode == "ep":
+            from scenenet_tpu_torch.parallel.ep import _check_criterion, _check_ensemble
+
+            _check_ensemble(self.model, self.mesh)
+            _check_criterion(self.criterion, self.model)
+        if self._mode == "tp":
+            from scenenet_tpu_torch.parallel.gspmd import _check_shardable
+            from scenenet_tpu_torch.train.checkpoint import _module_state
+
+            _check_shardable(_module_state(self.model), self.mesh)
         if self._space > 1 and not hasattr(self.model, "synthesize_kernels"):
             raise ValueError("spatial sharding (mesh space > 1) requires the SceneNet "
                              "forward protocol (synthesize_kernels/effective_lambdas); "
@@ -319,10 +370,39 @@ class Trainer:
         from scenenet_tpu_torch.parallel.mesh import ensure_replicated
 
         tensors = list(self.model.parameters()) + list(self.model.buffers())
-        tensors += [v for st in self.optimizer.state.values() for v in st.values()
-                    if torch.is_tensor(v)]
+        if self._tp is None:
+            tensors += [v for st in self.optimizer.state.values() for v in st.values()
+                        if torch.is_tensor(v)]
         with torch.no_grad():
             ensure_replicated(tensors, self.mesh)
+        if self._tp is not None:
+            # the shards are cut from the replicated full model; the optimizer's
+            # state is the rank's own (fresh, or loaded from the same snapshot)
+            from scenenet_tpu_torch.parallel.gspmd import shard_from
+
+            shard_from(self._tp, self.model)
+
+    def sync_model(self) -> nn.Module:
+        """Under channel tensor parallelism, write the ranks' shards, gathered
+        over ``model``, into ``self.model`` (a collective: every rank calls
+        it); a no-op otherwise. Returns the model."""
+        if self._tp is not None:
+            from scenenet_tpu_torch.parallel.gspmd import gather_into
+
+            gather_into(self._tp, self.model)
+        return self.model
+
+    def full_gradients(self) -> Dict[str, torch.Tensor]:
+        """The last step's gradients by the model's parameter names, whole:
+        under channel tensor parallelism gathered over ``model`` (a
+        collective)."""
+        grads = {n: p.grad for n, p in self.net.named_parameters() if p.grad is not None}
+        if self._tp is None:
+            return grads
+        from scenenet_tpu_torch.parallel.mesh import _gather
+
+        return {n: _gather(g, "model", 0, self.mesh) if n in self._tp.split_names else g
+                for n, g in grads.items()}
 
     def _triggered(self, guard: PreemptionGuard) -> bool:
         """A SIGTERM on any rank: the ranks stop at the same boundary."""
@@ -344,11 +424,22 @@ class Trainer:
         distributed criterion, which is global already)."""
         if self.mesh is None:
             return loss
-        from scenenet_tpu_torch.parallel.dp import reduce_gradients
-        from scenenet_tpu_torch.parallel.mesh import pmean
+        self._reduce_grads()
+        return self._reduce_loss(loss)
 
-        reduce_gradients(self.model.parameters(), self._axes, self.mesh)
-        return pmean(loss, self._axes, self.mesh)
+    def _reduce_grads(self) -> None:
+        """The gradients of the rank's step made global in place: averaged
+        over the mesh's axes (data parallelism, channel TP over ``data``
+        only), or summed over the ensemble's members and averaged over
+        ``data``."""
+        if self._mode == "ep":
+            from scenenet_tpu_torch.parallel.ep import reduce_ensemble_gradients
+
+            reduce_ensemble_gradients(self.model, self.mesh)
+            return
+        from scenenet_tpu_torch.parallel.dp import reduce_gradients
+
+        reduce_gradients(self.net.parameters(), self._axes, self.mesh)
 
     def _count(self, mstate: MetricState, pred: torch.Tensor, y: torch.Tensor,
                axes: Optional[Tuple[str, ...]] = None) -> MetricState:
@@ -370,7 +461,7 @@ class Trainer:
         from bf16 copies of the floating parameters and a bf16 x (the
         buffers, BatchNorm's running statistics, stay the model's own f32
         tensors)."""
-        net = self._spatial if self._spatial is not None else self.model
+        net = self._spatial if self._spatial is not None else self.net
         if self.config.precision == "bf16":
             half = cast_half(dict(net.named_parameters()))
             return functional_call(net, half, (x.to(torch.bfloat16),)).float()
@@ -379,6 +470,15 @@ class Trainer:
     def _loss(self, x: torch.Tensor, y: torch.Tensor, axes: Optional[Tuple[str, ...]] = None):
         """The loss of the batch (x, y) and the prediction; under a mesh by
         the criterion made distributed over ``axes`` (default the mesh's)."""
+        if self._mode == "ep":
+            # the rank's members and its part of the loss; the weights'
+            # normalisation over the axes' data part
+            from scenenet_tpu_torch.parallel.ep import local_quantile_loss
+
+            axes = self._axes if axes is None else axes
+            return local_quantile_loss(self.criterion, self.model, x, y, self._members,
+                                       tuple(a for a in axes if a == "data"),
+                                       half=self.config.precision == "bf16")
         pred = self._forward(x)
         m = self.model
         cvx = m.cvx_coefficients() if hasattr(m, "cvx_coefficients") else {}
@@ -404,8 +504,14 @@ class Trainer:
         """A fresh optimizer over the model's trainable parameters;
         ``capturable`` keeps its step counts on the device, so that a CUDA
         graph can hold its update."""
-        self.optimizer = resolve_optimizer(self.config.optimizer, self.model.parameters(),
+        self.optimizer = resolve_optimizer(self.config.optimizer, self.net.parameters(),
                                            self.config.learning_rate, capturable=capturable)
+        if self._tp is not None and isinstance(self.optimizer, LBFGS):
+            # the linesearch's inner products over the whole vector: the split
+            # leaves' parts summed over 'model', the replicated ones once
+            from scenenet_tpu_torch.parallel.gspmd import global_dot
+
+            self.optimizer.dot = global_dot(self._tp, self.optimizer.plist)
         k = self.config.accumulate_grad_batches
         self.multi_steps = MultiSteps(self.optimizer, k) if k > 1 else None
         return self.optimizer
@@ -416,14 +522,14 @@ class Trainer:
         buffers (BatchNorm's running statistics) are put back after each
         evaluation, as the JAX package's ``value_fn`` drops the model state
         it computes."""
-        saved = [b.detach().clone() for b in self.model.buffers()]
+        saved = [b.detach().clone() for b in self.net.buffers()]
 
         def closure() -> torch.Tensor:
             self.optimizer.zero_grad(set_to_none=True)
             loss, _ = self._loss(x, y)
             loss.backward()
             with torch.no_grad():
-                for b, v in zip(self.model.buffers(), saved):
+                for b, v in zip(self.net.buffers(), saved):
                     b.copy_(v)
             return loss.detach()
 
@@ -432,7 +538,21 @@ class Trainer:
         # every rank's linesearch must see the global value and slope
         from scenenet_tpu_torch.parallel.dp import linesearch_value_fn
 
-        return linesearch_value_fn(closure, self.model.parameters(), self._axes, self.mesh)
+        return linesearch_value_fn(closure, self.net.parameters(), self._axes, self.mesh,
+                                   reduce_loss=self._reduce_loss,
+                                   reduce_grads=self._reduce_grads)
+
+    def _reduce_loss(self, loss: torch.Tensor,
+                      axes: Optional[Tuple[str, ...]] = None) -> torch.Tensor:
+        """The rank's loss made global over ``axes`` (default the mesh's):
+        averaged, or for the ensemble summed over its members first."""
+        from scenenet_tpu_torch.parallel.mesh import pmean, psum
+
+        axes = self._axes if axes is None else axes
+        if self._mode == "ep":
+            loss = psum(loss, "model", self.mesh)
+            axes = tuple(a for a in axes if a != "model")
+        return pmean(loss, axes, self.mesh)
 
     def _update(self, apply: bool, x: Optional[torch.Tensor] = None,
                 y: Optional[torch.Tensor] = None, loss: Optional[torch.Tensor] = None) -> None:
@@ -456,9 +576,16 @@ class Trainer:
         every parameter and buffer, the optimizer's state (made as a first
         step would make it where no step has run), the accumulation's, and
         the step."""
+        self.sync_model()
         out = {f"params/{n}": p for n, p in self.model.named_parameters()}
         out.update((f"buffers/{n}", b) for n, b in self.model.named_buffers())
-        out.update((f"optimizer/{k}", v) for k, v in optimizer_state(self.optimizer).items())
+        opt = optimizer_state(self.optimizer)
+        if self._tp is not None:
+            # the rank's moments gathered into the full tree (collectives)
+            from scenenet_tpu_torch.parallel.gspmd import gather_optimizer_state
+
+            opt = gather_optimizer_state(self._tp, self.optimizer, opt)
+        out.update((f"optimizer/{k}", v) for k, v in opt.items())
         if self.multi_steps is not None:
             out.update((f"multi_steps/{k}", v)
                        for k, v in self.multi_steps.state_tensors().items())
@@ -475,8 +602,13 @@ class Trainer:
             p.copy_(state[f"params/{n}"])
         for n, b in self.model.named_buffers():
             b.copy_(state[f"buffers/{n}"])
-        load_optimizer_state(self.optimizer, {k[len("optimizer/"):]: v for k, v in state.items()
-                                              if k.startswith("optimizer/")})
+        opt = {k[len("optimizer/"):]: v for k, v in state.items() if k.startswith("optimizer/")}
+        if self._tp is not None:
+            from scenenet_tpu_torch.parallel.gspmd import shard_from, shard_optimizer_state
+
+            shard_from(self._tp, self.model)
+            opt = shard_optimizer_state(self._tp, self.optimizer, opt)
+        load_optimizer_state(self.optimizer, opt)
         if self.multi_steps is not None:
             self.multi_steps.load_state_tensors(
                 {k[len("multi_steps/"):]: v for k, v in state.items()
@@ -495,7 +627,7 @@ class Trainer:
         x, y = self.batch_prep(*batch) if self.batch_prep else batch
         if self.batch_prep is not None:
             x, y = self._slab(x), self._slab(y)
-        self.model.train()
+        self.net.train()
         self.optimizer.zero_grad(set_to_none=True)
         # debug_nans: a NaN made in the forward or the backward raises,
         # naming the operation that made it
@@ -532,8 +664,6 @@ class Trainer:
         part of the prediction. Without a mesh, :meth:`eval_step`."""
         if self.mesh is None:
             return self.eval_step(mstate, *self.to_device(batch))
-        from scenenet_tpu_torch.parallel.mesh import pmean
-
         divisible = int(torch.as_tensor(batch[0]).shape[0]) % self.mesh.shape["data"] == 0
         axes = self._axes if divisible else tuple(a for a in self._axes if a != "data")
         part = [torch.as_tensor(b) for b in batch]
@@ -541,18 +671,28 @@ class Trainer:
             part = [self._rows(t) for t in part]
         part = [t.to(self.device) for t in part]
         x, y = self.batch_prep(*part) if self.batch_prep else part[:2]
-        x, y = self._slab(x), self._slab(y)
-        self.model.eval()
+        return self.local_eval_step(mstate, self._slab(x), self._slab(y), axes)
+
+    @torch.no_grad()
+    @_in_mesh
+    def local_eval_step(self, mstate: MetricState, x: torch.Tensor, y: torch.Tensor,
+                        axes: Tuple[str, ...]) -> Tuple[MetricState, torch.Tensor, torch.Tensor]:
+        """The eval step of this rank's part (x, y) of a batch split over
+        ``axes`` (the mesh's less ``data`` for a batch replicated over it):
+        the global counts and loss and the rank's prediction."""
+        self.net.eval()
         loss, pred = self._loss(x, y, axes)
-        return self._count(mstate, pred, y, axes), pmean(loss, axes, self.mesh), pred
+        return self._count(mstate, pred, y, axes), self._reduce_loss(loss, axes), pred
 
     def _grad_stats(self) -> Dict[str, float]:
         """The gradient snapshot of the last step: a frozen parameter's
         gradient is logged as 0."""
         flat = {}
+        grads = self.full_gradients()
         for name, p in self.model.named_parameters():
             key = name.replace(".", "/")
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            g = grads.get(name)
+            g = g if g is not None else torch.zeros_like(p)
             if g.ndim == 0:
                 flat[f"grad/{key}"] = float(g)
             else:
@@ -671,8 +811,9 @@ class Trainer:
                                 and since_snap >= cfg.checkpoint_every_n_steps)
                     triggered = self._triggered(guard)
                     if triggered or snap_due:
+                        state = self.train_state()  # every rank: TP gathers its shards
                         if self._writes:
-                            save_train_snapshot(snap_path, self.train_state(), mstate, loss_sum,
+                            save_train_snapshot(snap_path, state, mstate, loss_sum,
                                                 {}, {"kind": "batch", "epoch": epoch,
                                                      "next_batch": bi + 1,
                                                      "loss_count": loss_count,
@@ -685,10 +826,13 @@ class Trainer:
                             if tracer is not None:
                                 tracer.__exit__(None, None, None)
                             self._barrier()
-                            return self.model, self.best.best
-                    if cfg.log_gradients and not grad_logged and self._writes:
-                        # one gradient snapshot per epoch
-                        self.logger.log_params(self._grad_stats(), self.step)
+                            return self.sync_model(), self.best.best
+                    if cfg.log_gradients and not grad_logged and (self._writes
+                                                                  or self._tp is not None):
+                        # one gradient snapshot per epoch (TP: every rank gathers)
+                        stats = self._grad_stats()
+                        if self._writes:
+                            self.logger.log_params(stats, self.step)
                         grad_logged = True
                 skip_batches = 0
 
@@ -708,7 +852,7 @@ class Trainer:
                     self.logger.log_params(self.model.parameters_in_dict(), epoch)
                 self.logger.log_metrics(scores, epoch)
                 self.best.update(scores)
-                ckpt.step(self.model, scores, epoch)
+                ckpt.step(self.sync_model(), scores, epoch)
                 if tracer is not None:
                     tracer.__exit__(None, None, None)
                     tracer.export_chrome_trace(os.path.join(cfg.profile_dir,
@@ -721,7 +865,7 @@ class Trainer:
         if self._writes:
             discard_snapshot(snap_path)
         self._barrier()  # the first rank's checkpoints are written for every rank
-        return self.model, self.best.best
+        return self.sync_model(), self.best.best
 
     # ---- device-resident epochs ---------------------------------------------------
 
@@ -808,7 +952,7 @@ class Trainer:
         self._check_cached("evaluate_cached", grids, 1)
         cfg = self.config
         n = len(grids)
-        self.model.eval()
+        self.net.eval()
         mstate = init_metric_state(self.device)
         weighted = torch.zeros((), dtype=torch.float64, device=self.device)
         for start in range(0, n, batch_size):
@@ -982,7 +1126,12 @@ class Trainer:
             warnings.warn(f"no checkpoint recorded for {metric!r} (metric absent or "
                           f"non-finite every epoch); restoring last.npz instead")
             path = last
-        return restore_checkpoint(path, template)
+        restored = restore_checkpoint(path, template)
+        if template is self.model and self._tp is not None:
+            from scenenet_tpu_torch.parallel.gspmd import shard_from
+
+            shard_from(self._tp, self.model)
+        return restored
 
 
 def trains_by_replay(device: torch.device, optimizer, mesh: Optional[Any] = None) -> bool:
@@ -1059,7 +1208,7 @@ class CachedEpochs:
         def step(apply: bool = True):
             rows = order.index_select(0, cursor * batch_size + offsets)
             x, y = load(rows, draws, cursor)
-            trainer.model.train()
+            trainer.net.train()
             trainer.optimizer.zero_grad(set_to_none=True)
             # debug_nans: anomaly checks read values on the host, which a
             # capture cannot hold; run_chunk checks the loss after each step

@@ -129,8 +129,9 @@ def test_val_scores_checkpoints_early_stop(tmp_path):
 
 def test_mesh_raises_a12(tmp_path):
     net = SceneNet.create(kernel_size=KS, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        # the data and space axes are ported (A12); the 'model' axis raises (A12b)
+    with pytest.raises(ValueError, match="constrained=admm shards over data/space only"):
+        # every mesh axis is ported (A12); ADMM trains over the data and space
+        # axes, and refuses the 'model' axis as the JAX CLI does
         ADMMTrainer(net, resolve_criterion("mse")(), _cfg(tmp_path, "m"),
                     mesh=SimpleNamespace(size=2, shape={"data": 1, "model": 2}))
 

@@ -1530,6 +1530,36 @@ def test_conv3d_mc_bf16_form_matches_plain(dev, b, cin, cout, shape):
     _bf16_close(got.cpu(), cuda_conv_mc.conv3d_mc_same(x.cpu(), w.cpu()), cin)
 
 
+# K10 at the shapes of channel tensor parallelism (parallel/gspmd.py): a rank's conv at
+# C_out/m for m = 2, 4 ("fwd"), and the dx of a column-parallel conv, whose cotangent has
+# the rank's C_out/m channels ("dx"; at m = 8 the 32-wide layers' dx has 4: the FMA kernel)
+TP_SHARD_SHAPES = [("fwd", 1, 16, 16), ("fwd", 32, 16, 16), ("fwd", 32, 8, 16),
+                   ("fwd", 64, 16, 8), ("fwd", 256, 128, 4), ("dx", 16, 32, 16),
+                   ("dx", 8, 32, 16), ("dx", 4, 32, 16), ("dx", 128, 256, 4)]
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+@pytest.mark.parametrize("what,cin,cout,n", TP_SHARD_SHAPES)
+def test_conv3d_mc_at_channel_parallel_shapes(dev, form, what, cin, cout, n):
+    """Each form of K10 at a channel-TP rank's shapes (batch 2) against its
+    plain version, bit-identical run to run; C_out ≤ 32 on the 32-wide
+    tile, part of it empty, C_in ≤ 4 on the FMA kernel."""
+    x, w = _mc_case(cin + cout + n, 2, cin, cout, (n, n, n))
+    x, w = x.to(dev), w.to(dev)
+    if form == "bf16":
+        x, w = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        got = _bf16_twice(x, w, cin)
+    else:
+        before = cuda_conv_mc.MC_LAUNCHES.count
+        got = cuda_conv_mc.conv3d_mc_same(x, w)
+        assert torch.equal(got, cuda_conv_mc.conv3d_mc_same(x, w))
+        assert cuda_conv_mc.MC_LAUNCHES.count == before + 2
+        _mc_close(got, cuda_conv_mc.conv3d_mc_same_plain(x, w), cin)
+    tile, _ = cuda_conv_mc.conv3d_mc_plan(2, cin, cout, n, n, n, bf16=form == "bf16")
+    assert (tile == cuda_conv_mc.FMA_TILE) == (cin <= cuda_conv_mc.FMA_MAX_C_IN)
+    assert got.shape == (2, cout, n, n, n)
+
+
 @pytest.mark.parametrize("tile", sorted(cuda_conv_mc.TC_TILES))
 @pytest.mark.parametrize("k_splits", [1, 2, 3, 7])
 def test_conv3d_mc_bf16_form_every_tile_and_split(dev, tile, k_splits):

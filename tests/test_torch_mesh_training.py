@@ -317,9 +317,14 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
         launch.check_backend("nccl", torch.device("cpu"), 1)
 
 
-def test_cli_model_axis_still_raises():
-    for key in ("mesh_ensemble", "mesh_channel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
+def test_cli_model_axis_still_raises(monkeypatch):
+    """The model axis is ported: on a model it does not fit it raises the
+    JAX CLI's guard, before any process group (the EP and TP runs are in
+    tests/test_torch_ensemble_parallel.py and tests/test_torch_gspmd.py)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for key, message in (("mesh_ensemble", "ensemble parallelism \\(mesh_ensemble > 1\\)"),
+                         ("mesh_channel", "channel tensor parallelism \\(mesh_channel > 1\\)")):
+        with pytest.raises(ValueError, match=message):
             tcli.run(load_config(None, {key: 2}), device="cpu")
 
 

@@ -640,7 +640,8 @@ def test_cli_model_backends_and_refusals(dataset, tmp_path):
                                                  quantiles=(0.2, 0.8))).quantiles == (0.2, 0.8)
     scores = tcli.main(_argv(dataset, tmp_path / "q", "model=quantile"))
     assert math.isfinite(scores["train_loss"]) and math.isfinite(scores["test_loss"])
-    with pytest.raises(NotImplementedError, match="A12"):
+    # channel TP is ported (A12): outside a launch of 2 ranks it names the command
+    with pytest.raises(RuntimeError, match="torch.distributed.run --nproc-per-node 2"):
         tcli.main(_argv(dataset, tmp_path, "model=unet", "mesh_channel=2"))
     assert tcli.build_model(ExperimentConfig(model="unet", precision="bf16"),
                             cpu).dtype == torch.bfloat16

@@ -143,7 +143,9 @@ SMALL = ["--device", "cpu", "--grid", "8", "--max-points", "64", "--port", "0"]
 
 
 def test_unported_flags_raise():
-    with pytest.raises(NotImplementedError, match="A12"):
+    """--mesh-ensemble is ported (ensemble-parallel serving, A12): it splits a
+    quantile ensemble's members and refuses a model that has none."""
+    with pytest.raises(ValueError, match="shards the quantile ensemble's members"):
         tserve.main(["--mesh-ensemble", "2"] + SMALL)
 
 

@@ -587,13 +587,15 @@ def test_cli_default_device_is_cuda(dataset, tmp_path):
     ({"optimizer": "lbfgs"}, "A7"), ({"criterion": "dice_bce"}, "A9"),
 ])
 def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys, monkeypatch):
-    if item == "A12" and not ({"mesh_ensemble", "mesh_channel"} & set(overrides)):
-        # ported since (A12's data and space axes): a mesh of several ranks
-        # trains under torch.distributed.run (tests/test_torch_mesh_training.py);
-        # outside a launch the CLI raises and names the command
-        with pytest.raises(RuntimeError, match="torch.distributed.run --nproc-per-node 2"):
+    if item == "A12":
+        # ported since (A12's data and space axes, then its model axis): a mesh
+        # of several ranks trains under torch.distributed.run
+        # (tests/test_torch_mesh_training.py, test_torch_ensemble_parallel.py,
+        # test_torch_gspmd.py); outside a launch the CLI raises and names the command
+        n = next(iter(overrides.values()))
+        with pytest.raises(RuntimeError, match=f"torch.distributed.run --nproc-per-node {n}"):
             tcli.run(_cli_cfg(dataset, tmp_path, max_epochs=1, **overrides), device="cpu")
-        assert "[mesh] launch 2 ranks: python -m torch.distributed.run" in \
+        assert f"[mesh] launch {n} ranks: python -m torch.distributed.run" in \
             capsys.readouterr().out
         return
     if item in ("A2", "A9", "A13") or overrides.get("model") == "quantile":
@@ -690,7 +692,7 @@ def test_cli_unported_config_raises(dataset, tmp_path, overrides, item, capsys, 
 
 
 PORTED_SINCE = {"use_indices", "unbinarized", "host_indices",  # B8, B7, B8: they raised once
-                "resume_from", "sweep"}  # A7, A10
+                "resume_from", "sweep", "mesh"}  # A7, A10, A12 (its model axis)
 
 
 @pytest.mark.parametrize("case,item", [
@@ -707,7 +709,8 @@ def test_unported_entry_points_raise(case, item, tmp_path, dataset, capsys):
         "use_indices": lambda: make_device_voxelize_prep(GRID, use_indices=True),
         "unbinarized": lambda: make_device_voxelize_prep(GRID, binarize=(True, False),
                                                          use_indices=False),
-        # the data and space axes are ported (A12); the 'model' axis raises (A12b)
+        # every axis is ported (A12): a 'model' axis over a model without
+        # quantiles is channel TP, which SceneNet's scalar parameters refuse
         "mesh": lambda: Trainer(net, resolve_criterion("mse")(), cfg, mesh=SimpleNamespace(
             size=2, shape={"data": 1, "model": 2})),
         "resume_from": lambda: Trainer(net, resolve_criterion("mse")(), cfg).fit(
@@ -730,6 +733,11 @@ def test_unported_entry_points_raise(case, item, tmp_path, dataset, capsys):
         out = capsys.readouterr().out
         assert "[sweep 0] val_FBetaScore=" in out and "[sweep] best val_FBetaScore=" in out
         assert best["best_draw"]["optimizer"] in ("adam", "sgd", "rmsprop")
+        return
+    if case == "mesh":
+        # the JAX guard, with its message, before any collective
+        with pytest.raises(ValueError, match="shards NO parameter of this model"):
+            calls[case]()
         return
     if case == "resume_from":
         # a missing snapshot starts fresh, with a printed line; a real one resumes
