@@ -145,7 +145,13 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   ``torch.distributed.run --nproc-per-node 3``.
 
 It prints one line per phase, the card's name and power limit, a JSON line
-of kernel results and, last, ``{"ok": true, "device": {...}}``. Any failure
+of kernel results (each kernel's ``launches``: what the main paths ran,
+the wrappers' counts plus what each main path's own graphs replayed,
+read from its ``_Pipeline.kernel_launches`` or its cached fits'
+``CachedEpochs.replay_launches`` right after its run and checked against
+that run's ``torch.profiler`` trace where one is taken; the timing loops'
+replays and the tuners' are left out) and, last,
+``{"ok": true, "device": {...}}``. Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at
 once. ``--profile`` adds ``torch.profiler`` passes over the batched
 serving, the train epoch of each route (idle share, device items and host
@@ -1308,6 +1314,23 @@ def main(argv=None) -> int:
     def read_counts():
         return {k: c.count for k, c in counters.items()}
 
+    def ran(fits):
+        """The launches a run of cached fits ran: the wrappers' counts since
+        the last reset plus what the fits' graph replays ran, which no
+        wrapper counts."""
+        out = read_counts()
+        for t in fits:
+            for k, v in t.cached_epochs.replay_launches().items():
+                out[k] += v
+        return out
+
+    def ran_as_traced(launched, runs, what, keys=None):
+        """``launched`` (what a run ran, by the counts) against ``runs``
+        (what its trace ran), on ``keys`` or every kernel of the trace."""
+        keys = runs if keys is None else keys
+        check({k: launched[k] for k in keys} == {k: runs[k] for k in keys},
+              f"{what}: the counts say {launched}, the trace ran {runs}")
+
     def profiled(fn, calls=None):
         """fn under torch.profiler: wall seconds, device busy µs, the count of
         device items, the six largest of them as text, and the device µs by
@@ -2455,10 +2478,12 @@ def main(argv=None) -> int:
     refs = [cpu.predict(pts) for pts in requests]
     with running(srv, gpu) as url:
         lat, worst = [], 0.0
+        built = gpu.kernel_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as serve_prof:
             replies = [post(f"{url}/predict", pts, TAU) for pts in requests]
             torch.cuda.synchronize()
         serve_counts = read_counts()
+        serve_ran = {**serve_counts, **gpu.kernel_launches()}
         serve_runs = kernel_runs(serve_prof, SERVE_MARKS)
         health = healthz(url)
     for (status, out, wall_ms, server_ms), pts, ref in zip(replies, requests, refs):
@@ -2473,6 +2498,7 @@ def main(argv=None) -> int:
           f"serve: the wrappers launched {serve_counts}")
     check(serve_runs["points_occupancy"] == serve_runs["stencil_conv"] == n_req
           and serve_runs["stencil_mma"] == 0, f"serve: the replays ran {serve_runs}")
+    ran_as_traced({k: serve_ran[k] - built[k] for k in built}, serve_runs, "serve")
     served = {k: serve_counts[k] + n_req * gpu._graphs[1].launches[k]
               for k in ("points_occupancy", "sorted_bin_counts", "stencil_conv", "stencil_mma")}
     check(health["kernel_launches"] == served, f"/healthz counts {health['kernel_launches']}")
@@ -2603,9 +2629,12 @@ def main(argv=None) -> int:
           "batched server not on the card at max batch 8 with a graph a bucket")
     with running(server, batched) as url:
         before = batched.kernel_launches()
-        replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+        with profile(activities=[ProfilerActivity.CUDA]) as batched_prof:
+            replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+            torch.cuda.synchronize()
         health = healthz(url)
         batched_counts = read_counts()  # the warm-up runs and the four captures
+        batched_ran = {**batched_counts, **batched.kernel_launches()}
         worst = max(check_reply(out, c, ref, MXU_TOL, "batched serve")
                     for (_, out, _, _), c, ref in zip(replies, clouds, refs))
         stats = health["batching"]
@@ -2619,6 +2648,7 @@ def main(argv=None) -> int:
         check(served["stencil_mma"] == served["points_occupancy"] == stats["dispatches"]
               and served["stencil_conv"] == 0,
               f"batched serving ran {served} in {stats['dispatches']} dispatches")
+        ran_as_traced(served, kernel_runs(batched_prof, SERVE_MARKS), "batched serving")
         check(batched_counts["stencil_mma"] >= 4 and batched_counts["stencil_conv"] == 0,
               f"batched serving launched {batched_counts}")
         line = (f"[serve batched] --inference mxu --max-batch 8: 16 concurrent requests match "
@@ -2643,13 +2673,19 @@ def main(argv=None) -> int:
     reset_counts()
     server, auto = build_server(["--inference", "mxu", "--max-batch", "auto", "--port", "0"])
     with running(server, auto) as url:
-        replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+        before = auto.kernel_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as auto_prof:
+            replies, wall = post_concurrently(f"{url}/predict", clouds, TAU)
+            torch.cuda.synchronize()
         worst = max(check_reply(out, c, ref, MXU_TOL, "adaptive serve")
                     for (_, out, _, _), c, ref in zip(replies, clouds, refs))
         stats = healthz(url)["batching"]
         check(stats["requests"] == 16 and stats["failed_dispatches"] == 0
               and stats["mode"] == "adaptive" and stats["max_batch"] == 32, f"batching {stats}")
         auto_counts = read_counts()
+        auto_ran = {**auto_counts, **auto.kernel_launches()}
+        ran_as_traced({k: auto_ran[k] - before[k] for k in before},
+                      kernel_runs(auto_prof, SERVE_MARKS), "adaptive serving")
         replays = auto.graph_replays()
         check(sorted(replays) == [1, 2, 4, 8, 16, 32] and sum(replays.values())
               == stats["dispatches"] + stats.get("direct_requests", 0),
@@ -2665,9 +2701,15 @@ def main(argv=None) -> int:
     server, quant = build_server(["--model", "quantile", "--port", "0"])
     cpu_q = _Pipeline(None, model="quantile", device="cpu")
     with running(server, quant) as url:
-        status, out, wall_ms, _ = post(f"{url}/predict", clouds[0], TAU)
+        before = quant.kernel_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as quant_prof:
+            status, out, wall_ms, _ = post(f"{url}/predict", clouds[0], TAU)
+            torch.cuda.synchronize()
         info = healthz(url)
     quant_counts = read_counts()
+    quant_ran = {**quant_counts, **quant.kernel_launches()}
+    ran_as_traced({k: quant_ran[k] - before[k] for k in before},
+                  kernel_runs(quant_prof, SERVE_MARKS), "quantile serving")
     check(quant.graph_replays() == {1: 1}
           and quant_counts["stencil_conv"] == 3 * (GRAPH_WARMUP + 2),
           f"quantile: replays {quant.graph_replays()}, launched {quant_counts}")
@@ -2730,6 +2772,7 @@ def main(argv=None) -> int:
         train_s = time.perf_counter() - t0
         train_counts = read_counts()
         train_runs = kernel_runs(train_prof)
+        fit_launches = cached_fits[0].cached_epochs.kernel_launches()
         check("[device_cache auto] -> 'grids'" in said.text,
               "the defaults did not pick the grid cache")
         check(len(cached_fits) == 1 and cached_fits[0].cached_epochs.runner.captured
@@ -2767,6 +2810,8 @@ def main(argv=None) -> int:
               and train_counts["stencil_dk"] == launched,
               f"grid-cache training launched {train_counts}: {builds} cache loads, "
               f"{launched} steps launched, {eval_batches} evaluation batches")
+        # the wrappers' counts plus what the replays ran: the launches that ran
+        ran_as_traced(fit_launches, train_runs, "the grid fit's kernel_launches")
         print(f"[train] cli.train with the defaults (B={TRAIN_BATCH}, 64^3, {TRAIN_POINTS} "
               f"points, (9,5,5), geneo_tversky, device_cache auto -> 'grids'), {N_FIT}+{N_TEST} "
               f"synthetic crops (written in {data_s:.1f} s), {TRAIN_EPOCHS} epochs = {steps} "
@@ -2794,6 +2839,7 @@ def main(argv=None) -> int:
             check("[loader] -> NativePointCloudLoader" in said.text,
                   f"{tag}: the train loader is not the native one")
             run_counts = read_counts()
+            run_ran = ran(cached_fits)
             run_steps = n_train // TRAIN_BATCH
             check(all(math.isfinite(v) for k, v in run_scores.items() if k.endswith("loss")),
                   f"{tag}: losses {run_scores}")
@@ -2801,11 +2847,12 @@ def main(argv=None) -> int:
                   and run_counts["points_binary"] >= run_steps,
                   f"{tag}: launches {run_counts}")
             check((tag == "points") == (len(cached_fits) == 1), f"{tag}: route")
-            route_runs[tag] = (time.perf_counter() - t0, run_scores["train_loss"], run_counts)
+            route_runs[tag] = (time.perf_counter() - t0, run_scores["train_loss"], run_counts,
+                               run_ran)
         Trainer._run_cached_epochs = run_cached
         print("[train routes] cli.train 1 epoch: " + " | ".join(
             f"{tag}: {s:.1f} s, train_loss {loss:.6f}, launches {c}"
-            for tag, (s, loss, c) in route_runs.items()), flush=True)
+            for tag, (s, loss, c, _) in route_runs.items()), flush=True)
 
         # ---- 10c. a cached step replayed from the graph vs the same step streamed -
         ds = TS40K(str(tmp / "ts40k"), "fit", transform=PointPadding(max_points=TRAIN_POINTS,
@@ -2890,6 +2937,8 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             opt_s = time.perf_counter() - t0
             opt_counts, opt_runs = read_counts(), kernel_runs(opt_prof)
+            opt_ran = cached_fits[0].cached_epochs.kernel_launches()
+            ran_as_traced(opt_ran, opt_runs, f"{tag}: kernel_launches")
             opt_steps = epochs * (n_train // TRAIN_BATCH)
             opt_eval = epochs * -(-n_val // TRAIN_BATCH) + -(-N_TEST // TRAIN_BATCH)
             check("[device_cache auto] -> 'grids'" in said.text, f"{tag}: not the grid cache")
@@ -2917,13 +2966,13 @@ def main(argv=None) -> int:
                   f"{tag}: launched {opt_counts}")
             option_runs[tag] = (opt_s, opt_steps, opt_scores["train_loss"],
                                 opt_scores["test_loss"], opt_runs, opt_counts,
-                                [g.replays for g in graphs])
+                                [g.replays for g in graphs], opt_ran)
         Trainer._run_cached_epochs = run_cached
         print("[train options] cli.train with the defaults and, each through device_cache "
               "auto -> 'grids': " + " | ".join(
                   f"{tag} ({s:.1f} s, {n} steps, graphs replayed {r}): train_loss "
                   f"{tl:.6f}, test_loss {te:.6f}, run on the card {ru}, launched {c}"
-                  for tag, (s, n, tl, te, ru, c, r) in option_runs.items())
+                  for tag, (s, n, tl, te, ru, c, r, _) in option_runs.items())
               + " (model=quantile criterion=quantile_geneo, 3 members: K2 and K4 three "
               "times a step; precision=bf16; accumulate_grad_batches=2: two graphs)",
               flush=True)
@@ -3306,14 +3355,18 @@ def main(argv=None) -> int:
         server, big = build_server(["--grid", "128", "--port", "0"])
         cpu_big = _Pipeline(None, grid=BIG_GRID, device="cpu")
         with running(server, big) as url:
+            big_built = big.kernel_launches()
             with profile(activities=[ProfilerActivity.CUDA]) as big_prof:
                 status, out, wall_ms, server_ms = post(f"{url}/predict", clouds[0], TAU)
                 torch.cuda.synchronize()
             big_serve_counts = read_counts()
+            big_ran = {**big_serve_counts, **big.kernel_launches()}
         big_runs = kernel_runs(big_prof, SERVE_MARKS)
         check(status == 200, f"/predict at --grid 128 returned {status}")
         err = check_reply(out, clouds[0], cpu_big.predict(clouds[0]), PROB_TOL,
                           "serve --grid 128", grid=BIG_GRID)
+        ran_as_traced({k: big_ran[k] - big_built[k] for k in big_built}, big_runs,
+                      "the 128^3 request")
         check(big.graph_replays() == {1: 1} and big_runs["sorted_bin_counts"] >= 1
               and big_runs["stencil_conv"] == 1 and big_runs["points_occupancy"] == 0,
               f"the 128^3 request: replays {big.graph_replays()}, ran {big_runs}")
@@ -3761,6 +3814,8 @@ def main(argv=None) -> int:
         reset_counts()
         try:
             pre_fits = {}
+            pc_prof = profile(activities=[ProfilerActivity.CUDA])
+            pc_prof.start()
             for tag in ("straight", "killed", "resumed"):
                 t = Trainer(SceneNet.create(kernel_size=(9, 5, 5), seed=0, backend="cuda").to(dev),
                             crit, TrainConfig(run_dir=str(tmp / f"pc_{tag}"), max_epochs=2,
@@ -3776,9 +3831,12 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 pre_fits[tag] = t
         finally:
+            pc_prof.stop()
             for (owner, attr), fn in originals.items():
                 setattr(owner, attr, fn)
-        pc_counts = read_counts()
+        pc_counts, pc_ran = read_counts(), ran(pre_fits.values())
+        # K2 and K4 only: K1 and K3 share their expand pass's name
+        ran_as_traced(pc_ran, kernel_runs(pc_prof), "preempt", ("stencil_conv", "stencil_dk"))
         resumed = pre_fits["resumed"]
         check(pre_fits["killed"].preempted and resumed.cached_epochs.runner.captured
               and all(torch.equal(a, b) for a, b in zip(pre_fits["straight"].model.parameters(),
@@ -3802,9 +3860,11 @@ def main(argv=None) -> int:
         home = os.environ.get("HOME")
         os.environ["HOME"] = str(tmp / "home")  # the autotune cache lives in the run's tree
         try:
+            Trainer._run_cached_epochs = spy
             for tag, extra in (("lr", ["auto_lr_find=True"]),
                                ("autotune", ["model_backend=autotune"]),
                                ("scale", ["auto_scale_batch_size=True"])):
+                cached_fits.clear()
                 reset_counts()
                 t0 = time.perf_counter()
                 with tee_stdout() as said:
@@ -3815,8 +3875,10 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                 check(all(math.isfinite(v) for k, v in tune_scores.items() if k.endswith("loss")),
                       f"{tag}: scores {tune_scores}")
-                tune_runs[tag] = (time.perf_counter() - t0, said.text, read_counts())
+                # the fit's replays; the tuners' own timing replays are left out
+                tune_runs[tag] = (time.perf_counter() - t0, said.text, ran(cached_fits))
         finally:
+            Trainer._run_cached_epochs = run_cached
             if home is None:
                 os.environ.pop("HOME")
             else:
@@ -4014,12 +4076,18 @@ def main(argv=None) -> int:
             [kv for kv in DEFAULTS_SET if kv.split("=")[0] not in drawn]
             + [f"data_path={tmp / 'ts40k'}", "max_epochs=1", "num_workers=4",
                f"output_dir={tmp / 'sweep'}"])
+        cached_fits.clear()
+        Trainer._run_cached_epochs = spy
         reset_counts()
         t0 = time.perf_counter()
-        with tee_stdout() as said:
+        with profile(activities=[ProfilerActivity.CUDA]) as sweep_prof, tee_stdout() as said:
             best = train_cli.run_sweep(SWEEP_DRAWS, None, sweep_over, device="cuda")
+            torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
-        sweep_counts = read_counts()
+        Trainer._run_cached_epochs = run_cached
+        sweep_counts = ran(cached_fits)
+        ran_as_traced(sweep_counts, kernel_runs(sweep_prof), "sweep",
+                      ("stencil_conv", "stencil_dk"))
         scores_seen = re.findall(r"\[sweep (\d)\] val_FBetaScore=(\S+)", said.text)
         check(len(scores_seen) == 2 and said.text.count("[device_cache auto] -> 'grids'") == 2
               and best["best_draw"] in SWEEP_DRAWS and sweep_counts["stencil_dk"] > 0,
@@ -4136,6 +4204,8 @@ def main(argv=None) -> int:
                 worst_ep = max(worst_ep, float(np.abs(pv - rv).max()),
                                float(np.abs(pp_ - rp).max()))
             check(worst_ep <= PROB_TOL, f"ep_serve {inference}: max|d| {worst_ep:.3g}")
+            launched = ep_pipe.kernel_launches()  # before the timing loop's dispatches
+            ep_serve_counts[inference] = launched
             hp_, hm_, _ = padded_batch(np.random.default_rng(141), 1)
             pt_, mt_ = torch.from_numpy(hp_).to(dev), torch.from_numpy(hm_).to(dev)
             calls = {}
@@ -4143,8 +4213,6 @@ def main(argv=None) -> int:
             wall, busy_us, n_items, _, _ = profiled(
                 lambda: [ep_pipe.run_batch(pt_, mt_) for _ in range(n_disp)], calls)
             host = sum(v for k, v in calls.items() if k in HOST_LAUNCH_CALLS)
-            launched = ep_pipe.kernel_launches()
-            ep_serve_counts[inference] = launched
             kernel = "stencil_mma" if inference == "mxu" else "stencil_conv"
             check(launched["points_occupancy"] > 0 and launched[kernel] > 0,
                   f"ep_serve {inference}: launches {launched}")
@@ -4163,12 +4231,13 @@ def main(argv=None) -> int:
         # ---- 25. A12 + A12b: the [mesh] phase over gloo ranks ---------------------------
         mesh_out = mesh_phase(dev, tmp, smi)
 
-    main_runs = [serve_counts, *graph_counts.values(), auto_counts, quant_counts,
-                 *etl_runs.values(), kitti_counts, headline_counts, batched_counts, train_counts,
-                 *(c for _, _, c in route_runs.values()),
-                 *(r[5] for r in option_runs.values()), host_counts,
-                 *big_counts.values(), big_serve_counts, counts_path, unet_counts,
-                 unet16_counts, cnn_counts, admm_counts, lb_counts, pc_counts,
+    # each main path's launches; where it replays graphs, with what its replays ran
+    main_runs = [serve_ran, *graph_counts.values(), auto_ran, quant_ran,
+                 *etl_runs.values(), kitti_counts, headline_counts, batched_ran, fit_launches,
+                 *(r[3] for r in route_runs.values()),
+                 *(r[7] for r in option_runs.values()), host_counts,
+                 *big_counts.values(), big_ran, counts_path, unet_counts,
+                 unet16_counts, cnn_counts, admm_counts, lb_counts, pc_ran,
                  *(c for _, _, c in tune_runs.values()), probe_counts, viz_counts,
                  sweep_counts, clouds_counts]
     total = {k: sum(run[k] for run in main_runs) for k in counters}

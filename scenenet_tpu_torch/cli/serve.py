@@ -44,8 +44,11 @@ what the fetch thread still has to download. On the CPU
 ``run_batch`` runs eagerly.
 
 GET /healthz returns the model, grid, device, the kernels' launch counts
-(the wrappers' own counts plus the launches that the graph replays ran)
-and, when batching, its live stats.
+(the wrappers' own counts plus the launches that the graph replays ran),
+under ``stages`` the count, sum and max seconds of each host stage of a
+request (the handler's parse, predict and compress; when batching, the
+batcher's queue wait, window, dispatch and fetch) and, when batching, its
+live stats.
 
 Usage:
     python -m scenenet_tpu_torch.cli.serve [--checkpoint ckpt.npz] [--port 8400]
@@ -65,16 +68,16 @@ import numpy as np
 import torch
 
 from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
-from scenenet_tpu_torch.ops import cuda_conv, cuda_hist
+from scenenet_tpu_torch.ops._build import launch_counts
 from scenenet_tpu_torch.ops.voxelize import (
     batch_flat_ids, gather_point_values, voxelize_batch_occupancy,
 )
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
 from scenenet_tpu_torch.train.step_graph import WARMUP, StepGraph
+from scenenet_tpu_torch.utils.profiling import Stage, phase, span
 
-# the wrappers on the serving path, by kernel
-SERVE_COUNTERS = (cuda_hist.LAUNCHES, cuda_hist.SORTED_COUNTS_LAUNCHES, cuda_conv.LAUNCHES,
-                  cuda_conv.MXU_LAUNCHES)
+# the kernels on the serving path
+SERVE_KERNELS = ("points_occupancy", "sorted_bin_counts", "stencil_conv", "stencil_mma")
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -95,7 +98,8 @@ def _canonical(device: torch.device) -> torch.device:
 
 def wrapper_launches() -> dict:
     """The serving path's wrappers' own launch counts, by kernel."""
-    return {c.name: c.count for c in SERVE_COUNTERS}
+    counts = launch_counts()
+    return {k: counts[k] for k in SERVE_KERNELS}
 
 
 def _warm_inputs(b: int, max_points: int, device: torch.device):
@@ -123,33 +127,36 @@ class _BucketGraph:
     phase). All three are enqueued on the one stream, so the lock orders
     only the enqueueing. The copies out are made on the stream right after
     the replay, so that the next replay cannot overwrite what the fetch
-    thread still has to download. ``launches`` are the wrappers' launches
-    that the capture recorded, which every replay runs again without
-    calling a wrapper.
+    thread still has to download. ``launches`` are the serving wrappers'
+    launches that the capture recorded, which every replay runs again
+    without calling a wrapper; ``replays`` the calls since start-up.
     """
 
     def __init__(self, run, bucket: int, max_points: int, device: torch.device):
         self.pts, self.mask = _warm_inputs(bucket, max_points, device)
         self.out = None
         self.lock = threading.Lock()
-        self.replays = 0
 
         def step():
             self.out = run(self.pts, self.mask)
 
-        self.graph = StepGraph(step, device)
-        for _ in range(WARMUP):
+        self.graph = StepGraph(step, device, counts=wrapper_launches)
+        for _ in range(WARMUP + 1):  # the warm-ups, then the capture and one replay
             self.graph()
-        before = wrapper_launches()
-        self.graph()  # the capture, then one replay
-        self.launches = {k: v - before[k] for k, v in wrapper_launches().items()}
+
+    @property
+    def launches(self) -> dict:
+        return self.graph.launches
+
+    @property
+    def replays(self) -> int:
+        return self.graph.later_calls
 
     def __call__(self, pts: torch.Tensor, mask: torch.Tensor):
         with self.lock:
             self.pts.copy_(pts)
             self.mask.copy_(mask)
             self.graph()
-            self.replays += 1
             return tuple(t.clone() for t in self.out)
 
 
@@ -200,14 +207,14 @@ class _Pipeline:
         # one graph a bucket where every kernel runs on the serving card
         capture = self.device.type == "cuda" and all(
             _canonical(d) == _canonical(self.device) for d, _ in (self._groups or ()))
-        with torch.inference_mode():
+        with phase("snt/serve/warm_buckets"), torch.inference_mode():
             for b in buckets:
                 if capture:
                     self._graphs[b] = _BucketGraph(self._run, b, max_points, self.device)
                 elif (batcher is not None and warm_buckets) or self.device.type == "cuda":
                     self.run_batch(*_warm_inputs(b, max_points, self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         if batcher is not None:
             batcher.start()
             self._batcher = batcher
@@ -261,10 +268,11 @@ class _Pipeline:
         (pred (B[, Q], Z, X, Y), probs (B[, Q], N)), tensors that the caller
         owns. A bucket captured at start-up replays its graph and returns
         copies of its static outputs; any other batch runs eagerly."""
-        graph = self._graphs.get(pts.shape[0])
-        if graph is not None:
-            return graph(pts, mask)
-        return self._run(pts, mask)
+        with span("snt/serve/dispatch"):
+            graph = self._graphs.get(pts.shape[0])
+            if graph is not None:
+                return graph(pts, mask)
+            return self._run(pts, mask)
 
     def _run(self, pts: torch.Tensor, mask: torch.Tensor):
         """The pipeline on a batch: occupancy, SceneNet (kernel synthesis
@@ -309,12 +317,11 @@ class _Pipeline:
 
     def kernel_launches(self) -> dict:
         """The serving path's launches by kernel: the wrappers' own counts
-        plus, for every captured bucket, its recorded launches once a
-        replay."""
+        plus what every captured bucket's replays ran."""
         out = wrapper_launches()
         for g in self._graphs.values():
-            for k, v in g.launches.items():
-                out[k] += v * g.replays
+            for k, v in g.graph.replay_launches().items():
+                out[k] += v
         return out
 
     def graph_replays(self) -> dict:
@@ -363,6 +370,11 @@ class _MicroBatcher:
     in flight, where ``.cpu()`` is what waits. Batch k+1 computes while
     batch k's results come back. All threads share the default stream,
     which keeps the order right.
+
+    ``stages`` times each request's way through, on the host clock:
+    ``queue_wait`` (submitted → taken by the dispatch thread), ``window``
+    (taken → its batch closed), ``dispatch`` (its batch stacked and handed
+    to ``run_batch``) and ``fetch`` (its batch's download).
     """
 
     _GAIN_MIN = 8          # open the window only if ≥ this many arrivals
@@ -386,6 +398,7 @@ class _MicroBatcher:
         self.window = max(window_ms, 0.0) / 1e3
         self.adaptive = adaptive
         self._stats_lock = threading.Lock()
+        self.stages = {k: Stage() for k in ("queue_wait", "window", "dispatch", "fetch")}
         self.stats = {"requests": 0, "dispatches": 0,
                       "max_batch_seen": 0, "failed_dispatches": 0,
                       "windows_opened": 0}
@@ -504,7 +517,7 @@ class _MicroBatcher:
         if self.adaptive:
             self._note_arrival()
         done = threading.Event()
-        slot = {"done": done}
+        slot = {"done": done, "submitted": time.perf_counter()}
         self._q.put((pts, mask, slot))
         # bounded wait: if a worker thread ever dies, surface an error to
         # this request instead of wedging the handler thread forever
@@ -531,6 +544,7 @@ class _MicroBatcher:
             if first is None:  # close()
                 self._fetch_q.put(None)
                 return
+            first[2]["taken"] = time.perf_counter()
             batch = [first]
             closing = False
             # the WHOLE iteration is guarded: any exception fails this
@@ -558,7 +572,12 @@ class _MicroBatcher:
                         if item is None:
                             closing = True
                             break
+                        item[2]["taken"] = time.perf_counter()
                         batch.append(item)
+                closed = time.perf_counter()
+                for _, _, slot in batch:
+                    self.stages["queue_wait"].add(slot["taken"] - slot["submitted"])
+                    self.stages["window"].add(closed - slot["taken"])
                 n = len(batch)
                 bucket = 1
                 while bucket < n:
@@ -574,6 +593,7 @@ class _MicroBatcher:
                 pred, probs = self._pipeline.run_batch(torch.stack(rows_p),
                                                        torch.stack(rows_m))
                 pred, probs = pred[:n], probs[:n]
+                self.stages["dispatch"].add(time.perf_counter() - closed, n)
                 # stats AFTER the dispatch call succeeds: a batch that
                 # fails must not count as served work
                 with self._stats_lock:  # healthz snapshots under this lock
@@ -599,7 +619,9 @@ class _MicroBatcher:
                 return
             batch, pred, probs = item
             try:
+                t0 = time.perf_counter()
                 pred, probs = pred.cpu().numpy(), probs.cpu().numpy()
+                self.stages["fetch"].add(time.perf_counter() - t0, len(batch))
                 results = [(pred[i], probs[i]) for i in range(len(batch))]
                 if self.adaptive:
                     # completed requests drive the throughput probe
@@ -626,6 +648,10 @@ class _MicroBatcher:
 
 
 def make_handler(pipeline: _Pipeline):
+    # the host-clock stages of a request in the handler's thread; /healthz
+    # reports them beside the batcher's
+    stages = {k: Stage() for k in ("parse", "predict", "compress")}
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet
             pass
@@ -652,6 +678,8 @@ def make_handler(pipeline: _Pipeline):
                 "kernel_launches": pipeline.kernel_launches(),
                 "graph_replays": pipeline.graph_replays(),
             }
+            timed = dict(stages, **(pipeline._batcher.stages if pipeline._batcher else {}))
+            info["stages"] = {k: v.snapshot() for k, v in timed.items()}
             if pipeline.model == "quantile":
                 info["quantiles"] = list(pipeline.quantiles)
                 info["mesh_ensemble"] = pipeline.mesh_ensemble
@@ -667,6 +695,7 @@ def make_handler(pipeline: _Pipeline):
                 self.send_error(404)
                 return
             # a malformed body gets a 400, not a dropped connection
+            t0 = time.perf_counter()
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 data = np.load(io.BytesIO(self.rfile.read(length)))
@@ -679,11 +708,13 @@ def make_handler(pipeline: _Pipeline):
             except Exception as exc:
                 self.send_error(400, explain=f"bad request body: {exc}")
                 return
+            stages["parse"].add(time.perf_counter() - t0)
 
             try:
                 t0 = time.perf_counter()
                 pred, probs = pipeline.predict(points)
                 latency = time.perf_counter() - t0
+                stages["predict"].add(latency)
             except Exception as exc:  # keep the server alive
                 self.send_error(500, explain=f"inference failed: {exc}")
                 return
@@ -702,8 +733,10 @@ def make_handler(pipeline: _Pipeline):
                 payload = {"point_probs": probs, "voxel_pred": pred}
             if tau is not None:
                 payload["mask"] = (probs >= tau).astype(np.float32)
+            t0 = time.perf_counter()
             out = io.BytesIO()
             np.savez_compressed(out, **payload)
+            stages["compress"].add(time.perf_counter() - t0)
             self._reply(200, out.getvalue(), "application/octet-stream",
                         [("X-Latency-Ms", f"{latency * 1e3:.2f}")])
 

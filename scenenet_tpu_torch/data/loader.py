@@ -25,6 +25,7 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 
 from scenenet_tpu_torch import native
+from scenenet_tpu_torch.utils.profiling import span
 
 
 class _BaseLoader:
@@ -74,7 +75,8 @@ class _BaseLoader:
             for _ in range(self.num_workers + 1):
                 submit_next()
             while pending:
-                out = pending.popleft().result()
+                with span("snt/data/loader_wait"):
+                    out = pending.popleft().result()
                 submit_next()
                 yield out
 
@@ -151,6 +153,10 @@ class NativePointCloudLoader(_BaseLoader):
                 [self._paths[i] for i in b], self.max_points, self.threads)
             return pts, labels, mask, np.zeros((len(b), self.max_points), np.int32)
 
+        def wait(fut):  # the consumer's wait for the prefetched batch
+            with span("snt/data/loader_wait"):
+                return fut.result()
+
         # one prefetch thread: the C++ call releases the GIL, so it overlaps
         # the next batch's prep with the consumer's step
         with cf.ThreadPoolExecutor(1) as pool:
@@ -158,7 +164,7 @@ class NativePointCloudLoader(_BaseLoader):
             for b in batches:
                 fut = pool.submit(load, b)
                 if pending is not None:
-                    yield pending.result()
+                    yield wait(pending)
                 pending = fut
             if pending is not None:
-                yield pending.result()
+                yield wait(pending)

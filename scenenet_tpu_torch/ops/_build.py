@@ -173,13 +173,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+_COUNTERS: list[LaunchCounter] = []
+
+
 class LaunchCounter:
-    """Count of a kernel's launches; the wrapper adds one per launch."""
+    """Count of a kernel's launches; the wrapper adds one per launch. Every
+    counter made is read by :func:`launch_counts`."""
 
     def __init__(self, name: str):
         self.name = name
         self._n = 0
         self._lock = threading.Lock()
+        _COUNTERS.append(self)
 
     def add(self) -> None:
         with self._lock:
@@ -192,3 +197,8 @@ class LaunchCounter:
     @property
     def count(self) -> int:
         return self._n
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launches so far by the wrappers' own counts, by name."""
+    return {c.name: c.count for c in _COUNTERS}

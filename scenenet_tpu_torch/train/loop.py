@@ -78,6 +78,7 @@ from torch.func import functional_call
 from scenenet_tpu_torch.data.device_cache import (
     d4_transform_grids, draw_d4, draw_point_augmentation, gather_augment,
 )
+from scenenet_tpu_torch.ops._build import launch_counts
 from scenenet_tpu_torch.ops.voxelize import (
     _is_tower, voxelize_batch, voxelize_batch_binary, voxelize_batch_from_indices,
 )
@@ -98,6 +99,7 @@ from scenenet_tpu_torch.train.state import (
 )
 from scenenet_tpu_torch.train.step_graph import StepGraph
 from scenenet_tpu_torch.utils.logging import NullLogger, RunLogger
+from scenenet_tpu_torch.utils.profiling import phase, span, trace
 
 
 @dataclasses.dataclass
@@ -462,10 +464,11 @@ class Trainer:
         buffers, BatchNorm's running statistics, stay the model's own f32
         tensors)."""
         net = self._spatial if self._spatial is not None else self.net
-        if self.config.precision == "bf16":
-            half = cast_half(dict(net.named_parameters()))
-            return functional_call(net, half, (x.to(torch.bfloat16),)).float()
-        return net(x).float()
+        with span("snt/train/forward"):
+            if self.config.precision == "bf16":
+                half = cast_half(dict(net.named_parameters()))
+                return functional_call(net, half, (x.to(torch.bfloat16),)).float()
+            return net(x).float()
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor, axes: Optional[Tuple[str, ...]] = None):
         """The loss of the batch (x, y) and the prediction; under a mesh by
@@ -503,9 +506,12 @@ class Trainer:
     def setup_optimizer(self, capturable: bool = False) -> torch.optim.Optimizer:
         """A fresh optimizer over the model's trainable parameters;
         ``capturable`` keeps its step counts on the device, so that a CUDA
-        graph can hold its update."""
-        self.optimizer = resolve_optimizer(self.config.optimizer, self.net.parameters(),
-                                           self.config.learning_rate, capturable=capturable)
+        graph can hold its update. Its first call in a process imports
+        ``torch._dynamo`` (``torch.optim`` does on its first optimizer)."""
+        with phase("snt/train/setup_optimizer"):
+            self.optimizer = resolve_optimizer(self.config.optimizer, self.net.parameters(),
+                                               self.config.learning_rate,
+                                               capturable=capturable)
         if self._tp is not None and isinstance(self.optimizer, LBFGS):
             # the linesearch's inner products over the whole vector: the split
             # leaves' parts summed over 'model', the replicated ones once
@@ -624,23 +630,26 @@ class Trainer:
         Under a mesh the batch is this rank's part (:meth:`shard`): a raw
         batch is prepared on the rank and, where Z is sharded, cut to its
         slab; the loss and the counts returned are the global ones."""
-        x, y = self.batch_prep(*batch) if self.batch_prep else batch
-        if self.batch_prep is not None:
-            x, y = self._slab(x), self._slab(y)
-        self.net.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        # debug_nans: a NaN made in the forward or the backward raises,
-        # naming the operation that made it
-        with torch.autograd.set_detect_anomaly(self.config.debug_nans):
-            loss, pred = self._loss(x, y)
-            if self.config.debug_nans and not bool(torch.isfinite(loss)):
-                raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at step "
-                                         f"{self.step}")
-            loss.backward()
-        loss = self._reduce_step(loss.detach())
-        self._update(self.multi_steps is not None and self.multi_steps.advance(), x, y, loss)
-        self.step += 1
-        return self._count(mstate, pred.detach(), y), loss
+        with span("snt/train/step"):
+            x, y = self.batch_prep(*batch) if self.batch_prep else batch
+            if self.batch_prep is not None:
+                x, y = self._slab(x), self._slab(y)
+            self.net.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            # debug_nans: a NaN made in the forward or the backward raises,
+            # naming the operation that made it
+            with torch.autograd.set_detect_anomaly(self.config.debug_nans):
+                loss, pred = self._loss(x, y)
+                if self.config.debug_nans and not bool(torch.isfinite(loss)):
+                    raise FloatingPointError(f"debug_nans: loss {float(loss.detach())} at "
+                                             f"step {self.step}")
+                with span("snt/train/backward"):
+                    loss.backward()
+            loss = self._reduce_step(loss.detach())
+            self._update(self.multi_steps is not None and self.multi_steps.advance(), x, y,
+                         loss)
+            self.step += 1
+            return self._count(mstate, pred.detach(), y), loss
 
     @torch.no_grad()
     def eval_step(self, mstate: MetricState, *batch: torch.Tensor
@@ -735,19 +744,6 @@ class Trainer:
             pts = voxelgrid_to_points(grid[0, 0].float().cpu().numpy(), "ranges")
             write_ply(os.path.join(out_dir, f"epoch{epoch}_{name}.ply"), pts)
 
-    def _start_trace(self):
-        """A running ``torch.profiler`` over the host and, on a card, the
-        device; ``fit`` ends it after epoch 0 and writes the trace."""
-        from torch.profiler import ProfilerActivity, profile
-
-        os.makedirs(self.config.profile_dir, exist_ok=True)
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        tracer = profile(activities=activities)
-        tracer.__enter__()
-        return tracer
-
     # ---- fit / evaluate ------------------------------------------------------
 
     @_in_mesh
@@ -793,7 +789,11 @@ class Trainer:
         self.preempted = False
         with PreemptionGuard() as guard:
             while cfg.max_epochs < 0 or epoch < cfg.max_epochs:
-                tracer = self._start_trace() if cfg.profile_dir and epoch == 0 else None
+                # epoch 0 under torch.profiler where profile_dir is set, its trace
+                # written there when the epoch ends
+                tracer = contextlib.ExitStack()
+                if cfg.profile_dir and epoch == 0:
+                    tracer.enter_context(trace(cfg.profile_dir, "epoch0_trace.json"))
                 t0 = time.time()
                 if not skip_batches:
                     mstate, loss_count = init_metric_state(self.device), 0
@@ -823,8 +823,7 @@ class Trainer:
                             self.preempted = True
                             print(f"[preempt] SIGTERM: snapshot flushed to {snap_path} "
                                   f"(epoch {epoch}, batch {bi + 1})", flush=True)
-                            if tracer is not None:
-                                tracer.__exit__(None, None, None)
+                            tracer.close()
                             self._barrier()
                             return self.sync_model(), self.best.best
                     if cfg.log_gradients and not grad_logged and (self._writes
@@ -853,10 +852,7 @@ class Trainer:
                 self.logger.log_metrics(scores, epoch)
                 self.best.update(scores)
                 ckpt.step(self.sync_model(), scores, epoch)
-                if tracer is not None:
-                    tracer.__exit__(None, None, None)
-                    tracer.export_chrome_trace(os.path.join(cfg.profile_dir,
-                                                            "epoch0_trace.json"))
+                tracer.close()
                 if stopper is not None and stopper.update(scores):
                     break
                 epoch += 1
@@ -1265,17 +1261,37 @@ class CachedEpochs:
         """The steps of chunk ``index`` of the epoch."""
         trainer = self.trainer
         start, length = self.chunks[index]
-        self.cursor.fill_(start)
-        for _ in range(length):
-            ms = trainer.multi_steps
-            if ms is None or ms.advance():
-                self.runner()
-            else:
-                self.accumulate_runner()
-            trainer.step += 1
-            if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
-                raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} at "
-                                         f"step {trainer.step - 1}")
+        with span("snt/train/chunk"):
+            self.cursor.fill_(start)
+            for _ in range(length):
+                with span("snt/train/step"):
+                    ms = trainer.multi_steps
+                    if ms is None or ms.advance():
+                        self.runner()
+                    else:
+                        self.accumulate_runner()
+                    trainer.step += 1
+                    if trainer.config.debug_nans and not bool(torch.isfinite(self.last_loss)):
+                        raise FloatingPointError(f"debug_nans: loss {float(self.last_loss)} "
+                                                 f"at step {trainer.step - 1}")
+
+    def replay_launches(self) -> Dict[str, int]:
+        """What this fit's graph replays ran beyond the wrappers' counts, by
+        kernel (:meth:`StepGraph.replay_launches`)."""
+        out = dict.fromkeys(launch_counts(), 0)
+        for runner in (self.runner, self.accumulate_runner):
+            if runner is not None:
+                for k, v in runner.replay_launches().items():
+                    out[k] += v
+        return out
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The kernels' launches that ran, by kernel: the wrappers' own
+        counts, which are process-wide (every launch since their last
+        reset, this fit's eager warm-ups and captures among them), plus
+        what this fit's replays ran."""
+        counts = launch_counts()
+        return {k: v + counts[k] for k, v in self.replay_launches().items()}
 
     def run_epoch(self) -> Tuple[MetricState, torch.Tensor]:
         """One epoch of training: the epoch's confusion counts and loss sum

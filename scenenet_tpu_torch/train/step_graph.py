@@ -15,9 +15,11 @@ results into static buffers, so it holds no RNG call and no host sync.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+
+from scenenet_tpu_torch.ops._build import launch_counts
 
 WARMUP = 3  # eager steps before the capture, as PyTorch's whole-network example takes
 
@@ -34,21 +36,27 @@ class StepGraph:
     replays it. A failed capture raises; nothing falls back to eager steps.
 
     The kernel wrappers count the launches they make: those of the eager
-    steps, and once each the launches the capture records. A replay runs
-    the recorded launches without calling a wrapper, so it adds to no
-    count; what a replay runs on the card is read with ``torch.profiler``.
+    steps, and once each the launches the capture records (and runs none
+    of). A replay runs the recorded launches without calling a wrapper,
+    so it adds to no wrapper's count: ``launches`` keeps what the capture
+    recorded, by ``counts()`` (every wrapper's count by default), and
+    :meth:`replay_launches` what the replays ran beyond the wrappers'
+    counts.
 
     ``eager`` runs every call eagerly on a card too: for a step whose
     launches depend on values it reads on the host (L-BFGS's linesearch),
     which a graph cannot hold.
     """
 
-    def __init__(self, step: Callable[[], None], device: torch.device, eager: bool = False):
+    def __init__(self, step: Callable[[], None], device: torch.device, eager: bool = False,
+                 counts: Callable[[], Dict[str, int]] = launch_counts):
         self.step = step
         self.device = torch.device(device)
         self.eager = eager
         self.eager_calls = 0
         self.replays = 0
+        self._counts = counts
+        self.launches = dict.fromkeys(counts(), 0)  # recorded by the capture
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._side: Optional[torch.cuda.Stream] = None
 
@@ -65,12 +73,28 @@ class StepGraph:
             self._warm()
             return
         if self.graph is None:
+            before = self._counts()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 self.step()
             self.graph = graph
+            self.launches = {k: v - before.get(k, 0) for k, v in self._counts().items()}
         self.graph.replay()
         self.replays += 1
+
+    @property
+    def later_calls(self) -> int:
+        """The calls after the first ``WARMUP + 1`` (the warm-ups, then the
+        capture and its first replay): on a card, the replays that no
+        capture counted."""
+        return max(self.eager_calls + self.replays - WARMUP - 1, 0)
+
+    def replay_launches(self) -> Dict[str, int]:
+        """The launches the replays ran that no wrapper counted, by kernel:
+        the capture counted its recorded launches once and ran none, its
+        first replay ran them, and so did every later call. The wrappers'
+        counts plus these are the launches that ran."""
+        return {k: v * self.later_calls for k, v in self.launches.items()}
 
     def _warm(self) -> None:
         if self._side is None:

@@ -385,7 +385,7 @@ def test_bucket_padding_repeats_request_zero():
         pts = torch.zeros((2048, 3))
         pts[:500 + i] = torch.from_numpy(rng.uniform(0, 20, (500 + i, 3)).astype(np.float32))
         mask = torch.arange(2048) < 500 + i
-        slot = {"done": threading.Event()}
+        slot = {"done": threading.Event(), "submitted": time.perf_counter()}  # as submit()
         batcher._q.put((pts, mask, slot))
         rows.append((pts, mask, slot))
     batcher.start()
@@ -747,8 +747,8 @@ def test_healthz_counts_replayed_launches():
     wrappers' own counts."""
     p = tserve._Pipeline(None, **BKW)
     graph = tserve._BucketGraph(_static_run(p), 1, 2048, torch.device("cpu"))
-    graph.launches = dict(dict.fromkeys(graph.launches, 0), points_occupancy=1,
-                          stencil_conv=1)
+    graph.graph.launches = dict(dict.fromkeys(graph.launches, 0), points_occupancy=1,
+                                stencil_conv=1)
     p._graphs = {1: graph}
     srv = ThreadingHTTPServer(("127.0.0.1", 0), tserve.make_handler(p))
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
