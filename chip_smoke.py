@@ -581,6 +581,15 @@ def bound_ms(bytes_moved: float, flops: float = 0.0, peak_flops: float = F32_FLO
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dw_bound_ms(b: int, cin: int, cout: int, edge: int):
+    """K10 dw's bound at batch ``b`` on ``edge``^3 grids: each f32 product as
+    one TF32 and two bf16 products (the kernel's split), or the bytes of x
+    and g read and the weights written. Returns (ms, which)."""
+    vox = b * edge ** 3
+    moved, flops = 4.0 * (vox * (cin + cout) + 27 * cin * cout), 2.0 * 27 * cin * cout * vox
+    return bound_ms(moved, flops * (1 + 2 * TF32_FLOPS / BF16_FLOPS), TF32_FLOPS)
+
+
 def post(url: str, points: np.ndarray, tau: float):
     buf = io.BytesIO()
     np.savez(buf, points=points, tau=np.float32(tau))
@@ -1305,7 +1314,8 @@ def main(argv=None) -> int:
                 "sorted_bin_counts": cuda_hist.SORTED_COUNTS_LAUNCHES,
                 "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES,
                 "conv3d_mc": cuda_conv_mc.MC_LAUNCHES,
-                "conv3d_mc_bf16": cuda_conv_mc.MC_BF16_LAUNCHES}
+                "conv3d_mc_bf16": cuda_conv_mc.MC_BF16_LAUNCHES,
+                "conv3d_mc_dw": cuda_conv_mc.MC_DW_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -2212,17 +2222,6 @@ def main(argv=None) -> int:
             mc_fma_bounds[cin, cout, n] = bound_ms(moved, flops, F32_FLOPS)  # the f32 FMA pipe
             del xm, wm
             torch.cuda.empty_cache()
-    # the library's dw as the port calls it (cuDNN off) and through cuDNN
-    dw_ms = {}
-    for cin, cout, n in ((1, 32, 64), (32, 32, 64), (512, 256, 8)):
-        xm, _ = mc_case(5, TRAIN_BATCH, cin, cout, (n, n, n))
-        gm = torch.randn((TRAIN_BATCH, cout, n, n, n), device=dev)
-        dw_ms[cin, cout, n] = (
-            cuda_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(xm, gm), 3, 1),
-            cuda_ms(lambda: torch.nn.grad.conv3d_weight(xm, (cout, cin, 3, 3, 3), gm,
-                                                        padding=1), 3, 1))
-        del xm, gm
-        torch.cuda.empty_cache()
     mc_sums = {k: sum(mc_times[c][k] for c in UNET_CONVS) for k in ("ms", "plain_ms", "library_ms")}
     mc_bound_sum = sum(mc_bounds[c][0] for c in UNET_CONVS)
     mc_fma_bound_sum = sum(mc_fma_bounds[c][0] for c in UNET_CONVS)
@@ -2247,11 +2246,64 @@ def main(argv=None) -> int:
           f"{mc_bound_sum:.4f} ({mc_bound_sum / mc_sums['ms']:.1%} of it reached), the bound "
           f"as 3xTF32 {mc_x3_bound_sum:.4f}, the f32 FMA pipe's bound {mc_fma_bound_sum:.4f}; "
           f"slowest against cuDNN {worst[0]}->{worst[1]} "
-          f"{worst[2]}^3 at {worst_ratio:.2f}x"
-          + " | the library's dw (torch.nn.grad.conv3d_weight, full f32), ms with cuDNN off "
-          "(as fused_conv3d_mc calls it) / through cuDNN: "
-          + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f}" for (c, o, n), (a, b) in dw_ms.items()),
-          flush=True)
+          f"{worst[2]}^3 at {worst_ratio:.2f}x", flush=True)
+
+    # ---- 8b'. K10's weight gradient vs the f32 library call: every UNet layer ----
+    # the kernel (csrc/conv3d_mc_dw.cu; no TPU kernel) against the f32 library call the
+    # port took before it (torch.nn.grad.conv3d_weight, cuDNN off: the yardstick only)
+    # and against its arithmetic in torch (split_inputs on both operands, three f32
+    # library calls), at the train batch; twice, bit-identical; then each layer's time
+    # in a CUDA graph beside the library's and cuDNN's f32 dw (the slower library path)
+    k10dw_err = k10dw_rel = k10dw_twin_rel = 0.0
+    dw_parts, dw_times, dw_bounds = [], {}, {}
+    for cin, cout, n in mc_shapes:
+        xm, _ = mc_case(cin + cout + n + 1, TRAIN_BATCH, cin, cout, (n, n, n))
+        gm = torch.randn((TRAIN_BATCH, cout, n, n, n), device=dev,
+                         generator=torch.Generator(dev).manual_seed(cin + cout))
+        before = cuda_conv_mc.MC_DW_LAUNCHES.count
+        got = cuda_conv_mc.conv3d_mc_weight_grad(xm, gm)
+        again = cuda_conv_mc.conv3d_mc_weight_grad(xm, gm)
+        tile, splits = cuda_conv_mc.conv3d_mc_dw_plan(TRAIN_BATCH, cin, cout, n, n, n)
+        check(cuda_conv_mc.MC_DW_LAUNCHES.count == before + 2 * (1 + (splits > 1)),
+              f"K10 dw {cin}->{cout} {n}^3: launches off the plan")
+        want = cuda_conv_mc.conv3d_mc_weight_grad_plain(xm, gm)
+        twin = cuda_conv_mc.conv3d_mc_weight_grad_tc_plain(xm, gm)
+        torch.cuda.synchronize()
+        scale, err = float(want.abs().max()), float((got - want).abs().max())
+        rel, twin_rel = err / scale, float((twin - want).abs().max()) / scale
+        check(rel <= MC_DW_REL_TOL, f"K10 dw {cin}->{cout} {n}^3: {rel:.3g} of max|dw|")
+        check(torch.equal(got, again), f"K10 dw {cin}->{cout} {n}^3: two runs differ")
+        k10dw_err = max(k10dw_err, err)
+        k10dw_rel, k10dw_twin_rel = max(k10dw_rel, rel), max(k10dw_twin_rel, twin_rel)
+        dw_parts.append(f"{cin}->{cout} {n}^3 [tile {tile}, K/{splits}] {rel:.3g}")
+        dw_bounds[cin, cout, n] = dw_bound_ms(TRAIN_BATCH, cin, cout, n)
+        dw_times[cin, cout, n] = {
+            "ms": graph_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(xm, gm), 20),
+            "library_ms": graph_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad_plain(xm, gm), 3),
+            "cudnn_ms": graph_ms(lambda: torch.nn.grad.conv3d_weight(
+                xm, (cout, cin, 3, 3, 3), gm, padding=1), 3)}
+        del xm, gm, got, again, want, twin
+        torch.cuda.empty_cache()
+    dw_sums = {k: sum(dw_times[c][k] for c in UNET_CONVS)
+               for k in ("ms", "library_ms", "cudnn_ms")}
+    dw_bound_sum = sum(dw_bounds[c][0] for c in UNET_CONVS)
+    for c, t in dw_times.items():
+        check(t["ms"] >= dw_bounds[c][0], f"K10 dw {c}: {t['ms']:.4f} ms is under its bound")
+    check(dw_sums["ms"] < dw_sums["library_ms"],
+          f"K10 dw: the 18 convs take {dw_sums['ms']:.4f} ms, the library "
+          f"{dw_sums['library_ms']:.4f}")
+    print(f"[K10 dw] B={TRAIN_BATCH}, max|d| / max|dw| vs the f32 library call (cuDNN off), "
+          f"limit {MC_DW_REL_TOL}; every case twice, bit-identical; worst: the kernel "
+          f"{k10dw_rel:.3g} (max|d| {k10dw_err:.3g}), the plain twin {k10dw_twin_rel:.3g} | "
+          + ", ".join(dw_parts)
+          + f" | ({smi}) device ms in a CUDA graph, kernel / library (f32, cuDNN off) / cuDNN "
+          "f32 / bound (one TF32 and two bf16 products an f32 product, or the bytes): "
+          + " | ".join(f"{c}->{o} {n}^3 {t['ms']:.4f} / {t['library_ms']:.4f} / "
+                       f"{t['cudnn_ms']:.4f} / {dw_bounds[c, o, n][0]:.4f} "
+                       f"({dw_bounds[c, o, n][1]})" for (c, o, n), t in dw_times.items())
+          + f" | the UNet's 18 convs: kernel {dw_sums['ms']:.4f}, library "
+          f"{dw_sums['library_ms']:.4f}, cuDNN {dw_sums['cudnn_ms']:.4f}, bound "
+          f"{dw_bound_sum:.4f} ({dw_bound_sum / dw_sums['ms']:.1%} of it reached)", flush=True)
 
     # ---- 8c. K10's bf16 form vs plain: every UNet layer shape, in a CUDA graph ----
     def bf16_case(seed, b, cin, cout, shape):
@@ -2396,7 +2448,8 @@ def main(argv=None) -> int:
         del layer16, layer32, grads16
         torch.cuda.empty_cache()
     # the library's dw at bf16 as fused_conv3d_mc calls it (cuDNN), with cuDNN off,
-    # and the f32 dw; their distance from the plain version (f32 sums, rounded once)
+    # and the f32 model's dw (K10's dw kernel); the bf16 ones' distance from the plain
+    # version (f32 sums, rounded once)
     dw16 = {}
     for cin, cout, n in ((1, 32, 64), (32, 32, 64), (128, 64, 32), (512, 256, 8)):
         xm, _ = bf16_case(5, TRAIN_BATCH, cin, cout, (n, n, n))
@@ -2437,7 +2490,7 @@ def main(argv=None) -> int:
           "the bound); the 17 dx convs of a bf16 step " + fmt_graph(graph_dx)
           + "; the 1->32 layer (5 rounds) " + fmt_graph(graph_first)
           + " | the library's dw, ms bf16 cuDNN (as fused_conv3d_mc "
-          "calls it) / bf16 cuDNN off / f32 cuDNN off (the f32 model's), and the two bf16 "
+          "calls it) / bf16 cuDNN off / f32 (the f32 model's: K10's dw kernel), and the two bf16 "
           "ones' max|d| / max|dw| from the plain version: "
           + ", ".join(f"{c}->{o} {n}^3 {a:.4f} / {b:.4f} / {f:.4f}, {e1:.2e} / {e2:.2e}"
                       for (c, o, n), (a, b, f, e1, e2) in dw16.items()), flush=True)
@@ -3433,6 +3486,12 @@ def main(argv=None) -> int:
         check(unet_counts["points_binary"] == unet_steps + 2
               and unet_counts["stencil_conv"] == unet_counts["stencil_dk"] == 0,
               f"unet: launches {unet_counts}")
+        # the 18 convs' dw a step: the kernel, and its reduction where the plan splits
+        dw_step = sum(1 + (cuda_conv_mc.conv3d_mc_dw_plan(TRAIN_BATCH, c, o, n, n, n)[1] > 1)
+                      for c, o, n in UNET_CONVS)
+        check(unet_counts["conv3d_mc_dw"] == dw_step * unet_steps,
+              f"unet: K10's dw launched {unet_counts['conv3d_mc_dw']} times in {unet_steps} "
+              f"steps, {dw_step} a step planned")
         check(all(f"test_{m}" in unet_scores for m in metrics.METRIC_NAMES), "unet test scores")
         best_ckpt = sorted((tmp / "unet" / "ckpt").glob("train_FBetaScore_step*.npz"))
         check(len(best_ckpt) >= 1, "unet: no best checkpoint")
@@ -3511,7 +3570,7 @@ def main(argv=None) -> int:
                                 iters=2, warmup=1)
         print(f"[timing] UNet3D train step B={TRAIN_BATCH} 64^3 N={TRAIN_POINTS} geneo_tversky "
               f"adam ({smi}), median of 4 alternating rounds [min-max] ms/step: "
-              + fmt_times({"backend cuda (K10 forward and dx) vs torch": unet_step_t}),
+              + fmt_times({"backend cuda (K10 forward, dx and dw) vs torch": unet_step_t}),
               flush=True)
         # the bf16 UNet (K10's bf16 form, cuDNN's bf16 dw) beside the f32 one: 3 steps
         # from the same weights within the JAX package's bf16 budget (loss rtol 5e-2),
@@ -4336,6 +4395,14 @@ def main(argv=None) -> int:
               f"B={TRAIN_BATCH} 64^3, the sum over UNet3D's 18 forward convs"),
         entry("conv3d_mc_bf16", "conv3d_mc.cu", "pallas_conv_mc.py:100", k10b_err, mc16_sums,
               f"B={TRAIN_BATCH} 64^3 bf16, the sum over UNet3D's 18 forward convs"),
+        {"name": "conv3d_mc_dw", "route": "cuda",
+         "source": "scenenet_tpu_torch/csrc/conv3d_mc_dw.cu",
+         "replaces": "no TPU kernel: XLA's weight gradient of scenenet_tpu/ops/"
+                     "pallas_conv_mc.py:100 (no custom gradient)",
+         "launches": total["conv3d_mc_dw"], "max_abs_err": k10dw_err, "ms": dw_sums["ms"],
+         "plain_ms": None, "bound_ms": dw_bound_sum, "bound_by": "operations",
+         "library_ms": dw_sums["library_ms"],
+         "shape": f"B={TRAIN_BATCH} 64^3, the sum over UNet3D's 18 convs' dw"},
         entry("stencil_conv_halo", "stencil_conv.cu", "pallas_conv.py:918", halo_conv_err,
               halo_times["stencil_conv_halo"],
               f"B={BIG_BATCH} z-slab {HALO_Z}+8 x128x128 k(9,5,5), z_prepadded"),

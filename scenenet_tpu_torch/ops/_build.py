@@ -85,6 +85,8 @@ _SIGNATURES = {
                               _L, _I, _I, _P),
     # w, frag, C_in, C_out, w strides (C_out, C_in, dz, dx, dy), bn, stream
     "snt_conv3d_mc_pack_bf16": (_P, _P, _I, _I, _L, _L, _L, _L, _L, _I, _P),
+    # x, g, out, partial, B, C_in, C_out, Z, X, Y, tile, splits, vec, stream
+    "snt_conv3d_mc_dw": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -177,8 +179,8 @@ _COUNTERS: list[LaunchCounter] = []
 
 
 class LaunchCounter:
-    """Count of a kernel's launches; the wrapper adds one per launch. Every
-    counter made is read by :func:`launch_counts`."""
+    """Count of a kernel's launches; the wrapper adds one per launch (or the
+    kernels it launched). Every counter made is read by :func:`launch_counts`."""
 
     def __init__(self, name: str):
         self.name = name
@@ -186,9 +188,9 @@ class LaunchCounter:
         self._lock = threading.Lock()
         _COUNTERS.append(self)
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         with self._lock:

@@ -29,24 +29,29 @@ differentiable composition.
   f32, the result rounded to bf16). ``conv3d_mc_same_tc_plain`` repeats the
   tensor-core kernel's arithmetic (``split_weights`` and ``split_inputs`` by
   bit arithmetic, three f32 convs) for the CPU tests.
+- ``conv3d_mc_weight_grad`` is the conv's weight gradient dw. The JAX
+  package has no kernel for it (its ``conv3d_mc_same`` carries no custom
+  gradient, and the weight gradient of its models is XLA's conv). For f32
+  on the card it is a kernel of the port with no TPU counterpart
+  (``csrc/conv3d_mc_dw.cu``): a GEMM of C_out × 27·C_in over the batch's
+  voxels on the tensor cores, with the forward's three-product split and a
+  fixed-order K split; :func:`conv3d_mc_dw_plan` picks its tile and split
+  from the shape alone. ``conv3d_mc_weight_grad_tc_plain`` repeats its
+  arithmetic (``split_inputs`` on both operands, three f32 library dw
+  calls). For bf16 operands on the card dw stays cuDNN's bf16 weight
+  gradient, a library call.
 - ``fused_conv3d_mc`` is that conv as a ``torch.autograd.Function``, the
   conv of ``UNet3D`` and ``CnnBaseline`` on the kernel backend. Forward:
   the kernel. dx, only when x needs it: the same kernel on the cotangent
   with the weights flipped on their three spatial axes and their two
-  channel axes swapped (exact for a 3³ kernel with pad 1). dw: the JAX
-  package has no kernel for it (its ``conv3d_mc_same`` carries no custom
-  gradient, and the weight gradient of its models is XLA's conv), so it is
-  a library call here too, ``torch.nn.grad.conv3d_weight`` in full f32 with
-  cuDNN switched off for the call (its f32 weight gradient of a 3D conv is
-  the slower library path at the UNet's large layers), and for bf16
-  operands :func:`conv3d_mc_weight_grad` says which call; it is not one
-  of the port's kernels.
+  channel axes swapped (exact for a 3³ kernel with pad 1). dw:
+  :func:`conv3d_mc_weight_grad`.
 
 For a CUDA tensor each wrapper launches its kernel; for a CPU tensor it
 runs its plain version. Kernel and plain version sum in a different order
 (and the tensor-core route drops the ``lo·lo`` term, 2⁻²¹ of a product), so
-they agree to f32 rounding, not bit for bit. The kernel uses no atomics:
-its K split is reduced in a fixed order, so two runs give the same bits.
+they agree to f32 rounding, not bit for bit. The kernels use no atomics:
+their K splits are reduced in a fixed order, so two runs give the same bits.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from scenenet_tpu_torch.ops.conv3d import conv3d_f32, cudnn_off
 
 MC_LAUNCHES = _build.LaunchCounter("conv3d_mc")
 MC_BF16_LAUNCHES = _build.LaunchCounter("conv3d_mc_bf16")  # the bf16 form
+MC_DW_LAUNCHES = _build.LaunchCounter("conv3d_mc_dw")  # f32 dw and its K-split reduction
 DTYPES = (torch.float32, torch.bfloat16)
 
 K_STEP = 8          # input channels of one tensor-core K step (one tap of a chunk)
@@ -79,6 +85,14 @@ FMA_MAX_C_IN = 4    # up to here a layer stays on the FMA kernel: padded to a K
 TC_TILES = {0: ((1, 4, 8, 16), 32), 1: ((1, 8, 8, 8), 32), 2: ((1, 4, 8, 8), 64),
             3: ((4, 4, 4, 4), 64)}
 FMA_TILE = "fma"
+# the weight gradient's kernel: a block takes 32 output channels x the tile's
+# input channels x 27 taps, over stages of the tile's voxels (samples, z, x,
+# y); tiles by the id the C entry takes; one block an SM (its shared memory),
+# one wave where the K split can fill it
+DW_CO = 32
+DW_TILES = {0: ((1, 4, 4, 16), 16), 1: ((1, 4, 8, 8), 16), 2: ((2, 4, 4, 4), 16),
+            3: ((1, 4, 4, 16), 8), 4: ((1, 4, 8, 8), 8), 5: ((2, 4, 4, 4), 8)}
+DW_TARGET_BLOCKS = 132
 
 
 def _check_args(x: torch.Tensor, w: torch.Tensor, channels_last: bool) -> None:
@@ -337,17 +351,95 @@ def conv3d_mc_weight_grad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tenso
         return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
 
 
+def conv3d_mc_weight_grad_tc_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The dw kernel's arithmetic in plain PyTorch: both operands split by
+    :func:`split_inputs`, three f32 weight gradients, ``x_hi·g_hi`` (exact
+    products of TF32 values) and the cross terms ``x_lo·bf16(g) +
+    bf16(x)·g_lo`` (what the kernel's one bf16 mma takes), f32 sums; the
+    ``lo·lo`` term, 2⁻²⁰ of a product, is dropped."""
+    xh, xl = split_inputs(x)
+    gh, gl = split_inputs(g)
+    return conv3d_mc_weight_grad_plain(xl, _bf16(g)) + conv3d_mc_weight_grad_plain(_bf16(x), gl) \
+        + conv3d_mc_weight_grad_plain(xh, gh)
+
+
+def conv3d_mc_dw_stages(tile: int, b: int, z: int, x: int, y: int) -> int:
+    """Stages (the tile's voxels, ``DW_TILES[tile][0]``) that cover the batch."""
+    tb, tz, tx, ty = DW_TILES[tile][0]
+    return -(-b // tb) * -(-z // tz) * -(-x // tx) * -(-y // ty)
+
+
+def conv3d_mc_dw_blocks(tile: int, splits: int, c_in: int, c_out: int) -> int:
+    """Blocks of a dw launch: a channel tile pair and a K split each."""
+    return -(-c_out // DW_CO) * -(-c_in // DW_TILES[tile][1]) * splits
+
+
+def conv3d_mc_dw_plan(b: int, c_in: int, c_out: int, z: int, x: int, y: int) -> Tuple[int, int]:
+    """(tile, splits) of the weight gradient's kernel, from the shape alone.
+
+    ``tile`` is a key of ``DW_TILES``: 4×4×16 voxels a stage where the
+    volume has more than 8 along y, 4×8×8 up to that, and two samples of
+    4×4×4 where it is within 4³, so that little of a tile lies outside; 16
+    input channels a block, or 8 up to C_in = 8 (the 1→32 layer runs as
+    8→32, not 16→32). ``splits`` divides the stages among that many blocks
+    of one channel tile pair, so that the launch comes to
+    ``DW_TARGET_BLOCKS`` blocks where the channel tiles alone give fewer, at
+    most one split a stage. Split ``k`` takes stages ``[k·n // splits, (k +
+    1)·n // splits)`` of the ``n`` that :func:`conv3d_mc_dw_stages` counts.
+    Any shape and channel count takes the kernel: C_in and C_out are padded
+    to the block's channels, the volume to whole tiles."""
+    tile = (0 if y > 8 else 1 if max(z, x, y) > 4 else 2) + (3 if c_in <= 8 else 0)
+    splits = DW_TARGET_BLOCKS // conv3d_mc_dw_blocks(tile, 1, c_in, c_out)
+    return tile, max(1, min(splits, conv3d_mc_dw_stages(tile, b, z, x, y)))
+
+
+def _launch_dw(x: torch.Tensor, g: torch.Tensor, tile: int, splits: int) -> torch.Tensor:
+    """The dw kernel on f32 x (B, C_in, Z, X, Y) and g (B, C_out, Z, X, Y)
+    under ``tile`` and ``splits``; the K split's reduction is a second
+    launch. Counts the kernels it launched."""
+    x, g = x.contiguous(), g.contiguous()
+    b, c_in, z, xx, yy = x.shape
+    c_out = g.shape[1]
+    out = torch.empty((c_out, c_in, 3, 3, 3), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, c_out, c_in, 27), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    # the tiles by tensor copies, whose maps want rows of whole 16-byte words
+    vec = int(yy % 4 == 0 and x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.snt_conv3d_mc_dw(x.data_ptr(), g.data_ptr(), out.data_ptr(),
+                                   partial.data_ptr() if splits > 1 else None,
+                                   b, c_in, c_out, z, xx, yy, tile, splits, vec,
+                                   ctypes.c_void_p(stream))
+    _build.check(err, "conv3d_mc_dw")
+    MC_DW_LAUNCHES.add(2 if splits > 1 else 1)
+    return out
+
+
 def conv3d_mc_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dw of the SAME 3³ conv: the library's weight gradient. In f32 that is
-    PyTorch's own kernels in full f32 (:func:`conv3d_mc_weight_grad_plain`):
-    cuDNN's f32 weight gradient of a 3D conv is several times slower at the
-    UNet's 64³ layers (``PERF.md`` has both times). For bf16 operands on the
-    card it is cuDNN's bf16 weight gradient: PyTorch's own kernels in bf16
-    sum the batch's samples in bf16, which takes them further from the
-    plain version than cuDNN, and they take longer (``PERF.md``)."""
-    if x.dtype != torch.bfloat16 or x.device.type != "cuda":
+    """dw of the SAME 3³ conv, (C_out, C_in, 3, 3, 3), of x (B, C_in, Z, X,
+    Y) and the output's cotangent g (B, C_out, Z, X, Y), in their dtype.
+
+    A CPU tensor takes :func:`conv3d_mc_weight_grad_plain`. On the card f32
+    launches the kernel (:func:`conv3d_mc_dw_plan`) or raises; bf16 is
+    cuDNN's bf16 weight gradient: PyTorch's own kernels in bf16 sum the
+    batch's samples in bf16, which takes them further from the plain version
+    than cuDNN, and they take longer (``PERF.md``)."""
+    if x.ndim != 5 or g.ndim != 5 or x.shape[0] != g.shape[0] or x.shape[2:] != g.shape[2:]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} must be (B, C, Z, X, Y) "
+                         "of one batch and volume")
+    if x.dtype not in DTYPES or g.dtype != x.dtype:
+        raise TypeError(f"x and g must be both float32 or both bfloat16, got {x.dtype} and "
+                        f"{g.dtype}")
+    if x.device.type == "cpu":
         return conv3d_mc_weight_grad_plain(x, g)
-    return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
+    if x.device.type != "cuda" or g.device != x.device:
+        raise ValueError(f"no conv3d_mc_dw kernel for x on {x.device}, g on {g.device}")
+    if x.dtype == torch.bfloat16:
+        return torch.nn.grad.conv3d_weight(x, (g.shape[1], x.shape[1], 3, 3, 3), g, padding=1)
+    return _launch_dw(x, g, *conv3d_mc_dw_plan(x.shape[0], x.shape[1], g.shape[1],
+                                              *x.shape[2:]))
 
 
 class _FusedConv3dMc(torch.autograd.Function):
@@ -372,5 +464,5 @@ class _FusedConv3dMc(torch.autograd.Function):
 def fused_conv3d_mc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """:func:`conv3d_mc_same` (channels first, f32 or bf16), differentiable
     in both arguments: the kernel forward, the kernel again for dx (launched
-    only when x requires grad), the library's weight gradient for dw."""
+    only when x requires grad), :func:`conv3d_mc_weight_grad` for dw."""
     return _FusedConv3dMc.apply(x, w)

@@ -15,6 +15,7 @@ results into static buffers, so it holds no RNG call and no host sync.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Optional
 
 import torch
@@ -75,8 +76,17 @@ class StepGraph:
         if self.graph is None:
             before = self._counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.step()
+            # no collection inside the capture: a dead graph in a reference cycle,
+            # freed there, resets its executable on the capturing stream, and that
+            # ends the capture ("operation not permitted when stream is capturing")
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    self.step()
+            finally:
+                if collecting:
+                    gc.enable()
             self.graph = graph
             self.launches = {k: v - before.get(k, 0) for k, v in self._counts().items()}
         self.graph.replay()

@@ -481,3 +481,157 @@ def test_bf16_wrapper_refusals():
         conv3d_mc_same(x, w.float())
     with pytest.raises(ValueError, match="channels first"):
         conv3d_mc_same(x.permute(0, 2, 3, 4, 1).contiguous(), w, channels_last=True)
+
+
+# ---- K10's weight gradient: the kernel's arithmetic and its plan, on the CPU --------
+
+def _dw_case(b, cin, cout, shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.random((b, cin, *shape)).astype(np.float32),
+            rng.standard_normal((b, cout, *shape)).astype(np.float32))
+
+
+def _dw_err(got, want):
+    return float(np.abs(np.asarray(got, np.float64) - want).max() / np.abs(want).max())
+
+
+# B = 1 and 3, a 12x10x14 volume, C no multiple of 8, C_in = 1
+DW_RAGGED = [(1, 16, 24, (5, 9, 7)), (3, 1, 32, (12, 10, 14)), (1, 40, 30, (6, 10, 7)),
+             (3, 100, 70, (12, 10, 14)), (3, 13, 9, (12, 10, 14)), (1, 1, 1, (1, 1, 1))]
+
+
+@pytest.mark.parametrize("b,cin,cout,shape", [
+    *((2, c, o, (n // 16 + 2,) * 3) for c, o, n in UNET_CONVS), *DW_RAGGED])
+def test_weight_grad_tc_plain_matches_library_and_xla(b, cin, cout, shape):
+    """The dw kernel's arithmetic (both operands split into a TF32 hi and a
+    bf16 lo, three products, f32 sums) at the UNet's 18 layers on small
+    extents and at ragged shapes: within 1e-4 of max|dw| of the f32 library
+    call and of ``jax.grad`` of XLA's conv, the JAX package's weight
+    gradient. TF32 alone is not (the check is live)."""
+    x, g = _dw_case(b, cin, cout, shape, b + cin + cout)
+    tx, tg = torch.from_numpy(x), torch.from_numpy(g)
+    got = cuda_conv_mc.conv3d_mc_weight_grad_tc_plain(tx, tg)
+    assert got.shape == (cout, cin, 3, 3, 3) and got.dtype == torch.float32
+    library = torch.nn.grad.conv3d_weight(tx, (cout, cin, 3, 3, 3), tg, padding=1)
+    w = jnp.zeros((cout, cin, 3, 3, 3), jnp.float32)
+    xla = jax.grad(lambda w: jnp.sum(_xla(jnp.asarray(x), w) * g))(w)
+    exact = torch.nn.grad.conv3d_weight(tx.double(), (cout, cin, 3, 3, 3), tg.double(),
+                                        padding=1).numpy()
+    for want in (library.numpy(), np.asarray(xla), exact):
+        assert _dw_err(got.numpy(), want) <= 1e-4
+    tf32 = cuda_conv_mc.conv3d_mc_weight_grad_plain(cuda_conv_mc.tf32_round(tx),
+                                                    cuda_conv_mc.tf32_round(tg))
+    if b * np.prod(shape) >= 64:  # enough products a sum for TF32's rounding to show
+        assert _dw_err(tf32.numpy(), exact) > 1e-4
+
+
+def _dw_coverage(tile, splits, b, z, x, y):
+    """How often the kernel's walk visits each voxel of the batch under a
+    plan: split k takes stages [k·n // splits, (k + 1)·n // splits), stage s
+    is the tile (sample, z, x, y) with y fastest; every split takes a stage
+    at least."""
+    tb, tz, tx, ty = cuda_conv_mc.DW_TILES[tile][0]
+    n = cuda_conv_mc.conv3d_mc_dw_stages(tile, b, z, x, y)
+    bounds = [k * n // splits for k in range(splits + 1)]
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:])) and bounds[-1] == n
+    ny, nx, nz = -(-y // ty), -(-x // tx), -(-z // tz)
+    seen = np.zeros((-(-b // tb) * tb, nz * tz, nx * tx, ny * ty), np.int32)
+    for lo, hi in zip(bounds, bounds[1:]):
+        for s in range(lo, hi):
+            y0, x0 = s % ny * ty, s // ny % nx * tx
+            z0, b0 = s // (ny * nx) % nz * tz, s // (ny * nx * nz) * tb
+            seen[b0:b0 + tb, z0:z0 + tz, x0:x0 + tx, y0:y0 + ty] += 1
+    assert (seen == 1).all()  # the padding past the volume too: no tile twice
+    return seen[:b, :z, :x, :y]
+
+
+def _check_dw_plan(b, cin, cout, z, x, y):
+    tile, splits = cuda_conv_mc.conv3d_mc_dw_plan(b, cin, cout, z, x, y)
+    assert (tile, splits) == cuda_conv_mc.conv3d_mc_dw_plan(b, cin, cout, z, x, y)
+    assert tile in cuda_conv_mc.DW_TILES  # every f32 shape takes the kernel
+    stages = cuda_conv_mc.conv3d_mc_dw_stages(tile, b, z, x, y)
+    assert 1 <= splits <= stages
+    blocks = cuda_conv_mc.conv3d_mc_dw_blocks(tile, splits, cin, cout)
+    # one wave of one block an SM, or as many channel tiles as there are
+    assert blocks <= cuda_conv_mc.DW_TARGET_BLOCKS or splits == 1
+    if splits < stages:  # a further split would pass the wave
+        assert cuda_conv_mc.conv3d_mc_dw_blocks(tile, splits + 1, cin, cout) > \
+            cuda_conv_mc.DW_TARGET_BLOCKS
+    assert _dw_coverage(tile, splits, b, z, x, y).sum() == b * z * x * y
+    return tile, splits
+
+
+@pytest.mark.parametrize("batch", [16, 1])
+@pytest.mark.parametrize("layer", range(len(UNET_CONVS)))
+def test_dw_plan_covers_the_voxels_once_at_the_unet_layers(layer, batch):
+    """At each UNet layer: the 4x4x16 tile at 16³ and past, 4x8x8 at 8³,
+    two samples of 4³ at 4³, 8 input channels a block at the 1->32 layer
+    and 16 elsewhere; one wave of 132 blocks where the channel tiles leave
+    room for a K split; every voxel in exactly one stage of one split."""
+    cin, cout, n = UNET_CONVS[layer]
+    tile, splits = _check_dw_plan(batch, cin, cout, n, n, n)
+    voxels, ci_block = cuda_conv_mc.DW_TILES[tile]
+    assert voxels == {64: (1, 4, 4, 16), 32: (1, 4, 4, 16), 16: (1, 4, 4, 16),
+                      8: (1, 4, 8, 8), 4: (2, 4, 4, 4)}[n]
+    assert ci_block == (8 if cin == 1 else 16)
+    channel_blocks = -(-cout // cuda_conv_mc.DW_CO) * -(-cin // ci_block)
+    if batch == 16:
+        assert splits == max(1, cuda_conv_mc.DW_TARGET_BLOCKS // channel_blocks)
+
+
+@pytest.mark.parametrize("args,want", [
+    ((16, 1, 32, 64, 64, 64), (3, 132)),    # 1->32: 8 input channels, split 132 ways
+    ((16, 32, 32, 64, 64, 64), (0, 66)),
+    ((16, 512, 256, 8, 8, 8), (1, 1)),      # 256 channel tile pairs: no split
+    ((16, 256, 256, 4, 4, 4), (2, 1)),
+    ((1, 256, 256, 4, 4, 4), (2, 1)),       # one stage: nothing to split
+    ((2, 3, 3, 17, 5, 3), (4, 10)),         # the split stops at the stages
+    ((3, 100, 70, 12, 10, 14), (0, 6)),
+    ((2, 8, 16, 4, 4, 4), (5, 1)),          # 8 channels, the four-sample tile
+    ((2, 9, 16, 4, 4, 4), (2, 1)),          # 9: 16 a block
+])
+def test_dw_plan_at_the_shapes_it_separates(args, want):
+    assert cuda_conv_mc.conv3d_mc_dw_plan(*args) == want
+
+
+# the shapes of channel tensor parallelism (parallel/gspmd.py), as tests/test_torch_cuda.py
+# lists them: a rank's conv at C_out/m ("fwd") and the dx of a column-parallel conv ("dx")
+TP_SHARD_SHAPES = [("fwd", 1, 16, 16), ("fwd", 32, 16, 16), ("fwd", 32, 8, 16),
+                   ("fwd", 64, 16, 8), ("fwd", 256, 128, 4), ("dx", 16, 32, 16),
+                   ("dx", 8, 32, 16), ("dx", 4, 32, 16), ("dx", 128, 256, 4)]
+
+
+@pytest.mark.parametrize("what,cin,cout,n", TP_SHARD_SHAPES)
+def test_dw_plan_at_channel_parallel_shapes(what, cin, cout, n):
+    _check_dw_plan(2, cin, cout, n, n, n)
+
+
+def test_dw_plan_over_drawn_shapes():
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+
+    extent = st.integers(1, 40)
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(b=st.integers(1, 5), cin=st.integers(1, 600), cout=st.integers(1, 300),
+           shape=st.tuples(extent, extent, extent))
+    def run(b, cin, cout, shape):
+        _check_dw_plan(b, cin, cout, *shape)
+
+    run()
+
+
+def test_weight_grad_on_the_cpu_is_the_library_call_and_counts_nothing():
+    """A CPU tensor takes the plain version (the f32 library call); no
+    launch counter moves; mismatched shapes and dtypes raise."""
+    x, g = (torch.from_numpy(a) for a in _dw_case(2, 5, 7, (4, 6, 5), 3))
+    before = cuda_conv_mc.MC_DW_LAUNCHES.count
+    got = conv3d_mc_weight_grad(x, g)
+    assert cuda_conv_mc.MC_DW_LAUNCHES.count == before
+    assert torch.equal(got, torch.nn.grad.conv3d_weight(x, (7, 5, 3, 3, 3), g, padding=1))
+    with pytest.raises(ValueError, match="one batch"):
+        conv3d_mc_weight_grad(x, g[:1])
+    with pytest.raises(ValueError, match="one batch"):
+        conv3d_mc_weight_grad(x[0], g[0])
+    with pytest.raises(TypeError, match="both"):
+        conv3d_mc_weight_grad(x, g.double())

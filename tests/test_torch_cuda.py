@@ -1336,9 +1336,9 @@ def test_conv3d_mc_kernel_unaligned_view_and_refusals(dev):
 @pytest.mark.parametrize("cin,cout,shape", [(1, 32, (16, 16, 16)), (64, 32, (12, 10, 14)),
                                             (256, 128, (8, 8, 8))])
 def test_fused_conv3d_mc_grads_match_autograd(dev, cin, cout, shape):
-    """dx (the kernel on the flipped, swapped weights) and dw (the library
-    call) against autograd through the plain conv; dx is not launched when
-    x needs no gradient."""
+    """dx (the kernel on the flipped, swapped weights) and dw (the weight
+    gradient's kernel) against autograd through the plain conv; dx is not
+    launched when x needs no gradient."""
     x, w = _mc_case(7, 2, cin, cout, shape)
     g = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (2, cout, *shape)).astype(np.float32)).to(dev)
@@ -1643,6 +1643,107 @@ def test_conv3d_mc_bf16_form_refuses_channels_last(dev):
         cuda_conv_mc.conv3d_mc_same(x.permute(0, 4, 1, 2, 3).contiguous(), w.float())
 
 
+# ---- K10's weight gradient (conv3d_mc_dw) ------------------------------------------
+
+# (batch, C_in, C_out, extent) off the UNet's layers: B = 1 and 3, a 12x10x14 volume, C
+# no multiple of 8, C_in = 1, Y odd or no multiple of 4 (the 4-byte copies)
+DW_RAGGED = [(1, 16, 24, (5, 9, 7)), (3, 1, 32, (12, 10, 14)), (1, 40, 30, (6, 10, 7)),
+             (3, 100, 70, (12, 10, 14)), (3, 3, 3, (17, 5, 3)), (1, 1, 1, (1, 1, 1)),
+             (3, 72, 100, (5, 4, 3)), (5, 48, 64, (4, 4, 4)), (1, 13, 9, (12, 10, 14)),
+             (3, 8, 40, (4, 4, 4)), (2, 5, 24, (9, 12, 16))]
+
+
+def _dw_case(seed, b, cin, cout, shape, dev):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.rand((b, cin, *shape), device=dev, generator=gen)
+    return x, torch.randn((b, cout, *shape), device=dev, generator=gen)
+
+
+def _dw_close(got, want):
+    """Sums over every voxel of the batch, in another order than the
+    library's and with the split products: 1e-4 of the largest entry."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,cin,cout,shape", [
+    *((2, c, o, (n, n, n)) for c, o, n in UNET_LAYERS), *DW_RAGGED])
+def test_conv3d_mc_dw_kernel_matches_library(dev, b, cin, cout, shape):
+    """K10's dw at the UNet's layer shapes (batch 2) and at ragged ones
+    against the f32 library call (PyTorch's own kernels, cuDNN off) and the
+    kernel's own arithmetic in torch; bit-identical run to run, its
+    launches (the kernel, and the K split's reduction where it splits)
+    counted on its own counter and on no other."""
+    x, g = _dw_case(b + cin + cout, b, cin, cout, shape, dev)
+    tile, splits = cuda_conv_mc.conv3d_mc_dw_plan(b, cin, cout, *shape)
+    before = (cuda_conv_mc.MC_DW_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count)
+    got = cuda_conv_mc.conv3d_mc_weight_grad(x, g)
+    again = cuda_conv_mc.conv3d_mc_weight_grad(x, g)
+    launches = 1 + (splits > 1)
+    assert (cuda_conv_mc.MC_DW_LAUNCHES.count, cuda_conv_mc.MC_LAUNCHES.count) == (
+        before[0] + 2 * launches, before[1])
+    assert torch.equal(got, again)
+    _dw_close(got, cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g))
+    _dw_close(got, cuda_conv_mc.conv3d_mc_weight_grad_tc_plain(x, g))
+
+
+@pytest.mark.parametrize("tile", sorted(cuda_conv_mc.DW_TILES))
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_conv3d_mc_dw_every_tile_and_split(dev, tile, splits):
+    """Every tile under K splits 1, 2, 3 and 7 on one case that hangs over
+    every tile and channel tile (Y a multiple of 4, and Y odd: the tensor
+    copies and the 4-byte ones): within 1e-4 of the library, the same bits
+    twice."""
+    for shape in ((6, 9, 16), (5, 7, 9)):
+        x, g = _dw_case(tile + splits, 3, 20 if cuda_conv_mc.DW_TILES[tile][1] == 16 else 6,
+                        40, shape, dev)
+        want = cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g)
+        got = cuda_conv_mc._launch_dw(x, g, tile, splits)
+        assert torch.equal(got, cuda_conv_mc._launch_dw(x, g, tile, splits))
+        _dw_close(got, want)
+
+
+@pytest.mark.parametrize("what,cin,cout,n", TP_SHARD_SHAPES)
+def test_conv3d_mc_dw_at_channel_parallel_shapes(dev, what, cin, cout, n):
+    """The dw at a channel-TP rank's shapes (batch 2; ``TP_SHARD_SHAPES``):
+    a rank's C_out/m slice of the weights, C_out below the block's 32."""
+    x, g = _dw_case(cin + cout + n, 2, cin, cout, (n, n, n), dev)
+    got = cuda_conv_mc.conv3d_mc_weight_grad(x, g)
+    assert torch.equal(got, cuda_conv_mc.conv3d_mc_weight_grad(x, g))
+    _dw_close(got, cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g))
+
+
+def test_conv3d_mc_dw_takes_no_library_call_in_f32(dev, monkeypatch):
+    """On the card the f32 backward of fused_conv3d_mc reaches the library's
+    weight gradient nowhere; the bf16 backward still does (cuDNN bf16)."""
+    real = torch.nn.grad.conv3d_weight
+    calls = []
+    monkeypatch.setattr(torch.nn.grad, "conv3d_weight",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x, w = _mc_case(3, 2, 24, 40, (6, 7, 8))
+    g = torch.randn((2, 40, 6, 7, 8), device=dev)
+    wa = w.to(dev).requires_grad_()
+    (cuda_conv_mc.fused_conv3d_mc(x.to(dev).requires_grad_(), wa) * g).sum().backward()
+    assert calls == [] and wa.grad is not None
+    wb = w.to(dev, torch.bfloat16).requires_grad_()
+    cuda_conv_mc.fused_conv3d_mc(x.to(dev, torch.bfloat16), wb).float().sum().backward()
+    assert calls == [1]
+
+
+def test_conv3d_mc_dw_unaligned_view_and_refusals(dev):
+    """A view whose storage starts off a 16-byte boundary takes the 4-byte
+    copies; mismatched shapes and dtypes raise."""
+    x, g = _dw_case(4, 3, 8, 16, (4, 4, 8), dev)
+    view = torch.rand(x.numel() + 1, device=dev)[1:].view(x.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _dw_close(cuda_conv_mc.conv3d_mc_weight_grad(view, g),
+              cuda_conv_mc.conv3d_mc_weight_grad_plain(view, g))
+    with pytest.raises(ValueError, match="one batch"):
+        cuda_conv_mc.conv3d_mc_weight_grad(x, g[:2])
+    with pytest.raises(TypeError, match="both"):
+        cuda_conv_mc.conv3d_mc_weight_grad(x, g.double())
+
+
 # ---- the cached train step as a CUDA graph ----------------------------------------
 
 def test_cached_fit_replays_a_graph_as_the_streamed_steps(dev, tmp_path):
@@ -1806,6 +1907,44 @@ def test_bf16_cached_fit_replays_a_graph_bit_identical(dev, tmp_path):
     graph = _graph_vs_eager(dev, tmp_path, lambda: SceneNet.create(
         kernel_size=(9, 5, 5), seed=3, backend="cuda"), crit, epochs=2, precision="bf16")
     assert graph.cached_epochs.runner.replays == 8 - 3
+
+
+def test_step_capture_holds_when_a_dead_graph_is_collectable_inside_it(dev):
+    """While it is captured, the step drops the last reference to another
+    captured step, held in a reference cycle, and allocates enough to set
+    off an automatic collection: the capture holds (no collection runs in
+    it) and the replays compute what the eager steps did."""
+    import gc
+
+    from scenenet_tpu_torch.train.step_graph import WARMUP, StepGraph
+
+    def doubling(buf):
+        return lambda: buf.mul_(2.0).add_(1.0)
+
+    old = StepGraph(doubling(torch.zeros(4, device=dev)), dev)
+    for _ in range(WARMUP + 1):
+        old()
+    assert old.graph is not None
+    held, calls = [old], []
+    del old
+    buf = torch.zeros(4, device=dev)
+
+    def step():
+        doubling(buf)()
+        calls.append(1)
+        if len(calls) == WARMUP + 1:  # the capture
+            box = [held.pop()]
+            box.append(box)
+            del box
+            junk = [[] for _ in range(10 * gc.get_threshold()[0])]
+            del junk
+
+    new = StepGraph(step, dev)
+    for _ in range(WARMUP + 3):
+        new()
+    torch.cuda.synchronize()
+    assert new.graph is not None and new.replays == 3 and len(calls) == WARMUP + 1
+    assert torch.equal(buf, torch.full_like(buf, 2.0 ** (WARMUP + 3) - 1))
 
 
 # ---- preemption through the CUDA graphs, L-BFGS, the tuners on the card ------------
