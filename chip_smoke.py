@@ -84,6 +84,11 @@ experiments/defaults.yaml (batch 16, 64³, 65536 points, geneo_tversky):
   the 17 dx convs of a step beside cuDNN bf16's input gradient, and on the
   1->32 layer alone) and times that step beside the f32 one, and trains
   ``model=cnn`` with a (3,3,3) kernel;
+- it holds K10 at nnU-Net's 17 stride-1 convs at batch 2 (forward, dx and
+  dw against the f32 library calls, ``[K10 nnunet]``), times both library
+  routes of its strided and transposed convs, and trains the network through
+  ``cli.train --set model=nnunet`` at 128³, batch 2 (K10, the library
+  wrappers and K8 counted a step; the best checkpoint restored);
 - it trains ``experiments/admm.yaml``'s keys (``constrained=admm
   admm_rho=5.0 optimizer=lbfgs learning_rate=0.8 criterion=focal_tversky``,
   by ``--set``) through the train CLI at the defaults' width on the native
@@ -294,6 +299,17 @@ UNET_CONVS = [(1, 32, 64), (32, 32, 64), (32, 64, 32), (64, 64, 32), (64, 128, 1
               (512, 256, 8), (256, 128, 8), (256, 128, 16), (128, 64, 16), (128, 64, 32),
               (64, 32, 32), (64, 32, 64), (32, 32, 64)]
 UNET_TRAIN_LAUNCHES, UNET_EVAL_LAUNCHES = 35, 18  # 18 forward + 17 dx (none at C_in = 1)
+# nnU-Net's 3d_fullres network at 128^3 (models/nnunet3d.py) at its batch of 2: the 17
+# stride-1 3x3x3 convs that K10 takes, in forward order (C_in, C_out, cubic extent); the
+# five stride-2 convs (C_in, C_out, input extent) and five transposed convs (C_in, C_out,
+# input extent) that library calls take
+NNUNET_BATCH = 2
+NNUNET_CONVS = [(1, 32, 128), (32, 32, 128), (64, 64, 64), (128, 128, 32), (256, 256, 16),
+                (320, 320, 8), (320, 320, 4), (640, 320, 8), (320, 320, 8), (512, 256, 16),
+                (256, 256, 16), (256, 128, 32), (128, 128, 32), (128, 64, 64), (64, 64, 64),
+                (64, 32, 128), (32, 32, 128)]
+NNUNET_STRIDED = [(32, 64, 128), (64, 128, 64), (128, 256, 32), (256, 320, 16), (320, 320, 8)]
+NNUNET_TRANSPOSED = [(320, 320, 4), (320, 256, 8), (256, 128, 16), (128, 64, 32), (64, 32, 64)]
 # UNet train steps, kernel backend vs plain: the convs round differently, and Adam
 # turns a gradient entry near 0 into a step of +-lr = 1e-3 in either; the running
 # statistics are held to 3e-3 absolute plus 3e-3 relative
@@ -588,6 +604,141 @@ def dw_bound_ms(b: int, cin: int, cout: int, edge: int):
     vox = b * edge ** 3
     moved, flops = 4.0 * (vox * (cin + cout) + 27 * cin * cout), 2.0 * 27 * cin * cout * vox
     return bound_ms(moved, flops * (1 + 2 * TF32_FLOPS / BF16_FLOPS), TF32_FLOPS)
+
+
+def nnunet_k10_phase(dev, smi: str = "") -> dict:
+    """The ``[K10 nnunet]`` phase: K10 forward, dx and dw through
+    ``fused_conv3d_mc`` at each distinct shape of nnU-Net's 17 stride-1 convs
+    at batch 2, against the f32 library calls (``F.conv3d`` and its input
+    gradient in cuDNN with TF32 off, the weight gradient with cuDNN off), the
+    launches against the plans; then device ms in CUDA graphs of K10's three
+    passes and cuDNN's forward summed over the 17 layers, and of both library
+    routes of the stride-2 convs' dx and dw and of the transposed convs'
+    forward + backward. The network's input takes no gradient, so the first
+    layer runs no dx. Returns the worst errors (max|d| over max|want|) and
+    the sums; raises on a failed check."""
+    import torch
+    import torch.nn.functional as F
+
+    from scenenet_tpu_torch.models.nnunet3d import NNUNet3D, _ConvNorm
+    from scenenet_tpu_torch.ops import cuda_conv_mc
+    from scenenet_tpu_torch.ops.conv3d import cudnn_off, tf32_off
+
+    b = NNUNET_BATCH
+    layers = [m for m in NNUNet3D.create().modules() if isinstance(m, _ConvNorm)]
+    check([(m.weight.shape[1], m.weight.shape[0]) for m in layers if m.stride == 1]
+          == [c[:2] for c in NNUNET_CONVS]
+          and [(m.weight.shape[1], m.weight.shape[0]) for m in layers if m.stride == 2]
+          == [c[:2] for c in NNUNET_STRIDED], "NNUNet3D's 3^3 convs differ from NNUNET_CONVS")
+
+    def case(seed, cin, cout, n, out_n=None):
+        """x ~ U(0, 1), weights of variance 1/(27 C_in) (outputs of magnitude
+        ~1) and an output gradient ~ N(0, 1)."""
+        gen = torch.Generator(dev).manual_seed(seed)
+        x = torch.rand((b, cin, n, n, n), device=dev, generator=gen)
+        w = torch.randn((cout, cin, 3, 3, 3), device=dev, generator=gen) / math.sqrt(27 * cin)
+        m = out_n or n
+        g = torch.randn((b, cout, m, m, m), device=dev, generator=gen)
+        return x, w, g
+
+    worst = {"forward": 0.0, "dx": 0.0, "dw": 0.0}
+    parts, times = [], {}
+    for cin, cout, n in dict.fromkeys(NNUNET_CONVS):
+        x, w, g = case(cin + cout + n, cin, cout, n)
+        needs_dx = (cin, cout, n) != NNUNET_CONVS[0]
+        xa, wa = x.clone().requires_grad_(needs_dx), w.clone().requires_grad_()
+        mc0, dw0 = cuda_conv_mc.MC_LAUNCHES.count, cuda_conv_mc.MC_DW_LAUNCHES.count
+        y = cuda_conv_mc.fused_conv3d_mc(xa, wa)
+        y.backward(g)
+        tile, splits = cuda_conv_mc.conv3d_mc_dw_plan(b, cin, cout, n, n, n)
+        check(cuda_conv_mc.MC_LAUNCHES.count == mc0 + 1 + needs_dx
+              and cuda_conv_mc.MC_DW_LAUNCHES.count == dw0 + 1 + (splits > 1),
+              f"K10 nnunet {cin}->{cout} {n}^3: launches off the plans")
+        with tf32_off():
+            want_y = F.conv3d(x, w, padding=1)
+            want_dx = torch.nn.grad.conv3d_input(x.shape, w, g, padding=1) if needs_dx else None
+        want_dw = cuda_conv_mc.conv3d_mc_weight_grad_plain(x, g)
+        torch.cuda.synchronize()
+        label = f"{cin}->{cout} {n}^3"
+        for what, got, want, summed in (("forward", y.detach(), want_y, cin),
+                                        ("dx", xa.grad, want_dx, cout)):
+            if want is None:
+                continue
+            atol = MC_ATOL * max(1.0, math.sqrt(summed / MC_ATOL_CHANNELS))
+            check(bool(torch.isfinite(got).all())
+                  and bool(((got - want).abs() <= atol + MC_RTOL * want.abs()).all()),
+                  f"K10 nnunet {what} {label}: max|d| {float((got - want).abs().max()):.3g} "
+                  f"outside {atol:.3g} + {MC_RTOL} relative")
+            worst[what] = max(worst[what], float((got - want).abs().max() / want.abs().max()))
+        rel = float((wa.grad - want_dw).abs().max() / want_dw.abs().max())
+        check(rel <= MC_DW_REL_TOL, f"K10 nnunet dw {label}: {rel:.3g} of max|dw|")
+        worst["dw"] = max(worst["dw"], rel)
+        parts.append(f"{label} [dw tile {tile}, K/{splits}] dw {rel:.3g}")
+        del xa, wa, y, want_y, want_dx, want_dw
+        wt = w.flip((2, 3, 4)).transpose(0, 1)
+        with torch.no_grad():
+            times[cin, cout, n] = {
+                "forward": graph_ms(lambda: cuda_conv_mc.conv3d_mc_same(x, w), 10),
+                "dx": graph_ms(lambda: cuda_conv_mc.conv3d_mc_same(g, wt), 10) if needs_dx
+                else 0.0,
+                "dw": graph_ms(lambda: cuda_conv_mc.conv3d_mc_weight_grad(x, g), 10)}
+            with tf32_off():
+                times[cin, cout, n]["cudnn_forward"] = graph_ms(
+                    lambda: F.conv3d(x, w, padding=1), 10)
+        del x, w, g, wt
+        torch.cuda.empty_cache()
+    sums = {k: sum(times[c][k] for c in NNUNET_CONVS)
+            for k in ("forward", "dx", "dw", "cudnn_forward")}
+    print(f"[K10 nnunet] B={b}, nnU-Net's 17 stride-1 convs at 128^3, max|d| / max|want| vs "
+          f"the f32 library calls (cuDNN, TF32 off; dw cuDNN off), limits {MC_ATOL} (x sqrt "
+          f"past {MC_ATOL_CHANNELS} channels) + {MC_RTOL} relative, dw {MC_DW_REL_TOL} of "
+          f"max|dw|; worst forward {worst['forward']:.3g}, dx {worst['dx']:.3g}, dw "
+          f"{worst['dw']:.3g} | " + ", ".join(parts)
+          + f" | ({smi}) device ms in a CUDA graph, forward / dx / dw / cuDNN f32 forward: "
+          + " | ".join(f"{c}->{o} {n}^3 {t['forward']:.4f} / {t['dx']:.4f} / {t['dw']:.4f} / "
+                       f"{t['cudnn_forward']:.4f}" for (c, o, n), t in times.items())
+          + f" | the 17 convs: forward {sums['forward']:.4f}, dx {sums['dx']:.4f}, dw "
+          f"{sums['dw']:.4f}, cuDNN forward {sums['cudnn_forward']:.4f}", flush=True)
+
+    # the library routes: cuDNN in full f32 (TF32 off) against PyTorch's own kernels
+    routes = {"cudnn": tf32_off, "native": cudnn_off}
+    lib = {}
+    for cin, cout, n in NNUNET_STRIDED:
+        x, w, g = case(cin + cout + n + 1, cin, cout, n, n // 2)
+        for name, switch in routes.items():
+            with switch():
+                lib["strided_dx", name, n] = graph_ms(lambda: torch.nn.grad.conv3d_input(
+                    x.shape, w, g, stride=2, padding=1), 5)
+                lib["strided_dw", name, n] = graph_ms(lambda: torch.nn.grad.conv3d_weight(
+                    x, w.shape, g, stride=2, padding=1), 5)
+        del x, w, g
+        torch.cuda.empty_cache()
+    for cin, cout, n in NNUNET_TRANSPOSED:
+        gen = torch.Generator(dev).manual_seed(cin + cout + n + 2)
+        x = torch.rand((b, cin, n, n, n), device=dev, generator=gen)
+        w = torch.randn((cin, cout, 2, 2, 2), device=dev, generator=gen) / math.sqrt(8 * cin)
+        bias = torch.zeros(cout, device=dev)
+        g = torch.randn((b, cout, 2 * n, 2 * n, 2 * n), device=dev, generator=gen)
+        for name, switch in routes.items():
+            with switch():
+                lib["transposed", name, n] = graph_ms(
+                    lambda: (F.conv_transpose3d(x, w, bias, stride=2),
+                             torch.ops.aten.convolution_backward(
+                                 g, x, w, [cout], [2, 2, 2], [0, 0, 0], [1, 1, 1], True,
+                                 [0, 0, 0], 1, [True, True, True])), 5)
+        del x, w, bias, g
+        torch.cuda.empty_cache()
+    lib_sums = {(what, name): sum(v for (w_, n_, _), v in lib.items() if (w_, n_) == (what, name))
+                for what in ("strided_dx", "strided_dw", "transposed") for name in routes}
+    print(f"[timing] nnU-Net's library convs B={b} ({smi}), device ms in a CUDA graph, cuDNN "
+          "f32 (TF32 off) / PyTorch's own (cuDNN off): "
+          + " | ".join(f"{what} at {n}^3 {lib[what, 'cudnn', n]:.4f} / {lib[what, 'native', n]:.4f}"
+                       for what in ("strided_dx", "strided_dw", "transposed")
+                       for n in sorted({k[2] for k in lib if k[0] == what}, reverse=True))
+          + " | the five layers: " + ", ".join(
+              f"{what} {lib_sums[what, 'cudnn']:.4f} / {lib_sums[what, 'native']:.4f}"
+              for what in ("strided_dx", "strided_dw", "transposed")), flush=True)
+    return {"worst": worst, "k10_ms": sums, "library_ms": lib_sums}
 
 
 def post(url: str, points: np.ndarray, tau: float):
@@ -1289,8 +1440,9 @@ def main(argv=None) -> int:
     from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
     from scenenet_tpu_torch.losses import resolve_criterion
     from scenenet_tpu_torch.models.scenenet import QuantileSceneNet, SceneNet
+    from scenenet_tpu_torch.models.nnunet3d import NNUNet3D
     from scenenet_tpu_torch.models.unet3d import BLOCKS, UNet3D
-    from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_conv_mc, cuda_hist
+    from scenenet_tpu_torch.ops import _build, cuda_conv, cuda_conv_mc, cuda_hist, library_conv
     from scenenet_tpu_torch.ops.conv3d import conv3d_same, cudnn_off, same_pads
     from scenenet_tpu_torch.ops import voxel_np
     from scenenet_tpu_torch.ops.voxelize import (
@@ -1315,7 +1467,12 @@ def main(argv=None) -> int:
                 "flat_ids": cuda_hist.FLAT_IDS_LAUNCHES,
                 "conv3d_mc": cuda_conv_mc.MC_LAUNCHES,
                 "conv3d_mc_bf16": cuda_conv_mc.MC_BF16_LAUNCHES,
-                "conv3d_mc_dw": cuda_conv_mc.MC_DW_LAUNCHES}
+                "conv3d_mc_dw": cuda_conv_mc.MC_DW_LAUNCHES,
+                # nnU-Net's library calls (its train leg); every graph's replay_launches()
+                # names them too
+                "conv3d_strided": library_conv.STRIDED_LAUNCHES,
+                "conv_transpose3d_k2": library_conv.TRANSPOSED_LAUNCHES,
+                "instance_norm_lrelu": library_conv.NORM_LAUNCHES}
 
     def reset_counts():
         for c in counters.values():
@@ -2304,6 +2461,10 @@ def main(argv=None) -> int:
           + f" | the UNet's 18 convs: kernel {dw_sums['ms']:.4f}, library "
           f"{dw_sums['library_ms']:.4f}, cuDNN {dw_sums['cudnn_ms']:.4f}, bound "
           f"{dw_bound_sum:.4f} ({dw_bound_sum / dw_sums['ms']:.1%} of it reached)", flush=True)
+
+    # ---- 8b''. K10 at nnU-Net's stride-1 convs (batch 2, 128^3) and its library routes ----
+    nnunet_k10_phase(dev, smi)
+    torch.cuda.empty_cache()
 
     # ---- 8c. K10's bf16 form vs plain: every UNet layer shape, in a CUDA graph ----
     def bf16_case(seed, b, cin, cout, shape):
@@ -3515,6 +3676,53 @@ def main(argv=None) -> int:
               f"{unet_counts}", flush=True)
         del unet, probs
 
+        # ---- 16a. main path: nnU-Net's 3d_fullres network through the train CLI at 128^3,
+        # batch 2: its 17 stride-1 convs in K10 (forward, dx, dw), the strided and transposed
+        # convs and the norm through their library wrappers, K8 in the prep
+        nn_steps = n_train // NNUNET_BATCH
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        nn_scores, nn_losses, nn_s, nn_counts = train_run(
+            "nnunet", [f"data_path={tmp / 'ts40k'}", "model=nnunet",
+                       "voxel_grid_size=(128, 128, 128)", f"batch_size={NNUNET_BATCH}"], False)
+        nn_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # a train step: each conv's forward, the dx of all but the first, the dw; an
+        # evaluation batch the forward alone (5 strided convs a forward)
+        nn_eval = nn_counts["conv3d_strided"] // len(NNUNET_STRIDED) - nn_steps
+        nn_dw = sum(1 + (cuda_conv_mc.conv3d_mc_dw_plan(NNUNET_BATCH, c, o, n, n, n)[1] > 1)
+                    for c, o, n in NNUNET_CONVS)
+        check(nn_eval >= 2 and nn_counts["conv3d_strided"] == nn_counts["conv_transpose3d_k2"]
+              == len(NNUNET_STRIDED) * (nn_steps + nn_eval)
+              and nn_counts["instance_norm_lrelu"] == 22 * (nn_steps + nn_eval)
+              and nn_counts["conv3d_mc"] == (2 * len(NNUNET_CONVS) - 1) * nn_steps
+              + len(NNUNET_CONVS) * nn_eval
+              and nn_counts["conv3d_mc_dw"] == nn_dw * nn_steps
+              and nn_counts["sorted_bin_counts"] >= nn_steps,
+              f"nnunet: launches {nn_counts} in {nn_steps} steps")
+        nn_ckpt = sorted((tmp / "nnunet" / "ckpt").glob("train_FBetaScore_step*.npz"))
+        check(len(nn_ckpt) >= 1, "nnunet: no best checkpoint")
+        nnunet = restore_checkpoint(str(nn_ckpt[0]),
+                                    NNUNet3D.create(seed=1, backend="cuda")).to(dev).eval()
+        nn_init = NNUNet3D.create(seed=0).state_dict()
+        check(any(not torch.equal(v.cpu(), nn_init[k]) for k, v in nnunet.state_dict().items()),
+              "nnunet: the checkpoint holds the initial weights")
+        x_nn = (torch.rand((1, 1, 128, 128, 128), device=dev,
+                           generator=torch.Generator(dev).manual_seed(23)) < 0.05).float()
+        with torch.no_grad():
+            probs = nnunet(x_nn)
+        check(bool(torch.isfinite(probs).all()) and 0 <= float(probs.min())
+              and float(probs.max()) <= 1 and tuple(probs.shape) == (1, 1, 128, 128, 128),
+              "nnunet: restored model's prediction")
+        print(f"[train nnunet] cli.train model=nnunet voxel_grid_size=(128, 128, 128) "
+              f"batch_size={NNUNET_BATCH} (32-64-128-256-320-320, five heads, geneo_tversky "
+              f"under deep supervision, adam), 1 epoch = {nn_steps} steps + {nn_eval} "
+              f"evaluation batches in {nn_s:.1f} s | losses "
+              + ", ".join(f"{k} {v:.6f}" for k, v in sorted(nn_losses.items()))
+              + f" | best checkpoint {nn_ckpt[0].name} restored, probabilities in "
+              f"[{float(probs.min()):.4f}, {float(probs.max()):.4f}] | peak device memory "
+              f"{nn_peak_gb:.2f} GB | launches {nn_counts}", flush=True)
+        del nnunet, probs, x_nn
+
         # ---- 16b. main path: the bf16 UNet through the train CLI, every conv in K10's
         # bf16 form (the 1 -> 32 layer too), dw by cuDNN in bf16
         unet16_scores, unet16_losses, unet16_s, unet16_counts = train_run(
@@ -4295,7 +4503,7 @@ def main(argv=None) -> int:
                  *etl_runs.values(), kitti_counts, headline_counts, batched_ran, fit_launches,
                  *(r[3] for r in route_runs.values()),
                  *(r[7] for r in option_runs.values()), host_counts,
-                 *big_counts.values(), big_ran, counts_path, unet_counts,
+                 *big_counts.values(), big_ran, counts_path, unet_counts, nn_counts,
                  unet16_counts, cnn_counts, admm_counts, lb_counts, pc_ran,
                  *(c for _, _, c in tune_runs.values()), probe_counts, viz_counts,
                  sweep_counts, clouds_counts]

@@ -25,7 +25,10 @@ quantile of ``quantiles``, trained by the quantile criteria with the same
 quantiles) or one of the black-box baselines, ``cnn``
 (:class:`CnnBaseline` with the config's kernel size) and ``unet``
 (:class:`UNet3D`, whose BatchNorm statistics ride along in every
-checkpoint; ``precision: bf16`` computes it in bf16).
+checkpoint; ``precision: bf16`` computes it in bf16), and ``nnunet``
+(:class:`NNUNet3D`, nnU-Net's ``3d_fullres`` network as its planner sizes
+it for ``voxel_grid_size``, trained with deep supervision: the criterion
+wrapped in :class:`DeepSupervision`; f32, one card, the streaming loader).
 ``precision: bf16``, ``accumulate_grad_batches`` and ``geneo_init: smart``
 train as in the JAX CLI. So does the rest of its wiring, in its order:
 ``model_backend: autotune`` times a train step of ``cuda`` and
@@ -94,8 +97,8 @@ from scenenet_tpu_torch.data import (
     ToFullDense, Voxelization, VoxelLoader, random_split,
 )
 from scenenet_tpu_torch.data.device_cache import DeviceGridCache, DevicePointCache
-from scenenet_tpu_torch.losses import resolve_criterion
-from scenenet_tpu_torch.models import CnnBaseline, QuantileSceneNet, SceneNet, UNet3D
+from scenenet_tpu_torch.losses import DeepSupervision, resolve_criterion
+from scenenet_tpu_torch.models import CnnBaseline, NNUNet3D, QuantileSceneNet, SceneNet, UNet3D
 from scenenet_tpu_torch.train import TrainConfig, Trainer, make_device_voxelize_prep
 from scenenet_tpu_torch.train.admm import ADMMConfig, ADMMTrainer
 from scenenet_tpu_torch.train.checkpoint import restore_checkpoint
@@ -117,6 +120,27 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
         raise NotImplementedError("export_stablehlo asks for XLA's StableHLO format, which "
                                   "the port does not write: it exports through "
                                   "utils/export.py (torch.export) and utils/onnx_export.py")
+    if cfg.model == "nnunet":
+        _refuse_for_nnunet(cfg)
+
+
+def _refuse_for_nnunet(cfg: ExperimentConfig) -> None:
+    """What ``model=nnunet`` does not train: it runs in f32 on one card from
+    the streaming loader, as nnU-Net trains on one GPU."""
+    if cfg.precision != "f32":
+        raise ValueError(f"model=nnunet trains in f32; precision={cfg.precision!r} has no "
+                         "route for it")
+    wide = {k: int(getattr(cfg, k, 1)) for k in ("mesh_data", "mesh_space", "mesh_dcn_data",
+                                                  "mesh_ensemble", "mesh_channel")}
+    wide = {k: v for k, v in wide.items() if v > 1}
+    if wide:
+        raise ValueError(f"model=nnunet trains on one card; mesh axes {wide} are not supported")
+    cache = cfg.device_cache
+    if isinstance(cache, str) and cache.lower() in ("false", "none", "auto"):
+        return
+    if cache:
+        raise ValueError(f"model=nnunet trains from the streaming loader; device_cache="
+                         f"{cache!r} (a cached fit) is not supported: set false or auto")
 
 
 def launch_command(n_ranks: int) -> str:
@@ -212,6 +236,9 @@ def _resolve_device_cache_auto(cfg: ExperimentConfig, n_samples: int,
         # BatchNorm running statistics: the cached fits are stateless-only
         print("[device_cache auto] -> false (stateful model)")
         return False
+    if cfg.model == "nnunet":
+        print("[device_cache auto] -> false (nnunet streams its batches)")
+        return False
     memory = torch.cuda.mem_get_info(device)[1] if device.type == "cuda" else 16 << 30
     budget = int(0.35 * memory)  # room for the conv scratch, the model and evaluation
     grid_voxels = math.prod(cfg.voxel_grid_size)
@@ -278,7 +305,8 @@ def build_criterion(cfg: ExperimentConfig):
     kw = cfg.criterion_params()
     if cfg.criterion.startswith("quantile"):
         kw["quantiles"] = tuple(cfg.quantiles)
-    return resolve_criterion(cfg.criterion)(**kw)
+    criterion = resolve_criterion(cfg.criterion)(**kw)
+    return DeepSupervision(criterion) if cfg.model == "nnunet" else criterion
 
 
 def build_model(cfg: ExperimentConfig, device):
@@ -299,6 +327,8 @@ def build_model(cfg: ExperimentConfig, device):
         # operands to the f32 statistics)
         dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
         model = UNet3D.create(seed=cfg.seed, backend=backend, dtype=dtype)
+    elif cfg.model == "nnunet":
+        model = NNUNet3D.create(tuple(cfg.voxel_grid_size), seed=cfg.seed, backend=backend)
     else:
         raise NotImplementedError(f"model {cfg.model!r}")
     return model.to(device)

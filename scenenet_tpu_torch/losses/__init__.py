@@ -1,5 +1,8 @@
 """Training criteria."""
 
+from scenenet_tpu_torch.losses.deep_supervision import (
+    DeepSupervision, deep_supervision_weights, nearest_exact_target,
+)
 from scenenet_tpu_torch.losses.geneo_loss import (
     GENEODiceBCE, GENEODiceLoss, GENEOLoss, GENEOTverskyLoss, cvx_loss, positive_regularizer,
 )
@@ -11,8 +14,8 @@ from scenenet_tpu_torch.losses.segmentation import (
 )
 from scenenet_tpu_torch.losses.weighted_mse import WeightedMSE
 
-__all__ = ["BinaryDiceBCE", "BinaryDiceLoss", "CRITERION_REGISTRY", "FocalLoss",
+__all__ = ["BinaryDiceBCE", "BinaryDiceLoss", "CRITERION_REGISTRY", "DeepSupervision", "FocalLoss",
            "FocalTverskyLoss", "GENEODiceBCE", "GENEODiceLoss", "GENEOLoss",
            "GENEOTverskyLoss", "IoULoss", "QuantileGENEOLoss", "QuantileLoss", "TverskyLoss",
-           "WeightedMSE", "binary_cross_entropy", "cvx_loss", "positive_regularizer",
-           "resolve_criterion"]
+           "WeightedMSE", "binary_cross_entropy", "cvx_loss", "deep_supervision_weights",
+           "nearest_exact_target", "positive_regularizer", "resolve_criterion"]

@@ -458,8 +458,9 @@ class Trainer:
     def to_device(self, batch) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.as_tensor(b).to(self.device) for b in batch)
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The model's prediction in f32; under ``precision: bf16`` taken
+    def _forward(self, x: torch.Tensor):
+        """The model's prediction in f32 (each output of a model that returns
+        a sequence: deep supervision's); under ``precision: bf16`` taken
         from bf16 copies of the floating parameters and a bf16 x (the
         buffers, BatchNorm's running statistics, stay the model's own f32
         tensors)."""
@@ -467,12 +468,19 @@ class Trainer:
         with span("snt/train/forward"):
             if self.config.precision == "bf16":
                 half = cast_half(dict(net.named_parameters()))
-                return functional_call(net, half, (x.to(torch.bfloat16),)).float()
-            return net(x).float()
+                out = functional_call(net, half, (x.to(torch.bfloat16),))
+            else:
+                out = net(x)
+            if isinstance(out, (list, tuple)):
+                return [o.float() for o in out]
+            return out.float()
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor, axes: Optional[Tuple[str, ...]] = None):
         """The loss of the batch (x, y) and the prediction; under a mesh by
-        the criterion made distributed over ``axes`` (default the mesh's)."""
+        the criterion made distributed over ``axes`` (default the mesh's).
+        A model that returns a sequence of outputs (highest resolution
+        first) gives the criterion all of them, and the first is the
+        prediction returned: the one counted, validated and predicted."""
         if self._mode == "ep":
             # the rank's members and its part of the loss; the weights'
             # normalisation over the axes' data part
@@ -486,8 +494,10 @@ class Trainer:
         m = self.model
         cvx = m.cvx_coefficients() if hasattr(m, "cvx_coefficients") else {}
         geneo = m.geneo_params_flat() if hasattr(m, "geneo_params_flat") else {}
-        return self.distributed_criterion(axes)(pred, y, cvx, geneo,
-                                                getattr(m, "last_lambda", None)), pred
+        with span("snt/train/loss"):
+            loss = self.distributed_criterion(axes)(pred, y, cvx, geneo,
+                                                    getattr(m, "last_lambda", None))
+        return loss, pred[0] if isinstance(pred, list) else pred
 
     def distributed_criterion(self, axes: Optional[Tuple[str, ...]] = None) -> Callable:
         """The criterion made distributed over ``axes`` (default the mesh's;

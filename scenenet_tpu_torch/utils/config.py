@@ -49,7 +49,7 @@ class ExperimentConfig:
     augment: bool = False  # on-device augmentation of the cached epochs
 
     # model
-    model: str = "scenenet"  # "scenenet" | "quantile" | "cnn" | "unet"
+    model: str = "scenenet"  # "scenenet" | "quantile" | "cnn" | "unet" | "nnunet"
     quantiles: Tuple[float, ...] = (0.1, 0.5, 0.9)  # model: quantile
     fast_dev_run: bool = False
     auto_lr_find: bool = False
